@@ -1,0 +1,43 @@
+// Plain C interface of the port's CUDA kernels (bound with ctypes in
+// f_renderer_tpu_torch/kernels.py). Every entry point launches on the given
+// stream, allocates nothing, and returns cudaGetLastError() as an int.
+#pragma once
+#include <stdint.h>
+
+#ifdef __cplusplus
+extern "C" {
+#endif
+
+// Mirrors kernels.FusedParams: int32 and float fields only (no padding).
+typedef struct FrFusedParams {
+  int32_t th;         // bin tile rows; the tile is th x 128
+  int32_t ntx, nty;   // fine-tile grid
+  int32_t w_pad;      // output row stride, ntx * 128
+  int32_t n_pairs;    // row stride of tri_i32 / tri_f32 (pair columns)
+  int32_t n_ctx;      // varying channels C (1..8)
+  int32_t kind;       // 0 flat, 1 gouraud, 2 textured, 3 phong
+  int32_t t_count;    // textures in the stack
+  int32_t hmax, wmax; // stack extent
+  int32_t opaque;     // every real texel has alpha 255
+  int32_t bg_packed;  // background RGBA8
+  float light_pos[3];
+  float light_color[3];
+  float ambient[3];   // 0.1 * light_color, rounded once to float
+} FrFusedParams;
+
+// Fused raster + interpolate + shade + RGBA8 pack over a binned pair list.
+//   off      (ntx*nty + ceil(ntx/4)*ceil(nty/4) + 2) pair-range offsets
+//   tri_i32  (12, n_pairs) setup rows, tri_f32 (9 + 3C, n_pairs)
+//   view_pos (3), dims (t_count, 2) (h, w), texels (t_count, hmax, wmax)
+//   rgba / depth / winner: (nty*th, w_pad) outputs
+int fr_fused_raster(FrFusedParams p, const int32_t* off, const int32_t* tri_i32,
+                    const float* tri_f32, const float* view_pos, const int32_t* dims,
+                    const int32_t* texels, int32_t* rgba, float* depth,
+                    int32_t* winner, void* stream);
+
+// cudaGetErrorString for a code returned above.
+const char* fr_error_string(int err);
+
+#ifdef __cplusplus
+}
+#endif

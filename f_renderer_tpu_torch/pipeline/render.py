@@ -1,0 +1,118 @@
+"""End-to-end frame rendering: geometry → fused raster + shade.
+
+Port of ``f_renderer_tpu/pipeline/render.py`` for the fused path: geometry
+over all draws builds one submission-ordered triangle list (phong.rs:314-387),
+then one kernel rasterizes and shades it. A "draw" is one mesh batch sharing
+a ps_index (the reference's PLACE enum selecting a texture, phong.rs:34-38).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import torch
+
+from f_renderer_tpu_torch.pipeline.fused import render_fused
+from f_renderer_tpu_torch.pipeline.geometry import MAX_FAN, geometry_process
+from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
+
+I32_MAX = 2147483647
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    width: int
+    height: int
+    background: tuple = (0, 0, 0, 255)
+    clip_cap: int = 256
+    # Bin tile (rows, 128). None picks (32, 128), or (128, 128) for scenes of
+    # at most 2048 slots; an explicit tile is used as given.
+    tile: tuple | None = None
+    replicate_ps_boundary_quirk: bool = True
+    # Drop back-facing triangles instead of the reference's winding repair
+    # (renderer.rs:309-312). Off by default for parity.
+    cull_backfaces: bool = False
+    # Tiles of at least 64 rows above ``tile_auto_threshold`` slots.
+    tile_auto: bool = True
+    tile_auto_threshold: int = 300_000
+    # Per-tile pair-expansion cap (None = size heuristic). Small values force
+    # the coarse-bin and spill ranges.
+    bin_k: int | None = None
+
+
+def apply_ps_boundary_quirk(tri: TriangleBuffer, slot_ranges) -> TriangleBuffer:
+    """Reproduce the inclusive ``<=`` texture-range boundaries (phong.rs:364-370).
+
+    The reference assigns triangle index i to draw d via chained
+    ``prev_off < i <= off_d`` checks, so the first emitted triangle of each
+    draw lands in the earliest draw whose cumulative offset equals its index
+    — ``searchsorted(offsets, i, side='left')``. ``slot_ranges`` are the
+    per-draw [lo, hi) slot spans of the concatenated buffer.
+    """
+    if len(slot_ranges) <= 1:
+        return tri
+    valid, order = tri.valid, tri.order
+    counts, mins = [], []
+    for lo, hi in slot_ranges:
+        v = valid[lo:hi]
+        counts.append(v.sum().to(torch.int32))
+        mins.append(torch.where(v, order[lo:hi], I32_MAX).amin())
+    offsets = torch.cumsum(torch.stack(counts), 0).to(torch.int32)
+    start = torch.cat([torch.zeros_like(offsets[:1]), offsets[:-1]])
+    target = torch.searchsorted(offsets, start).to(torch.int32)
+    segs = [
+        torch.where(valid[lo:hi] & (order[lo:hi] == mins[d]), target[d], tri.ps_index[lo:hi])
+        for d, (lo, hi) in enumerate(slot_ranges)
+    ]
+    return dataclasses.replace(tri, ps_index=torch.cat(segs))
+
+
+def build_triangles(draws: Sequence, vertex_shader: Callable, vs_uniform, config: RenderConfig):
+    """Geometry stage over all draws → one TriangleBuffer + stats."""
+    # ps_index rides in the low 8 bits of a packed setup field (raster.PS_MASK).
+    if len(draws) > 256:
+        raise ValueError("at most 256 draws per frame")
+    bufs, order_base, num_clipped = [], 0, 0
+    for d, vs_inputs in enumerate(draws):
+        buf, stats = geometry_process(
+            vs_inputs,
+            vertex_shader,
+            vs_uniform,
+            config.width,
+            config.height,
+            clip_cap=config.clip_cap,
+            ps_index=d,
+            order_base=order_base,
+            cull=config.cull_backfaces,
+        )
+        order_base += next(iter(vs_inputs.values())).shape[0] * MAX_FAN
+        num_clipped = num_clipped + stats["num_clipped"]
+        bufs.append(buf)
+    tri = TriangleBuffer.concat(bufs)
+    if config.replicate_ps_boundary_quirk:
+        ranges, lo = [], 0
+        for b in bufs:
+            ranges.append((lo, lo + b.num_slots))
+            lo += b.num_slots
+        tri = apply_ps_boundary_quirk(tri, ranges)
+    return tri, {"num_clipped": num_clipped}
+
+
+def render_frame(
+    draws: Sequence,
+    vertex_shader: Callable,
+    vs_uniform,
+    pixel_shader: Callable,
+    ps_uniform,
+    config: RenderConfig,
+):
+    """Render one frame → (frame (H, W, 4) uint8, depth (H, W) f32, stats).
+
+    ``draws``: a sequence of dicts of (F_d, 3, k) tensors. Only pixel shaders
+    tagged ``fused_kind`` (the builtins) are supported: the non-fused path
+    for custom shaders is not ported yet (``render_fused`` raises).
+    """
+    tri, stats = build_triangles(draws, vertex_shader, vs_uniform, config)
+    frame, depth, _ = render_fused(tri, pixel_shader, ps_uniform, config)
+    return frame, depth, stats

@@ -1,0 +1,205 @@
+"""Scene / application layer (reference: examples/src/bin/phong.rs).
+
+Port of ``f_renderer_tpu/scene.py``: a ``Scene`` on an explicit device whose
+``render()`` runs the whole frame, plus the procedural meshes and textures
+the tests and benchmarks use (numpy builders, copied from the JAX package).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from f_renderer_tpu_torch.camera import Camera
+from f_renderer_tpu_torch.math import set_identity, set_perspective
+from f_renderer_tpu_torch.pipeline.render import RenderConfig, render_frame
+from f_renderer_tpu_torch.shaders import (
+    FlatShader,
+    TextureStack,
+    make_gouraud_shaders,
+    make_phong_shaders,
+    make_textured_shaders,
+)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; CUDA must be present when asked for."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available")
+    return device
+
+
+@dataclasses.dataclass
+class Scene:
+    """A multi-mesh scene with per-draw textures (phong.rs:166-184).
+
+    ``draws`` are dicts of (F, 3, k) tensors; every tensor of the scene lies
+    on ``device``.
+    """
+
+    draws: Sequence
+    vertex_shader: Callable
+    pixel_shader: Callable
+    vs_uniform: dict
+    ps_uniform: dict
+    config: RenderConfig
+    device: torch.device
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    def render(self):
+        """Render one frame → (frame (H, W, 4) uint8, depth (H, W) f32, stats)."""
+        return render_frame(
+            list(self.draws),
+            self.vertex_shader,
+            self.vs_uniform,
+            self.pixel_shader,
+            self.ps_uniform,
+            self.config,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Procedural geometry (numpy)
+# ---------------------------------------------------------------------------
+
+
+def make_cube(size: float = 1.0) -> dict:
+    """12-triangle cube with per-face normals and uvs; corners (12, 3, ...)."""
+    s = size * 0.5
+    v = np.array(
+        [[x, y, z] for x in (-s, s) for y in (-s, s) for z in (-s, s)],
+        np.float32,
+    )
+    quads = [
+        ((0, 1, 3, 2), (-1, 0, 0)),
+        ((4, 6, 7, 5), (1, 0, 0)),
+        ((0, 4, 5, 1), (0, -1, 0)),
+        ((2, 3, 7, 6), (0, 1, 0)),
+        ((0, 2, 6, 4), (0, 0, -1)),
+        ((1, 5, 7, 3), (0, 0, 1)),
+    ]
+    pos, normal, uv, color = [], [], [], []
+    quad_uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    palette = np.array(
+        [
+            [0.9, 0.2, 0.2, 1],
+            [0.2, 0.9, 0.2, 1],
+            [0.2, 0.2, 0.9, 1],
+            [0.9, 0.9, 0.2, 1],
+            [0.9, 0.2, 0.9, 1],
+            [0.2, 0.9, 0.9, 1],
+        ],
+        np.float32,
+    )
+    for qi, (idx, n) in enumerate(quads):
+        for tri in ((0, 1, 2), (0, 2, 3)):
+            pos.append(v[[idx[t] for t in tri]])
+            uv.append(quad_uv[list(tri)])
+            normal.append(np.tile(np.asarray(n, np.float32), (3, 1)))
+            color.append(np.tile(palette[qi], (3, 1)))
+    return {
+        "pos": np.stack(pos),
+        "uv": np.stack(uv),
+        "normal": np.stack(normal),
+        "color": np.stack(color),
+    }
+
+
+def make_uv_sphere(n_lat: int = 36, n_lon: int = 72, radius: float = 1.0) -> dict:
+    """UV sphere (~2·n_lat·n_lon triangles) with smooth normals and uvs."""
+    lat = np.linspace(0, np.pi, n_lat + 1)
+    lon = np.linspace(0, 2 * np.pi, n_lon + 1)
+    th, ph = np.meshgrid(lat, lon, indexing="ij")
+    x = np.sin(th) * np.cos(ph)
+    y = np.cos(th)
+    z = np.sin(th) * np.sin(ph)
+    p = np.stack([x, y, z], axis=-1).astype(np.float32)
+    u = (ph / (2 * np.pi)).astype(np.float32)
+    v = (th / np.pi).astype(np.float32)
+    uvg = np.stack([u, v], axis=-1)
+
+    pos, uv, normal = [], [], []
+    for i in range(n_lat):
+        for j in range(n_lon):
+            a, b, c, d = p[i, j], p[i + 1, j], p[i + 1, j + 1], p[i, j + 1]
+            ua, ub, uc, ud = uvg[i, j], uvg[i + 1, j], uvg[i + 1, j + 1], uvg[i, j + 1]
+            for tri_p, tri_u in (((a, b, c), (ua, ub, uc)), ((a, c, d), (ua, uc, ud))):
+                pos.append(np.stack(tri_p))
+                uv.append(np.stack(tri_u))
+                normal.append(np.stack(tri_p))  # unit sphere: normal = pos
+    return {
+        "pos": np.stack(pos) * radius,
+        "uv": np.stack(uv),
+        "normal": np.stack(normal),
+    }
+
+
+def make_checker_texture(n: int = 64, cell: int = 4) -> np.ndarray:
+    tex = np.zeros((n, n, 4), np.float32)
+    ix = np.arange(n)
+    mask = (ix[:, None] // cell + ix[None, :] // cell) % 2 == 0
+    tex[mask] = [0.85, 0.65, 0.25, 1.0]
+    tex[~mask] = [0.25, 0.45, 0.85, 1.0]
+    return tex
+
+
+SHADERS = {
+    "phong": make_phong_shaders,
+    "gouraud": make_gouraud_shaders,
+    "textured": make_textured_shaders,
+    "flat": lambda: (FlatShader.vertex, FlatShader.pixel),
+}
+
+
+def make_phong_scene(
+    width: int,
+    height: int,
+    meshes: Sequence[dict] | None = None,
+    textures: Sequence[np.ndarray] | None = None,
+    camera: Camera | None = None,
+    clip_cap: int = 256,
+    shader: str = "phong",
+    device="cpu",
+) -> Scene:
+    """A ready-to-render multi-mesh scene (the phong.rs workload shape).
+
+    ``shader``: "phong" (textured per-pixel, the default) | "gouraud"
+    (vertex-lit) | "textured" (unlit bilinear) | "flat" (per-face color;
+    meshes must carry a "color" attribute, as make_cube does).
+    """
+    device = resolve_device(device)
+    if meshes is None:
+        meshes = [make_cube()]
+    if textures is None:
+        textures = [make_checker_texture()] * len(meshes)
+    if camera is None:
+        camera = Camera.create([0.0, 1.0, 3.0], [0.0, 1.0, 0.0], [0.0, 1.0, 0.0], device)
+    vs, ps = SHADERS[shader]()
+    draw_keys = ("pos", "color") if shader == "flat" else ("pos", "uv", "normal")
+    vs_uniform = {
+        "model": set_identity(device),
+        "view": camera.look_at().to(device),
+        "proj": set_perspective(np.pi * 0.25, width / height, 0.1, 100.0, device),
+    }
+    if shader == "gouraud":
+        vs_uniform["view_pos"] = camera.eye.to(device)  # lighting runs in the VS
+    return Scene(
+        draws=[{k: torch.as_tensor(m[k], device=device) for k in draw_keys} for m in meshes],
+        vertex_shader=vs,
+        pixel_shader=ps,
+        vs_uniform=vs_uniform,
+        ps_uniform={
+            "textures": TextureStack.create(list(textures), device=device),
+            "view_pos": camera.eye.to(device),
+        },
+        config=RenderConfig(
+            width=width, height=height, background=(30, 30, 30, 255), clip_cap=clip_cap
+        ),
+        device=device,
+    )
