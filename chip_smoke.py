@@ -7,21 +7,40 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each reported on its own lines:
 
-1. identity — the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build — the CUDA kernels, compiled with nvcc from ``csrc/``;
-3. the fused kernel (K1, with the K2 sampler inside) against its plain
-   PyTorch version on the card: phong1080 at the bench angles 0.10 / 0.15 /
-   0.20, plus small scenes for the coarse/spill ranges (bin_k=1), a texture
-   wider than 128 px and the flat / gouraud / textured kinds. Winner ids
-   bit-equal, depth within rtol 2.4e-7, colour within 2 u8 with at most 0.2%
-   of pixels at 2. Kernel and plain times from CUDA events;
-4. the main path — ``Scene.render()`` on phong1080 for several frames; the
-   kernel's launch count must equal the frame count;
-5. one JSON line describing the kernels, then the last line
-   ``{"ok": true, "device": {...}}``.
+1. identity: the card's name and power limit (nvidia-smi), torch and CUDA;
+2. build: the CUDA kernels, one nvcc per source, all started together;
+3. every kernel against its plain PyTorch version on the card, on the same
+   inputs, at the shapes its main path gives it (no plain run may move a
+   launch counter):
+   - K1, the fused raster + shade kernel with the K2 sampler inside:
+     phong1080 at the bench angles 0.10 / 0.15 / 0.20 and four small
+     scenes (coarse/spill ranges, a wide texture, flat / gouraud /
+     textured). Winner ids bit-equal, depth within rtol 2.4e-7, colour
+     within 2 u8 with at most 0.2% of pixels at 2;
+   - K4, the non-fused raster: phong1080_tex2048 at the same angles, both
+     entry points, and a custom shader with 12 varyings at 640x360. Winner
+     ids, texture ids and varyings bit-equal, depth within rtol 2.4e-7; the
+     frames shaded from the kernels' planes (K4 + K3) against the frames
+     shaded from the plain planes with the plain sampler, under the colour
+     bar above;
+   - K3, the batched sampler, on the phong1080_tex2048 planes: within
+     1e-6 of the plain version;
+   - K5, the voxel march: voxel540 and voxel540dda frames 0-2, BGRA frames
+     equal;
+   each kernel's time and its plain version's from CUDA events, and the
+   least time the card could take for the same work (the bound);
+4. the main paths through the entry points a user calls, each driven with
+   the launch counters set to 0 just before it and read just after:
+   phong1080 ``Scene.render()`` (K1 once a frame), phong1080_tex2048
+   ``Scene.render()`` (K4 and K3 once a frame, K1 never), the custom
+   12-varying shader's ``Scene.render()`` (K4 once a frame) and
+   ``render_voxel_frame`` for voxel540 and voxel540dda (K5 once a frame),
+   with frame times (CUDA events) and checksums;
+5. one JSON line describing the kernels, the card's identity line, and the
+   last line ``{"ok": true, "device": {...}}``.
 
-Any failure raises and exits non-zero; without CUDA, or without the port
-beside it, the script exits non-zero and prints no result. It imports no JAX.
+Any failure exits non-zero; without CUDA, or without the port beside it,
+the script exits non-zero and prints no result. It imports no JAX.
 """
 
 from __future__ import annotations
@@ -35,55 +54,122 @@ import time
 FRAMES = 10
 ANGLES = (0.10, 0.15, 0.20)  # bench.py's first three frame angles
 DEPTH_RTOL = 2.4e-7
+SAMPLE_ATOL = 1e-6
+# Published H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and
+# float32 operations/s outside the tensor cores. Integer and float work are
+# both counted at the float32 rate, so a bound is never too high.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+VOXEL_LEVEL, VOXEL_LENGTH, VOXEL_W, VOXEL_H = 3, 2.0, 960, 540
+# Frame sizes of the scenes, and the side of phong1080_tex2048's textures.
+SIZES = {"phong1080": (1920, 1080), "custom12_360": (640, 360), "phong_bin_k1": (640, 360),
+         "textured_wide": (800, 600), "gouraud800": (800, 600), "cube1080_flat": (1920, 1080)}
+SIZES["phong1080_tex2048"] = SIZES["phong1080"]
+TEX_SIDE = 2048
+
+failures = []
 
 
 def log(*parts):
     print(*parts, flush=True)
 
 
-def build_scene(name, device):
-    """The bench scenes the port runs, built with the port's own builders."""
+def check(ok, msg):
+    """Record a disagreement; the script fails at the end if any were."""
+    if not ok:
+        failures.append(msg)
+        log(f"  FAIL: {msg}")
+    return ok
+
+
+def three_meshes():
     import numpy as np
 
-    from f_renderer_tpu_torch import Camera, make_checker_texture, make_cube
-    from f_renderer_tpu_torch import make_phong_scene, make_uv_sphere
+    from f_renderer_tpu_torch import make_cube, make_uv_sphere
 
-    cam = Camera.create([0.0, 0.5, 4.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
-    sphere_cam = Camera.create([0.0, 0.0, 3.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+    cube = make_cube(0.8)
+    cube["pos"] = cube["pos"] + np.array([1.6, 0.0, 0.0], np.float32)
+    cube2 = make_cube(0.8)
+    cube2["pos"] = cube2["pos"] + np.array([-1.6, 0.0, 0.0], np.float32)
+    return [make_uv_sphere(40, 80), cube, cube2]
 
-    def three_meshes():
-        cube = make_cube(0.8)
-        cube["pos"] = cube["pos"] + np.array([1.6, 0.0, 0.0], np.float32)
-        cube2 = make_cube(0.8)
-        cube2["pos"] = cube2["pos"] + np.array([-1.6, 0.0, 0.0], np.float32)
-        return [make_uv_sphere(40, 80), cube, cube2]
 
+def custom12_shaders():
+    """A custom shader with 12 varyings (color 4, normal 3, pos 3, uv 2) and
+    no ``fused_kind``: past the fused kernel's cap of 8."""
+    import torch
+
+    from f_renderer_tpu_torch.math import mat_vec4
+    from f_renderer_tpu_torch.shaders.builtin import _mvp_transform
+
+    def vertex(u, vin):
+        clip, p = _mvp_transform(u, vin["pos"])
+        world = mat_vec4(u["model"], p)
+        uv, n = vin["uv"].float(), vin["normal"].float()
+        color = torch.cat([uv, n[:, :1] * 0.5 + 0.5, torch.ones_like(uv[:, :1])], dim=1)
+        return clip, {"uv": uv, "normal": n, "pos": world[:3].T, "color": color}
+
+    def pixel(u, ctx, ps_index):
+        c, n, p, uv = ctx["color"], ctx["normal"], ctx["pos"], ctx["uv"]
+        return torch.stack([
+            0.5 * c[0] + 0.25 * (n[0] * n[0]) + 0.25 * uv[1],
+            0.5 * c[1] + 0.25 * (n[1] * n[1]) + 0.1 * torch.abs(p[0]),
+            0.5 * c[2] + 0.25 * (n[2] * n[2]) + 0.1 * torch.abs(p[1]),
+            c[3],
+        ])
+
+    return vertex, pixel
+
+
+def build_scene(name, device):
+    """The bench scenes the port runs, built with the port's own builders."""
+    from f_renderer_tpu_torch import Camera, make_checker_texture, make_phong_scene, make_uv_sphere
+
+    w, h = SIZES[name]
+    cam = Camera.create([0.0, 0.5, 4.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], device)
+    sphere_cam = Camera.create([0.0, 0.0, 3.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], device)
     if name == "phong1080":  # bench.py:105-129
         return make_phong_scene(
-            1920, 1080, clip_cap=64, meshes=three_meshes(), camera=cam, device=device,
+            w, h, clip_cap=64, meshes=three_meshes(), camera=cam, device=device,
             textures=[make_checker_texture(512, 32), make_checker_texture(512, 16),
                       make_checker_texture(512, 24)],
         )
+    if name == "phong1080_tex2048":  # phong1080 with 2048^2 diffuse maps: a 48 MiB stack
+        n = TEX_SIDE
+        return make_phong_scene(
+            w, h, clip_cap=64, meshes=three_meshes(), camera=cam, device=device,
+            textures=[make_checker_texture(n, n // 16), make_checker_texture(n, n // 32),
+                      make_checker_texture(n, 3 * n // 64)],
+        )
+    if name == "custom12_360":
+        scene = make_phong_scene(
+            w, h, clip_cap=64, meshes=three_meshes(), camera=cam, device=device,
+            textures=[make_checker_texture(64, 8)] * 3,
+        )
+        scene.vertex_shader, scene.pixel_shader = custom12_shaders()
+        return scene
     if name == "phong_bin_k1":  # coarse and spill ranges
         scene = make_phong_scene(
-            640, 360, clip_cap=64, meshes=three_meshes(), camera=cam, device=device,
+            w, h, clip_cap=64, meshes=three_meshes(), camera=cam, device=device,
             textures=[make_checker_texture(64, 8)] * 3,
         )
         scene.config = dataclasses.replace(scene.config, tile=(16, 128), bin_k=1)
         return scene
     if name == "textured_wide":  # a 300-px texture (three TPU lane pages)
         return make_phong_scene(
-            800, 600, clip_cap=64, meshes=[make_uv_sphere(24, 48)], camera=sphere_cam,
+            w, h, clip_cap=64, meshes=[make_uv_sphere(24, 48)], camera=sphere_cam,
             textures=[make_checker_texture(300, 20)], shader="textured", device=device,
         )
     if name == "gouraud800":  # bench.py:83-94
         return make_phong_scene(
-            800, 600, clip_cap=64, meshes=[make_uv_sphere(36, 72)], camera=sphere_cam,
+            w, h, clip_cap=64, meshes=[make_uv_sphere(36, 72)], camera=sphere_cam,
             shader="gouraud", device=device,
         )
     if name == "cube1080_flat":  # bench.py:67-82
+        from f_renderer_tpu_torch import make_cube
+
         return make_phong_scene(
-            1920, 1080, clip_cap=16, meshes=[make_cube()], camera=cam, shader="flat",
+            w, h, clip_cap=16, meshes=[make_cube()], camera=cam, shader="flat",
             device=device,
         )
     raise ValueError(name)
@@ -93,6 +179,23 @@ def set_angle(scene, angle):
     from f_renderer_tpu_torch.math import set_rotate
 
     scene.vs_uniform = dict(scene.vs_uniform, model=set_rotate([0.0, 1.0, 0.0], angle, scene.device))
+
+
+def voxel_view(i):
+    """bench.py:283-292: the orbit camera of voxel frame ``i`` → (eye,
+    inv_mvp) as float32 numpy, from the port's math on the host."""
+    import numpy as np
+
+    from f_renderer_tpu_torch.math import set_identity, set_look_at, set_perspective
+
+    w, h, length = VOXEL_W, VOXEL_H, VOXEL_LENGTH
+    proj = set_perspective(np.pi * 0.25, w / h, 0.1, 100.0, "cpu").numpy()
+    center = np.array([length / 2] * 3, np.float32)
+    ang = 0.3 + 0.08 * i
+    eye = center + np.array([3.0 * np.cos(ang), 1.2, 3.0 * np.sin(ang)], np.float32)
+    view = set_look_at(eye, center, [0, 1, 0]).numpy()
+    mvp = proj @ view @ set_identity("cpu").numpy()
+    return eye, np.linalg.inv(mvp).astype(np.float32)
 
 
 def cuda_ms(fn, reps):
@@ -107,39 +210,138 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare(tag, got, want):
-    """Kernel vs plain on the same inputs; raises on disagreement."""
+def counts():
+    from f_renderer_tpu_torch import kernels
+
+    return {k: getattr(kernels, k).launches for k in ("fused_raster", "raster_planes", "sample_bilinear", "voxel_march")}
+
+
+def reset_counts():
+    from f_renderer_tpu_torch import kernels
+
+    for k in counts():
+        getattr(kernels, k).launches = 0
+
+
+def plain(fn, *args, **kw):
+    """Run a plain version; it must launch no kernel."""
+    import torch
+
+    before = counts()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    check(counts() == before, f"plain {getattr(fn, '__name__', fn)} moved a launch counter")
+    return out
+
+
+def timed(kernel_fn, plain_fn, kernel_reps, plain_reps=1):
+    """(kernel ms, plain ms) in turns plain, kernel, kernel, plain."""
+    kernel_fn(), plain(plain_fn)  # warm-up
+    p_a = cuda_ms(lambda: plain(plain_fn), plain_reps)
+    k_a = cuda_ms(kernel_fn, kernel_reps)
+    k_b = cuda_ms(kernel_fn, kernel_reps)
+    p_b = cuda_ms(lambda: plain(plain_fn), plain_reps)
+    return (k_a + k_b) / 2, (p_a + p_b) / 2, (k_a, k_b, p_a, p_b)
+
+
+def bound_ms(nbytes, ops):
+    """The least time for the work: max(bytes / HBM rate, ops / ALU rate)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tile_pair_pixels(prep):
+    """(pair, pixel) cover tests the binned lists ask for: for every tile,
+    the pairs of its fine, coarse and spill ranges times its pixels."""
+    from f_renderer_tpu_torch.pipeline.raster import COARSE, LANES, cdiv
+
+    off = prep.off.tolist()
+    nty, ntx = prep.h_pad // prep.th, prep.w_pad // LANES
+    ntiles, ntxc = nty * ntx, cdiv(ntx, COARSE)
+    spill = ntiles + ntxc * cdiv(nty, COARSE)
+    total = 0
+    for ty in range(nty):
+        for tx in range(ntx):
+            t, c = ty * ntx + tx, ntiles + (ty // COARSE) * ntxc + tx // COARSE
+            total += sum(off[r + 1] - off[r] for r in (t, c, spill))
+    return total * prep.th * LANES
+
+
+def raster_work(prep, out_planes, per_pixel_ops, extra_bytes=0):
+    """(bytes, ops) of a raster kernel: its inputs read once, its output
+    planes written once; 12 integer operations for each cover test (edges,
+    sign OR, bbox max), ``per_pixel_ops`` for each pixel's epilogue."""
+    nbytes = 4 * (prep.off.numel() + prep.tri_i32.numel() + prep.tri_f32.numel())
+    nbytes += 4 * out_planes * prep.h_pad * prep.w_pad + extra_bytes
+    ops = 12 * tile_pair_pixels(prep) + per_pixel_ops * prep.h_pad * prep.w_pad
+    return nbytes, ops
+
+
+def texel_bytes(stack, ps, u, v):
+    """Bytes of the distinct texels these samples read."""
+    import torch
+
+    from f_renderer_tpu_torch.shaders.texture_sampler import texel_taps
+
+    taps = texel_taps(stack.texels, stack.dims, ps, u, v)
+    return 4 * int(torch.unique(taps).numel()) + 4 * stack.dims.numel()
+
+
+def frame_bar(tag, got, want):
+    diff = (got.int() - want.int()).abs().amax(-1)
+    at2 = float((diff > 1).float().mean())
+    check(int(diff.max()) <= 2 and at2 <= 0.002, f"{tag}: frame max diff {int(diff.max())} u8, {at2:.4%} at 2")
+    return int(diff.max()), at2
+
+
+def compare_fused(tag, got, want):
+    """K1 against its plain version; returns (frame err u8, depth err)."""
     import torch
 
     frame_g, depth_g, winner_g = got
     frame_w, depth_w, winner_w = want
-    if not torch.equal(winner_g, winner_w):
-        n = int((winner_g != winner_w).sum())
-        raise AssertionError(f"{tag}: winner differs at {n} pixels")
+    check(torch.equal(winner_g, winner_w), f"{tag}: winner differs at {int((winner_g != winner_w).sum())} px")
     derr = (depth_g - depth_w).abs()
-    if not bool((derr <= DEPTH_RTOL * depth_w.abs()).all()):
-        raise AssertionError(f"{tag}: depth beyond rtol {DEPTH_RTOL}: max abs {float(derr.max())}")
-    diff = (frame_g.int() - frame_w.int()).abs().amax(-1)
-    at2 = float((diff > 1).float().mean())
-    if int(diff.max()) > 2 or at2 > 0.002:
-        raise AssertionError(f"{tag}: frame max diff {int(diff.max())} u8, {at2:.4%} at 2")
-    covered = int((winner_g >= 0).sum())
+    check(bool((derr <= DEPTH_RTOL * depth_w.abs()).all()), f"{tag}: depth beyond rtol, max {float(derr.max())}")
+    f_err, at2 = frame_bar(tag, frame_g, frame_w)
     log(f"  {tag}: winner equal, depth max abs err {float(derr.max()):.3g}, "
-        f"frame max diff {int(diff.max())} u8 ({at2:.4%} at 2), covered px {covered}")
-    return int(diff.max()), float(derr.max())
+        f"frame max diff {f_err} u8 ({at2:.4%} at 2), covered px {int((winner_g >= 0).sum())}")
+    return f_err, float(derr.max())
+
+
+def compare_planes(tag, got, want):
+    """K4 against its plain version (padded planes); returns (ctx err, depth err)."""
+    import torch
+
+    depth_g, winner_g, ps_g, ctx_g = got
+    depth_w, winner_w, ps_w, ctx_w = want
+    check(torch.equal(winner_g, winner_w), f"{tag}: winner differs at {int((winner_g != winner_w).sum())} px")
+    derr = (depth_g - depth_w).abs()
+    check(bool((derr <= DEPTH_RTOL * depth_w.abs()).all()), f"{tag}: depth beyond rtol, max {float(derr.max())}")
+    cerr = 0.0
+    if ps_g is not None:
+        check(torch.equal(ps_g, ps_w), f"{tag}: texture ids differ")
+        cerr = float((ctx_g - ctx_w).abs().max()) if ctx_g.numel() else 0.0
+        check(torch.equal(ctx_g, ctx_w), f"{tag}: varyings differ, max abs err {cerr}")
+    log(f"  {tag}: winner equal, depth max abs err {float(derr.max()):.3g}, "
+        f"varyings max abs err {cerr:.3g}, covered px {int((winner_g >= 0).sum())}")
+    return cerr, float(derr.max())
 
 
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU",
-              file=sys.stderr)
+        print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU", file=sys.stderr)
         return 1
     try:
+        import numpy as np
+
         from f_renderer_tpu_torch import kernels
-        from f_renderer_tpu_torch.pipeline import fused
-        from f_renderer_tpu_torch.pipeline.render import build_triangles
+        from f_renderer_tpu_torch.pipeline import fused, raster, shade
+        from f_renderer_tpu_torch.pipeline.render import build_triangles, context_codec
+        from f_renderer_tpu_torch.shaders.builtin import shade_plain
+        from f_renderer_tpu_torch.voxel import octree, raycast
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 1
@@ -158,12 +360,13 @@ def main() -> int:
     # 2. build
     t0 = time.time()
     kernels.load_library()
-    log(f"[build] nvcc sm_90a --fmad=false: {time.time() - t0:.1f} s")
+    log(f"[build] nvcc sm_90a --fmad=false, one process per source: {time.time() - t0:.1f} s")
 
-    # 3. K1 (+K2) against plain on the card
-    log("[kernel-vs-plain]")
+    rows = {}  # kernel name → its JSON entry
+
+    # 3a. K1 (+K2) against plain
+    log("[kernel-vs-plain] K1 fused_raster")
     worst_frame, worst_depth = 0, 0.0
-    timing = None
     cases = [("phong1080", a) for a in ANGLES] + [
         ("phong_bin_k1", 0.3), ("textured_wide", 0.2), ("gouraud800", 0.1), ("cube1080_flat", 0.1),
     ]
@@ -174,71 +377,293 @@ def main() -> int:
         prep = fused.prep_fused(tri, scene.config)
         args = (prep, scene.pixel_shader, scene.ps_uniform, scene.config)
         got = fused.render_fused_prepared(*args)
-        torch.cuda.synchronize()
-        want = fused.render_fused_plain(*args)
-        f_err, d_err = compare(f"{scene_name}@{angle:.2f} th={prep.th} pairs={prep.tri_i32.shape[1]}", got, want)
+        want = plain(fused.render_fused_plain, *args)
+        f_err, d_err = compare_fused(f"{scene_name}@{angle:.2f} th={prep.th} pairs={prep.tri_i32.shape[1]}", got, want)
         worst_frame, worst_depth = max(worst_frame, f_err), max(worst_depth, d_err)
-        if scene_name == "phong1080" and timing is None:
+        if scene_name == "phong1080" and "K1" not in rows:
             reference_frame = got[0].clone()
-            plain_a = cuda_ms(lambda: fused.render_fused_plain(*args), 2)
-            kern_a = cuda_ms(lambda: fused.render_fused_prepared(*args), 20)
-            kern_b = cuda_ms(lambda: fused.render_fused_prepared(*args), 20)
-            plain_b = cuda_ms(lambda: fused.render_fused_plain(*args), 2)
-            timing = ((kern_a + kern_b) / 2, (plain_a + plain_b) / 2)
-            log(f"  phong1080 K1 time: kernel {kern_a:.4f} / {kern_b:.4f} ms, "
-                f"plain {plain_a:.2f} / {plain_b:.2f} ms (CUDA events; {smi})")
+            k_ms, p_ms, each = timed(lambda: fused.render_fused_prepared(*args),
+                                     lambda: fused.render_fused_plain(*args), 20)
+            _, win_p, ps_p, ctx_p = plain(raster.raster_planes_plain, prep, True)
+            stack = scene.ps_uniform["textures"]
+            tex = texel_bytes(stack, torch.where(win_p >= 0, ps_p, -1), ctx_p[6], ctx_p[7])
+            # epilogue per pixel: interpolation (~30), phong (~90), sampler (~60), pack (~12)
+            nbytes, ops = raster_work(prep, 3, 192, extra_bytes=tex)
+            b_ms, b_by = bound_ms(nbytes, ops)
+            rows["K1"] = {
+                "name": "fused_raster (K1, K2 sampler inlined)", "route": "cuda",
+                "source": "f_renderer_tpu_torch/csrc/fused_raster.cu",
+                "replaces": "f_renderer_tpu/pipeline/fused.py:525",
+                "also_replaces": "f_renderer_tpu/shaders/texture_pallas.py:95 (csrc/sampler.cuh)",
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "bytes": nbytes, "ops": ops,
+            }
+            log(f"  phong1080 K1 time: kernel {each[0]:.4f} / {each[1]:.4f} ms, plain "
+                f"{each[2]:.2f} / {each[3]:.2f} ms, bound {b_ms:.4f} ms by {b_by} "
+                f"({nbytes} B, {ops} ops) (CUDA events; {smi})")
+    rows["K1"]["max_abs_err"] = worst_frame
+    rows["K1"]["max_abs_err_depth"] = worst_depth
 
-    # 4. the main path: Scene.render() on phong1080
+    # 3b. K4 against plain, both entry points; 3c. K3 on the same planes
+    log("[kernel-vs-plain] K4 raster_planes, K3 sample_bilinear")
+    worst_ctx, worst_d4, worst_sample, worst_frame4 = 0.0, 0.0, 0.0, 0
+    for scene_name, angles in (("phong1080_tex2048", ANGLES), ("custom12_360", (0.3,))):
+        scene = build_scene(scene_name, dev)
+        if scene_name == "phong1080_tex2048":
+            stack = scene.ps_uniform["textures"]
+            check(not fused.fused_path_ok(scene.pixel_shader, scene.ps_uniform),
+                  f"{scene_name}: the {stack.packed_nbytes} B stack should leave the fused path")
+        codec = context_codec(scene.vertex_shader, scene.vs_uniform, scene.draws[0])
+        for angle in angles:
+            set_angle(scene, angle)
+            tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+            prep = raster.prep_binned(tri, scene.config.width, scene.config.height, scene.config.tile)
+            tag = f"{scene_name}@{angle:.2f} C={prep.n_ctx} th={prep.th} pairs={prep.tri_i32.shape[1]}"
+            e_ctx, e_d = compare_planes(f"{tag} rasterize", raster.raster_planes(prep, False),
+                                        plain(raster.raster_planes_plain, prep, False))
+            got = raster.raster_planes(prep, True)
+            want = plain(raster.raster_planes_plain, prep, True)
+            e_ctx2, e_d2 = compare_planes(f"{tag} rasterize_interp", got, want)
+            worst_ctx, worst_d4 = max(worst_ctx, e_ctx, e_ctx2), max(worst_d4, e_d, e_d2)
+            h, w = prep.height, prep.width
+            depth_k, winner_k, ps_k, ctx_k = (t[..., :h, :w] for t in got)
+            depth_p, winner_p, ps_p, ctx_p = (t[..., :h, :w] for t in want)
+            bg = scene.config.background
+            if scene_name != "phong1080_tex2048":
+                frame_k = shade.shade_from_planes(ctx_k, ps_k, winner_k, scene.pixel_shader,
+                                                  scene.ps_uniform, codec, background=bg)
+                frame_p = plain(shade.shade_from_planes, ctx_p, ps_p, winner_p, scene.pixel_shader,
+                                scene.ps_uniform, codec, background=bg)
+                worst_frame4 = max(worst_frame4, frame_bar(f"{tag} frame", frame_k, frame_p)[0])
+                continue
+            # K3 on the main path's samples: the texture id where a pair won, uv.
+            psm = torch.where(winner_k >= 0, ps_k, -1).contiguous()
+            u, v = ctx_k[6].contiguous(), ctx_k[7].contiguous()
+            s_k = stack.sample(psm, u, v)
+            s_p = plain(stack.sample_plain, psm, u, v)
+            s_err = float((s_k - s_p).abs().max())
+            worst_sample = max(worst_sample, s_err)
+            check(s_err <= SAMPLE_ATOL, f"{tag}: K3 samples differ by {s_err}")
+            frame_k = shade.shade_from_planes(ctx_k, ps_k, winner_k, scene.pixel_shader,
+                                              scene.ps_uniform, codec, background=bg)
+            frame_p = plain(shade.shade_from_planes, ctx_p, ps_p, winner_p,
+                            lambda uu, ctx, ps: shade_plain("phong", uu, ctx, ps),
+                            scene.ps_uniform, codec, background=bg)
+            f_err = frame_bar(f"{tag} frame", frame_k, frame_p)[0]
+            worst_frame4 = max(worst_frame4, f_err)
+            log(f"  {tag}: K3 max abs err {s_err:.3g}, frame (K4 + K3) max diff {f_err} u8")
+            if "K4" in rows:
+                continue
+            tex2048_frame = frame_k.clone()
+            k_ms, p_ms, each = timed(lambda: raster.raster_planes(prep, True),
+                                     lambda: raster.raster_planes_plain(prep, True), 20)
+            # epilogue per pixel: interpolation of C varyings (~20 + 5C)
+            nbytes, ops = raster_work(prep, 3 + prep.n_ctx, 20 + 5 * prep.n_ctx)
+            b_ms, b_by = bound_ms(nbytes, ops)
+            rows["K4"] = {
+                "name": "raster_planes (K4)", "route": "cuda",
+                "source": "f_renderer_tpu_torch/csrc/raster_planes.cu",
+                "replaces": "f_renderer_tpu/pipeline/raster_pallas.py:1562",
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "bytes": nbytes, "ops": ops,
+            }
+            log(f"  phong1080_tex2048 K4 time (rasterize_interp, C={prep.n_ctx}): kernel {each[0]:.4f} / "
+                f"{each[1]:.4f} ms, plain {each[2]:.2f} / {each[3]:.2f} ms, bound {b_ms:.4f} ms by {b_by} "
+                f"({nbytes} B, {ops} ops) (CUDA events; {smi})")
+            k_ms, p_ms, each = timed(lambda: stack.sample(psm, u, v), lambda: stack.sample_plain(psm, u, v), 50, 3)
+            n, n_tex = psm.numel(), int((psm >= 0).sum())
+            # per sample: ids, uv and 4 outputs; ~60 operations where it has a texture
+            nbytes = 28 * n + texel_bytes(stack, psm, u, v)
+            b_ms, b_by = bound_ms(nbytes, 60 * n_tex + 2 * n)
+            rows["K3"] = {
+                "name": "sample_bilinear (K3)", "route": "cuda",
+                "source": "f_renderer_tpu_torch/csrc/sample_bilinear.cu",
+                "replaces": "f_renderer_tpu/shaders/texture_pallas.py:497",
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "bytes": nbytes, "ops": 60 * n_tex + 2 * n,
+            }
+            log(f"  phong1080_tex2048 K3 time ({n} samples, {n_tex} textured): kernel {each[0]:.4f} / "
+                f"{each[1]:.4f} ms, plain {each[2]:.2f} / {each[3]:.2f} ms, bound {b_ms:.4f} ms by {b_by} "
+                f"({nbytes} B) (CUDA events; {smi})")
+    rows["K4"]["max_abs_err"] = worst_ctx
+    rows["K4"]["max_abs_err_depth"] = worst_d4
+    rows["K4"]["max_abs_err_frame_u8"] = worst_frame4
+    rows["K3"]["max_abs_err"] = worst_sample
+
+    # 3d. K5 against plain
+    log("[kernel-vs-plain] K5 voxel_march")
+    grid_color, grid_hit = octree.densify(octree.gen_randomly(VOXEL_LEVEL, np.random.default_rng(0)), VOXEL_LEVEL)
+    table = raycast.voxel_table(torch.as_tensor(grid_color, device=dev), torch.as_tensor(grid_hit, device=dev))
+    for traversal in ("fixed", "dda"):
+        cfg = raycast.VoxelRenderConfig(width=VOXEL_W, height=VOXEL_H, level=VOXEL_LEVEL,
+                                        length=VOXEL_LENGTH, traversal=traversal)
+        k = raycast.march_constants(cfg, grid_hit.shape[0])
+        worst = 0
+        for i in range(3):
+            eye, inv_mvp = voxel_view(i)
+            rays = raycast.prepare_rays(torch.from_numpy(eye).to(dev), torch.from_numpy(inv_mvp).to(dev), cfg)
+            got = raycast.march(*rays, table, k)
+            want, queries = plain(raycast.march_plain, *rays, table, k, count_queries=True)
+            err = int((got.view(torch.uint8).int() - want.view(torch.uint8).int()).abs().max())
+            worst = max(worst, err)
+            hit = float((got != k.bg_packed).float().mean())
+            check(torch.equal(got, want), f"voxel540 {traversal} frame {i}: BGRA differs at "
+                  f"{int((got != want).sum())} rays")
+            log(f"  voxel540 {traversal} frame {i}: BGRA equal={torch.equal(got, want)}, "
+                f"hit share {hit:.4f}, queries {queries}")
+            if i == 0:
+                rays0, queries0 = rays, queries
+        k_ms, p_ms, each = timed(lambda: raycast.march(*rays0, table, k),
+                                 lambda: raycast.march_plain(*rays0, table, k), 10)
+        n = rays0[2].numel()
+        # per ray: 8 input planes, 1 output; per query ~25 operations
+        nbytes, ops = 36 * n + 4 * table.numel(), 25 * queries0 + 5 * n
+        b_ms, b_by = bound_ms(nbytes, ops)
+        rows[f"K5 {traversal}"] = {
+            "name": f"voxel_march {traversal} (K5)", "route": "cuda",
+            "source": "f_renderer_tpu_torch/csrc/voxel_march.cu",
+            "replaces": "f_renderer_tpu/voxel/raycast_pallas.py:393",
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "max_abs_err": worst, "bytes": nbytes, "ops": ops, "queries": queries0,
+        }
+        log(f"  voxel540 {traversal} K5 time: kernel {each[0]:.4f} / {each[1]:.4f} ms, plain "
+            f"{each[2]:.2f} / {each[3]:.2f} ms, bound {b_ms:.4f} ms by {b_by} ({queries0} queries) "
+            f"(CUDA events; {smi})")
+
+    # 4. the main paths, each with the counters set to 0 just before it
+    def drive(path, render, frames, expect, shape):
+        torch.cuda.synchronize()
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        outs = []
+        t_host = time.time()
+        start.record()
+        for i in range(frames):
+            outs.append(render(i))  # a frame, or (frame, depth, stats)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.time() - t_host) * 1e3 / frames
+        got = counts()
+        frame_ms = start.elapsed_time(end) / frames
+        check(got == expect, f"{path}: launches {got}, expected {expect}")
+        checksum = 0
+        for out in outs:
+            frame = out[0] if isinstance(out, tuple) else out
+            check(tuple(frame.shape) == shape and frame.dtype == torch.uint8, f"{path}: frame shape {tuple(frame.shape)}")
+            checksum += int(frame[::97, ::89, :3].int().sum())
+        log(f"[main-path] {path} x{frames}: launches {got}, frame {frame_ms:.3f} ms (CUDA events), "
+            f"host {host_ms:.3f} ms/frame, checksum {checksum} ({smi})")
+        return outs, got
+
+    def stages(path, parts, reps=5):
+        """Each stage of one frame alone, after the main path's counts were
+        read: CUDA events around ``reps`` runs (host launch gaps included)."""
+        times = []
+        for label, fn in parts:
+            fn()
+            times.append(f"{label} {cuda_ms(fn, reps):.3f} ms")
+        log(f"[stages] {path}: " + ", ".join(times) + f" ({smi})")
+
+    def raster_stages(path, scene):
+        tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+        cfg = scene.config
+        parts = [("geometry", lambda: build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, cfg))]
+        if fused.fused_path_ok(scene.pixel_shader, scene.ps_uniform):
+            prep = fused.prep_fused(tri, cfg)
+            parts += [("prep", lambda: fused.prep_fused(tri, cfg)),
+                      ("K1", lambda: fused.render_fused_prepared(prep, scene.pixel_shader, scene.ps_uniform, cfg))]
+        else:
+            prep = raster.prep_binned(tri, cfg.width, cfg.height, cfg.tile)
+            codec = context_codec(scene.vertex_shader, scene.vs_uniform, scene.draws[0])
+            depth, winner, ps, ctx = (t[..., :cfg.height, :cfg.width] for t in raster.raster_planes(prep, True))
+            parts += [("prep", lambda: raster.prep_binned(tri, cfg.width, cfg.height, cfg.tile)),
+                      ("K4", lambda: raster.raster_planes(prep, True)),
+                      ("shade (with K3)", lambda: shade.shade_from_planes(
+                          ctx, ps, winner, scene.pixel_shader, scene.ps_uniform, codec, background=cfg.background))]
+        stages(path, parts)
+
+    zero = dict.fromkeys(counts(), 0)
+    launches = {}
+
     scene = build_scene("phong1080", dev)
     set_angle(scene, ANGLES[0])
     scene.render()  # warm-up (allocator, first-use costs)
-    torch.cuda.synchronize()
-    kernels.fused_raster.launches = 0
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    checksum = 0
-    frames = []
-    t_host = time.time()
-    start.record()
-    for i in range(FRAMES):
+
+    def phong_frame(i):
         set_angle(scene, 0.10 + 0.05 * i)
-        frame, depth, stats = scene.render()
-        frames.append((frame, depth, stats))
-    end.record()
-    torch.cuda.synchronize()
-    host_ms = (time.time() - t_host) * 1e3 / FRAMES
-    launches = kernels.fused_raster.launches
-    frame_ms = start.elapsed_time(end) / FRAMES
-    if launches != FRAMES:
-        raise AssertionError(f"main path launched the kernel {launches} times for {FRAMES} frames")
-    for frame, depth, stats in frames:
-        checksum += int(frame[::97, ::89, 0].int().sum())
-        if tuple(frame.shape) != (1080, 1920, 4) or not bool(torch.isfinite(depth).all()):
-            raise AssertionError("main path frame has the wrong shape or a non-finite depth")
-        shaded = int((frame[..., :3] != 30).any(-1).sum())
-        if not 0.05 * 1920 * 1080 < shaded < 0.9 * 1920 * 1080:
-            raise AssertionError(f"implausible shaded pixel count {shaded}")
-        if int(stats["num_clipped"]) > scene.config.clip_cap:
-            raise AssertionError("clip_cap dropped faces")
-    if not torch.equal(frames[0][0], reference_frame):
-        raise AssertionError("Scene.render() at angle 0.10 differs from the checked kernel frame")
-    mpix = 1920 * 1080 / frame_ms / 1e3
-    log(f"[main-path] phong1080 Scene.render() x{FRAMES}: launches {launches}, "
-        f"frame {frame_ms:.3f} ms (CUDA events), host {host_ms:.3f} ms/frame, "
-        f"{mpix:.1f} Mpix/s, shaded px {shaded}, checksum {checksum} ({smi})")
+        return scene.render()
+
+    w, h = SIZES["phong1080"]
+    outs, got = drive("phong1080 Scene.render()", phong_frame, FRAMES, dict(zero, fused_raster=FRAMES), (h, w, 4))
+    launches["K1"] = got["fused_raster"]
+    for frame, depth, stats in outs:
+        check(bool(torch.isfinite(depth).all()), "phong1080: non-finite depth")
+        check(int(stats["num_clipped"]) <= scene.config.clip_cap, "phong1080: clip_cap dropped faces")
+    check(torch.equal(outs[0][0], reference_frame), "phong1080: Scene.render() at 0.10 differs from the checked K1 frame")
+    shaded = int((outs[0][0][..., :3] != 30).any(-1).sum())
+    check(0.05 * w * h < shaded < 0.9 * w * h, f"phong1080: implausible shaded pixel count {shaded}")
+    raster_stages("phong1080", scene)
+
+    scene = build_scene("phong1080_tex2048", dev)
+    set_angle(scene, ANGLES[0])
+    scene.render()
+
+    def tex_frame(i):
+        set_angle(scene, 0.10 + 0.05 * i)
+        return scene.render()[0]
+
+    outs, got = drive("phong1080_tex2048 Scene.render()", tex_frame, FRAMES,
+                      dict(zero, raster_planes=FRAMES, sample_bilinear=FRAMES), (h, w, 4))
+    launches["K4"], launches["K3"] = got["raster_planes"], got["sample_bilinear"]
+    check(torch.equal(outs[0], tex2048_frame), "phong1080_tex2048: Scene.render() at 0.10 differs from the checked K4 + K3 frame")
+    raster_stages("phong1080_tex2048", scene)
+
+    scene = build_scene("custom12_360", dev)
+    scene.render()
+
+    def custom_frame(i):
+        set_angle(scene, 0.3 + 0.05 * i)
+        return scene.render()[0]
+
+    w, h = SIZES["custom12_360"]
+    _, got = drive("custom12_360 Scene.render()", custom_frame, 3, dict(zero, raster_planes=3), (h, w, 4))
+    launches["K4 custom12_360"] = got["raster_planes"]
+
+    views = [voxel_view(i) for i in range(FRAMES)]
+    for traversal, key in (("fixed", "K5 fixed"), ("dda", "K5 dda")):
+        cfg = raycast.VoxelRenderConfig(width=VOXEL_W, height=VOXEL_H, level=VOXEL_LEVEL,
+                                        length=VOXEL_LENGTH, traversal=traversal)
+        raycast.render_voxel_frame(grid_color, grid_hit, *views[0], cfg, device=dev)
+
+        def voxel_frame(i):
+            return raycast.render_voxel_frame(grid_color, grid_hit, *views[i], cfg, device=dev)
+
+        path = "voxel540" if traversal == "fixed" else "voxel540dda"
+        outs, got = drive(f"{path} render_voxel_frame", voxel_frame, FRAMES, dict(zero, voxel_march=FRAMES),
+                          (VOXEL_H, VOXEL_W, 4))
+        launches[key] = got["voxel_march"]
+        hit = float((outs[0][..., :3] != 0).any(-1).float().mean())
+        check(0.05 < hit < 0.9, f"{path}: implausible hit share {hit}")
+        eye, inv_mvp = (torch.from_numpy(a).to(dev) for a in views[0])
+        k = raycast.march_constants(cfg, grid_hit.shape[0])
+        rays = raycast.prepare_rays(eye, inv_mvp, cfg)
+        stages(path, [
+            ("ray set-up", lambda: raycast.prepare_rays(eye, inv_mvp, cfg)),
+            ("table", lambda: raycast.voxel_table(torch.as_tensor(grid_color, device=dev),
+                                                  torch.as_tensor(grid_hit, device=dev))),
+            ("K5", lambda: raycast.march(*rays, table, k)),
+        ])
 
     # 5. results
-    log(json.dumps({"kernels": [{
-        "name": "fused_raster_shade (K1, K2 sampler inlined)",
-        "route": "cuda",
-        "source": "f_renderer_tpu_torch/csrc/fused_raster.cu",
-        "replaces": "f_renderer_tpu/pipeline/fused.py:525",
-        "also_replaces": "f_renderer_tpu/shaders/texture_pallas.py:95 (csrc/sampler.cuh)",
-        "launches": launches,
-        "max_abs_err": worst_frame,  # frame, in u8 steps
-        "max_abs_err_depth": worst_depth,
-        "ms": timing[0],
-        "plain_ms": timing[1],
-    }]}))
+    for key, row in rows.items():
+        row["launches"] = launches[key]
+    rows["K4"]["launches_custom12_360"] = launches["K4 custom12_360"]
+    if failures:
+        log(f"chip_smoke: {len(failures)} check(s) failed:")
+        for f in failures:
+            log("  " + f)
+        return 1
+    log(json.dumps({"kernels": list(rows.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

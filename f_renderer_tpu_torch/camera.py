@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from f_renderer_tpu_torch.device import resolve_device
 from f_renderer_tpu_torch.math import mat_vec4, normalize, set_look_at, set_rotate
 from f_renderer_tpu_torch.math.transforms import _cross, _dot3
 
@@ -25,7 +26,9 @@ class Camera:
     up: torch.Tensor
 
     @staticmethod
-    def create(eye, at, up, device=None) -> "Camera":
+    def create(eye, at, up, device="cuda") -> "Camera":
+        device = resolve_device(device)
+
         def f32(v):
             return torch.as_tensor(v, dtype=torch.float32, device=device)
 

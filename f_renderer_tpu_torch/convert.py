@@ -15,7 +15,8 @@ import torch
 
 from f_renderer_tpu_torch.pipeline.render import RenderConfig
 from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
-from f_renderer_tpu_torch.scene import SHADERS, Scene, resolve_device
+from f_renderer_tpu_torch.device import resolve_device
+from f_renderer_tpu_torch.scene import SHADERS, Scene
 from f_renderer_tpu_torch.shaders.texture import TextureStack
 
 
@@ -29,7 +30,7 @@ def scene_from_arrays(
     ps_uniform: Mapping,
     shader_kind: str,
     config: Mapping,
-    device="cpu",
+    device="cuda",
 ) -> Scene:
     """A port Scene from a JAX scene's state.
 
@@ -57,7 +58,7 @@ def scene_from_arrays(
     )
 
 
-def triangles_from_arrays(fields: Mapping[str, np.ndarray], device="cpu") -> TriangleBuffer:
+def triangles_from_arrays(fields: Mapping[str, np.ndarray], device="cuda") -> TriangleBuffer:
     """A port TriangleBuffer from a JAX ``TriangleBuffer``'s fields by name."""
     device = resolve_device(device)
     return TriangleBuffer(

@@ -8,49 +8,32 @@
 // sampler.cuh. The plain version is pipeline/fused.py:render_fused_plain.
 //
 // What it computes, per pixel of the tile:
-//  - over the tile's own fine pair range, its coarse-bin range and the shared
-//    spill range: affine int32 edges (wrapped: computed in uint32), e12 =
-//    area2 - e01 - e20, the sign-OR cover test against the exclusive bbox
-//    max, |cross| barycentrics with an s != 0 guard, rhw, and the strict
-//    (rhw, order) maximum recording the winning pair;
+//  - the strict (rhw, order) maximum over the tile's pair lists, recording
+//    the winning pair: raster_loop.cuh, shared with the non-fused raster
+//    kernel (K4, raster_planes.cu);
 //  - once, for the winner: perspective-correct interpolation of the C
 //    varyings with the final depth (the GPU form of _deferred_update);
 //  - flat / gouraud / textured / phong shading, clip-and-truncate RGBA8
 //    pack, background fill.
 // The arithmetic follows the JAX kernel expression by expression; with
 // --fmad=false and IEEE division/sqrt the results match the plain version
-// to the bit. The cover test alone is exact, so the coarse and spill ranges
-// need no bbox gate and no rounding to chunks.
+// to the bit.
 //
-// What bounds it on the card: integer and float ALU work per (pair, pixel)
-// — ~40 operations for every pixel of the tile for every pair in its lists.
-// The design keeps that loop lean: the pair fields it reads (9 int32 + 9
-// float) are staged per chunk of 128 pairs in shared memory (9 KB) and read
-// as broadcasts; each thread carries its R = th/4 pixels' (depth, order,
-// pair) in registers; the varyings (3C floats per pair) and the shading
+// What bounds it on the card: the raster loop's ALU work per (pair, pixel)
+// (raster_loop.cuh). The varyings (3C floats per pair) and the shading
 // inputs are read from device memory once per pixel, after the loop.
 // cp.async/TMA staging and persistent blocks are later work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kernels.h"
+#include "raster_loop.cuh"
 #include "sampler.cuh"
 
 namespace {
 
-// tri_i32 / tri_f32 rows (pipeline/raster.py)
-constexpr int A01 = 0, B01 = 1, C01 = 2, A20 = 3, B20 = 4, C20 = 5, AREA2 = 6,
-              ORDER = 7, MAXXY = 9, SLOT = 10, PS = 11;
-constexpr int S0X = 0, S0Y = 1, S1X = 2, S1Y = 3, S2X = 4, S2Y = 5, RHW0 = 6,
-              RHW1 = 7, RHW2 = 8, CTX0 = 9;
-constexpr int TW = 128;       // tile width = threads in x
-constexpr int TY = 4;         // threads in y; each owns R = th / TY rows
-constexpr int CHUNK = 128;    // pairs staged in shared memory at a time
+using namespace fr;
 constexpr int MAX_CTX = 8;
-constexpr int COARSE = 4;
-constexpr int ORDER_NONE = INT32_MIN;
-// shared-memory rows: the 8 int32 rows A01..ORDER, then MAXXY
-constexpr int NS_I = 9, NS_F = 9;
 
 __device__ __forceinline__ float nanmax0(float x) {
   // jnp.maximum(x, 0): NaN propagates
@@ -86,7 +69,7 @@ __device__ void shade(const FrFusedParams& p, const float* __restrict__ view_pos
   } else if (p.kind == 1) {  // gouraud
     col[0] = ctx[0]; col[1] = ctx[1]; col[2] = ctx[2]; col[3] = 1.0f;
   } else if (p.kind == 2) {  // textured
-    fr_sample(dims, texels, p.t_count, p.hmax, p.wmax, p.opaque != 0, ps, ctx[0], ctx[1], col);
+    fr_sample(dims, texels, p.t_count, p.hmax, p.wmax, p.opaque != 0, true, ps, ctx[0], ctx[1], col);
   } else {  // phong: normal ctx[0..2], world pos ctx[3..5], uv ctx[6..7]
     float nx = ctx[0], ny = ctx[1], nz = ctx[2];
     const float px = ctx[3], py = ctx[4], pz = ctx[5];
@@ -102,7 +85,7 @@ __device__ void shade(const FrFusedParams& p, const float* __restrict__ view_pos
     normalize3(rx, ry, rz);
     const float spec = pow32(nanmax0((vdx * rx + vdy * ry) + vdz * rz));
     float tex[4];
-    fr_sample(dims, texels, p.t_count, p.hmax, p.wmax, p.opaque != 0, ps, ctx[6], ctx[7], tex);
+    fr_sample(dims, texels, p.t_count, p.hmax, p.wmax, p.opaque != 0, true, ps, ctx[6], ctx[7], tex);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       const float lc = p.light_color[c];
@@ -120,91 +103,13 @@ fused_raster_kernel(const FrFusedParams p, const int32_t* __restrict__ off,
                     const float* __restrict__ view_pos, const int32_t* __restrict__ dims,
                     const int32_t* __restrict__ texels, int32_t* __restrict__ rgba,
                     float* __restrict__ depth_out, int32_t* __restrict__ winner_out) {
-  __shared__ int32_t s_i[NS_I][CHUNK];
-  __shared__ float s_f[NS_F][CHUNK];
-
-  const int tile_x = blockIdx.x, tile_y = blockIdx.y;
-  const int tid = threadIdx.y * TW + threadIdx.x;
-  const int cx = tile_x * TW + threadIdx.x;
-  const int row0 = tile_y * p.th + threadIdx.y * R;
+  const int cx = blockIdx.x * TW + threadIdx.x;
+  const int row0 = blockIdx.y * p.th + threadIdx.y * R;
   const float pcx = (float)cx + 0.5f;
   const size_t np = (size_t)p.n_pairs;
-
   float dep[R];
-  int word[R];
   int wpair[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    dep[r] = 0.0f;
-    word[r] = ORDER_NONE;
-    wpair[r] = -1;
-  }
-
-  const int ntiles = p.ntx * p.nty;
-  const int ntxc = (p.ntx + COARSE - 1) / COARSE;
-  const int ntilesc = ntxc * ((p.nty + COARSE - 1) / COARSE);
-  const int t_lin = tile_y * p.ntx + tile_x;
-  const int c_lin = ntiles + (tile_y / COARSE) * ntxc + tile_x / COARSE;
-  const int s_lin = ntiles + ntilesc;
-  const int starts[3] = {off[t_lin], off[c_lin], off[s_lin]};
-  const int ends[3] = {off[t_lin + 1], off[c_lin + 1], off[s_lin + 1]};
-
-  for (int range = 0; range < 3; ++range) {
-    for (int base = starts[range]; base < ends[range]; base += CHUNK) {
-      const int n = min(CHUNK, ends[range] - base);
-      __syncthreads();  // the previous chunk is no longer read
-      for (int k = tid; k < NS_I * CHUNK; k += TW * TY) {
-        const int row = k / CHUNK, j = k % CHUNK;
-        if (j < n) {
-          const int src = row < 8 ? row : MAXXY;
-          s_i[row][j] = tri_i32[src * np + base + j];
-          s_f[row][j] = tri_f32[row * np + base + j];
-        }
-      }
-      __syncthreads();
-      for (int j = 0; j < n; ++j) {
-        const uint32_t a01 = (uint32_t)s_i[A01][j], b01 = (uint32_t)s_i[B01][j],
-                       c01 = (uint32_t)s_i[C01][j], a20 = (uint32_t)s_i[A20][j],
-                       b20 = (uint32_t)s_i[B20][j], c20 = (uint32_t)s_i[C20][j],
-                       area2 = (uint32_t)s_i[AREA2][j];
-        const int order = s_i[ORDER][j];
-        const int maxxy = s_i[8][j];
-        const int maxx = maxxy & 0xFFFF, maxy = maxxy >> 16;
-        const float f0x = s_f[S0X][j], f0y = s_f[S0Y][j], f1x = s_f[S1X][j],
-                    f1y = s_f[S1Y][j], f2x = s_f[S2X][j], f2y = s_f[S2Y][j];
-        const float r0 = s_f[RHW0][j], r1 = s_f[RHW1][j], r2 = s_f[RHW2][j];
-        const int32_t xbits = maxx - 1 - cx;
-        const uint32_t ex01 = a01 * (uint32_t)cx + c01;
-        const uint32_t ex20 = a20 * (uint32_t)cx + c20;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int cy = row0 + r;
-          // wrapped int32 edges: e = (A cx + B cy) + C, e12 = area2 - e01 - e20
-          const uint32_t e01 = ex01 + b01 * (uint32_t)cy;
-          const uint32_t e20 = ex20 + b20 * (uint32_t)cy;
-          const uint32_t e12 = area2 - e01 - e20;
-          const uint32_t bits = e01 | e12 | e20 | (uint32_t)xbits | (uint32_t)(maxy - 1 - cy);
-          if (bits & 0x80000000u) continue;  // not covered
-          const float pcy = (float)cy + 0.5f;
-          const float s0x = f0x - pcx, s0y = f0y - pcy;
-          const float s1x = f1x - pcx, s1y = f1y - pcy;
-          const float s2x = f2x - pcx, s2y = f2y - pcy;
-          const float a = fabsf(s1x * s2y - s1y * s2x);
-          const float b = fabsf(s2x * s0y - s2y * s0x);
-          const float c = fabsf(s0x * s1y - s0y * s1x);
-          const float s = (a + b) + c;
-          if (s == 0.0f) continue;
-          const float inv_s = 1.0f / s;
-          const float rhw = (r0 * (a * inv_s) + r1 * (b * inv_s)) + r2 * (c * inv_s);
-          if (rhw > dep[r] || (rhw >= dep[r] && order > word[r])) {
-            dep[r] = rhw;
-            word[r] = order;
-            wpair[r] = base + j;
-          }
-        }
-      }
-    }
-  }
+  raster_tile<R>(off, tri_i32, tri_f32, p.ntx, p.nty, np, cx, row0, dep, wpair);
 
   // Interpolate the winner's varyings once, shade, pack. (Unrolled, so the
   // per-pixel carries stay in registers: a dynamic index would put them in
@@ -220,30 +125,17 @@ fused_raster_kernel(const FrFusedParams p, const int32_t* __restrict__ off,
       rgba[o] = p.bg_packed;
       continue;
     }
-    const float pcy = (float)cy + 0.5f;
-    const float* f = tri_f32 + pair;
-    const float s0x = f[S0X * np] - pcx, s0y = f[S0Y * np] - pcy;
-    const float s1x = f[S1X * np] - pcx, s1y = f[S1Y * np] - pcy;
-    const float s2x = f[S2X * np] - pcx, s2y = f[S2Y * np] - pcy;
-    const float a = fabsf(s1x * s2y - s1y * s2x);
-    const float b = fabsf(s2x * s0y - s2y * s0x);
-    const float c = fabsf(s0x * s1y - s0y * s1x);
-    const float inv_s = 1.0f / ((a + b) + c);
-    const float d = dep[r];
-    const float w_corr = 1.0f / (d != 0.0f ? d : 1.0f);
-    const float c0 = (f[RHW0 * np] * (a * inv_s)) * w_corr;
-    const float c1 = (f[RHW1 * np] * (b * inv_s)) * w_corr;
-    const float c2 = (f[RHW2 * np] * (c * inv_s)) * w_corr;
+    float c0, c1, c2;
+    interp_weights(tri_f32, np, pair, pcx, (float)cy + 0.5f, dep[r], c0, c1, c2);
     float ctx[MAX_CTX];
 #pragma unroll
     for (int ch = 0; ch < MAX_CTX; ++ch) {
       ctx[ch] = 0.0f;
       if (ch < p.n_ctx) {
-        ctx[ch] = (f[(CTX0 + ch) * np] * c0 + f[(CTX0 + p.n_ctx + ch) * np] * c1) +
-                  f[(CTX0 + 2 * p.n_ctx + ch) * np] * c2;
+        ctx[ch] = interp_channel(tri_f32, np, pair, p.n_ctx, ch, c0, c1, c2);
       }
     }
-    const int ps = tri_i32[PS * np + pair] & 0xFF;
+    const int ps = tri_i32[PS * np + pair] & PS_MASK;
     winner_out[o] = tri_i32[SLOT * np + pair];
     float col[4];
     shade(p, view_pos, dims, texels, ps, ctx, col);

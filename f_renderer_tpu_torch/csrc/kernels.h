@@ -35,6 +35,38 @@ int fr_fused_raster(FrFusedParams p, const int32_t* off, const int32_t* tri_i32,
                     const int32_t* texels, int32_t* rgba, float* depth,
                     int32_t* winner, void* stream);
 
+// Non-fused raster (K4) over the same binned pair list: depth / winner
+// (nty*th, ntx*128) planes and, when ps is not null, the texture id plane and
+// the (n_ctx, nty*th, ntx*128) varying planes (ctx may be null if n_ctx is 0).
+int fr_raster_planes(int th, int ntx, int nty, int n_pairs, int n_ctx, const int32_t* off,
+                     const int32_t* tri_i32, const float* tri_f32, float* depth,
+                     int32_t* winner, int32_t* ps, float* ctx, void* stream);
+
+// Batched bilinear sampler (K3): n samples (ps, u, v) → out (4, n) f32.
+int fr_sample_bilinear(const int32_t* dims, const int32_t* texels, int t_count, int hmax,
+                       int wmax, int opaque, int replicate_clamp_bug, const int32_t* ps,
+                       const float* u, const float* v, float* out, int64_t n,
+                       void* stream);
+
+// Mirrors kernels.VoxelParams: int32 and float fields only (no padding).
+typedef struct FrVoxelParams {
+  int32_t n;          // rays
+  int32_t r;          // table resolution, the table is r^3
+  int32_t dda;        // 0: fixed step per_t, 1: cell-exact steps
+  int32_t max_steps;  // watchdog on the per-ray loop
+  int32_t bg_packed;  // background BGRA8
+  float length;       // cube side
+  float cell;         // length / r, the cell-index divisor
+  float per_t;        // fixed step
+  float eps;          // dda step pad, cell * 1e-3
+} FrVoxelParams;
+
+// Voxel march (K5): n rays (start, dir, t_max, alive) through table (r^3,)
+// int32 (bit 24 = hit, BGR low) → out (n,) packed BGRA.
+int fr_voxel_march(FrVoxelParams p, const float* sx, const float* sy, const float* sz,
+                   const float* dx, const float* dy, const float* dz, const float* tmax,
+                   const int32_t* alive, const int32_t* table, int32_t* out, void* stream);
+
 // cudaGetErrorString for a code returned above.
 const char* fr_error_string(int err);
 

@@ -1,5 +1,6 @@
 // Bilinear RGBA8 texture sample by per-pixel texture id: a device function
-// called from the fused raster kernel's shading epilogue.
+// called from the fused raster kernel's shading epilogue (K1) and from the
+// standalone sampler kernel (K3, sample_bilinear.cu).
 //
 // Replaces the TPU kernel f_renderer_tpu/shaders/texture_pallas.py:95
 // (sample_packed_planar, "K2"). On the TPU the packed stack sat in VMEM and
@@ -12,7 +13,8 @@
 //
 // The arithmetic is K2's, expression by expression (the plain version is
 // shaders/texture_sampler.py:sample_packed_plain): fract() weights, the NaN
-// guard, the width-clamp-on-y quirk, the y clamp to hmax-1, taps summed as
+// guard, the width-clamp-on-y quirk (y clamps to w - 1 with
+// replicate_clamp_bug, else to h - 1), the y clamp to hmax-1, taps summed as
 // (((0 + w11 t11) + w12 t12) + w21 t21) + w22 t22 over u8 values and one
 // IEEE division by 255 (alpha is the weight sum for opaque stacks).
 #pragma once
@@ -25,7 +27,8 @@ __device__ __forceinline__ float fr_u8(uint32_t g, int c) {
 __device__ __forceinline__ void fr_sample(const int32_t* __restrict__ dims,
                                           const int32_t* __restrict__ texels,
                                           int t_count, int hmax, int wmax, bool opaque,
-                                          int ps, float u, float v, float out[4]) {
+                                          bool replicate_clamp_bug, int ps, float u, float v,
+                                          float out[4]) {
   if (ps < 0 || ps >= t_count) {  // background / no such texture: samples 0
     out[0] = out[1] = out[2] = out[3] = 0.0f;
     return;
@@ -40,7 +43,7 @@ __device__ __forceinline__ void fr_sample(const int32_t* __restrict__ dims,
   if (isnan(y)) y = 0.0f;
   const float a = x - truncf(x);
   const float b = y - truncf(y);
-  const int y_hi = w_t - 1;  // the width-clamp quirk (renderer.rs:523-525)
+  const int y_hi = (replicate_clamp_bug ? w_t : h_t) - 1;  // renderer.rs:523-525
   int x1 = (int)fminf(fmaxf(truncf(x), 0.0f), wf - 1.0f);
   int y1 = (int)fminf(fmaxf(truncf(y), 0.0f), (float)y_hi);
   x1 = max(x1, 0);

@@ -1,14 +1,23 @@
 """Build, bind and launch the hand-written CUDA kernels.
 
-The sources live in ``csrc/``. At first use they are compiled with ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, under
-``_build/`` beside this file and named by a hash of the sources and flags
-(an edited source builds anew). The library is loaded with ``ctypes``:
-pointers and the stream go as ``c_void_p``. Each C entry point returns
-``cudaGetLastError()`` after its launch, and the wrapper raises unless it is
-0. Nothing here falls back to anything: a failed build or launch raises.
+The sources live in ``csrc/``. At first use each ``.cu`` is compiled with
+its own ``nvcc`` for ``sm_90a`` (all started together), and the objects are
+linked into one shared library with a plain C interface, under ``_build/``
+beside this file and named by a hash of the sources and flags (an edited
+source builds anew). The library is loaded with ``ctypes``: pointers and the
+stream go as ``c_void_p``. Each C entry point returns ``cudaGetLastError()``
+after its launch, and the wrapper raises unless it is 0. Nothing here falls
+back to anything: a failed build or launch raises, and every wrapper takes
+CUDA tensors only.
 
-Each wrapper counts its launches (``fused_raster.launches``), so a run can
+The kernels (the TPU kernel each replaces in brackets):
+
+- ``fused_raster`` — K1 with the K2 sampler inlined (pipeline/fused.py:525);
+- ``raster_planes`` — K4 (pipeline/raster_pallas.py:1562);
+- ``sample_bilinear`` — K3 (shaders/texture_pallas.py:497);
+- ``voxel_march`` — K5 (voxel/raycast_pallas.py:393).
+
+Each wrapper counts its launches (``fused_raster.launches`` …), so a run can
 show that its main path went through the kernel.
 """
 
@@ -32,7 +41,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 
@@ -59,9 +68,25 @@ class FusedParams(ctypes.Structure):
     ]
 
 
-# Tile heights the kernel is instantiated for (rows per thread = th / 4).
+class VoxelParams(ctypes.Structure):
+    """Mirror of ``FrVoxelParams`` in csrc/kernels.h."""
+
+    _fields_ = [
+        ("n", ctypes.c_int32),
+        ("r", ctypes.c_int32),
+        ("dda", ctypes.c_int32),
+        ("max_steps", ctypes.c_int32),
+        ("bg_packed", ctypes.c_int32),
+        ("length", ctypes.c_float),
+        ("cell", ctypes.c_float),
+        ("per_t", ctypes.c_float),
+        ("eps", ctypes.c_float),
+    ]
+
+
+# Tile heights the raster kernels are instantiated for (rows per thread = th / 4).
 SUPPORTED_TH = (4, 8, 16, 32, 64, 128)
-MAX_CTX = 8
+MAX_CTX = 8  # the fused kernel's varying cap (K4 has none)
 
 
 def _nvcc() -> str:
@@ -79,6 +104,18 @@ def _sources():
     return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh", ".h"))
 
 
+def _run_all(cmds) -> None:
+    """Run the commands together; raise with the first failure's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{' '.join(cmd)} failed ({proc.returncode}):\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if the sources changed) and load the kernel library."""
@@ -89,16 +126,24 @@ def load_library() -> ctypes.CDLL:
     lib_path = BUILD_DIR / f"fr_kernels_{digest.hexdigest()[:16]}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(exist_ok=True)
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        units = [p for p in _sources() if p.suffix == ".cu"]
+        objs = [BUILD_DIR / f"{p.stem}.{tag}.o" for p in units]
+        nvcc = _nvcc()
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(p), "-o", str(o)] for p, o in zip(units, objs)])
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-        cmd += [str(p) for p in _sources() if p.suffix == ".cu"]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        for o in objs:
+            o.unlink()
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    lib.fr_fused_raster.argtypes = [FusedParams] + [ctypes.c_void_p] * 10
-    lib.fr_fused_raster.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fr_fused_raster.argtypes = [FusedParams] + [ptr] * 10
+    lib.fr_raster_planes.argtypes = [i32] * 5 + [ptr] * 8
+    lib.fr_sample_bilinear.argtypes = [ptr, ptr] + [i32] * 5 + [ptr] * 4 + [ctypes.c_int64, ptr]
+    lib.fr_voxel_march.argtypes = [VoxelParams] + [ptr] * 11
+    for fn in (lib.fr_fused_raster, lib.fr_raster_planes, lib.fr_sample_bilinear, lib.fr_voxel_march):
+        fn.restype = ctypes.c_int
     lib.fr_error_string.argtypes = [ctypes.c_int]
     lib.fr_error_string.restype = ctypes.c_char_p
     return lib
@@ -119,6 +164,30 @@ def _need(t: torch.Tensor, name: str, dtype, device, shape=None) -> None:
         raise ValueError(f"{name}: need shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _on_cuda(t: torch.Tensor, what: str) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} launches on CUDA tensors, got {t.device}")
+    return t.device
+
+
+def _check_bins(off, tri_i32, tri_f32, th, n_ctx, h_pad, w_pad):
+    """Check a binned pair list (pipeline/raster.py:prep_binned) → (ntx, nty)."""
+    dev = tri_i32.device
+    if th not in SUPPORTED_TH or w_pad % 128 or h_pad % th:
+        raise ValueError(f"tile ({th}, 128) over {h_pad}x{w_pad} is not supported")
+    n_pairs = tri_i32.shape[1]
+    ntx, nty = w_pad // 128, h_pad // th
+    n_off = ntx * nty + -(-ntx // 4) * -(-nty // 4) + 2
+    _need(off, "off", torch.int32, dev, (n_off,))
+    _need(tri_i32, "tri_i32", torch.int32, dev, (12, n_pairs))
+    _need(tri_f32, "tri_f32", torch.float32, dev, (9 + 3 * n_ctx, n_pairs))
+    return ntx, nty
+
+
 def fused_raster(
     off, tri_i32, tri_f32, view_pos, dims, texels, *,
     th, n_ctx, h_pad, w_pad, kind, opaque, bg_packed, light_pos, light_color,
@@ -126,19 +195,11 @@ def fused_raster(
     """Launch the fused raster + shade kernel (csrc/fused_raster.cu) on
     PyTorch's current stream → padded (rgba int32, depth f32, winner int32),
     each (h_pad, w_pad)."""
-    dev = tri_i32.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_raster launches on CUDA tensors, got {dev}")
-    if th not in SUPPORTED_TH or w_pad % 128 or h_pad % th:
-        raise ValueError(f"tile ({th}, 128) over {h_pad}x{w_pad} is not supported")
+    dev = _on_cuda(tri_i32, "fused_raster")
     if not 0 < n_ctx <= MAX_CTX:
         raise ValueError(f"n_ctx={n_ctx}: the kernel carries 1..{MAX_CTX} varyings")
     n_pairs = tri_i32.shape[1]
-    ntx, nty = w_pad // 128, h_pad // th
-    n_off = ntx * nty + -(-ntx // 4) * -(-nty // 4) + 2
-    _need(off, "off", torch.int32, dev, (n_off,))
-    _need(tri_i32, "tri_i32", torch.int32, dev, (12, n_pairs))
-    _need(tri_f32, "tri_f32", torch.float32, dev, (9 + 3 * n_ctx, n_pairs))
+    ntx, nty = _check_bins(off, tri_i32, tri_f32, th, n_ctx, h_pad, w_pad)
     _need(view_pos, "view_pos", torch.float32, dev, (3,))
     _need(texels, "texels", torch.int32, dev)
     _need(dims, "dims", torch.int32, dev, (texels.shape[0], 2))
@@ -156,7 +217,7 @@ def fused_raster(
     rgba = torch.empty((h_pad, w_pad), dtype=torch.int32, device=dev)
     depth = torch.empty((h_pad, w_pad), dtype=torch.float32, device=dev)
     winner = torch.empty((h_pad, w_pad), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     err = lib.fr_fused_raster(
         params,
         off.data_ptr(), tri_i32.data_ptr(), tri_f32.data_ptr(),
@@ -169,3 +230,95 @@ def fused_raster(
 
 
 fused_raster.launches = 0
+
+
+def raster_planes(off, tri_i32, tri_f32, *, th, n_ctx, h_pad, w_pad, interp):
+    """Launch the non-fused raster kernel (csrc/raster_planes.cu) on PyTorch's
+    current stream → padded (depth f32, winner int32) and, with ``interp``,
+    (ps int32, ctx (n_ctx, h_pad, w_pad) f32); else None for both. Any C."""
+    dev = _on_cuda(tri_i32, "raster_planes")
+    ntx, nty = _check_bins(off, tri_i32, tri_f32, th, n_ctx, h_pad, w_pad)
+    lib = load_library()
+    depth = torch.empty((h_pad, w_pad), dtype=torch.float32, device=dev)
+    winner = torch.empty((h_pad, w_pad), dtype=torch.int32, device=dev)
+    ps = ctx = None
+    if interp:
+        ps = torch.empty((h_pad, w_pad), dtype=torch.int32, device=dev)
+        ctx = torch.empty((n_ctx, h_pad, w_pad), dtype=torch.float32, device=dev)
+    err = lib.fr_raster_planes(
+        th, ntx, nty, tri_i32.shape[1], n_ctx,
+        off.data_ptr(), tri_i32.data_ptr(), tri_f32.data_ptr(),
+        depth.data_ptr(), winner.data_ptr(),
+        None if ps is None else ps.data_ptr(),
+        None if ctx is None or n_ctx == 0 else ctx.data_ptr(),
+        _stream(dev),
+    )
+    _check(lib, err, "fr_raster_planes")
+    raster_planes.launches += 1
+    return depth, winner, ps, ctx
+
+
+raster_planes.launches = 0
+
+
+def sample_bilinear(texels, dims, ps, u, v, *, opaque, replicate_clamp_bug):
+    """Launch the batched sampler kernel (csrc/sample_bilinear.cu) on
+    PyTorch's current stream → (4, *ps.shape) f32."""
+    dev = _on_cuda(ps, "sample_bilinear")
+    _need(texels, "texels", torch.int32, dev)
+    if texels.dim() != 3:
+        raise ValueError(f"texels: need (T, Hmax, Wmax), got {tuple(texels.shape)}")
+    _need(dims, "dims", torch.int32, dev, (texels.shape[0], 2))
+    _need(ps, "ps", torch.int32, dev)
+    _need(u, "u", torch.float32, dev, ps.shape)
+    _need(v, "v", torch.float32, dev, ps.shape)
+    out = torch.empty((4,) + tuple(ps.shape), dtype=torch.float32, device=dev)
+    n = ps.numel()
+    if n == 0:
+        return out
+    lib = load_library()
+    t_count, hmax, wmax = texels.shape
+    err = lib.fr_sample_bilinear(
+        dims.data_ptr(), texels.data_ptr(), t_count, hmax, wmax,
+        int(bool(opaque)), int(bool(replicate_clamp_bug)),
+        ps.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(), n, _stream(dev),
+    )
+    _check(lib, err, "fr_sample_bilinear")
+    sample_bilinear.launches += 1
+    return out
+
+
+sample_bilinear.launches = 0
+
+
+def voxel_march(start, dirs, t_max, alive, table, *, r, length, cell, per_t, eps, dda, bg_packed, max_steps):
+    """Launch the voxel march kernel (csrc/voxel_march.cu) on PyTorch's
+    current stream. ``start`` and ``dirs`` are three f32 planes each, of
+    ``t_max``'s shape; ``alive`` int32 of that shape; ``table`` (r³,) int32
+    → packed BGRA int32 of that shape."""
+    dev = _on_cuda(t_max, "voxel_march")
+    shape = tuple(t_max.shape)
+    for name, planes in (("start", start), ("dirs", dirs)):
+        for a, t in enumerate(planes):
+            _need(t, f"{name}[{a}]", torch.float32, dev, shape)
+    _need(t_max, "t_max", torch.float32, dev, shape)
+    _need(alive, "alive", torch.int32, dev, shape)
+    _need(table, "table", torch.int32, dev, (r * r * r,))
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    n = t_max.numel()
+    if n == 0:
+        return out
+    lib = load_library()
+    params = VoxelParams(
+        n=n, r=r, dda=int(bool(dda)), max_steps=max_steps, bg_packed=bg_packed,
+        length=length, cell=cell, per_t=per_t, eps=eps,
+    )
+    err = lib.fr_voxel_march(
+        params, *(t.data_ptr() for t in (*start, *dirs, t_max, alive, table, out)), _stream(dev)
+    )
+    _check(lib, err, "fr_voxel_march")
+    voxel_march.launches += 1
+    return out
+
+
+voxel_march.launches = 0

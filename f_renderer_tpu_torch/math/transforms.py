@@ -38,6 +38,17 @@ def true_div(a, b):
     return torch.div(a, b)
 
 
+def true_sqrt(x):
+    """Correctly rounded float32 ``sqrt(x)`` on any device.
+
+    PyTorch's vectorized CPU sqrt is off by one ulp on some inputs; the
+    square root taken in float64 and rounded once to float32 is the
+    correctly rounded one (53 ≥ 2·24 + 2 bits), as CUDA's ``sqrtf`` and
+    XLA's are.
+    """
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def _dot3(a, b):
     """Σ a_i b_i over the last axis of size 3, left to right."""
     return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]

@@ -1,9 +1,19 @@
-"""Raster setup and binning for the fused kernel.
+"""Binned rasterization: setup, binning, and the raster without shading.
 
-Port of the prep half of ``f_renderer_tpu/pipeline/raster_pallas.py``
-(:47-91, :178-269, :316-436): the field-row layout, ``pack_setup`` and
-``bin_pairs``. On the TPU these ran as XLA ops, and here they stay plain
-PyTorch ops on the tensors' device.
+Port of ``f_renderer_tpu/pipeline/raster_pallas.py``: the field-row layout,
+``pack_setup`` and ``bin_pairs`` (:47-91, :178-269, :316-436), which stay
+plain PyTorch ops on the tensors' device as they were XLA ops on the TPU,
+and the two entry points of its non-fused raster kernel (K4),
+:func:`rasterize` (``rasterize_pallas :1583``) and :func:`rasterize_interp`
+(``rasterize_interp_pallas :1617``).
+
+Both kernels that rasterize, the fused one (K1, ``pipeline/fused.py``) and
+K4, read the same prep (:func:`prep_binned`: pack, bin, pair-order gather)
+and run the same per-tile loop (``csrc/raster_loop.cuh``); their plain
+versions share :func:`raster_tiles_plain` and :func:`interpolate_plain`.
+K4 replaces the TPU kernel's chunk scan (``compact_sort``, ``chunk_bounds``,
+DMA semaphores) with these exact per-tile pair lists; the per-pixel merge is
+order-free, so the winners are the same.
 
 Integer arithmetic follows the JAX package's wrapped int32 semantics
 (Rust release-mode overflow, renderer.rs:329-331): the affine edge
@@ -14,8 +24,11 @@ overflow in between.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from f_renderer_tpu_torch.math.transforms import true_div
 from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
 
 ORDER_NONE = -2147483648
@@ -41,6 +54,7 @@ RHW0, RHW1, RHW2 = 6, 7, 8
 CTX0 = 9
 
 COARSE = 4  # coarse tile = COARSE×COARSE fine tiles (hierarchical binning)
+LANES = 128  # bin tile width
 
 
 def cdiv(a: int, b: int) -> int:
@@ -187,3 +201,209 @@ def bin_pairs(tri_i32, tile, grid_hw, k: int, chunk: int, m_dummy: int, kc: int 
     )
     pos = torch.arange(n_pad, device=key.device)
     return torch.where(pos < off[ntiles + ntilesc + 1], ptri_s, m_dummy), off
+
+
+@dataclasses.dataclass(frozen=True)
+class BinnedPrep:
+    """Products of :func:`prep_binned`: what the raster kernels read."""
+
+    off: torch.Tensor  # (ntiles + ntilesc + 2,) int32 pair-range offsets
+    tri_i32: torch.Tensor  # (NF_I, n_pairs) int32, pair order
+    tri_f32: torch.Tensor  # (9 + 3C, n_pairs) float32, pair order
+    th: int  # bin tile rows (the tile is th × 128)
+    n_ctx: int
+    height: int
+    width: int
+    h_pad: int
+    w_pad: int
+
+
+def prep_binned(
+    tri: TriangleBuffer,
+    width: int,
+    height: int,
+    tile=None,
+    *,
+    tile_auto: bool = True,
+    tile_auto_threshold: int = 300_000,
+    bin_k: int | None = None,
+) -> BinnedPrep:
+    """Pack + bin + pair-order gather (fused.py:160-350 of the JAX package).
+
+    ``tile`` (rows, 128); None picks (32, 128), or (128, 128) for scenes of
+    at most 2048 slots; ``tile_auto`` makes tiles at least 64 rows tall above
+    ``tile_auto_threshold`` slots. ``bin_k`` caps the fine tiles a triangle
+    may span before it goes to the coarse or spill range (None: size
+    heuristic).
+    """
+    n_slots, n_ctx = tri.num_slots, tri.num_channels
+    m_pad = cdiv(n_slots + 1, LANES) * LANES  # ≥ 1 empty padding slot: the dummy
+    tri_i32, tri_f32 = pack_setup(tri, width, height, m_pad)
+    th, tw = tile if tile is not None else (32, LANES)
+    if tw != LANES:
+        raise ValueError(f"binned raster needs tile width {LANES}, got {tw}")
+    if tile_auto and n_slots > tile_auto_threshold:
+        th = max(th, 64)  # huge scenes: fewer, taller tiles
+    elif tile_auto and tile is None and n_slots <= 2048:
+        th = 128  # tiny scenes are bound by the tile count, not by pairs
+    k = bin_k or (4 if n_slots <= 300_000 else 2)
+    h_pad = cdiv(height, th) * th
+    w_pad = cdiv(width, tw) * tw
+    ptri, off = bin_pairs(tri_i32, (th, tw), (h_pad // th, w_pad // tw), k, LANES, m_dummy=n_slots, kc=k)
+    return BinnedPrep(
+        off=off,
+        tri_i32=tri_i32.index_select(1, ptri),
+        tri_f32=tri_f32.index_select(1, ptri),
+        th=th,
+        n_ctx=n_ctx,
+        height=height,
+        width=width,
+        h_pad=h_pad,
+        w_pad=w_pad,
+    )
+
+
+def _tile_plain(tri_i32, tri_f32, idx, cx, cy):
+    """Per-pixel strict (rhw, order) maximum over one tile's pairs ``idx``.
+
+    The sequential merge ``accept = cover & (rhw > d | (rhw >= d & o > o_d))``
+    from (0.0, ORDER_NONE) ends at the lexicographic maximum of
+    {background} ∪ covered pairs, so it is computed as one (the pairs of a
+    tile have distinct orders). Returns (depth, winning pair or -1).
+    """
+    i = tri_i32[:, idx].long()[:, :, None, None]  # (12, P, 1, 1)
+    f = tri_f32[:9, idx][:, :, None, None]
+    e01 = _w(i[A01] * cx + i[B01] * cy + i[C01])
+    e20 = _w(i[A20] * cx + i[B20] * cy + i[C20])
+    e12 = _w(i[AREA2] - e01 - e20)
+    maxx, maxy = unpack_xy(i[MAXXY])
+    cover = (e01 | e12 | e20 | (maxx - 1 - cx) | (maxy - 1 - cy)) >= 0
+    pcx = cx.to(torch.float32) + 0.5
+    pcy = cy.to(torch.float32) + 0.5
+    s0x, s0y = f[S0X] - pcx, f[S0Y] - pcy
+    s1x, s1y = f[S1X] - pcx, f[S1Y] - pcy
+    s2x, s2y = f[S2X] - pcx, f[S2Y] - pcy
+    a = torch.abs(s1x * s2y - s1y * s2x)
+    b = torch.abs(s2x * s0y - s2y * s0x)
+    c = torch.abs(s0x * s1y - s0y * s1x)
+    s = a + b + c
+    inv_s = true_div(1.0, s)
+    rhw = f[RHW0] * (a * inv_s) + f[RHW1] * (b * inv_s) + f[RHW2] * (c * inv_s)
+    ok = cover & (s != 0.0) & ~torch.isnan(rhw)  # a NaN rhw is never accepted
+    m1 = torch.where(ok, rhw, float("-inf")).amax(0)
+    order = i[ORDER]
+    tie = ok & (rhw == m1)
+    m2 = torch.where(tie, order, ORDER_NONE).amax(0)
+    accept = (m1 > 0.0) | ((m1 == 0.0) & (m2 > ORDER_NONE))
+    arg = (tie & (order == m2)).to(torch.uint8).argmax(0)
+    depth = torch.gather(rhw.expand(-1, *arg.shape), 0, arg[None])[0]
+    return torch.where(accept, depth, 0.0), torch.where(accept, idx[arg], -1)
+
+
+def raster_tiles_plain(prep: BinnedPrep):
+    """The per-tile loop of both raster kernels (``csrc/raster_loop.cuh``),
+    plain: each tile's fine, coarse and spill pair ranges merged per pixel.
+    Returns padded (depth f32, winning pair int64 or -1), (h_pad, w_pad)."""
+    dev = prep.tri_i32.device
+    th, tw = prep.th, LANES
+    nty, ntx = prep.h_pad // th, prep.w_pad // tw
+    ntiles = nty * ntx
+    ntxc = cdiv(ntx, COARSE)
+    ntilesc = cdiv(nty, COARSE) * ntxc
+    off = prep.off.tolist()
+    depth = torch.zeros((prep.h_pad, prep.w_pad), dtype=torch.float32, device=dev)
+    wpair = torch.full((prep.h_pad, prep.w_pad), -1, dtype=torch.int64, device=dev)
+    rows = torch.arange(th, device=dev)[:, None]
+    cols = torch.arange(tw, device=dev)[None, :]
+    spill = ntiles + ntilesc
+    for ty in range(nty):
+        for tx in range(ntx):
+            t = ty * ntx + tx
+            c = ntiles + (ty // COARSE) * ntxc + tx // COARSE
+            idx = torch.cat([torch.arange(off[r], off[r + 1], device=dev) for r in (t, c, spill)])
+            if idx.numel() == 0:
+                continue
+            d, w = _tile_plain(prep.tri_i32, prep.tri_f32, idx, tx * tw + cols, ty * th + rows)
+            depth[ty * th : (ty + 1) * th, tx * tw : (tx + 1) * tw] = d
+            wpair[ty * th : (ty + 1) * th, tx * tw : (tx + 1) * tw] = w
+    return depth, wpair
+
+
+def interpolate_plain(prep: BinnedPrep, depth, wpair):
+    """Interpolate the winner's varyings once per pixel, perspective-correct
+    (renderer.rs:368-378), with the final depth (raster_pallas.py:1102-1149).
+
+    Returns padded (ctx (C, h_pad, w_pad) f32, winner slot int32, ps int32),
+    with ctx 0, winner -1 and ps 0 where no pair won.
+    """
+    dev = prep.tri_i32.device
+    ti, tf = prep.tri_i32, prep.tri_f32
+    has = wpair >= 0
+    wp = torch.clamp(wpair, min=0)
+    g = tf[:, wp]  # (9 + 3C, h_pad, w_pad)
+    pcy = torch.arange(prep.h_pad, device=dev, dtype=torch.float32)[:, None] + 0.5
+    pcx = torch.arange(prep.w_pad, device=dev, dtype=torch.float32)[None, :] + 0.5
+    s0x, s0y = g[S0X] - pcx, g[S0Y] - pcy
+    s1x, s1y = g[S1X] - pcx, g[S1Y] - pcy
+    s2x, s2y = g[S2X] - pcx, g[S2Y] - pcy
+    a = torch.abs(s1x * s2y - s1y * s2x)
+    b = torch.abs(s2x * s0y - s2y * s0x)
+    c = torch.abs(s0x * s1y - s0y * s1x)
+    inv_s = true_div(1.0, a + b + c)
+    w_corr = true_div(1.0, torch.where(depth != 0.0, depth, 1.0))
+    c0 = g[RHW0] * (a * inv_s) * w_corr
+    c1 = g[RHW1] * (b * inv_s) * w_corr
+    c2 = g[RHW2] * (c * inv_s) * w_corr
+    n = prep.n_ctx
+    ctx = torch.stack(
+        [g[CTX0 + ch] * c0 + g[CTX0 + n + ch] * c1 + g[CTX0 + 2 * n + ch] * c2 for ch in range(n)]
+    ) if n else torch.zeros((0, prep.h_pad, prep.w_pad), device=dev)
+    ctx = torch.where(has, ctx, 0.0)
+    winner = torch.where(has, ti[SLOT][wp], -1)
+    ps = torch.where(has, ti[PS][wp] & PS_MASK, 0)
+    return ctx, winner, ps
+
+
+def raster_planes_plain(prep: BinnedPrep, interp: bool):
+    """Plain version of K4 (``csrc/raster_planes.cu``), on the tensors' device:
+    padded (depth, winner) and, with ``interp``, (ps, ctx (C, h_pad, w_pad))."""
+    depth, wpair = raster_tiles_plain(prep)
+    ctx, winner, ps = interpolate_plain(prep, depth, wpair)
+    if not interp:
+        return depth, winner, None, None
+    return depth, winner, ps, ctx
+
+
+def raster_planes(prep: BinnedPrep, interp: bool):
+    """K4 on :func:`prep_binned` products: CUDA tensors launch the kernel
+    (``kernels.raster_planes``), CPU tensors run the plain version. Returns
+    the padded planes of :func:`raster_planes_plain`."""
+    dev = prep.tri_i32.device
+    if dev.type == "cpu":
+        return raster_planes_plain(prep, interp)
+    from f_renderer_tpu_torch import kernels
+
+    return kernels.raster_planes(
+        prep.off, prep.tri_i32, prep.tri_f32,
+        th=prep.th, n_ctx=prep.n_ctx, h_pad=prep.h_pad, w_pad=prep.w_pad, interp=interp,
+    )
+
+
+def rasterize(tri: TriangleBuffer, width: int, height: int, tile=None):
+    """Rasterize to per-pixel (winner (H, W) int32, depth (H, W) f32).
+
+    ``winner`` is the TriangleBuffer slot id of the pixel's front triangle,
+    -1 where none covers it. ``tile`` as in :func:`prep_binned`.
+    """
+    depth, winner, _, _ = raster_planes(prep_binned(tri, width, height, tile), interp=False)
+    return winner[:height, :width], depth[:height, :width]
+
+
+def rasterize_interp(tri: TriangleBuffer, width: int, height: int, tile=None):
+    """Rasterize and interpolate the C varyings of each pixel's winner.
+
+    Returns ``(ctx (C, H, W) f32, ps_index (H, W) int32, winner (H, W)
+    int32, depth (H, W) f32)``; ctx is 0 and ps 0 where winner < 0. Any C.
+    """
+    depth, winner, ps, ctx = raster_planes(prep_binned(tri, width, height, tile), interp=True)
+    return ctx[:, :height, :width], ps[:height, :width], winner[:height, :width], depth[:height, :width]

@@ -1,8 +1,11 @@
-"""End-to-end frame rendering: geometry → fused raster + shade.
+"""End-to-end frame rendering: geometry → raster → shade.
 
-Port of ``f_renderer_tpu/pipeline/render.py`` for the fused path: geometry
-over all draws builds one submission-ordered triangle list (phong.rs:314-387),
-then one kernel rasterizes and shades it. A "draw" is one mesh batch sharing
+Port of ``f_renderer_tpu/pipeline/render.py`` (its pallas backend):
+geometry over all draws builds one submission-ordered triangle list
+(phong.rs:314-387); then either one fused kernel rasterizes and shades it
+(builtin ``fused_kind`` shaders), or the raster kernel interpolates the
+varyings (``raster.rasterize_interp``) and the pixel shader runs once over
+the frame (``shade.shade_from_planes``). A "draw" is one mesh batch sharing
 a ps_index (the reference's PLACE enum selecting a texture, phong.rs:34-38).
 """
 
@@ -13,9 +16,12 @@ from typing import Callable, Sequence
 
 import torch
 
-from f_renderer_tpu_torch.pipeline.fused import render_fused
+from f_renderer_tpu_torch.pipeline.fused import fused_path_ok, render_fused
 from f_renderer_tpu_torch.pipeline.geometry import MAX_FAN, geometry_process
+from f_renderer_tpu_torch.pipeline.raster import rasterize_interp
+from f_renderer_tpu_torch.pipeline.shade import shade_from_planes
 from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
+from f_renderer_tpu_torch.shaders.api import ContextCodec
 
 I32_MAX = 2147483647
 
@@ -39,6 +45,9 @@ class RenderConfig:
     # Per-tile pair-expansion cap (None = size heuristic). Small values force
     # the coarse-bin and spill ranges.
     bin_k: int | None = None
+    # Builtin (fused_kind) shaders run in the fused kernel; False sends them
+    # through rasterize_interp + shade_from_planes like custom shaders.
+    fused_shade: bool = True
 
 
 def apply_ps_boundary_quirk(tri: TriangleBuffer, slot_ranges) -> TriangleBuffer:
@@ -99,6 +108,17 @@ def build_triangles(draws: Sequence, vertex_shader: Callable, vs_uniform, config
     return tri, {"num_clipped": num_clipped}
 
 
+def context_codec(vertex_shader: Callable, vs_uniform, draw) -> ContextCodec:
+    """The varying layout the vertex shader emits, from one zero vertex of
+    ``draw`` (the JAX package's make_context_codec)."""
+    example = {
+        k: torch.zeros((1,) + tuple(v.shape[2:]), dtype=torch.float32, device=v.device)
+        for k, v in draw.items()
+    }
+    _, ctx = vertex_shader(vs_uniform, example)
+    return ContextCodec.of(ctx)
+
+
 def render_frame(
     draws: Sequence,
     vertex_shader: Callable,
@@ -109,10 +129,23 @@ def render_frame(
 ):
     """Render one frame → (frame (H, W, 4) uint8, depth (H, W) f32, stats).
 
-    ``draws``: a sequence of dicts of (F_d, 3, k) tensors. Only pixel shaders
-    tagged ``fused_kind`` (the builtins) are supported: the non-fused path
-    for custom shaders is not ported yet (``render_fused`` raises).
+    ``draws``: a sequence of dicts of (F_d, 3, k) tensors. A pixel shader
+    tagged ``fused_kind`` (the builtins) runs in the fused kernel when
+    ``config.fused_shade`` is set and its texture stack fits
+    (``fused_path_ok``); every other shader runs on the planes that the
+    raster kernel interpolates (render.py:248-267 of the JAX package).
     """
     tri, stats = build_triangles(draws, vertex_shader, vs_uniform, config)
-    frame, depth, _ = render_fused(tri, pixel_shader, ps_uniform, config)
+    if (
+        config.fused_shade
+        and hasattr(pixel_shader, "fused_kind")
+        and fused_path_ok(pixel_shader, ps_uniform)
+    ):
+        frame, depth, _ = render_fused(tri, pixel_shader, ps_uniform, config)
+        return frame, depth, stats
+    codec = context_codec(vertex_shader, vs_uniform, draws[0])
+    ctx, ps_idx, winner, depth = rasterize_interp(tri, config.width, config.height, tile=config.tile)
+    frame = shade_from_planes(
+        ctx, ps_idx, winner, pixel_shader, ps_uniform, codec, background=config.background
+    )
     return frame, depth, stats

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from f_renderer_tpu_torch.camera import Camera
+from f_renderer_tpu_torch.device import resolve_device
 from f_renderer_tpu_torch.math import set_identity, set_perspective
 from f_renderer_tpu_torch.pipeline.render import RenderConfig, render_frame
 from f_renderer_tpu_torch.shaders import (
@@ -23,14 +24,6 @@ from f_renderer_tpu_torch.shaders import (
     make_phong_shaders,
     make_textured_shaders,
 )
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; CUDA must be present when asked for."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not available")
-    return device
 
 
 @dataclasses.dataclass
@@ -47,7 +40,7 @@ class Scene:
     vs_uniform: dict
     ps_uniform: dict
     config: RenderConfig
-    device: torch.device
+    device: torch.device = "cuda"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -165,7 +158,7 @@ def make_phong_scene(
     camera: Camera | None = None,
     clip_cap: int = 256,
     shader: str = "phong",
-    device="cpu",
+    device="cuda",
 ) -> Scene:
     """A ready-to-render multi-mesh scene (the phong.rs workload shape).
 

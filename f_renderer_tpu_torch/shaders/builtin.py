@@ -13,7 +13,10 @@ Pixel shaders carry ``fused_kind`` (and the light constants) so the fused
 path knows them. Their bodies are the plain version of the fused kernel's
 shading epilogue (``csrc/fused_raster.cu``), written with the same
 expression shapes: the JAX package's planar epilogue (fused.py:46-117),
-not its norm-based ``_phong_lighting``.
+not its norm-based ``_phong_lighting``. The shaders sample with
+``TextureStack.sample`` (the K3 kernel on the card); ``shade_plain`` runs
+the same bodies with the plain sampler, for the fused kernel's plain
+version.
 
 Phong constants match phong.rs:128-132: white light at (1.2, 1.0, 2.0),
 ambient 0.1, specular 0.5 · (V·R)^32.
@@ -24,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from f_renderer_tpu_torch.math import mat_mul4, mat_vec4, normalize, reflect
-from f_renderer_tpu_torch.math.transforms import _dot3, true_div
+from f_renderer_tpu_torch.math.transforms import _dot3, true_div, true_sqrt
 from f_renderer_tpu_torch.shaders.texture import TextureStack
 
 LIGHT_COLOR = (1.0, 1.0, 1.0)
@@ -66,7 +69,7 @@ def _phong_lighting(normal, world_pos, view_pos, light_pos, light_color):
 def _normalize3(x, y, z):
     """Planar normalize by 1/sqrt — correctly rounded sqrt and divide, so the
     plain version and the kernel (which does the same) agree to the bit."""
-    inv = true_div(1.0, torch.sqrt((x * x + y * y) + z * z))
+    inv = true_div(1.0, true_sqrt((x * x + y * y) + z * z))
     return x * inv, y * inv, z * inv
 
 
@@ -92,6 +95,41 @@ def _textures(u, device) -> TextureStack:
     return stack if stack is not None else TextureStack.dummy(device)
 
 
+def _flat_pixel(ctx):
+    return ctx["color"]
+
+
+def _gouraud_pixel(ctx):
+    color = ctx["color"]
+    return torch.cat([color, torch.ones_like(color[:1])])
+
+
+def _textured_pixel(sample, ctx, ps_index):
+    return sample(ps_index, ctx["uv"][0], ctx["uv"][1])
+
+
+def _phong_pixel(sample, u, ctx, ps_index, light_pos, light_color):
+    light = phong_light_planar(ctx["normal"], ctx["pos"], u["view_pos"], light_pos, light_color)
+    tex = sample(ps_index, ctx["uv"][0], ctx["uv"][1])
+    return torch.stack([tex[0] * light[0], tex[1] * light[1], tex[2] * light[2], tex[3]])
+
+
+def shade_plain(kind, u, ctx, ps_index, light_pos=LIGHT_POS, light_color=LIGHT_COLOR):
+    """The builtin pixel shader of ``fused_kind`` ``kind``, sampling textures
+    with the plain sampler: the plain version of the fused kernel's shading
+    epilogue, which launches no kernel on any device."""
+    sample = _textures(u, ps_index.device).sample_plain
+    if kind == "flat":
+        return _flat_pixel(ctx)
+    if kind == "gouraud":
+        return _gouraud_pixel(ctx)
+    if kind == "textured":
+        return _textured_pixel(sample, ctx, ps_index)
+    if kind == "phong":
+        return _phong_pixel(sample, u, ctx, ps_index, light_pos, light_color)
+    raise ValueError(f"no builtin shading of kind {kind!r}")
+
+
 class FlatShader:
     """Per-face constant color: the context carries an rgba color attribute."""
 
@@ -102,7 +140,7 @@ class FlatShader:
 
     @staticmethod
     def pixel(u, ctx, ps_index):
-        return ctx["color"]
+        return _flat_pixel(ctx)
 
 
 FlatShader.pixel.fused_kind = "flat"
@@ -122,11 +160,8 @@ def make_phong_shaders(light_pos=LIGHT_POS, light_color=LIGHT_COLOR):
         return clip, {"uv": vin["uv"], "normal": vin["normal"], "pos": world[:3].T}
 
     def pixel(u, ctx, ps_index):
-        light = phong_light_planar(
-            ctx["normal"], ctx["pos"], u["view_pos"], light_pos, light_color
-        )
-        tex = _textures(u, ps_index.device).sample(ps_index, ctx["uv"][0], ctx["uv"][1])
-        return torch.stack([tex[0] * light[0], tex[1] * light[1], tex[2] * light[2], tex[3]])
+        sample = _textures(u, ps_index.device).sample
+        return _phong_pixel(sample, u, ctx, ps_index, light_pos, light_color)
 
     pixel.fused_kind = "phong"
     pixel.light_pos = tuple(light_pos)
@@ -142,7 +177,7 @@ def make_textured_shaders():
         return clip, {"uv": vin["uv"]}
 
     def pixel(u, ctx, ps_index):
-        return _textures(u, ps_index.device).sample(ps_index, ctx["uv"][0], ctx["uv"][1])
+        return _textured_pixel(_textures(u, ps_index.device).sample, ctx, ps_index)
 
     pixel.fused_kind = "textured"
     return vertex, pixel
@@ -162,8 +197,7 @@ def make_gouraud_shaders(light_pos=LIGHT_POS, light_color=LIGHT_COLOR):
         return clip, {"color": light if base is None else base * light}
 
     def pixel(u, ctx, ps_index):
-        color = ctx["color"]
-        return torch.cat([color, torch.ones_like(color[:1])])
+        return _gouraud_pixel(ctx)
 
     pixel.fused_kind = "gouraud"
     pixel.light_pos = tuple(light_pos)

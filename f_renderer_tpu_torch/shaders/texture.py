@@ -21,14 +21,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from f_renderer_tpu_torch.device import resolve_device
 from f_renderer_tpu_torch.shaders.texture_sampler import sample_packed_plain
 
 LANES = 128
 
 # The routing limit of the JAX package's fused path, in bytes of ITS packed
 # layout (``TextureStack.packed_nbytes`` there). A stack past it leaves the
-# fused path in the JAX package; the port has no other path yet, so it
-# raises there instead (pipeline/fused.py:fused_path_ok).
+# fused path for rasterize_interp + shade_from_planes, in both packages
+# (pipeline/fused.py:fused_path_ok). It is a TPU VMEM limit; the card's
+# fused kernel reads texels through L2 and could take larger stacks.
 PACKED_VMEM_BUDGET = 8 * 1024 * 1024
 
 
@@ -78,9 +80,10 @@ class TextureStack:
         return self.t_count * pages * _hmax_padded(self.hmax) * LANES * 4
 
     @staticmethod
-    def create(textures, *, device=None) -> "TextureStack":
+    def create(textures, *, device="cuda") -> "TextureStack":
         """Build from a list of (H, W, 4) u8 or float arrays (floats are
         quantized to u8 once, as the reference's textures are u8 images)."""
+        device = resolve_device(device)
         texq = [_quantize(t) for t in textures]
         hmax = max(t.shape[0] for t in texq)
         wmax = max(t.shape[1] for t in texq)
@@ -96,7 +99,7 @@ class TextureStack:
         )
 
     @staticmethod
-    def from_data(data, dims, *, device=None) -> "TextureStack":
+    def from_data(data, dims, *, device="cuda") -> "TextureStack":
         """From a padded (T, Hmax, Wmax, 4) f32 stack of k/255 values plus
         its (T, 2) dims — the JAX package's ``TextureStack.data``/``dims``."""
         dims = np.asarray(dims, np.int32)
@@ -107,17 +110,42 @@ class TextureStack:
         )
 
     @staticmethod
-    def dummy(device=None) -> "TextureStack":
+    def dummy(device="cuda") -> "TextureStack":
         """One 1×1 all-zero texel: what a textured shader samples when the
         uniforms carry no stack (the JAX package's dummy stack)."""
+        device = resolve_device(device)
         return TextureStack(
             texels=torch.zeros((1, 1, 1), dtype=torch.int32, device=device),
             dims=torch.ones((1, 2), dtype=torch.int32, device=device),
             opaque=False,
         )
 
-    def sample(self, index, u, v):
-        """Bilinear sample (plain PyTorch) → (4, *index.shape) f32."""
+    def sample(self, index, u, v, *, replicate_clamp_bug: bool = True):
+        """Bilinear sample → (4, *index.shape) f32.
+
+        ``index`` holds each sample's texture id (-1: none, samples 0), ``u``
+        and ``v`` its coordinates, all of one shape. On CUDA tensors this
+        launches the sampler kernel (K3, ``kernels.sample_bilinear``); on CPU
+        tensors it runs the plain version.
+        """
+        if index.device.type == "cpu":
+            return self.sample_plain(index, u, v, replicate_clamp_bug=replicate_clamp_bug)
+        from f_renderer_tpu_torch import kernels
+
+        return kernels.sample_bilinear(
+            self.texels,
+            self.dims,
+            index.to(torch.int32).contiguous(),
+            u.to(torch.float32).contiguous(),
+            v.to(torch.float32).contiguous(),
+            opaque=self.opaque,
+            replicate_clamp_bug=replicate_clamp_bug,
+        )
+
+    def sample_plain(self, index, u, v, *, replicate_clamp_bug: bool = True):
+        """The plain PyTorch version of :meth:`sample` on the tensors' own
+        device; it launches no kernel."""
         return sample_packed_plain(
-            self.texels, self.dims, index, u, v, opaque=self.opaque
+            self.texels, self.dims, index, u, v,
+            opaque=self.opaque, replicate_clamp_bug=replicate_clamp_bug,
         )

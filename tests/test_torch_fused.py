@@ -119,7 +119,7 @@ def frame_bar(got, want, edge_budget=0.002):
 
 def port_inputs(name, ref):
     shader, _, _, over = CASES[name]
-    tri = convert.triangles_from_arrays({f: ref[f"{name}/tri/{f}"] for f in TRI_FIELDS})
+    tri = convert.triangles_from_arrays({f: ref[f"{name}/tri/{f}"] for f in TRI_FIELDS}, device="cpu")
     scene = convert.scene_from_arrays(
         draws=[],
         vs_uniform={},
@@ -129,6 +129,7 @@ def port_inputs(name, ref):
         },
         shader_kind=shader,
         config=dict(width=W, height=H, background=(30, 30, 30, 255), clip_cap=32, **over),
+        device="cpu",
     )
     return tri, scene
 
@@ -180,20 +181,42 @@ def test_cpu_tensors_take_plain_version_without_launch(ref):
 
 
 def test_custom_or_oversized_shading_raises(monkeypatch):
-    """Where the JAX package leaves the fused path the port raises: that
-    path is not ported yet."""
-    scene = make_port_scene(W, H, clip_cap=16)
+    """Where the JAX package leaves the fused path (a shader without
+    ``fused_kind``, a texture stack past the budget) the port now routes to
+    ``rasterize_interp`` + ``shade_from_planes`` too, and renders; within
+    the budget the builtin shader stays on the fused path."""
+    from f_renderer_tpu_torch.pipeline import render as render_mod
+
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+
+        monkeypatch.setattr(render_mod, name, wrapped)
+
+    spy("render_fused", render_mod.render_fused)
+    spy("rasterize_interp", render_mod.rasterize_interp)
+    scene = make_port_scene(W, H, clip_cap=16, device="cpu")
 
     def custom(u, ctx, ps_index):
-        return ctx["uv"]
+        uv = ctx["uv"]
+        return torch.stack([uv[0], uv[1], torch.zeros_like(uv[0]), torch.ones_like(uv[0])])
 
-    with pytest.raises(NotImplementedError):
-        fused.check_fused_path(custom, scene.ps_uniform)
-    scene.render()  # within the budget: renders
+    assert fused.fused_path_ok(scene.pixel_shader, scene.ps_uniform)
+    fused_frame, _, _ = scene.render()  # within the budget: the fused path
+    assert calls == ["render_fused"]
+    frame, _, _ = dataclasses.replace(scene, pixel_shader=custom).render()
+    assert calls[1:] == ["rasterize_interp"]
+    assert frame.shape == (H, W, 4) and (frame[..., 2] == 0).sum() > 300  # shaded by `custom`
     monkeypatch.setattr(fused, "PACKED_VMEM_BUDGET", 1024)
     assert scene.ps_uniform["textures"].packed_nbytes > 1024
-    with pytest.raises(NotImplementedError):
-        scene.render()
+    assert not fused.fused_path_ok(scene.pixel_shader, scene.ps_uniform)
+    big_frame, _, _ = scene.render()
+    assert calls[2:] == ["rasterize_interp"]
+    # The builtin phong shader on the interpolated planes gives the fused frame.
+    frame_bar(big_frame.numpy(), fused_frame.numpy())
 
 
 @pytest.mark.cuda

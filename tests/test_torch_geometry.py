@@ -21,6 +21,8 @@ import dataclasses
 import numpy as np
 import pytest
 
+pytest.importorskip("jax", reason="compares the port with the JAX package")
+
 from f_renderer_tpu.camera import Camera
 from f_renderer_tpu.pipeline import raster_pallas as jraster
 from f_renderer_tpu.pipeline.render import build_triangles as jax_build
@@ -57,6 +59,7 @@ def scene_state():
         },
         "phong",
         dict(width=W, height=H, background=(30, 30, 30, 255), clip_cap=CLIP_CAP),
+        device="cpu",
     )
     return js, ps
 
@@ -106,7 +109,7 @@ def test_clipped_faces_render_within_golden_budget(built):
     _, scene = scene_state()
     args = (scene.pixel_shader, scene.ps_uniform, scene.config)
     frame_p = fused.render_fused(pt, *args)[0].numpy()
-    frame_j = fused.render_fused(convert.triangles_from_arrays(fields(jt)), *args)[0].numpy()
+    frame_j = fused.render_fused(convert.triangles_from_arrays(fields(jt), device="cpu"), *args)[0].numpy()
     diff = np.abs(frame_p.astype(np.int32) - frame_j.astype(np.int32)).max(axis=-1)
     assert (diff > 2).mean() <= 0.01
     assert (frame_p[..., 0] != 30).sum() > 1000
@@ -126,7 +129,7 @@ def test_ps_boundary_quirk_is_live(built):
 @pytest.mark.parametrize("tile, k", [((16, 128), 4), ((16, 128), 1), ((32, 128), 2)])
 def test_pack_and_bin_exact(built, tile, k):
     jt = built[0]
-    pt = convert.triangles_from_arrays(fields(jt))
+    pt = convert.triangles_from_arrays(fields(jt), device="cpu")
     m_pad = 128 * -(-(pt.num_slots + 1) // 128)
     ji, jf = jraster.pack_setup(jt, W, H, m_pad, with_ctx=True)
     pi, pf = raster.pack_setup(pt, W, H, m_pad)
@@ -162,6 +165,6 @@ def test_wrapped_edge_coefficients():
         ps_index=np.zeros(m, np.int32),
     )
     ji, _ = jraster.pack_setup(JaxTri(**{k: jnp.asarray(v) for k, v in state.items()}), W, H, 128)
-    pi, _ = raster.pack_setup(convert.triangles_from_arrays(state), W, H, 128)
+    pi, _ = raster.pack_setup(convert.triangles_from_arrays(state, device="cpu"), W, H, 128)
     assert pi.dtype == torch.int32
     np.testing.assert_array_equal(pi.numpy(), np.asarray(ji)[: raster.NF_I])

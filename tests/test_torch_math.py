@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+pytest.importorskip("jax", reason="compares the port with the JAX package")
+
 import jax.numpy as jnp
 
 from f_renderer_tpu import camera as jcam
@@ -82,7 +84,7 @@ def test_mvp_compose_matches_highest_precision_matmul():
 
 def test_camera_controls():
     args = ([0.0, 1.0, 3.0], [0.0, 0.5, 0.0], [0.0, 1.0, 0.0])
-    jc, pc = jcam.Camera.create(*args), pcam.Camera.create(*args)
+    jc, pc = jcam.Camera.create(*args), pcam.Camera.create(*args, device="cpu")
     for jf, pf in (
         (lambda c: jcam.orbit(c, 30.0, -12.0), lambda c: pcam.orbit(c, 30.0, -12.0)),
         (lambda c: jcam.pan(c, 4.0, 2.5), lambda c: pcam.pan(c, 4.0, 2.5)),
@@ -97,7 +99,7 @@ def test_camera_controls():
 
 def test_zoom_clamp():
     """Zooming in past the minimum distance (or out past 20) is refused."""
-    far = pcam.Camera.create([0.0, 0.0, 25.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+    far = pcam.Camera.create([0.0, 0.0, 25.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], device="cpu")
     assert torch.equal(pcam.zoom(far, -1.0).eye, far.eye)
     assert not torch.equal(pcam.zoom(far, 1.0).eye, far.eye)
 

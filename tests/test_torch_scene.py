@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+pytest.importorskip("jax", reason="compares the port with the JAX package")
+
 from f_renderer_tpu.camera import Camera as JaxCamera
 from f_renderer_tpu.math import set_rotate
 from f_renderer_tpu.scene import (
@@ -55,6 +57,7 @@ def phong_scene_pair(shader, angle):
         },
         shader,
         dict(width=W, height=H, background=(30, 30, 30, 255), clip_cap=64),
+        device="cpu",
     )
     return js, ps
 
@@ -80,8 +83,11 @@ def test_package_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['f_renderer_tpu'] = None\n"
         "import f_renderer_tpu_torch as p\n"
-        "from f_renderer_tpu_torch import convert, kernels\n"
-        "frame, depth, _ = p.make_phong_scene(64, 48, clip_cap=16).render()\n"
+        "import importlib, pkgutil\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'f_renderer_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert 'f_renderer_tpu_torch.voxel.raycast' in sys.modules\n"
+        "frame, depth, _ = p.make_phong_scene(64, 48, clip_cap=16, device='cpu').render()\n"
         "assert frame.shape == (48, 64, 4)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'f_renderer_tpu.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
@@ -94,14 +100,54 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_scene.make_phong_scene(W, H, device="cuda")
-    scene = port_scene.make_phong_scene(W, H, clip_cap=16)
+    scene = port_scene.make_phong_scene(W, H, clip_cap=16, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         dataclasses.replace(scene, device="cuda")
 
 
+def _default_device_calls():
+    from f_renderer_tpu_torch.camera import Camera
+    from f_renderer_tpu_torch.shaders.texture import TextureStack
+    from f_renderer_tpu_torch.voxel import VoxelRenderConfig, render_voxel_frame
+
+    tex = np.zeros((1, 4, 4, 4), np.float32)
+    return {
+        "make_phong_scene": lambda: port_scene.make_phong_scene(W, H),
+        "Camera.create": lambda: Camera.create([0.0, 0.0, 3.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]),
+        "TextureStack.create": lambda: TextureStack.create([tex[0]]),
+        "TextureStack.from_data": lambda: TextureStack.from_data(tex, np.array([[4, 4]])),
+        "TextureStack.dummy": lambda: TextureStack.dummy(),
+        "scene_from_arrays": lambda: convert.scene_from_arrays(
+            [], {}, {"view_pos": np.zeros(3, np.float32)}, "flat", dict(width=W, height=H)
+        ),
+        "triangles_from_arrays": lambda: convert.triangles_from_arrays({}),
+        "render_voxel_frame": lambda: render_voxel_frame(
+            np.zeros((2, 2, 2, 4), np.uint8), np.zeros((2, 2, 2), bool), np.zeros(3, np.float32),
+            np.eye(4, dtype=np.float32), VoxelRenderConfig(width=8, height=8, level=0),
+        ),
+    }
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["make_phong_scene", "Camera.create", "TextureStack.create", "TextureStack.from_data",
+     "TextureStack.dummy", "scene_from_arrays", "triangles_from_arrays", "render_voxel_frame"],
+)
+def test_default_device_constructor_raises_without_cuda(monkeypatch, name):
+    """Every public constructor defaults to the card: without one it raises
+    and does not fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _default_device_calls()[name]()
+
+
 def test_cpu_render_launches_no_kernel():
+    """CPU tensors take the plain versions on both render paths: no wrapper
+    counts a launch."""
     from f_renderer_tpu_torch import kernels
 
-    before = kernels.fused_raster.launches
-    port_scene.make_phong_scene(W, H, clip_cap=16).render()
-    assert kernels.fused_raster.launches == before == 0
+    wrappers = (kernels.fused_raster, kernels.raster_planes, kernels.sample_bilinear, kernels.voxel_march)
+    scene = port_scene.make_phong_scene(W, H, clip_cap=16, device="cpu")
+    scene.render()
+    dataclasses.replace(scene, config=dataclasses.replace(scene.config, fused_shade=False)).render()
+    assert [k.launches for k in wrappers] == [0, 0, 0, 0]

@@ -1,0 +1,228 @@
+"""The port's voxel raycaster (plain K5 march) vs the JAX package.
+
+- ``gen_randomly`` / ``densify`` / ``flatten`` from one numpy seed give the
+  JAX package's arrays exactly;
+- ``cube_intersect`` is bit-equal to the JAX package's on random,
+  axis-parallel and corner-grazing rays (the scrambling dedupe);
+- whole frames at 64×48, level 2, on the bench's orbit views: the port's
+  plain fixed-step march equals JAX ``render_voxel_frame(backend="jnp")``
+  and its plain dda march equals ``backend="pallas_interpret",
+  traversal="dda"``, byte for byte;
+- one tiny frame against the scalar oracle ``voxel/golden.py`` within the
+  JAX suite's own budget (tests/test_voxel.py: at most 2% of pixels).
+
+The JAX frames come from a subprocess with ``--xla_cpu_max_isa=AVX``: the
+march loop is compiled even when called eagerly, and XLA's CPU backend
+would contract ``start + t·dir`` into fused multiply-adds that the port and
+its kernel (built with ``--fmad=false``) never make. This file is that
+subprocess's script too.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from f_renderer_tpu_torch.voxel import octree as poct
+from f_renderer_tpu_torch.voxel import raycast as pray
+
+# The JAX side is imported inside the tests, so that the file also collects
+# (for its ``cuda`` tests) where JAX is not installed.
+
+W, H, LEVEL, LENGTH = 64, 48, 2, 2.0
+FRAMES = (0, 4, 9)  # bench.py's orbit, frames i = 0, 4 and 9
+SEED = 3
+
+
+def orbit_view(i, width, height, length):
+    """bench.py:283-292: the camera of frame ``i`` (JAX math) → (eye, inv_mvp)."""
+    from f_renderer_tpu.math import set_identity, set_look_at, set_perspective
+
+    proj = np.asarray(set_perspective(np.pi * 0.25, width / height, 0.1, 100.0))
+    center = np.array([length / 2] * 3, np.float32)
+    ang = 0.3 + 0.08 * i
+    eye = center + np.array([3.0 * np.cos(ang), 1.2, 3.0 * np.sin(ang)], np.float32)
+    view = np.asarray(set_look_at(eye, center, [0, 1, 0]))
+    mvp = proj @ view @ np.asarray(set_identity())
+    return eye, np.linalg.inv(mvp).astype(np.float32)
+
+
+def write_reference(path):
+    import jax.numpy as jnp
+
+    from f_renderer_tpu.voxel import octree as joct
+    from f_renderer_tpu.voxel import raycast as jray
+
+    color, hit = joct.densify(joct.gen_randomly(LEVEL, np.random.default_rng(SEED)), LEVEL)
+    out = {"color": color, "hit": hit}
+    for i in FRAMES:
+        eye, inv_mvp = orbit_view(i, W, H, LENGTH)
+        out[f"{i}/eye"], out[f"{i}/inv_mvp"] = eye, inv_mvp
+        for name, over in (("fixed", dict(backend="jnp")),
+                           ("dda", dict(backend="pallas_interpret", traversal="dda"))):
+            cfg = jray.VoxelRenderConfig(width=W, height=H, level=LEVEL, length=LENGTH, **over)
+            frame = jray.render_voxel_frame(jnp.asarray(color), jnp.asarray(hit), eye, inv_mvp, cfg)
+            out[f"{i}/{name}"] = np.asarray(frame)
+    np.savez(path, **out)
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    path = tmp_path_factory.mktemp("jax_voxel") / "ref.npz"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["JAX_PLATFORMS"] = "cpu"
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " --xla_cpu_max_isa=AVX").strip()
+    env["PYTHONPATH"] = os.pathsep.join([repo, env.get("PYTHONPATH", "")])
+    subprocess.run(
+        [sys.executable, os.path.abspath(__file__), str(path)], env=env, check=True, timeout=600
+    )
+    with np.load(path) as data:
+        return dict(data)
+
+
+@pytest.mark.parametrize("level", [0, 2, 3])
+def test_octree_matches_jax(level):
+    from f_renderer_tpu.voxel import octree as joct
+
+    jroot = joct.gen_randomly(level, np.random.default_rng(level + 10))
+    proot = poct.gen_randomly(level, np.random.default_rng(level + 10))
+    assert proot.depth_first() == jroot.depth_first()
+    assert proot.leaves_count() == jroot.leaves_count()
+    for got, want in zip(poct.densify(proot, level), joct.densify(jroot, level)):
+        np.testing.assert_array_equal(got, want)
+    pa, ja = poct.flatten(proot), joct.flatten(jroot)
+    for f in dataclasses.fields(ja):
+        np.testing.assert_array_equal(getattr(pa, f.name), getattr(ja, f.name))
+    pos = np.random.default_rng(level).uniform(-0.2, LENGTH + 0.2, (200, 3)).astype(np.float32)
+    for p in pos:
+        got, want = poct.find_leaf_scalar(proot, LENGTH, p), joct.find_leaf_scalar(jroot, LENGTH, p)
+        assert (got is None) == (want is None)
+        if got is not None:
+            np.testing.assert_array_equal(got, want)
+
+
+def intersect_rays():
+    """(eye, dirs) sets: random rays, axis-parallel rays, and rays through
+    the cube's corners and edge midpoints (more than two hit points: the
+    scrambling dedupe)."""
+    rng = np.random.default_rng(5)
+    eye = np.array([0.5, 0.7, -2.0], np.float32)
+    rand = rng.normal(size=(300, 3)).astype(np.float32)
+    axis = np.array([[0, 0, 1], [0, 0, -1], [1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0]], np.float32)
+    corners = np.array([[x, y, z] for x in (0, 2) for y in (0, 2) for z in (0, 2)], np.float32)
+    edges = np.array([[1, 0, 0], [0, 1, 0], [2, 1, 0], [1, 2, 0], [0, 0, 1], [2, 2, 1]], np.float32)
+    eye2 = np.array([3.0, 2.5, -1.5], np.float32)
+    graze = np.concatenate([corners - eye2, edges - eye2])
+    graze /= np.linalg.norm(graze, axis=-1, keepdims=True)
+    return [("random", eye, rand / np.linalg.norm(rand, axis=-1, keepdims=True)),
+            ("axis", eye, axis), ("graze", eye2, graze.astype(np.float32))]
+
+
+@pytest.mark.parametrize("case", ["random", "axis", "graze"])
+def test_cube_intersect_bit_equal(case):
+    import jax.numpy as jnp
+
+    from f_renderer_tpu.voxel import raycast as jray
+
+    (eye, dirs), = [(e, d) for name, e, d in intersect_rays() if name == case]
+    want = jray.cube_intersect(jnp.asarray(eye), jnp.asarray(dirs), LENGTH)
+    got = pray.cube_intersect(torch.from_numpy(eye), torch.from_numpy(dirs), LENGTH)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    valid = got[2].numpy()
+    assert valid.sum() >= (2 if case == "axis" else 6)
+    if case == "graze":
+        from f_renderer_tpu.voxel.golden import intersect_scalar
+
+        start, end = got[0].numpy(), got[1].numpy()
+        for k, d in enumerate(dirs):  # the scalar oracle scrambles the same way
+            np.testing.assert_allclose(np.stack([start[k], end[k]]), intersect_scalar(eye, d, LENGTH), atol=1e-6)
+        # The dedupe put a farther point first for some ray.
+        dist = np.linalg.norm(start - eye, axis=-1), np.linalg.norm(end - eye, axis=-1)
+        assert (dist[0] > dist[1] + 1e-3).any()
+
+
+@pytest.mark.parametrize("traversal", ["fixed", "dda"])
+@pytest.mark.parametrize("i", FRAMES)
+def test_plain_march_frames_equal_jax(ref, i, traversal):
+    cfg = pray.VoxelRenderConfig(width=W, height=H, level=LEVEL, length=LENGTH, traversal=traversal)
+    frame = pray.render_voxel_frame(
+        ref["color"], ref["hit"], ref[f"{i}/eye"], ref[f"{i}/inv_mvp"], cfg, device="cpu"
+    )
+    assert frame.dtype == torch.uint8 and tuple(frame.shape) == (H, W, 4)
+    want = ref[f"{i}/{traversal}"]
+    np.testing.assert_array_equal(frame.numpy(), want)
+    hit = (want[..., :3] != 0).any(-1)
+    assert 0.05 < hit.mean() < 0.95  # the octree is in view
+
+
+def test_tiny_frame_matches_golden():
+    """The JAX suite's frame and budget (tests/test_voxel.py:90-111): the
+    scalar oracle's matmul and norm round differently from the planar ray
+    set-up, so at most 2% of pixels may differ."""
+    from f_renderer_tpu.math import set_look_at, set_perspective
+    from f_renderer_tpu.voxel import octree as joct
+    from f_renderer_tpu.voxel.golden import render_voxel_scalar
+
+    root = joct.gen_randomly(LEVEL, np.random.default_rng(42))
+    color, hit = poct.densify(poct.gen_randomly(LEVEL, np.random.default_rng(42)), LEVEL)
+    w, h = 48, 32
+    eye = np.array([1.0, 1.0, -3.0], np.float32)
+    view = np.asarray(set_look_at(eye, [1.0, 1.0, 1.0], [0, 1, 0]))
+    proj = np.asarray(set_perspective(np.pi * 0.25, w / h, 0.1, 100.0))
+    inv_mvp = np.linalg.inv((proj @ view).astype(np.float32)).astype(np.float32)
+    cfg = pray.VoxelRenderConfig(width=w, height=h, level=LEVEL, length=LENGTH)
+    frame = pray.render_voxel_frame(color, hit, eye, inv_mvp, cfg, device="cpu").numpy()
+    golden = render_voxel_scalar(root, LEVEL, LENGTH, eye, inv_mvp, w, h)
+    diff = (frame != golden).any(-1)
+    assert diff.mean() <= 0.02, f"{diff.mean():.2%} pixels differ"
+    assert (frame[..., :3] != 0).any(-1).mean() > 0.05
+
+
+def test_cpu_march_launches_no_kernel(ref):
+    from f_renderer_tpu_torch import kernels
+
+    before = kernels.voxel_march.launches
+    cfg = pray.VoxelRenderConfig(width=W, height=H, level=LEVEL, length=LENGTH)
+    pray.render_voxel_frame(ref["color"], ref["hit"], ref["0/eye"], ref["0/inv_mvp"], cfg, device="cpu")
+    assert kernels.voxel_march.launches == before == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("traversal", ["fixed", "dda"])
+def test_kernel_matches_plain_on_card(traversal):
+    """K5 against its plain version on the card at 960×540, level 3 (the
+    voxel540 shapes): BGRA frames equal. Run on the card with
+    ``python -m pytest --noconftest -m cuda tests/test_torch_voxel.py``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from f_renderer_tpu_torch import kernels
+
+    level, w, h = 3, 960, 540
+    color, hit = poct.densify(poct.gen_randomly(level, np.random.default_rng(0)), level)
+    cfg = pray.VoxelRenderConfig(width=w, height=h, level=level, length=LENGTH, traversal=traversal)
+    from f_renderer_tpu_torch.math import set_look_at, set_perspective
+
+    dev = torch.device("cuda")
+    center = np.full(3, LENGTH / 2, np.float32)
+    eye_np = center + np.array([3.0 * np.cos(0.3), 1.2, 3.0 * np.sin(0.3)], np.float32)
+    mvp = set_perspective(np.pi * 0.25, w / h, 0.1, 100.0).numpy() @ set_look_at(eye_np, center, [0, 1, 0]).numpy()
+    eye = torch.from_numpy(eye_np).to(dev)
+    inv_mvp = torch.from_numpy(np.linalg.inv(mvp).astype(np.float32)).to(dev)
+    k = pray.march_constants(cfg, hit.shape[0])
+    rays = pray.prepare_rays(eye, inv_mvp, cfg)
+    table = pray.voxel_table(torch.as_tensor(color, device=dev), torch.as_tensor(hit, device=dev))
+    before = kernels.voxel_march.launches
+    got = pray.march(*rays, table, k)
+    assert kernels.voxel_march.launches == before + 1
+    want = pray.march_plain(*rays, table, k)
+    assert torch.equal(got, want)
+
+
+if __name__ == "__main__":
+    write_reference(sys.argv[1])
