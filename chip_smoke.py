@@ -8,27 +8,37 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each reported on its own lines:
 
 1. identity: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: the CUDA kernels, one nvcc per source, all started together;
+2. build: the CUDA kernels, one nvcc per source, all started together,
+   and each kernel's registers, spills and shared memory (``ptxas -v``);
 3. every kernel against its plain PyTorch version on the card, on the same
    inputs, at the shapes its main path gives it (no plain run may move a
    launch counter):
    - K1, the fused raster + shade kernel with the K2 sampler inside:
-     phong1080 at the bench angles 0.10 / 0.15 / 0.20 and four small
+     phong1080 at the bench angles 0.10 / 0.15 / 0.20 and five small
      scenes (coarse/spill ranges, a wide texture, flat / gouraud /
-     textured). Winner ids bit-equal, depth within rtol 2.4e-7, colour
-     within 2 u8 with at most 0.2% of pixels at 2;
+     textured, and sliver640: slivers and 1-pixel triangles on the edges
+     of the warps' rectangles and of the tiles, in all three ranges).
+     Winner ids bit-equal, depth within rtol 2.4e-7, colour within 2 u8
+     with at most 0.2% of pixels at 2;
    - K4, the non-fused raster: phong1080_tex2048 at the same angles, both
-     entry points, and a custom shader with 12 varyings at 640x360. Winner
-     ids, texture ids and varyings bit-equal, depth within rtol 2.4e-7; the
-     frames shaded from the kernels' planes (K4 + K3) against the frames
-     shaded from the plain planes with the plain sampler, under the colour
-     bar above;
+     entry points, a custom shader with 12 varyings at 640x360, and
+     sliver640. Winner ids, texture ids and varyings bit-equal, depth
+     within rtol 2.4e-7; the frames shaded from the kernels' planes
+     (K4 + K3) against the frames shaded from the plain planes with the
+     plain sampler, under the colour bar above;
    - K3, the batched sampler, on the phong1080_tex2048 planes: within
      1e-6 of the plain version;
-   - K5, the voxel march: voxel540 and voxel540dda frames 0-2, BGRA frames
-     equal;
-   each kernel's time and its plain version's from CUDA events, and the
-   least time the card could take for the same work (the bound);
+   - K5, the voxel march: voxel540 and voxel540dda on all 10 main-path
+     views, BGRA frames equal; for fixed steps each frame also against
+     the plain serial chain without the jump (the query count of view 0
+     kept); and one level-6 view at 240x135 (its hit bitmap read through
+     L2), fixed steps against both plain marches;
+   each kernel's device time (its launches queued behind a spin kernel,
+   CUDA events), its entry point's time with the host's launch overhead
+   (back-to-back calls), its plain version's time, and the least time the
+   card could take for the same work (the bound; for K1 and K4 also with
+   every pixel of a tile tested for every pair in its lists, for K5 fixed
+   also with the serial chain's queries);
 4. the main paths through the entry points a user calls, each driven with
    the launch counters set to 0 just before it and read just after:
    phong1080 ``Scene.render()`` (K1 once a frame), phong1080_tex2048
@@ -46,6 +56,7 @@ the script exits non-zero and prints no result. It imports no JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -63,7 +74,8 @@ OPS_PER_S = 67e12
 VOXEL_LEVEL, VOXEL_LENGTH, VOXEL_W, VOXEL_H = 3, 2.0, 960, 540
 # Frame sizes of the scenes, and the side of phong1080_tex2048's textures.
 SIZES = {"phong1080": (1920, 1080), "custom12_360": (640, 360), "phong_bin_k1": (640, 360),
-         "textured_wide": (800, 600), "gouraud800": (800, 600), "cube1080_flat": (1920, 1080)}
+         "textured_wide": (800, 600), "gouraud800": (800, 600), "cube1080_flat": (1920, 1080),
+         "sliver640": (640, 360)}
 SIZES["phong1080_tex2048"] = SIZES["phong1080"]
 TEX_SIDE = 2048
 
@@ -165,6 +177,10 @@ def build_scene(name, device):
             w, h, clip_cap=64, meshes=[make_uv_sphere(36, 72)], camera=sphere_cam,
             shader="gouraud", device=device,
         )
+    if name == "sliver640":  # slivers and 1-px triangles on warp and tile edges, bin_k=1
+        from f_renderer_tpu_torch.scene import make_sliver_scene
+
+        return make_sliver_scene(w, h, device=device)
     if name == "cube1080_flat":  # bench.py:67-82
         from f_renderer_tpu_torch import make_cube
 
@@ -176,8 +192,11 @@ def build_scene(name, device):
 
 
 def set_angle(scene, angle):
+    """Rotate the scene's model by ``angle`` about y (None: leave it)."""
     from f_renderer_tpu_torch.math import set_rotate
 
+    if angle is None:
+        return
     scene.vs_uniform = dict(scene.vs_uniform, model=set_rotate([0.0, 1.0, 0.0], angle, scene.device))
 
 
@@ -210,6 +229,71 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+@functools.lru_cache(maxsize=None)
+def sleep_cycles_per_ms():
+    """Clock cycles ``torch.cuda._sleep`` spins per millisecond on this card."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
+def device_ms(fn, reps):
+    """Device time per call of ``fn`` (one kernel launch): the launches queue
+    behind a spin kernel long enough for the host to enqueue all of them, so
+    CUDA events around them see the device's time and not the host's
+    launch overhead. Fails the run if the host did not keep ahead."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spin_ms = 2.0 * host_ms * reps + 1.0
+    torch.cuda._sleep(int(sleep_cycles_per_ms() * spin_ms))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    check(enqueue_ms < spin_ms, f"device_ms: enqueueing took {enqueue_ms:.2f} ms, the spin {spin_ms:.2f} ms")
+    return start.elapsed_time(end) / reps
+
+
+def kernel_call(name, entry):
+    """Run ``entry()`` once with ``kernels.<name>`` wrapped to record its
+    arguments → a function that launches that kernel alone with them."""
+    from f_renderer_tpu_torch import kernels
+
+    wrapper, seen = getattr(kernels, name), {}
+
+    def spy(*args, **kw):
+        seen["args"], seen["kw"] = args, kw
+        return wrapper(*args, **kw)
+
+    spy.launches = wrapper.launches  # the wrapper counts on its module's name
+    setattr(kernels, name, spy)
+    try:
+        entry()
+    finally:
+        setattr(kernels, name, wrapper)
+        wrapper.launches = spy.launches
+    def launch(*args, **over):  # the recorded call; ``args`` replace the leading positionals
+        return wrapper(*args, *seen["args"][len(args):], **dict(seen["kw"], **over))
+
+    return launch
+
+
 def counts():
     from f_renderer_tpu_torch import kernels
 
@@ -234,14 +318,19 @@ def plain(fn, *args, **kw):
     return out
 
 
-def timed(kernel_fn, plain_fn, kernel_reps, plain_reps=1):
-    """(kernel ms, plain ms) in turns plain, kernel, kernel, plain."""
-    kernel_fn(), plain(plain_fn)  # warm-up
+def timed(entry_fn, launch_fn, plain_fn, kernel_reps, plain_reps=1):
+    """Times in turns plain, kernel, kernel, plain → (kernel ms, plain ms,
+    wrapper ms, each): the kernel's device time (``device_ms`` of
+    ``launch_fn``, the wrapper called with recorded arguments), and with
+    CUDA events around back-to-back calls, host launch overhead included,
+    the entry point ``entry_fn`` and the plain
+    version."""
+    entry_fn(), plain(plain_fn)  # warm-up
     p_a = cuda_ms(lambda: plain(plain_fn), plain_reps)
-    k_a = cuda_ms(kernel_fn, kernel_reps)
-    k_b = cuda_ms(kernel_fn, kernel_reps)
+    k_a, w_a = device_ms(launch_fn, kernel_reps), cuda_ms(entry_fn, kernel_reps)
+    k_b, w_b = device_ms(launch_fn, kernel_reps), cuda_ms(entry_fn, kernel_reps)
     p_b = cuda_ms(lambda: plain(plain_fn), plain_reps)
-    return (k_a + k_b) / 2, (p_a + p_b) / 2, (k_a, k_b, p_a, p_b)
+    return (k_a + k_b) / 2, (p_a + p_b) / 2, (w_a + w_b) / 2, (k_a, k_b, p_a, p_b, w_a, w_b)
 
 
 def bound_ms(nbytes, ops):
@@ -251,30 +340,68 @@ def bound_ms(nbytes, ops):
 
 
 def tile_pair_pixels(prep):
-    """(pair, pixel) cover tests the binned lists ask for: for every tile,
-    the pairs of its fine, coarse and spill ranges times its pixels."""
-    from f_renderer_tpu_torch.pipeline.raster import COARSE, LANES, cdiv
+    """(pair, pixel) cover tests the binned lists ask for, two ways →
+    (every pixel of the tile for every pair in its fine, coarse and spill
+    ranges; only the pixels inside the pair's bbox,
+    the tests no exact design can skip)."""
+    import torch
+
+    from f_renderer_tpu_torch.pipeline.raster import LANES, MAXXY, MINXY, tile_lists, unpack_xy
 
     off = prep.off.tolist()
-    nty, ntx = prep.h_pad // prep.th, prep.w_pad // LANES
-    ntiles, ntxc = nty * ntx, cdiv(ntx, COARSE)
-    spill = ntiles + ntxc * cdiv(nty, COARSE)
-    total = 0
+    th, nty, ntx = prep.th, prep.h_pad // prep.th, prep.w_pad // LANES
+    minx, miny = unpack_xy(prep.tri_i32[MINXY].long())
+    maxx, maxy = unpack_xy(prep.tri_i32[MAXXY].long())
+    every, inside = 0, 0
     for ty in range(nty):
         for tx in range(ntx):
-            t, c = ty * ntx + tx, ntiles + (ty // COARSE) * ntxc + tx // COARSE
-            total += sum(off[r + 1] - off[r] for r in (t, c, spill))
-    return total * prep.th * LANES
+            lists = tile_lists(prep, ty, tx)
+            n = sum(off[r + 1] - off[r] for r in lists)
+            if n == 0:
+                continue
+            every += n * th * LANES
+            idx = torch.cat([torch.arange(off[r], off[r + 1], device=minx.device) for r in lists])
+            x0, y0 = tx * LANES, ty * th
+            w = (torch.clamp(maxx[idx], max=x0 + LANES) - torch.clamp(minx[idx], min=x0)).clamp(min=0)
+            h = (torch.clamp(maxy[idx], max=y0 + th) - torch.clamp(miny[idx], min=y0)).clamp(min=0)
+            inside += int((w * h).sum())
+    return every, inside
 
 
 def raster_work(prep, out_planes, per_pixel_ops, extra_bytes=0):
-    """(bytes, ops) of a raster kernel: its inputs read once, its output
-    planes written once; 12 integer operations for each cover test (edges,
-    sign OR, bbox max), ``per_pixel_ops`` for each pixel's epilogue."""
+    """(bytes, ops, ops at every pixel of the tile) of a raster kernel: its inputs
+    read once, its output planes written once; 12 integer operations for
+    each cover test (edges, sign OR, bbox max) inside the pair's bbox (or
+    at every pixel of the tile), ``per_pixel_ops`` for each pixel's
+    epilogue."""
     nbytes = 4 * (prep.off.numel() + prep.tri_i32.numel() + prep.tri_f32.numel())
     nbytes += 4 * out_planes * prep.h_pad * prep.w_pad + extra_bytes
-    ops = 12 * tile_pair_pixels(prep) + per_pixel_ops * prep.h_pad * prep.w_pad
-    return nbytes, ops
+    every, inside = tile_pair_pixels(prep)
+    epilogue = per_pixel_ops * prep.h_pad * prep.w_pad
+    return nbytes, 12 * inside + epilogue, 12 * every + epilogue
+
+
+def heaviest_tile_lists(prep):
+    """Pair-range offsets that keep only the fine range of the tile with the
+    most pairs (every other range empty) → (offsets, its pairs)."""
+    import torch
+
+    from f_renderer_tpu_torch.pipeline.raster import tile_lists
+
+    ntiles = tile_lists(prep, 0, 0)[1]  # the fine ranges come first, one per tile
+    t = int(torch.argmax(prep.off[1:ntiles + 1] - prep.off[:ntiles]))
+    lo, hi = prep.off[t], prep.off[t + 1]
+    only = torch.where(torch.arange(prep.off.numel(), device=prep.off.device) <= t, lo, hi)
+    return only.to(torch.int32), int(hi - lo)
+
+
+def range_sizes(prep):
+    """Pairs in the fine, coarse and spill ranges of a binned prep."""
+    from f_renderer_tpu_torch.pipeline.raster import tile_lists
+
+    _, ntiles, spill = tile_lists(prep, 0, 0)  # the coarse ranges start after the fine ones
+    off = prep.off.tolist()
+    return f"{off[ntiles]}/{off[spill] - off[ntiles]}/{off[spill + 1] - off[spill]}"
 
 
 def texel_bytes(stack, ps, u, v):
@@ -328,6 +455,18 @@ def compare_planes(tag, got, want):
     return cerr, float(derr.max())
 
 
+def check_serial(tag, got, rays, table, k):
+    """Hold a fixed-step K5 frame against the plain serial chain (no jump),
+    which the jump must not change → (its frame, its queries)."""
+    import torch
+
+    from f_renderer_tpu_torch.voxel import raycast
+
+    want, queries = plain(raycast.march_plain, *rays, table, k, count_queries=True, serial=True)
+    check(torch.equal(got, want), f"{tag}: the serial chain's frame differs at {int((got != want).sum())} rays")
+    return want, queries
+
+
 def main() -> int:
     import torch
 
@@ -361,6 +500,8 @@ def main() -> int:
     t0 = time.time()
     kernels.load_library()
     log(f"[build] nvcc sm_90a --fmad=false, one process per source: {time.time() - t0:.1f} s")
+    for line in kernels.ptxas_report():
+        log(f"[build] ptxas {line}")
 
     rows = {}  # kernel name → its JSON entry
 
@@ -369,6 +510,7 @@ def main() -> int:
     worst_frame, worst_depth = 0, 0.0
     cases = [("phong1080", a) for a in ANGLES] + [
         ("phong_bin_k1", 0.3), ("textured_wide", 0.2), ("gouraud800", 0.1), ("cube1080_flat", 0.1),
+        ("sliver640", None),
     ]
     for scene_name, angle in cases:
         scene = build_scene(scene_name, dev)
@@ -378,36 +520,46 @@ def main() -> int:
         args = (prep, scene.pixel_shader, scene.ps_uniform, scene.config)
         got = fused.render_fused_prepared(*args)
         want = plain(fused.render_fused_plain, *args)
-        f_err, d_err = compare_fused(f"{scene_name}@{angle:.2f} th={prep.th} pairs={prep.tri_i32.shape[1]}", got, want)
+        f_err, d_err = compare_fused(f"{scene_name}@{angle} th={prep.th} pairs={prep.tri_i32.shape[1]} "
+                                     f"ranges {range_sizes(prep)}", got, want)
         worst_frame, worst_depth = max(worst_frame, f_err), max(worst_depth, d_err)
         if scene_name == "phong1080" and "K1" not in rows:
             reference_frame = got[0].clone()
-            k_ms, p_ms, each = timed(lambda: fused.render_fused_prepared(*args),
-                                     lambda: fused.render_fused_plain(*args), 20)
+            launch = kernel_call("fused_raster", lambda: fused.render_fused_prepared(*args))
+            k_ms, p_ms, w_ms, each = timed(lambda: fused.render_fused_prepared(*args), launch,
+                                           lambda: fused.render_fused_plain(*args), 20)
             _, win_p, ps_p, ctx_p = plain(raster.raster_planes_plain, prep, True)
             stack = scene.ps_uniform["textures"]
             tex = texel_bytes(stack, torch.where(win_p >= 0, ps_p, -1), ctx_p[6], ctx_p[7])
             # epilogue per pixel: interpolation (~30), phong (~90), sampler (~60), pack (~12)
-            nbytes, ops = raster_work(prep, 3, 192, extra_bytes=tex)
+            nbytes, ops, ops_every = raster_work(prep, 3, 192, extra_bytes=tex)
             b_ms, b_by = bound_ms(nbytes, ops)
+            b2_ms, b2_by = bound_ms(nbytes, ops_every)
             rows["K1"] = {
                 "name": "fused_raster (K1, K2 sampler inlined)", "route": "cuda",
                 "source": "f_renderer_tpu_torch/csrc/fused_raster.cu",
                 "replaces": "f_renderer_tpu/pipeline/fused.py:525",
                 "also_replaces": "f_renderer_tpu/shaders/texture_pallas.py:95 (csrc/sampler.cuh)",
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "bytes": nbytes, "ops": ops,
+                "wrapper_ms": w_ms, "bound_ms_every_pixel": b2_ms, "bound_by_every_pixel": b2_by,
+                "bytes": nbytes, "ops": ops, "ops_every_pixel": ops_every,
             }
-            log(f"  phong1080 K1 time: kernel {each[0]:.4f} / {each[1]:.4f} ms, plain "
-                f"{each[2]:.2f} / {each[3]:.2f} ms, bound {b_ms:.4f} ms by {b_by} "
-                f"({nbytes} B, {ops} ops) (CUDA events; {smi})")
+            # the epilogue alone: the same launch with every pair list empty
+            no_pairs = torch.zeros_like(prep.off)
+            rows["K1"]["ms_no_pairs"] = [device_ms(lambda: launch(no_pairs), 20) for _ in range(2)]
+            log(f"  phong1080 K1 with every pair list empty (background epilogue only): "
+                f"{rows['K1']['ms_no_pairs']} ms (device)")
+            log(f"  phong1080 K1 time: kernel {each[0]:.4f} / {each[1]:.4f} ms (device), wrapper "
+                f"{each[4]:.4f} / {each[5]:.4f} ms, plain {each[2]:.2f} / {each[3]:.2f} ms, bound "
+                f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {ops} ops; at every pixel {ops_every} ops, "
+                f"{b2_ms:.4f} ms by {b2_by}) (CUDA events; {smi})")
     rows["K1"]["max_abs_err"] = worst_frame
     rows["K1"]["max_abs_err_depth"] = worst_depth
 
     # 3b. K4 against plain, both entry points; 3c. K3 on the same planes
     log("[kernel-vs-plain] K4 raster_planes, K3 sample_bilinear")
     worst_ctx, worst_d4, worst_sample, worst_frame4 = 0.0, 0.0, 0.0, 0
-    for scene_name, angles in (("phong1080_tex2048", ANGLES), ("custom12_360", (0.3,))):
+    for scene_name, angles in (("phong1080_tex2048", ANGLES), ("custom12_360", (0.3,)), ("sliver640", (None,))):
         scene = build_scene(scene_name, dev)
         if scene_name == "phong1080_tex2048":
             stack = scene.ps_uniform["textures"]
@@ -417,8 +569,10 @@ def main() -> int:
         for angle in angles:
             set_angle(scene, angle)
             tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
-            prep = raster.prep_binned(tri, scene.config.width, scene.config.height, scene.config.tile)
-            tag = f"{scene_name}@{angle:.2f} C={prep.n_ctx} th={prep.th} pairs={prep.tri_i32.shape[1]}"
+            prep = raster.prep_binned(tri, scene.config.width, scene.config.height, scene.config.tile,
+                                      bin_k=scene.config.bin_k)
+            tag = (f"{scene_name}@{angle} C={prep.n_ctx} th={prep.th} pairs={prep.tri_i32.shape[1]} "
+                   f"ranges {range_sizes(prep)}")
             e_ctx, e_d = compare_planes(f"{tag} rasterize", raster.raster_planes(prep, False),
                                         plain(raster.raster_planes_plain, prep, False))
             got = raster.raster_planes(prep, True)
@@ -429,6 +583,8 @@ def main() -> int:
             depth_k, winner_k, ps_k, ctx_k = (t[..., :h, :w] for t in got)
             depth_p, winner_p, ps_p, ctx_p = (t[..., :h, :w] for t in want)
             bg = scene.config.background
+            if scene_name == "sliver640":  # planes only: its phong shader samples through K3
+                continue
             if scene_name != "phong1080_tex2048":
                 frame_k = shade.shade_from_planes(ctx_k, ps_k, winner_k, scene.pixel_shader,
                                                   scene.ps_uniform, codec, background=bg)
@@ -455,22 +611,36 @@ def main() -> int:
             if "K4" in rows:
                 continue
             tex2048_frame = frame_k.clone()
-            k_ms, p_ms, each = timed(lambda: raster.raster_planes(prep, True),
-                                     lambda: raster.raster_planes_plain(prep, True), 20)
+            launch = kernel_call("raster_planes", lambda: raster.raster_planes(prep, True))
+            k_ms, p_ms, w_ms, each = timed(lambda: raster.raster_planes(prep, True), launch,
+                                           lambda: raster.raster_planes_plain(prep, True), 20)
             # epilogue per pixel: interpolation of C varyings (~20 + 5C)
-            nbytes, ops = raster_work(prep, 3 + prep.n_ctx, 20 + 5 * prep.n_ctx)
+            nbytes, ops, ops_every = raster_work(prep, 3 + prep.n_ctx, 20 + 5 * prep.n_ctx)
             b_ms, b_by = bound_ms(nbytes, ops)
+            b2_ms, b2_by = bound_ms(nbytes, ops_every)
             rows["K4"] = {
                 "name": "raster_planes (K4)", "route": "cuda",
                 "source": "f_renderer_tpu_torch/csrc/raster_planes.cu",
                 "replaces": "f_renderer_tpu/pipeline/raster_pallas.py:1562",
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "bytes": nbytes, "ops": ops,
+                "wrapper_ms": w_ms, "bound_ms_every_pixel": b2_ms, "bound_by_every_pixel": b2_by,
+                "bytes": nbytes, "ops": ops, "ops_every_pixel": ops_every,
             }
+            # the loop with K4's smallest epilogue (depth and winner planes only)
+            rows["K4"]["ms_rasterize"] = [device_ms(lambda: launch(interp=False), 20) for _ in range(2)]
+            # the heaviest tile's fine range alone, and every list but it
+            only, pairs = heaviest_tile_lists(prep)
+            rows["K4"]["ms_rasterize_heaviest_tile"] = [device_ms(lambda: launch(only, interp=False), 20)
+                                                        for _ in range(2)]
+            log(f"  phong1080_tex2048 K4 rasterize (no varyings): {rows['K4']['ms_rasterize']} ms; with only the "
+                f"heaviest tile's {pairs} fine pairs: {rows['K4']['ms_rasterize_heaviest_tile']} ms (device)")
             log(f"  phong1080_tex2048 K4 time (rasterize_interp, C={prep.n_ctx}): kernel {each[0]:.4f} / "
-                f"{each[1]:.4f} ms, plain {each[2]:.2f} / {each[3]:.2f} ms, bound {b_ms:.4f} ms by {b_by} "
-                f"({nbytes} B, {ops} ops) (CUDA events; {smi})")
-            k_ms, p_ms, each = timed(lambda: stack.sample(psm, u, v), lambda: stack.sample_plain(psm, u, v), 50, 3)
+                f"{each[1]:.4f} ms (device), wrapper {each[4]:.4f} / {each[5]:.4f} ms, plain {each[2]:.2f} / "
+                f"{each[3]:.2f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} B, {ops} ops; at every pixel "
+                f"{ops_every} ops, {b2_ms:.4f} ms by {b2_by}) (CUDA events; {smi})")
+            launch = kernel_call("sample_bilinear", lambda: stack.sample(psm, u, v))
+            k_ms, p_ms, w_ms, each = timed(lambda: stack.sample(psm, u, v), launch,
+                                           lambda: stack.sample_plain(psm, u, v), 50, 3)
             n, n_tex = psm.numel(), int((psm >= 0).sum())
             # per sample: ids, uv and 4 outputs; ~60 operations where it has a texture
             nbytes = 28 * n + texel_bytes(stack, psm, u, v)
@@ -480,17 +650,17 @@ def main() -> int:
                 "source": "f_renderer_tpu_torch/csrc/sample_bilinear.cu",
                 "replaces": "f_renderer_tpu/shaders/texture_pallas.py:497",
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "bytes": nbytes, "ops": 60 * n_tex + 2 * n,
+                "wrapper_ms": w_ms, "bytes": nbytes, "ops": 60 * n_tex + 2 * n,
             }
             log(f"  phong1080_tex2048 K3 time ({n} samples, {n_tex} textured): kernel {each[0]:.4f} / "
-                f"{each[1]:.4f} ms, plain {each[2]:.2f} / {each[3]:.2f} ms, bound {b_ms:.4f} ms by {b_by} "
-                f"({nbytes} B) (CUDA events; {smi})")
+                f"{each[1]:.4f} ms (device), wrapper {each[4]:.4f} / {each[5]:.4f} ms, plain {each[2]:.2f} / "
+                f"{each[3]:.2f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} B) (CUDA events; {smi})")
     rows["K4"]["max_abs_err"] = worst_ctx
     rows["K4"]["max_abs_err_depth"] = worst_d4
     rows["K4"]["max_abs_err_frame_u8"] = worst_frame4
     rows["K3"]["max_abs_err"] = worst_sample
 
-    # 3d. K5 against plain
+    # 3d. K5 against plain, on every main-path view
     log("[kernel-vs-plain] K5 voxel_march")
     grid_color, grid_hit = octree.densify(octree.gen_randomly(VOXEL_LEVEL, np.random.default_rng(0)), VOXEL_LEVEL)
     table = raycast.voxel_table(torch.as_tensor(grid_color, device=dev), torch.as_tensor(grid_hit, device=dev))
@@ -499,7 +669,8 @@ def main() -> int:
                                         length=VOXEL_LENGTH, traversal=traversal)
         k = raycast.march_constants(cfg, grid_hit.shape[0])
         worst = 0
-        for i in range(3):
+        row = {}
+        for i in range(FRAMES):
             eye, inv_mvp = voxel_view(i)
             rays = raycast.prepare_rays(torch.from_numpy(eye).to(dev), torch.from_numpy(inv_mvp).to(dev), cfg)
             got = raycast.march(*rays, table, k)
@@ -509,26 +680,65 @@ def main() -> int:
             hit = float((got != k.bg_packed).float().mean())
             check(torch.equal(got, want), f"voxel540 {traversal} frame {i}: BGRA differs at "
                   f"{int((got != want).sum())} rays")
+            serial = ""
+            if not k.dda:  # the serial chain without the jump: the independent oracle
+                want_s, queries_s = check_serial(f"voxel540 fixed frame {i}", got, rays, table, k)
+                serial = f", serial chain equal={torch.equal(got, want_s)} ({queries_s} queries)"
+                if i == 0:
+                    row["queries_serial"] = queries_s
             log(f"  voxel540 {traversal} frame {i}: BGRA equal={torch.equal(got, want)}, "
-                f"hit share {hit:.4f}, queries {queries}")
+                f"hit share {hit:.4f}, queries {queries}{serial}")
             if i == 0:
                 rays0, queries0 = rays, queries
-        k_ms, p_ms, each = timed(lambda: raycast.march(*rays0, table, k),
-                                 lambda: raycast.march_plain(*rays0, table, k), 10)
+        if not k.dda:
+            log(f"  voxel540 fixed frame 0: the serial chain makes {row['queries_serial']} queries, "
+                f"{row['queries_serial'] / queries0:.2f}x the jump's")
+        launch = kernel_call("voxel_march", lambda: raycast.march(*rays0, table, k))
+        k_ms, p_ms, w_ms, each = timed(lambda: raycast.march(*rays0, table, k), launch,
+                                       lambda: raycast.march_plain(*rays0, table, k), 10)
+        # the same launch with every ray dead: the hit-bit pass, the launch and the output
+        dead = torch.zeros_like(rays0[3], dtype=torch.int32)
+        row["ms_no_rays"] = device_ms(lambda: launch(*rays0[:3], dead), 10)
+        log(f"  voxel540 {traversal} K5 with every ray dead: {row['ms_no_rays']:.4f} ms (device)")
         n = rays0[2].numel()
-        # per ray: 8 input planes, 1 output; per query ~25 operations
-        nbytes, ops = 36 * n + 4 * table.numel(), 25 * queries0 + 5 * n
+        # per ray: 8 input planes, 1 output; the table, times and hit bits; ~25 operations a query
+        nbytes = 36 * n + 4 * table.numel() + 4 * k.n_times + table.numel() // 8
+        ops = 25 * queries0 + 5 * n
         b_ms, b_by = bound_ms(nbytes, ops)
-        rows[f"K5 {traversal}"] = {
+        rows[f"K5 {traversal}"] = dict(row, **{
             "name": f"voxel_march {traversal} (K5)", "route": "cuda",
             "source": "f_renderer_tpu_torch/csrc/voxel_march.cu",
             "replaces": "f_renderer_tpu/voxel/raycast_pallas.py:393",
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "max_abs_err": worst, "bytes": nbytes, "ops": ops, "queries": queries0,
-        }
-        log(f"  voxel540 {traversal} K5 time: kernel {each[0]:.4f} / {each[1]:.4f} ms, plain "
-            f"{each[2]:.2f} / {each[3]:.2f} ms, bound {b_ms:.4f} ms by {b_by} ({queries0} queries) "
-            f"(CUDA events; {smi})")
+            "wrapper_ms": w_ms, "max_abs_err": worst, "bytes": nbytes, "ops": ops, "queries": queries0,
+        })
+        log(f"  voxel540 {traversal} K5 time: kernel {each[0]:.4f} / {each[1]:.4f} ms (device), wrapper "
+            f"{each[4]:.4f} / {each[5]:.4f} ms, plain {each[2]:.2f} / {each[3]:.2f} ms, bound {b_ms:.4f} ms "
+            f"by {b_by} ({queries0} queries) (CUDA events; {smi})")
+        if not k.dda:
+            # the serial chain's queries over the same bytes
+            b2_ms, b2_by = bound_ms(36 * n + 4 * table.numel(), 25 * row["queries_serial"] + 5 * n)
+            rows["K5 fixed"].update(bound_ms_serial=b2_ms, bound_by_serial=b2_by)
+
+    # 3e. K5 at level 6, where the hit bitmap (256 KiB) leaves shared memory for L2
+    color6, hit6 = octree.densify(octree.gen_randomly(6, np.random.default_rng(1)), 6)
+    table6 = raycast.voxel_table(torch.as_tensor(color6, device=dev), torch.as_tensor(hit6, device=dev))
+    eye, inv_mvp = (torch.from_numpy(a).to(dev) for a in voxel_view(0))
+    for traversal in ("fixed", "dda"):
+        cfg = raycast.VoxelRenderConfig(width=VOXEL_W // 4, height=VOXEL_H // 4, level=6,
+                                        length=VOXEL_LENGTH, traversal=traversal)
+        k = raycast.march_constants(cfg, hit6.shape[0])
+        rays = raycast.prepare_rays(eye, inv_mvp, cfg)
+        got = raycast.march(*rays, table6, k)
+        want, queries = plain(raycast.march_plain, *rays, table6, k, count_queries=True)
+        check(torch.equal(got, want), f"level 6 {traversal}: BGRA differs at {int((got != want).sum())} rays")
+        serial = ""
+        if not k.dda:
+            want_s, queries_s = check_serial("level 6 fixed", got, rays, table6, k)
+            serial = f", serial chain equal={torch.equal(got, want_s)} ({queries_s} queries)"
+        log(f"  level 6 {traversal} ({cfg.width}x{cfg.height}, bitmap through L2): BGRA equal="
+            f"{torch.equal(got, want)}, hit share {float((got != k.bg_packed).float().mean()):.4f}, "
+            f"queries {queries}{serial}")
 
     # 4. the main paths, each with the counters set to 0 just before it
     def drive(path, render, frames, expect, shape):

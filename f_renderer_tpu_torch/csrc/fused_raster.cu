@@ -1,5 +1,5 @@
-// Fused raster + varying interpolation + shading + RGBA8 pack, one CUDA
-// thread block per (th, 128) bin tile.
+// Fused raster + varying interpolation + shading + RGBA8 pack, over (th,
+// 128) bin tiles, th / 8 CUDA thread blocks to a tile (raster_loop.cuh).
 //
 // Replaces the TPU kernel f_renderer_tpu/pipeline/fused.py:525 (the
 // pallas_call in render_fused_prepared, "K1"), whose body is
@@ -20,9 +20,10 @@
 // to the bit.
 //
 // What bounds it on the card: the raster loop's ALU work per (pair, pixel)
-// (raster_loop.cuh). The varyings (3C floats per pair) and the shading
-// inputs are read from device memory once per pixel, after the loop.
-// cp.async/TMA staging and persistent blocks are later work.
+// inside each pair's bbox (raster_loop.cuh: warp-level bbox culling over
+// double-buffered pair records), then the epilogue: per pixel, the varyings
+// (3C floats of the winner) and the shading inputs read from device memory
+// once, and the shading arithmetic.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,26 +98,27 @@ __device__ void shade(const FrFusedParams& p, const float* __restrict__ view_pos
 }
 
 template <int R>
-__global__ void __launch_bounds__(TW * TY)
+__global__ void __launch_bounds__(TW * TY, 2)
 fused_raster_kernel(const FrFusedParams p, const int32_t* __restrict__ off,
                     const int32_t* __restrict__ tri_i32, const float* __restrict__ tri_f32,
                     const float* __restrict__ view_pos, const int32_t* __restrict__ dims,
                     const int32_t* __restrict__ texels, int32_t* __restrict__ rgba,
-                    float* __restrict__ depth_out, int32_t* __restrict__ winner_out) {
-  const int cx = blockIdx.x * TW + threadIdx.x;
-  const int row0 = blockIdx.y * p.th + threadIdx.y * R;
+                    float* __restrict__ depth_out, int32_t* __restrict__ winner_out,
+                    const int32_t* __restrict__ order) {
+  const TileSlot at = tile_slot(p.th, p.ntx, order);
+  const int cx = at.cx;
   const float pcx = (float)cx + 0.5f;
   const size_t np = (size_t)p.n_pairs;
   float dep[R];
   int wpair[R];
-  raster_tile<R>(off, tri_i32, tri_f32, p.ntx, p.nty, np, cx, row0, dep, wpair);
+  raster_tile<R>(off, tri_i32, tri_f32, p.ntx, p.nty, np, at, dep, wpair);
 
   // Interpolate the winner's varyings once, shade, pack. (Unrolled, so the
   // per-pixel carries stay in registers: a dynamic index would put them in
   // local memory for the whole kernel.)
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int cy = row0 + r;
+    const int cy = at.row0 + at.step * r;
     const size_t o = (size_t)cy * p.w_pad + cx;
     const int pair = wpair[r];
     depth_out[o] = dep[r];
@@ -149,10 +151,13 @@ template <int R>
 cudaError_t launch(const FrFusedParams& p, const int32_t* off, const int32_t* tri_i32,
                    const float* tri_f32, const float* view_pos, const int32_t* dims,
                    const int32_t* texels, int32_t* rgba, float* depth, int32_t* winner,
-                   cudaStream_t stream) {
-  const dim3 grid(p.ntx, p.nty), block(TW, TY);
-  fused_raster_kernel<R><<<grid, block, 0, stream>>>(p, off, tri_i32, tri_f32, view_pos,
-                                                      dims, texels, rgba, depth, winner);
+                   int32_t* order, cudaStream_t stream) {
+  tile_order_kernel<<<1, ORDER_THREADS, 0, stream>>>(off, p.ntx, p.nty, order);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.ntx * p.nty * blocks_per_tile(p.th)), block(TW, TY);
+  fused_raster_kernel<R><<<grid, block, 0, stream>>>(p, off, tri_i32, tri_f32, view_pos, dims,
+                                                      texels, rgba, depth, winner, order);
   return cudaGetLastError();
 }
 
@@ -161,16 +166,13 @@ cudaError_t launch(const FrFusedParams& p, const int32_t* off, const int32_t* tr
 extern "C" int fr_fused_raster(FrFusedParams p, const int32_t* off, const int32_t* tri_i32,
                                const float* tri_f32, const float* view_pos,
                                const int32_t* dims, const int32_t* texels, int32_t* rgba,
-                               float* depth, int32_t* winner, void* stream) {
+                               float* depth, int32_t* winner, int32_t* order, void* stream) {
   if (p.n_ctx < 1 || p.n_ctx > MAX_CTX) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (p.th) {
-    case 4: return (int)launch<1>(p, off, tri_i32, tri_f32, view_pos, dims, texels, rgba, depth, winner, s);
-    case 8: return (int)launch<2>(p, off, tri_i32, tri_f32, view_pos, dims, texels, rgba, depth, winner, s);
-    case 16: return (int)launch<4>(p, off, tri_i32, tri_f32, view_pos, dims, texels, rgba, depth, winner, s);
-    case 32: return (int)launch<8>(p, off, tri_i32, tri_f32, view_pos, dims, texels, rgba, depth, winner, s);
-    case 64: return (int)launch<16>(p, off, tri_i32, tri_f32, view_pos, dims, texels, rgba, depth, winner, s);
-    case 128: return (int)launch<32>(p, off, tri_i32, tri_f32, view_pos, dims, texels, rgba, depth, winner, s);
+    case 4: return (int)launch<1>(p, off, tri_i32, tri_f32, view_pos, dims, texels, rgba, depth, winner, order, s);
+    case 8: case 16: case 32: case 64: case 128:
+      return (int)launch<RT_MAX>(p, off, tri_i32, tri_f32, view_pos, dims, texels, rgba, depth, winner, order, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

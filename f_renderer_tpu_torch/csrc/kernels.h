@@ -30,17 +30,19 @@ typedef struct FrFusedParams {
 //   tri_i32  (12, n_pairs) setup rows, tri_f32 (9 + 3C, n_pairs)
 //   view_pos (3), dims (t_count, 2) (h, w), texels (t_count, hmax, wmax)
 //   rgba / depth / winner: (nty*th, w_pad) outputs
+//   order    (ntx*nty) scratch: the tiles, heaviest first
 int fr_fused_raster(FrFusedParams p, const int32_t* off, const int32_t* tri_i32,
                     const float* tri_f32, const float* view_pos, const int32_t* dims,
                     const int32_t* texels, int32_t* rgba, float* depth,
-                    int32_t* winner, void* stream);
+                    int32_t* winner, int32_t* order, void* stream);
 
 // Non-fused raster (K4) over the same binned pair list: depth / winner
 // (nty*th, ntx*128) planes and, when ps is not null, the texture id plane and
-// the (n_ctx, nty*th, ntx*128) varying planes (ctx may be null if n_ctx is 0).
+// the (n_ctx, nty*th, ntx*128) varying planes (ctx may be null if n_ctx is 0);
+// order (ntx*nty) is scratch, as for fr_fused_raster.
 int fr_raster_planes(int th, int ntx, int nty, int n_pairs, int n_ctx, const int32_t* off,
                      const int32_t* tri_i32, const float* tri_f32, float* depth,
-                     int32_t* winner, int32_t* ps, float* ctx, void* stream);
+                     int32_t* winner, int32_t* ps, float* ctx, int32_t* order, void* stream);
 
 // Batched bilinear sampler (K3): n samples (ps, u, v) → out (4, n) f32.
 int fr_sample_bilinear(const int32_t* dims, const int32_t* texels, int t_count, int hmax,
@@ -55,17 +57,22 @@ typedef struct FrVoxelParams {
   int32_t dda;        // 0: fixed step per_t, 1: cell-exact steps
   int32_t max_steps;  // watchdog on the per-ray loop
   int32_t bg_packed;  // background BGRA8
+  int32_t n_times;    // entries of the sample-time table
   float length;       // cube side
   float cell;         // length / r, the cell-index divisor
   float per_t;        // fixed step
   float eps;          // dda step pad, cell * 1e-3
+  float inv_per_t;    // float32(1 / per_t)
+  float eps_jump;     // a jump's margin in length units
 } FrVoxelParams;
 
-// Voxel march (K5): n rays (start, dir, t_max, alive) through table (r^3,)
-// int32 (bit 24 = hit, BGR low) → out (n,) packed BGRA.
+// Voxel march (K5): n rays (start, dir, t_max, alive; n values each) through table (r^3,) int32 (bit 24 = hit, BGR low) → out packed
+// BGRA. times (n_times,) f32 is the fixed step's sample-time table; bits
+// ((r^3 + 31) / 32,) int32 is scratch for the hit bitmap.
 int fr_voxel_march(FrVoxelParams p, const float* sx, const float* sy, const float* sz,
                    const float* dx, const float* dy, const float* dz, const float* tmax,
-                   const int32_t* alive, const int32_t* table, int32_t* out, void* stream);
+                   const int32_t* alive, const int32_t* table, const float* times,
+                   int32_t* bits, int32_t* out, void* stream);
 
 // cudaGetErrorString for a code returned above.
 const char* fr_error_string(int err);

@@ -27,6 +27,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -77,14 +78,17 @@ class VoxelParams(ctypes.Structure):
         ("dda", ctypes.c_int32),
         ("max_steps", ctypes.c_int32),
         ("bg_packed", ctypes.c_int32),
+        ("n_times", ctypes.c_int32),
         ("length", ctypes.c_float),
         ("cell", ctypes.c_float),
         ("per_t", ctypes.c_float),
         ("eps", ctypes.c_float),
+        ("inv_per_t", ctypes.c_float),
+        ("eps_jump", ctypes.c_float),
     ]
 
 
-# Tile heights the raster kernels are instantiated for (rows per thread = th / 4).
+# Tile heights the raster kernels take (th / 8 thread blocks to a tile).
 SUPPORTED_TH = (4, 8, 16, 32, 64, 128)
 MAX_CTX = 8  # the fused kernel's varying cap (K4 has none)
 
@@ -104,16 +108,18 @@ def _sources():
     return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh", ".h"))
 
 
-def _run_all(cmds) -> None:
-    """Run the commands together; raise with the first failure's stderr."""
+def _run_all(cmds) -> list[str]:
+    """Run the commands together → their stderr; raise with the failures'."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
-    errors = []
+    errors, logs = [], []
     for cmd, proc in zip(cmds, procs):
         _, err = proc.communicate()
+        logs.append(err)
         if proc.returncode != 0:
             errors.append(f"{' '.join(cmd)} failed ({proc.returncode}):\n{err}")
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return logs
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,7 +136,9 @@ def load_library() -> ctypes.CDLL:
         units = [p for p in _sources() if p.suffix == ".cu"]
         objs = [BUILD_DIR / f"{p.stem}.{tag}.o" for p in units]
         nvcc = _nvcc()
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(p), "-o", str(o)] for p, o in zip(units, objs)])
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(p), "-o", str(o)]
+                         for p, o in zip(units, objs)])
+        lib_path.with_suffix(".ptxas.txt").write_text("".join(logs))
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
         for o in objs:
@@ -138,15 +146,29 @@ def load_library() -> ctypes.CDLL:
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fr_fused_raster.argtypes = [FusedParams] + [ptr] * 10
-    lib.fr_raster_planes.argtypes = [i32] * 5 + [ptr] * 8
+    lib.fr_fused_raster.argtypes = [FusedParams] + [ptr] * 11
+    lib.fr_raster_planes.argtypes = [i32] * 5 + [ptr] * 9
     lib.fr_sample_bilinear.argtypes = [ptr, ptr] + [i32] * 5 + [ptr] * 4 + [ctypes.c_int64, ptr]
-    lib.fr_voxel_march.argtypes = [VoxelParams] + [ptr] * 11
+    lib.fr_voxel_march.argtypes = [VoxelParams] + [ptr] * 13
     for fn in (lib.fr_fused_raster, lib.fr_raster_planes, lib.fr_sample_bilinear, lib.fr_voxel_march):
         fn.restype = ctypes.c_int
     lib.fr_error_string.argtypes = [ctypes.c_int]
     lib.fr_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ptxas_report() -> list[str]:
+    """Each kernel's registers, spills and shared memory as ``ptxas -v``
+    printed them when the library was built (one line per kernel)."""
+    lib_path = Path(load_library()._name)
+    lines, name = [], None
+    for line in lib_path.with_suffix(".ptxas.txt").read_text().splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"\d([a-z_]+_kernel)(I[^E]*E)?", line.split("'")[1])
+            name = m.group(1) + (f"<{m.group(2)[1:-1]}>" if m.group(2) else "") if m else line
+        elif name and ("spill" in line or "Used" in line):
+            lines.append(f"{name}: {line.split(':', 1)[-1] if line.startswith('ptxas') else line}".strip())
+    return lines
 
 
 def _check(lib, err: int, what: str) -> None:
@@ -217,12 +239,13 @@ def fused_raster(
     rgba = torch.empty((h_pad, w_pad), dtype=torch.int32, device=dev)
     depth = torch.empty((h_pad, w_pad), dtype=torch.float32, device=dev)
     winner = torch.empty((h_pad, w_pad), dtype=torch.int32, device=dev)
+    order = torch.empty((ntx * nty,), dtype=torch.int32, device=dev)  # scratch: tiles, heaviest first
     stream = _stream(dev)
     err = lib.fr_fused_raster(
         params,
         off.data_ptr(), tri_i32.data_ptr(), tri_f32.data_ptr(),
         view_pos.data_ptr(), dims.data_ptr(), texels.data_ptr(),
-        rgba.data_ptr(), depth.data_ptr(), winner.data_ptr(), stream,
+        rgba.data_ptr(), depth.data_ptr(), winner.data_ptr(), order.data_ptr(), stream,
     )
     _check(lib, err, "fr_fused_raster")
     fused_raster.launches += 1
@@ -245,13 +268,14 @@ def raster_planes(off, tri_i32, tri_f32, *, th, n_ctx, h_pad, w_pad, interp):
     if interp:
         ps = torch.empty((h_pad, w_pad), dtype=torch.int32, device=dev)
         ctx = torch.empty((n_ctx, h_pad, w_pad), dtype=torch.float32, device=dev)
+    order = torch.empty((ntx * nty,), dtype=torch.int32, device=dev)  # scratch: tiles, heaviest first
     err = lib.fr_raster_planes(
         th, ntx, nty, tri_i32.shape[1], n_ctx,
         off.data_ptr(), tri_i32.data_ptr(), tri_f32.data_ptr(),
         depth.data_ptr(), winner.data_ptr(),
         None if ps is None else ps.data_ptr(),
         None if ctx is None or n_ctx == 0 else ctx.data_ptr(),
-        _stream(dev),
+        order.data_ptr(), _stream(dev),
     )
     _check(lib, err, "fr_raster_planes")
     raster_planes.launches += 1
@@ -291,11 +315,13 @@ def sample_bilinear(texels, dims, ps, u, v, *, opaque, replicate_clamp_bug):
 sample_bilinear.launches = 0
 
 
-def voxel_march(start, dirs, t_max, alive, table, *, r, length, cell, per_t, eps, dda, bg_packed, max_steps):
+def voxel_march(start, dirs, t_max, alive, table, times, k):
     """Launch the voxel march kernel (csrc/voxel_march.cu) on PyTorch's
     current stream. ``start`` and ``dirs`` are three f32 planes each, of
-    ``t_max``'s shape; ``alive`` int32 of that shape; ``table`` (r³,) int32
-    → packed BGRA int32 of that shape."""
+    ``t_max``'s shape; ``alive`` int32 of that shape; ``table`` (r³,)
+    int32; ``times`` the (k.n_times,) f32 sample-time table; ``k`` the
+    march's constants (``voxel.raycast.MarchConstants``) → packed BGRA int32
+    of that shape."""
     dev = _on_cuda(t_max, "voxel_march")
     shape = tuple(t_max.shape)
     for name, planes in (("start", start), ("dirs", dirs)):
@@ -303,18 +329,22 @@ def voxel_march(start, dirs, t_max, alive, table, *, r, length, cell, per_t, eps
             _need(t, f"{name}[{a}]", torch.float32, dev, shape)
     _need(t_max, "t_max", torch.float32, dev, shape)
     _need(alive, "alive", torch.int32, dev, shape)
-    _need(table, "table", torch.int32, dev, (r * r * r,))
+    _need(table, "table", torch.int32, dev, (k.r ** 3,))
+    _need(times, "times", torch.float32, dev, (k.n_times,))
     out = torch.empty(shape, dtype=torch.int32, device=dev)
     n = t_max.numel()
     if n == 0:
         return out
     lib = load_library()
     params = VoxelParams(
-        n=n, r=r, dda=int(bool(dda)), max_steps=max_steps, bg_packed=bg_packed,
-        length=length, cell=cell, per_t=per_t, eps=eps,
+        n=n, r=k.r, dda=int(k.dda), max_steps=k.max_steps,
+        bg_packed=k.bg_packed, n_times=k.n_times, length=k.length, cell=k.cell, per_t=k.per_t, eps=k.eps, inv_per_t=k.inv_per_t,
+        eps_jump=k.eps_jump,
     )
+    bits = torch.empty(((k.r ** 3 + 31) // 32,), dtype=torch.int32, device=dev)
     err = lib.fr_voxel_march(
-        params, *(t.data_ptr() for t in (*start, *dirs, t_max, alive, table, out)), _stream(dev)
+        params, *(t.data_ptr() for t in (*start, *dirs, t_max, alive, table, times, bits, out)),
+        _stream(dev),
     )
     _check(lib, err, "fr_voxel_march")
     voxel_march.launches += 1

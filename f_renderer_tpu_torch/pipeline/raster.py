@@ -263,6 +263,27 @@ def prep_binned(
     )
 
 
+def tile_lists(prep: BinnedPrep, ty: int, tx: int) -> tuple[int, int, int]:
+    """Fine tile (ty, tx)'s three pair ranges in ``prep.off``: the indices r
+    of its fine, coarse and spill ranges, each the pairs off[r]..off[r+1]."""
+    nty, ntx = prep.h_pad // prep.th, prep.w_pad // LANES
+    ntiles, ntxc = nty * ntx, cdiv(ntx, COARSE)
+    spill = ntiles + cdiv(nty, COARSE) * ntxc
+    return ty * ntx + tx, ntiles + (ty // COARSE) * ntxc + tx // COARSE, spill
+
+
+def cover_plain(tri_i32, idx, cx, cy):
+    """The cover test of both raster kernels for the pairs ``idx`` at pixels
+    (cx, cy) (broadcast) → bool (P, ...): the wrapped int32 edges against 0
+    and the exclusive bbox max."""
+    i = tri_i32[:, idx].long()[:, :, None, None]  # (12, P, 1, 1)
+    e01 = _w(i[A01] * cx + i[B01] * cy + i[C01])
+    e20 = _w(i[A20] * cx + i[B20] * cy + i[C20])
+    e12 = _w(i[AREA2] - e01 - e20)
+    maxx, maxy = unpack_xy(i[MAXXY])
+    return (e01 | e12 | e20 | (maxx - 1 - cx) | (maxy - 1 - cy)) >= 0
+
+
 def _tile_plain(tri_i32, tri_f32, idx, cx, cy):
     """Per-pixel strict (rhw, order) maximum over one tile's pairs ``idx``.
 
@@ -271,13 +292,8 @@ def _tile_plain(tri_i32, tri_f32, idx, cx, cy):
     {background} ∪ covered pairs, so it is computed as one (the pairs of a
     tile have distinct orders). Returns (depth, winning pair or -1).
     """
-    i = tri_i32[:, idx].long()[:, :, None, None]  # (12, P, 1, 1)
     f = tri_f32[:9, idx][:, :, None, None]
-    e01 = _w(i[A01] * cx + i[B01] * cy + i[C01])
-    e20 = _w(i[A20] * cx + i[B20] * cy + i[C20])
-    e12 = _w(i[AREA2] - e01 - e20)
-    maxx, maxy = unpack_xy(i[MAXXY])
-    cover = (e01 | e12 | e20 | (maxx - 1 - cx) | (maxy - 1 - cy)) >= 0
+    cover = cover_plain(tri_i32, idx, cx, cy)
     pcx = cx.to(torch.float32) + 0.5
     pcy = cy.to(torch.float32) + 0.5
     s0x, s0y = f[S0X] - pcx, f[S0Y] - pcy
@@ -291,7 +307,7 @@ def _tile_plain(tri_i32, tri_f32, idx, cx, cy):
     rhw = f[RHW0] * (a * inv_s) + f[RHW1] * (b * inv_s) + f[RHW2] * (c * inv_s)
     ok = cover & (s != 0.0) & ~torch.isnan(rhw)  # a NaN rhw is never accepted
     m1 = torch.where(ok, rhw, float("-inf")).amax(0)
-    order = i[ORDER]
+    order = tri_i32[ORDER, idx].long()[:, None, None]
     tie = ok & (rhw == m1)
     m2 = torch.where(tie, order, ORDER_NONE).amax(0)
     accept = (m1 > 0.0) | ((m1 == 0.0) & (m2 > ORDER_NONE))
@@ -307,20 +323,15 @@ def raster_tiles_plain(prep: BinnedPrep):
     dev = prep.tri_i32.device
     th, tw = prep.th, LANES
     nty, ntx = prep.h_pad // th, prep.w_pad // tw
-    ntiles = nty * ntx
-    ntxc = cdiv(ntx, COARSE)
-    ntilesc = cdiv(nty, COARSE) * ntxc
     off = prep.off.tolist()
     depth = torch.zeros((prep.h_pad, prep.w_pad), dtype=torch.float32, device=dev)
     wpair = torch.full((prep.h_pad, prep.w_pad), -1, dtype=torch.int64, device=dev)
     rows = torch.arange(th, device=dev)[:, None]
     cols = torch.arange(tw, device=dev)[None, :]
-    spill = ntiles + ntilesc
     for ty in range(nty):
         for tx in range(ntx):
-            t = ty * ntx + tx
-            c = ntiles + (ty // COARSE) * ntxc + tx // COARSE
-            idx = torch.cat([torch.arange(off[r], off[r + 1], device=dev) for r in (t, c, spill)])
+            lists = tile_lists(prep, ty, tx)
+            idx = torch.cat([torch.arange(off[r], off[r + 1], device=dev) for r in lists])
             if idx.numel() == 0:
                 continue
             d, w = _tile_plain(prep.tri_i32, prep.tri_f32, idx, tx * tw + cols, ty * th + rows)

@@ -196,3 +196,64 @@ def make_phong_scene(
         ),
         device=device,
     )
+
+
+def make_sliver_scene(
+    width: int, height: int, tile=(32, 128), n: int = 240, seed: int = 0, device="cuda"
+) -> Scene:
+    """An edge-case scene for the binned raster: 1- and 2-pixel triangles at
+    the corners of the 32 x (rows / 4) rectangles the raster kernels' warps
+    own and of the bin tiles, and long slivers (diagonal, one pixel tall,
+    one pixel wide) that span many tiles, at three shared depths (exact rhw
+    ties, decided by draw order) and at random ones. ``bin_k=1`` sends every
+    triangle that spans two tiles to the coarse or spill range.
+
+    Vertices are placed in pixels: the projection maps (x, y, z) to
+    w = 1 + z/2, NDC (x, y) / w, so a vertex at NDC · w lands on its pixel.
+    """
+    rng = np.random.default_rng(seed)
+    rows = tile[0] // 4
+    corners_x = np.arange(32, width, 32)
+    corners_y = np.arange(rows, height, rows)
+
+    def px(lo, hi, size):
+        return rng.integers(lo, hi, size)
+
+    tris = []
+    for _ in range(n // 2):  # 1- and 2-pixel right triangles around a corner
+        x = int(rng.choice(corners_x)) + int(px(-2, 1, 1)[0])
+        y = int(rng.choice(corners_y)) + int(px(-2, 1, 1)[0])
+        s, fx, fy = int(px(1, 3, 1)[0]), int(rng.choice([-1, 1])), int(rng.choice([-1, 1]))
+        tris.append([(x, y), (x + fx * s, y), (x, y + fy * s)])
+    for _ in range(n // 4):  # diagonal slivers across the frame
+        x0, x1 = px(0, width - 1, 2)
+        y0, y1 = px(0, height - 1, 2)
+        tris.append([(x0, y0), (x1, y1), (x1 + 1, y1)])
+    for _ in range(n // 8):  # one pixel tall, at a warp-rectangle row edge
+        x0, x1 = np.sort(px(0, width, 2))
+        y = int(rng.choice(corners_y))
+        tris.append([(x0, y), (x1, y), (x1, y + 1)])
+    for _ in range(n - len(tris)):  # one pixel wide, at a warp column edge
+        y0, y1 = np.sort(px(0, height, 2))
+        x = int(rng.choice(corners_x))
+        tris.append([(x, y0), (x, y1), (x + 1, y1)])
+    xy = np.clip(np.asarray(tris, np.float64), 0, [width - 1, height - 1])
+    shared = rng.random(len(tris)) < 0.5
+    z = np.where(shared[:, None], rng.choice([0.25, 0.5, 0.75], len(tris))[:, None], rng.random((len(tris), 3)))
+    w = 1.0 + 0.5 * z
+    nx, ny = 2.0 * xy[..., 0] / width - 1.0, 1.0 - 2.0 * xy[..., 1] / height
+    mesh = {
+        "pos": np.stack([nx * w, ny * w, z], axis=-1).astype(np.float32),
+        "uv": rng.random((len(tris), 3, 2)).astype(np.float32),
+        "normal": np.tile(np.array([0.3, 0.2, -1.0], np.float32), (len(tris), 3, 1)),
+    }
+    scene = make_phong_scene(
+        width, height, meshes=[mesh], textures=[make_checker_texture(64, 8)], clip_cap=64, device=device
+    )
+    proj = torch.tensor(
+        [[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 0.5, 0], [0, 0, 0.5, 1]], dtype=torch.float32, device=scene.device
+    )
+    eye = set_identity(scene.device)
+    scene.vs_uniform = dict(scene.vs_uniform, model=eye, view=eye, proj=proj)
+    scene.config = dataclasses.replace(scene.config, tile=tuple(tile), bin_k=1)
+    return scene

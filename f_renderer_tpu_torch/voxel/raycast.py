@@ -27,6 +27,7 @@ Reference quirks replicated (SURVEY.md §7.3.10):
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -196,6 +197,12 @@ class VoxelRenderConfig:
     traversal: str = "fixed"
 
 
+# Every ray's t_max is at most 3·length: its segment lies in the cube, whose
+# diagonal is √3·length, and 3 leaves room for rounding. The sample-time
+# table and the loop bound below cover that reach.
+T_REACH = 3.0
+
+
 @dataclasses.dataclass(frozen=True)
 class MarchConstants:
     """The march's float32 constants, rounded as the JAX package rounds them."""
@@ -207,9 +214,15 @@ class MarchConstants:
     eps: float  # dda step pad, cell · 1e-3
     dda: bool
     bg_packed: int  # background BGRA8 as int32
-    # Bound on the per-ray loop; no real ray reaches it: t_max ≤ 3·length and
-    # every step advances t by at least per_t (fixed) or eps (dda).
+    # Bound on the per-ray loop; no real ray reaches it: t_max ≤ T_REACH·length
+    # and every step advances t by at least per_t (fixed) or eps (dda).
     max_steps: int
+    inv_per_t: float  # float32(1 / per_t): jump lengths in steps
+    # Safety margin of a jump, in length units: the drift of up to ~90
+    # accumulated float32 steps plus the rounding of the sample positions,
+    # 128 ulp of the largest sample time.
+    eps_jump: float
+    n_times: int  # entries of the sample-time table (sample_times)
 
 
 def march_constants(config: VoxelRenderConfig, r: int) -> MarchConstants:
@@ -221,13 +234,42 @@ def march_constants(config: VoxelRenderConfig, r: int) -> MarchConstants:
     dda = config.traversal == "dda"
     if config.traversal not in ("fixed", "dda"):
         raise ValueError(f"traversal {config.traversal!r}: 'fixed' or 'dda'")
+    # The fixed step's empty-cell jump needs the cube's faces on grid planes,
+    # so that a grid cell outside the cube is wholly outside it: true for the
+    # power-of-two r that octree.densify makes.
+    if not dda and f32(cell * f32(r)) != length:
+        raise ValueError(f"fixed steps need r · (length / r) == length in float32; r={r}")
     bg = config.background
     v = int(bg[0]) | (int(bg[1]) << 8) | (int(bg[2]) << 16) | (int(bg[3]) << 24)
+    times = _sample_times(float(per_t), float(length))
     return MarchConstants(
         r=r, length=float(length), cell=float(cell), per_t=float(per_t), eps=float(eps),
         dda=dda, bg_packed=v - 2**32 if v >= 2**31 else v,
         max_steps=int(np.ceil(4.0 * float(length) / float(eps if dda else per_t))) + 16,
+        inv_per_t=float(f32(1.0 / float(per_t))),
+        eps_jump=float(f32(128.0) * np.spacing(times[-1])),
+        n_times=len(times),
     )
+
+
+@functools.lru_cache(maxsize=None)
+def _sample_times(per_t: float, length: float) -> np.ndarray:
+    """t_k, the k-th time the serial chain ``t = t + per_t`` reaches in float32
+    (raycast_pallas.py:349-361), from 0 until one step past T_REACH·length."""
+    pt = np.float32(per_t)
+    t_end = np.float32(np.float32(T_REACH) * np.float32(length) + pt)
+    acc = np.float32(0.0)
+    times = [acc]
+    while times[-1] < t_end:
+        acc = np.float32(acc + pt)
+        times.append(acc)
+    return np.asarray(times, np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def sample_times(k: MarchConstants, device) -> torch.Tensor:
+    """The (n_times,) float32 sample-time table of ``k`` on ``device``."""
+    return torch.from_numpy(_sample_times(k.per_t, k.length)).to(device)
 
 
 def voxel_table(grid_color, grid_hit):
@@ -263,17 +305,60 @@ def _dda_dt(k: MarchConstants, p, dirs):
     return torch.minimum(torch.minimum(dts[0], dts[1]), dts[2])
 
 
-def march_plain(start, dirs, t_max, alive, table, k: MarchConstants, *, count_queries=False):
+def _jump_dt(k: MarchConstants, p, dirs, inv_ad):
+    """How far along the ray every point provably stays in the grid cell of
+    ``p``: the distance to the next cell boundary with ``eps_jump`` taken off
+    on each axis before it is scaled by ``inv_ad`` = 1 / |direction| (so that
+    a ray grazing a plane gets no jump), FAR on an axis the ray never
+    crosses."""
+    dts = []
+    for a in range(3):
+        c = torch.floor(true_div(p[a], k.cell))
+        up = dirs[a] > 0.0
+        boundary = (c + up.to(torch.float32)) * k.cell
+        dist = torch.where(up, boundary - p[a], p[a] - boundary)
+        tn = (dist - k.eps_jump) * inv_ad[a]
+        dts.append(torch.where((dirs[a] == 0.0) | torch.isnan(tn), FAR, tn))
+    return torch.minimum(torch.minimum(dts[0], dts[1]), dts[2])
+
+
+def march_plain(start, dirs, t_max, alive, table, k: MarchConstants, *, count_queries=False,
+                serial=False):
     """Plain PyTorch version of K5, on the tensors' device: the whole-frame
-    march (raycast.py:344-369 for fixed steps, raycast_pallas.py:149-166 for
-    dda) → packed BGRA int32 of t_max's shape. With ``count_queries`` it
+    march → packed BGRA int32 of t_max's shape. With ``count_queries`` it
     also returns how many point queries the rays made (the march's work on
-    this frame, which a bound on the kernel's time counts)."""
+    this frame, which a bound on the kernel's time counts). ``serial``
+    marches the fixed step's serial chain without the jump, query by query,
+    as the JAX jnp march does: the reference the jump is held to.
+
+    Each round, every ray still marching queries its sample at t and stops
+    on a hit or once t ≥ t_max; else it steps:
+
+    - dda: ``t = min((t + dt) + eps, t_max)``, dt the distance to the next
+      cell boundary (raycast_pallas.py:149-166);
+    - fixed: the reference's serial chain ``t = min(t + per_t, t_max)``
+      (raycast.py:344-369 of the JAX package) visits t_k = k · per_t summed
+      in float32. Where the sample at t_k missed, every sample up to the
+      distance ``_jump_dt`` (and short of t_max) lies in the same empty or
+      outside cell, so the march jumps the index k past them and reads the
+      exact t_k from the table (the empty-cell jump of
+      raycast_pallas.py:167-225, with the margin in length units). The
+      samples it queries are samples of the serial chain, and the ones it
+      skips all miss, so the frame is the serial march's, bit for bit.
+    """
+    dev = t_max.device
     t = torch.zeros_like(t_max)
+    step_k = torch.zeros(t_max.shape, dtype=torch.int32, device=dev)
     done = ~alive
     hit = torch.zeros_like(alive)
-    v = torch.zeros(t_max.shape, dtype=torch.int32, device=t_max.device)
-    queries = torch.zeros((), dtype=torch.int64, device=t_max.device)
+    v = torch.zeros(t_max.shape, dtype=torch.int32, device=dev)
+    queries = torch.zeros((), dtype=torch.int64, device=dev)
+    jumps = not k.dda and not serial
+    if jumps:
+        times = sample_times(k, dev)
+        inv_per_t = torch.full((), k.inv_per_t, dtype=torch.float32, device=dev)
+        inv_ad = [true_div(1.0, torch.abs(d)) for d in dirs]
+        kmax = k.n_times - 1
     for step in range(k.max_steps):
         if step % 8 == 0 and bool(done.all()):  # a host sync every 8 steps
             break
@@ -283,8 +368,22 @@ def march_plain(start, dirs, t_max, alive, table, k: MarchConstants, *, count_qu
         v = torch.where(h, val, v)
         hit = hit | h
         done = done | h | (t >= t_max)
-        step_t = (t + _dda_dt(k, p, dirs)) + k.eps if k.dda else t + k.per_t
-        t = torch.where(done, t, torch.minimum(step_t, t_max))
+        if k.dda:
+            t_next = torch.minimum((t + _dda_dt(k, p, dirs)) + k.eps, t_max)
+        else:
+            t_next = torch.minimum(t + k.per_t, t_max)
+            k_next = step_k + 1
+            if jumps:
+                # skip the samples k+1 .. k+x; land on k+x+1 (x ≥ 1)
+                reach = torch.minimum(_jump_dt(k, p, dirs, inv_ad), (t_max - t) - k.eps_jump)
+                x = torch.floor(reach * inv_per_t)
+                jump = (x >= 1.0) & (x <= (kmax - 1 - step_k).to(torch.float32))
+                k_jump = step_k + torch.where(jump, x, 0.0).to(torch.int32) + 1
+                k_next = torch.where(jump, k_jump, k_next)
+                t_jump = torch.minimum(times[torch.clamp(k_jump, max=kmax).long()], t_max)
+                t_next = torch.where(jump, t_jump, t_next)
+            step_k = torch.where(done, step_k, k_next)
+        t = torch.where(done, t, t_next)
     color = (v & 0x00FFFFFF) | -16777216  # | 0xFF000000 as int32
     packed = torch.where(hit, color, k.bg_packed).to(torch.int32)
     return (packed, int(queries)) if count_queries else packed
@@ -300,8 +399,7 @@ def march(start, dirs, t_max, alive, table, k: MarchConstants):
     return kernels.voxel_march(
         [s.contiguous() for s in start], [d.contiguous() for d in dirs],
         t_max.contiguous(), alive.to(torch.int32).contiguous(), table,
-        r=k.r, length=k.length, cell=k.cell, per_t=k.per_t, eps=k.eps, dda=k.dda,
-        bg_packed=k.bg_packed, max_steps=k.max_steps,
+        sample_times(k, t_max.device), k,
     )
 
 

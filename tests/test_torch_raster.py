@@ -276,6 +276,63 @@ def test_shade_deferred_matches_rasterize_interp(ref):
     frame_bar(got.numpy(), want.numpy())
 
 
+def bbox_scene(name):
+    """The phong1080 shapes (a 40x80 sphere and two 0.8 cubes, bench
+    camera and angle) at 128x128, or the sliver scene, on the CPU."""
+    from f_renderer_tpu_torch import Camera, make_phong_scene
+    from f_renderer_tpu_torch.math import set_rotate
+    from f_renderer_tpu_torch.scene import make_sliver_scene
+
+    if name == "sliver":
+        return make_sliver_scene(128, 128, device="cpu")
+    cube = make_cube(0.8)
+    cube["pos"] = cube["pos"] + np.array([1.6, 0.0, 0.0], np.float32)
+    cube2 = make_cube(0.8)
+    cube2["pos"] = cube2["pos"] + np.array([-1.6, 0.0, 0.0], np.float32)
+    cam = Camera.create([0.0, 0.5, 4.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], "cpu")
+    scene = make_phong_scene(
+        128, 128, meshes=[make_uv_sphere(40, 80), cube, cube2], camera=cam, clip_cap=64, device="cpu",
+        textures=[make_checker_texture(*t) for t in TEXTURES],
+    )
+    scene.vs_uniform = dict(scene.vs_uniform, model=set_rotate([0.0, 1.0, 0.0], 0.10, "cpu"))
+    return scene
+
+
+@pytest.mark.parametrize("name", ["phong1080_128", "sliver"])
+def test_covered_pixels_lie_in_bbox(name):
+    """The precondition of the raster kernels' bbox gate
+    (csrc/raster_loop.cuh): every (pair, pixel) that the cover test of
+    ``raster_tiles_plain`` accepts, over each tile's fine, coarse and spill
+    ranges, lies inside the pair's [MINXY, MAXXY)."""
+    from f_renderer_tpu_torch.pipeline import fused
+    from f_renderer_tpu_torch.pipeline.render import build_triangles
+
+    scene = bbox_scene(name)
+    tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+    prep = fused.prep_fused(tri, scene.config)
+    th, ntx, nty = prep.th, prep.w_pad // raster.LANES, prep.h_pad // prep.th
+    off = prep.off.tolist()
+    minx, miny = raster.unpack_xy(prep.tri_i32[raster.MINXY].long())
+    maxx, maxy = raster.unpack_xy(prep.tri_i32[raster.MAXXY].long())
+    covered, ranges = 0, set()
+    for ty in range(nty):
+        for tx in range(ntx):
+            lists = raster.tile_lists(prep, ty, tx)
+            idx = torch.cat([torch.arange(off[r], off[r + 1]) for r in lists])
+            ranges.update(k for k, r in enumerate(lists) if off[r + 1] > off[r])
+            if idx.numel() == 0:
+                continue
+            cy = ty * th + torch.arange(th)[:, None]
+            cx = tx * raster.LANES + torch.arange(raster.LANES)[None, :]
+            cover = raster.cover_plain(prep.tri_i32, idx, cx, cy)
+            inside = ((cx >= minx[idx, None, None]) & (cx < maxx[idx, None, None])
+                      & (cy >= miny[idx, None, None]) & (cy < maxy[idx, None, None]))
+            assert not (cover & ~inside).any(), f"tile ({ty}, {tx}): a covered pixel outside its pair's bbox"
+            covered += int(cover.sum())
+    assert covered > (2000 if name == "sliver" else 5000)
+    assert ranges >= ({0, 1} if name == "sliver" else {0})
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(CASES))
 def test_kernel_matches_plain_on_card(name):

@@ -36,6 +36,20 @@ from f_renderer_tpu_torch.voxel import raycast as pray
 W, H, LEVEL, LENGTH = 64, 48, 2, 2.0
 FRAMES = (0, 4, 9)  # bench.py's orbit, frames i = 0, 4 and 9
 SEED = 3
+LEVEL3 = 3  # the bench's level (voxel540): the fixed step's jump matters most there
+
+
+def crafted_view():
+    """(eye, inv_mvp) whose rays all lie in the plane y = 1.1: the ray
+    direction is (ndc_y / 2, 0, 1 + ndc_x) before normalisation. Every ray
+    has d_y = 0; the row at ndc_y = 0 (y = H/2) runs exactly along +z from
+    x = 1.0, a grid plane; the column x = 0 (ndc_x = -1) runs along ±x; and
+    pixel (0, H/2) has a zero direction, so a NaN direction and t_max."""
+    inv = np.zeros((4, 4), np.float32)
+    inv[0, 1] = 0.5
+    inv[2, 0], inv[2, 2], inv[2, 3] = 1.0, 0.5, 0.5
+    inv[3, 3] = 1.0
+    return np.array([1.0, 1.1, -1.5], np.float32), inv
 
 
 def orbit_view(i, width, height, length):
@@ -67,6 +81,13 @@ def write_reference(path):
             cfg = jray.VoxelRenderConfig(width=W, height=H, level=LEVEL, length=LENGTH, **over)
             frame = jray.render_voxel_frame(jnp.asarray(color), jnp.asarray(hit), eye, inv_mvp, cfg)
             out[f"{i}/{name}"] = np.asarray(frame)
+    color3, hit3 = joct.densify(joct.gen_randomly(LEVEL3, np.random.default_rng(SEED)), LEVEL3)
+    out["l3/color"], out["l3/hit"] = color3, hit3
+    cfg = jray.VoxelRenderConfig(width=W, height=H, level=LEVEL3, length=LENGTH, backend="jnp")
+    for name, (eye, inv_mvp) in (("orbit0", orbit_view(0, W, H, LENGTH)), ("crafted", crafted_view())):
+        frame = jray.render_voxel_frame(jnp.asarray(color3), jnp.asarray(hit3), eye, inv_mvp, cfg)
+        out[f"l3/{name}/eye"], out[f"l3/{name}/inv_mvp"] = eye, inv_mvp
+        out[f"l3/{name}"] = np.asarray(frame)
     np.savez(path, **out)
 
 
@@ -159,6 +180,71 @@ def test_plain_march_frames_equal_jax(ref, i, traversal):
     np.testing.assert_array_equal(frame.numpy(), want)
     hit = (want[..., :3] != 0).any(-1)
     assert 0.05 < hit.mean() < 0.95  # the octree is in view
+
+
+def level3_rays(ref, name):
+    cfg = pray.VoxelRenderConfig(width=W, height=H, level=LEVEL3, length=LENGTH)
+    eye, inv_mvp = (torch.from_numpy(ref[f"l3/{name}/{k}"]) for k in ("eye", "inv_mvp"))
+    table = pray.voxel_table(torch.from_numpy(ref["l3/color"]), torch.from_numpy(ref["l3/hit"]))
+    return pray.prepare_rays(eye, inv_mvp, cfg), table, pray.march_constants(cfg, ref["l3/hit"].shape[0])
+
+
+@pytest.mark.parametrize("name", ["orbit0", "crafted"])
+def test_plain_march_level3_equals_jax(ref, name):
+    """At the bench's level 3 the jumping fixed-step march equals the JAX
+    package's serial jnp march byte for byte: on the bench's orbit view,
+    and on a view of axis-parallel rays, rays on a grid plane and one
+    NaN-direction ray (whose t_max is NaN)."""
+    cfg = pray.VoxelRenderConfig(width=W, height=H, level=LEVEL3, length=LENGTH)
+    frame = pray.render_voxel_frame(
+        ref["l3/color"], ref["l3/hit"], ref[f"l3/{name}/eye"], ref[f"l3/{name}/inv_mvp"], cfg, device="cpu"
+    )
+    want = ref[f"l3/{name}"]
+    np.testing.assert_array_equal(frame.numpy(), want)
+    assert 0.02 < (want[..., :3] != 0).any(-1).mean() < 0.95
+    if name == "crafted":
+        (start, dirs, t_max, alive), _, _ = level3_rays(ref, name)
+        assert torch.isnan(t_max[H // 2, 0]) and not alive[H // 2, 0]
+        assert torch.isnan(dirs[0][H // 2, 0]) and int(torch.isnan(dirs[0]).sum()) == 1
+        assert (dirs[1].nan_to_num() == 0).all() and (dirs[0][H // 2, 1:] == 0).all()
+        assert (dirs[2][:, 0].nan_to_num() == 0).all()
+        assert alive[H // 2, 1:].any()  # the rays along +z reach the cube
+
+
+def test_jump_cuts_queries(ref):
+    """The jump skips only samples that miss: the frame equals the serial
+    chain's (the same march without the jump), with at least 20x fewer
+    queries on the bench's orbit view at level 3."""
+    rays, table, k = level3_rays(ref, "orbit0")
+    assert not k.dda
+    got, queries = pray.march_plain(*rays, table, k, count_queries=True)
+    serial, serial_queries = pray.march_plain(*rays, table, k, count_queries=True, serial=True)
+    assert torch.equal(got, serial)
+    assert serial_queries >= 20 * queries > 0, (serial_queries, queries)
+
+
+@pytest.mark.parametrize("level", [LEVEL, LEVEL3])
+def test_sample_times_table(ref, level):
+    """The t_k table is the float32 serial accumulation of per_t, built as
+    raycast_pallas.py:353-361 builds it, bit for bit over that table's
+    length; it runs on past the largest t_max of the test views."""
+    cfg = pray.VoxelRenderConfig(width=W, height=H, level=level, length=LENGTH)
+    k = pray.march_constants(cfg, 2 ** (level + 1))
+    times = pray.sample_times(k, torch.device("cpu")).numpy()
+    pt = np.float32(k.per_t)
+    t_acc = np.float32(0.0)
+    tt = [t_acc]
+    t_end = np.float32(np.sqrt(3.0) * LENGTH) + pt
+    while tt[-1] < t_end:
+        t_acc = np.float32(t_acc + pt)
+        tt.append(t_acc)
+    assert times.dtype == np.float32 and len(times) == k.n_times > len(tt)
+    np.testing.assert_array_equal(times[: len(tt)], np.asarray(tt, np.float32))
+    views = [(ref[f"{i}/eye"], ref[f"{i}/inv_mvp"]) for i in FRAMES]
+    views += [(ref[f"l3/{n}/eye"], ref[f"l3/{n}/inv_mvp"]) for n in ("orbit0", "crafted")]
+    for eye, inv_mvp in views:
+        _, _, t_max, alive = pray.prepare_rays(torch.from_numpy(eye), torch.from_numpy(inv_mvp), cfg)
+        assert alive.any() and float(t_max[alive].max()) < times[-1]
 
 
 def test_tiny_frame_matches_golden():
