@@ -31,14 +31,19 @@ Phases, each reported on its own lines:
    - K5, the voxel march: voxel540 and voxel540dda on all 10 main-path
      views, BGRA frames equal; for fixed steps each frame also against
      the plain serial chain without the jump (the query count of view 0
-     kept); and one level-6 view at 240x135 (its hit bitmap read through
-     L2), fixed steps against both plain marches;
+     kept, and the queries of its warps: the largest and the mean); one
+     level-6 view at 240x135 (its hit bitmap read through L2), fixed
+     steps against both plain marches; and one dda view at length 3.0,
+     where the cell is no power of two and the kernel divides;
    each kernel's device time (its launches queued behind a spin kernel,
    CUDA events), its entry point's time with the host's launch overhead
    (back-to-back calls), its plain version's time, and the least time the
    card could take for the same work (the bound; for K1 and K4 also with
    every pixel of a tile tested for every pair in its lists, for K5 fixed
-   also with the serial chain's queries);
+   also with the serial chain's queries); beside them the same launches
+   with every pair list empty (K1, K4: the stores alone), without
+   varyings and with only the heaviest tile (K4), and with every ray dead
+   (K5);
 4. the main paths through the entry points a user calls, each driven with
    the launch counters set to 0 just before it and read just after:
    phong1080 ``Scene.render()`` (K1 once a frame), phong1080_tex2048
@@ -200,14 +205,15 @@ def set_angle(scene, angle):
     scene.vs_uniform = dict(scene.vs_uniform, model=set_rotate([0.0, 1.0, 0.0], angle, scene.device))
 
 
-def voxel_view(i):
-    """bench.py:283-292: the orbit camera of voxel frame ``i`` → (eye,
-    inv_mvp) as float32 numpy, from the port's math on the host."""
+def voxel_view(i, length=VOXEL_LENGTH):
+    """bench.py:283-292: the orbit camera of voxel frame ``i`` around a cube
+    of side ``length`` → (eye, inv_mvp) as float32 numpy, from the port's
+    math on the host."""
     import numpy as np
 
     from f_renderer_tpu_torch.math import set_identity, set_look_at, set_perspective
 
-    w, h, length = VOXEL_W, VOXEL_H, VOXEL_LENGTH
+    w, h = VOXEL_W, VOXEL_H
     proj = set_perspective(np.pi * 0.25, w / h, 0.1, 100.0, "cpu").numpy()
     center = np.array([length / 2] * 3, np.float32)
     ang = 0.3 + 0.08 * i
@@ -464,7 +470,17 @@ def check_serial(tag, got, rays, table, k):
 
     want, queries = plain(raycast.march_plain, *rays, table, k, count_queries=True, serial=True)
     check(torch.equal(got, want), f"{tag}: the serial chain's frame differs at {int((got != want).sum())} rays")
-    return want, queries
+    return want, int(queries.sum())
+
+
+def warp_queries(queries):
+    """Queries per warp of 32 rays in row order, as one thread per ray would
+    run them → (mean over warps of the largest count, mean count)."""
+    import torch
+
+    q = queries.reshape(-1)
+    q = torch.cat([q, q.new_zeros(-q.numel() % 32)]).reshape(-1, 32)
+    return float(q.amax(1).float().mean()), float(q.float().mean())
 
 
 def main() -> int:
@@ -559,7 +575,8 @@ def main() -> int:
     # 3b. K4 against plain, both entry points; 3c. K3 on the same planes
     log("[kernel-vs-plain] K4 raster_planes, K3 sample_bilinear")
     worst_ctx, worst_d4, worst_sample, worst_frame4 = 0.0, 0.0, 0.0, 0
-    for scene_name, angles in (("phong1080_tex2048", ANGLES), ("custom12_360", (0.3,)), ("sliver640", (None,))):
+    for scene_name, angles in (("phong1080_tex2048", ANGLES), ("custom12_360", (0.3,)), ("sliver640", (None,)),
+                               ("phong_bin_k1", (0.3,))):
         scene = build_scene(scene_name, dev)
         if scene_name == "phong1080_tex2048":
             stack = scene.ps_uniform["textures"]
@@ -583,7 +600,7 @@ def main() -> int:
             depth_k, winner_k, ps_k, ctx_k = (t[..., :h, :w] for t in got)
             depth_p, winner_p, ps_p, ctx_p = (t[..., :h, :w] for t in want)
             bg = scene.config.background
-            if scene_name == "sliver640":  # planes only: its phong shader samples through K3
+            if scene_name in ("sliver640", "phong_bin_k1"):  # planes only: their phong shader samples through K3
                 continue
             if scene_name != "phong1080_tex2048":
                 frame_k = shade.shade_from_planes(ctx_k, ps_k, winner_k, scene.pixel_shader,
@@ -626,13 +643,17 @@ def main() -> int:
                 "wrapper_ms": w_ms, "bound_ms_every_pixel": b2_ms, "bound_by_every_pixel": b2_by,
                 "bytes": nbytes, "ops": ops, "ops_every_pixel": ops_every,
             }
+            # the epilogue alone: every pair list empty, all 3 + C planes of background
+            no_pairs = torch.zeros_like(prep.off)
+            rows["K4"]["ms_no_pairs"] = [device_ms(lambda: launch(no_pairs), 20) for _ in range(2)]
             # the loop with K4's smallest epilogue (depth and winner planes only)
             rows["K4"]["ms_rasterize"] = [device_ms(lambda: launch(interp=False), 20) for _ in range(2)]
             # the heaviest tile's fine range alone, and every list but it
             only, pairs = heaviest_tile_lists(prep)
             rows["K4"]["ms_rasterize_heaviest_tile"] = [device_ms(lambda: launch(only, interp=False), 20)
                                                         for _ in range(2)]
-            log(f"  phong1080_tex2048 K4 rasterize (no varyings): {rows['K4']['ms_rasterize']} ms; with only the "
+            log(f"  phong1080_tex2048 K4 with every pair list empty: {rows['K4']['ms_no_pairs']} ms; "
+                f"rasterize (no varyings): {rows['K4']['ms_rasterize']} ms; with only the "
                 f"heaviest tile's {pairs} fine pairs: {rows['K4']['ms_rasterize_heaviest_tile']} ms (device)")
             log(f"  phong1080_tex2048 K4 time (rasterize_interp, C={prep.n_ctx}): kernel {each[0]:.4f} / "
                 f"{each[1]:.4f} ms (device), wrapper {each[4]:.4f} / {each[5]:.4f} ms, plain {each[2]:.2f} / "
@@ -674,7 +695,8 @@ def main() -> int:
             eye, inv_mvp = voxel_view(i)
             rays = raycast.prepare_rays(torch.from_numpy(eye).to(dev), torch.from_numpy(inv_mvp).to(dev), cfg)
             got = raycast.march(*rays, table, k)
-            want, queries = plain(raycast.march_plain, *rays, table, k, count_queries=True)
+            want, per_ray = plain(raycast.march_plain, *rays, table, k, count_queries=True)
+            queries = int(per_ray.sum())
             err = int((got.view(torch.uint8).int() - want.view(torch.uint8).int()).abs().max())
             worst = max(worst, err)
             hit = float((got != k.bg_packed).float().mean())
@@ -690,6 +712,11 @@ def main() -> int:
                 f"hit share {hit:.4f}, queries {queries}{serial}")
             if i == 0:
                 rays0, queries0 = rays, queries
+                row["queries_warp_max"], row["queries_warp_mean"] = warp_queries(per_ray)
+                log(f"  voxel540 {traversal} frame 0: queries per warp of 32 rays in row order: largest "
+                    f"{row['queries_warp_max']:.3f}, mean {row['queries_warp_mean']:.3f} (mean over warps; "
+                    f"a static warp runs {row['queries_warp_max'] / row['queries_warp_mean']:.3f}x the "
+                    f"queries its rays need)")
         if not k.dda:
             log(f"  voxel540 fixed frame 0: the serial chain makes {row['queries_serial']} queries, "
                 f"{row['queries_serial'] / queries0:.2f}x the jump's")
@@ -731,6 +758,7 @@ def main() -> int:
         rays = raycast.prepare_rays(eye, inv_mvp, cfg)
         got = raycast.march(*rays, table6, k)
         want, queries = plain(raycast.march_plain, *rays, table6, k, count_queries=True)
+        queries = int(queries.sum())
         check(torch.equal(got, want), f"level 6 {traversal}: BGRA differs at {int((got != want).sum())} rays")
         serial = ""
         if not k.dda:
@@ -739,6 +767,19 @@ def main() -> int:
         log(f"  level 6 {traversal} ({cfg.width}x{cfg.height}, bitmap through L2): BGRA equal="
             f"{torch.equal(got, want)}, hit share {float((got != k.bg_packed).float().mean()):.4f}, "
             f"queries {queries}{serial}")
+
+    # 3f. K5 dda at length 3.0: cell 3/16 is no power of two, so the kernel divides
+    cfg = raycast.VoxelRenderConfig(width=VOXEL_W, height=VOXEL_H, level=VOXEL_LEVEL, length=3.0,
+                                    traversal="dda")
+    k = raycast.march_constants(cfg, grid_hit.shape[0])
+    check(k.inv_cell == 0.0, f"length 3.0: cell {k.cell} taken for a power of two")
+    eye, inv_mvp = (torch.from_numpy(a).to(dev) for a in voxel_view(0, 3.0))
+    rays = raycast.prepare_rays(eye, inv_mvp, cfg)
+    got = raycast.march(*rays, table, k)
+    want, queries = plain(raycast.march_plain, *rays, table, k, count_queries=True)
+    check(torch.equal(got, want), f"length 3.0 dda: BGRA differs at {int((got != want).sum())} rays")
+    log(f"  length 3.0 dda (cell {k.cell}, divided): BGRA equal={torch.equal(got, want)}, hit share "
+        f"{float((got != k.bg_packed).float().mean()):.4f}, queries {int(queries.sum())}")
 
     # 4. the main paths, each with the counters set to 0 just before it
     def drive(path, render, frames, expect, shape):

@@ -99,19 +99,18 @@ __device__ void shade(const FrFusedParams& p, const float* __restrict__ view_pos
 
 template <int R>
 __global__ void __launch_bounds__(TW * TY, 2)
-fused_raster_kernel(const FrFusedParams p, const int32_t* __restrict__ off,
-                    const int32_t* __restrict__ tri_i32, const float* __restrict__ tri_f32,
-                    const float* __restrict__ view_pos, const int32_t* __restrict__ dims,
-                    const int32_t* __restrict__ texels, int32_t* __restrict__ rgba,
-                    float* __restrict__ depth_out, int32_t* __restrict__ winner_out,
-                    const int32_t* __restrict__ order) {
-  const TileSlot at = tile_slot(p.th, p.ntx, order);
+fused_raster_kernel(const FrFusedParams p, const int32_t* __restrict__ tri_i32,
+                    const float* __restrict__ tri_f32, const float* __restrict__ view_pos,
+                    const int32_t* __restrict__ dims, const int32_t* __restrict__ texels,
+                    int32_t* __restrict__ rgba, float* __restrict__ depth_out,
+                    int32_t* __restrict__ winner_out, const TileDesc* desc) {
+  const TileSlot at = tile_slot(p.th, p.ntx, desc);
   const int cx = at.cx;
   const float pcx = (float)cx + 0.5f;
   const size_t np = (size_t)p.n_pairs;
   float dep[R];
   int wpair[R];
-  raster_tile<R>(off, tri_i32, tri_f32, p.ntx, p.nty, np, at, dep, wpair);
+  raster_tile<R>(tri_i32, tri_f32, np, at, dep, wpair);
 
   // Interpolate the winner's varyings once, shade, pack. (Unrolled, so the
   // per-pixel carries stay in registers: a dynamic index would put them in
@@ -147,32 +146,24 @@ fused_raster_kernel(const FrFusedParams p, const int32_t* __restrict__ off,
   }
 }
 
-template <int R>
-cudaError_t launch(const FrFusedParams& p, const int32_t* off, const int32_t* tri_i32,
-                   const float* tri_f32, const float* view_pos, const int32_t* dims,
-                   const int32_t* texels, int32_t* rgba, float* depth, int32_t* winner,
-                   int32_t* order, cudaStream_t stream) {
-  tile_order_kernel<<<1, ORDER_THREADS, 0, stream>>>(off, p.ntx, p.nty, order);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid(p.ntx * p.nty * blocks_per_tile(p.th)), block(TW, TY);
-  fused_raster_kernel<R><<<grid, block, 0, stream>>>(p, off, tri_i32, tri_f32, view_pos, dims,
-                                                      texels, rgba, depth, winner, order);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int fr_fused_raster(FrFusedParams p, const int32_t* off, const int32_t* tri_i32,
                                const float* tri_f32, const float* view_pos,
                                const int32_t* dims, const int32_t* texels, int32_t* rgba,
-                               float* depth, int32_t* winner, int32_t* order, void* stream) {
+                               float* depth, int32_t* winner, int32_t* tiles, void* stream) {
   if (p.n_ctx < 1 || p.n_ctx > MAX_CTX) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  TileDesc* desc = reinterpret_cast<TileDesc*>(tiles);
   switch (p.th) {
-    case 4: return (int)launch<1>(p, off, tri_i32, tri_f32, view_pos, dims, texels, rgba, depth, winner, order, s);
+    case 4:
+      return (int)launch_after_order(fused_raster_kernel<1>, p.th, p.ntx, p.nty, off, tri_i32,
+                                     p.n_pairs, desc, s, p, tri_i32, tri_f32, view_pos, dims,
+                                     texels, rgba, depth, winner, desc);
     case 8: case 16: case 32: case 64: case 128:
-      return (int)launch<RT_MAX>(p, off, tri_i32, tri_f32, view_pos, dims, texels, rgba, depth, winner, order, s);
+      return (int)launch_after_order(fused_raster_kernel<RT_MAX>, p.th, p.ntx, p.nty, off,
+                                     tri_i32, p.n_pairs, desc, s, p, tri_i32, tri_f32, view_pos,
+                                     dims, texels, rgba, depth, winner, desc);
     default: return (int)cudaErrorInvalidValue;
   }
 }

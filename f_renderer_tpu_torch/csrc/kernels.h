@@ -30,19 +30,20 @@ typedef struct FrFusedParams {
 //   tri_i32  (12, n_pairs) setup rows, tri_f32 (9 + 3C, n_pairs)
 //   view_pos (3), dims (t_count, 2) (h, w), texels (t_count, hmax, wmax)
 //   rgba / depth / winner: (nty*th, w_pad) outputs
-//   order    (ntx*nty) scratch: the tiles, heaviest first
+//   tiles    (ntx*nty*8) int32 scratch, 16-byte aligned: the tiles' pair
+//            ranges, heaviest first (TileDesc, raster_loop.cuh)
 int fr_fused_raster(FrFusedParams p, const int32_t* off, const int32_t* tri_i32,
                     const float* tri_f32, const float* view_pos, const int32_t* dims,
                     const int32_t* texels, int32_t* rgba, float* depth,
-                    int32_t* winner, int32_t* order, void* stream);
+                    int32_t* winner, int32_t* tiles, void* stream);
 
 // Non-fused raster (K4) over the same binned pair list: depth / winner
 // (nty*th, ntx*128) planes and, when ps is not null, the texture id plane and
 // the (n_ctx, nty*th, ntx*128) varying planes (ctx may be null if n_ctx is 0);
-// order (ntx*nty) is scratch, as for fr_fused_raster.
+// tiles is scratch, as for fr_fused_raster.
 int fr_raster_planes(int th, int ntx, int nty, int n_pairs, int n_ctx, const int32_t* off,
                      const int32_t* tri_i32, const float* tri_f32, float* depth,
-                     int32_t* winner, int32_t* ps, float* ctx, int32_t* order, void* stream);
+                     int32_t* winner, int32_t* ps, float* ctx, int32_t* tiles, void* stream);
 
 // Batched bilinear sampler (K3): n samples (ps, u, v) → out (4, n) f32.
 int fr_sample_bilinear(const int32_t* dims, const int32_t* texels, int t_count, int hmax,
@@ -64,6 +65,7 @@ typedef struct FrVoxelParams {
   float eps;          // dda step pad, cell * 1e-3
   float inv_per_t;    // float32(1 / per_t)
   float eps_jump;     // a jump's margin in length units
+  float inv_cell;     // 1 / cell where cell is a power of two and r * cell == length, else 0
 } FrVoxelParams;
 
 // Voxel march (K5): n rays (start, dir, t_max, alive; n values each) through table (r^3,) int32 (bit 24 = hit, BGR low) → out packed

@@ -10,7 +10,8 @@
 // k = 0):
 //   query the cell of p = s + t * d: a hit is the cell's bit in the hit
 //   bitmap with p inside [0, length)^3, the cell index trunc(p / cell)
-//   clamped to [0, r - 1] (a division, as the JAX jnp march divides);
+//   clamped to [0, r - 1] (p / cell as the JAX jnp march divides; taken
+//   as p * (1 / cell) where that is the same float, below);
 //   stop on a hit or once t >= t_max; else step
 //     dda:   t = min((t + dt) + eps, t_max), dt the exact distance to the
 //            next cell boundary (raycast_pallas.py:133-166);
@@ -34,14 +35,31 @@
 // per-ray loop takes the place of the TPU block's any() exit; max_steps
 // bounds it as a watchdog where no real ray reaches it.
 //
-// What bounds it on the card: the latency of each ray's chain of queries
-// (~25 operations each, three of them IEEE divisions) and jumps, with the
-// rays of a warp diverging in query count; a fixed part (the hit-bit pass,
-// one read of each ray's planes, one write) is about a fifth of it at
-// voxel540. The design against that:
+// What bounds it on the card: the instructions the rays' steps issue (at
+// voxel540 ~3.4 queries a ray, 1.3x that for the slowest ray of a warp;
+// 48 or 64 warps an SM keep the issue slots busy), then a fixed part (the
+// hit-bit pass, one read of each ray's planes, one write; with every ray
+// dead 0.0048 ms on an H100, 0.0061 before the launch overlap below). The
+// dda step had three IEEE divisions (each a sequence with a slow-path
+// branch), two branchy minima and three clamps; the design leaves 74 SASS
+// instructions a step (tools/k4_trace.py) with nothing inexact:
+//  - where cell is a power of two and r * cell == length (every table
+//    octree.densify makes, at length 2.0) the host passes inv_cell: the
+//    quotient p * inv_cell is p / cell bit for bit, and a point inside the
+//    cube has its index in [0, r) with no clamp. Any other cell divides;
+//  - one quotient per axis a step, shared by the cell index and the step;
+//  - the dda distance (boundary - p) / d as float(double(boundary - p) *
+//    (1 / double(d))), 1 / d once a ray: the same float as the division
+//    (axis_dt); 1 / d (and the fixed step's 1 / |d|) is NaN where d == 0,
+//    so one NaN test an axis gives kFar, as d == 0 or a NaN quotient does;
+//  - no axis distance is NaN, so their minimum is fminf; the NaN-keeping
+//    minimum of t is one min.NaN instruction, not a branch;
+//  - the kernel is compiled for its traversal (no runtime branch; the dda
+//    march takes no 1 / |d|);
+//  - the march is launched behind the hit-bit pass by programmatic
+//    dependent launch: its blocks read their rays while the pass runs;
 //  - the jump cuts the fixed step's queries ~23x at voxel540, to about the
 //    dda step's count;
-//  - 1 / |d| is taken once per ray, so a jump costs multiplications;
 //  - the hit bitmap (r^3 / 8 bytes, built from the table by a first small
 //    kernel in the same call) sits in each block's shared memory while it
 //    fits (<= 32 KiB, up to level 5 at r = 64); from level 6 on it is read
@@ -50,8 +68,9 @@
 //    through the read-only cache: copying it into every block's shared
 //    memory as well measured slower (PERF.md);
 //  - one thread per ray in row-major order, so a warp marches 32 pixels of
-//    one row: an 8 x 4 pixel patch per warp measured the same at voxel540
-//    (PERF.md).
+//    one row: an 8 x 4 pixel patch per warp measured the same at voxel540,
+//    and refetching rays from a counter in persistent blocks (the warps'
+//    rays differ 1.3x in queries) measured 1.7-2x slower (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,57 +81,71 @@ namespace {
 constexpr int kThreads = 256;            // 8 warps per block
 constexpr int kSharedBitsMax = 8192;     // bitmap words (32 KiB) kept in shared memory
 constexpr float kFar = 3.0e38f;          // the JAX package's stand-in for +inf
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
-// jnp.minimum: NaN if either operand is NaN.
+// jnp.minimum: NaN if either operand is NaN (one instruction; which NaN
+// does not matter: a NaN t never hits and never ends its ray early).
 __device__ __forceinline__ float min_nan(float a, float b) {
-  return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
+  float m;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
+  return m;
 }
 
-__device__ __forceinline__ int cell_of(const FrVoxelParams& p, float pos) {
-  return min(max((int)(pos / p.cell), 0), p.r - 1);
+// pos / cell. Where cell is a power of two the host passes inv_cell = 1 /
+// cell (else 0): pos * inv_cell is then the correctly rounded value of the
+// same real number as pos / cell, so the same float for every pos (zeros,
+// subnormals, infinities and NaN included).
+__device__ __forceinline__ float cell_q(const FrVoxelParams& p, float pos) {
+  return p.inv_cell != 0.0f ? pos * p.inv_cell : pos / p.cell;
 }
 
-// Flat table index of p, and whether p lies inside the cube.
-__device__ __forceinline__ int flat_cell(const FrVoxelParams& p, float px, float py, float pz,
-                                         bool& inside) {
-  inside = px >= 0.0f && px < p.length && py >= 0.0f && py < p.length && pz >= 0.0f &&
-           pz < p.length;
-  return (cell_of(p, px) * p.r + cell_of(p, py)) * p.r + cell_of(p, pz);
+// The cell index of q = pos / cell on one axis, clamped to [0, r - 1] as
+// the plain version clamps it. Where inv_cell is set the host has also
+// checked r * cell == length, so a position inside the cube has q in
+// [0, r) exactly and needs no clamp; the index of a position outside the
+// cube is never read.
+__device__ __forceinline__ unsigned cell_index(const FrVoxelParams& p, float q) {
+  return p.inv_cell != 0.0f ? (unsigned)(int)q : (unsigned)min(max((int)q, 0), p.r - 1);
 }
 
-// Distance along the ray to the next cell boundary on one axis (3D-DDA).
-__device__ __forceinline__ float axis_dt(float pos, float d, float cell) {
-  const float c = floorf(pos / cell);
-  const float boundary = (c + (d > 0.0f ? 1.0f : 0.0f)) * cell;
-  float tn = (boundary - pos) / d;
-  if (d == 0.0f || isnan(tn)) tn = kFar;
-  return fmaxf(tn, 0.0f);
+// Distance along the ray to the next cell boundary on one axis (3D-DDA);
+// q = pos / cell, up = 1 where d > 0 (else 0). The quotient (boundary -
+// pos) / d is taken as float(double(boundary - pos) * inv_d), inv_d = 1 /
+// double(d): the same float, bit for bit (the double product is within
+// 2^-52 of the quotient, which is never within 2^-49 of a float rounding
+// boundary without lying on one; tests/test_torch_voxel.py). inv_d is NaN
+// where d == 0, so that axis's quotient is NaN and gives kFar, as there.
+__device__ __forceinline__ float axis_dt(float q, float pos, float up, double inv_d, float cell) {
+  const float boundary = (floorf(q) + up) * cell;
+  float tn = __double2float_rn((double)(boundary - pos) * inv_d);
+  if (isnan(tn)) tn = kFar;
+  return fmaxf(tn, 0.0f);  // never NaN
 }
 
 // How far along the ray the point stays eps inside its cell on one axis
-// (raycast.py:_jump_dt), inv_ad = 1 / |d|; negative where it is closer
-// than eps.
-__device__ __forceinline__ float axis_jump(float pos, float d, float inv_ad, float cell,
+// (raycast.py:_jump_dt), q = pos / cell, up as above, inv_ad = 1 / |d|
+// (NaN where d == 0, which gives kFar); negative where it is closer than
+// eps.
+__device__ __forceinline__ float axis_jump(float q, float pos, float up, float inv_ad, float cell,
                                            float eps) {
-  const float c = floorf(pos / cell);
-  const bool up = d > 0.0f;
-  const float boundary = (c + (up ? 1.0f : 0.0f)) * cell;
-  const float dist = up ? boundary - pos : pos - boundary;
+  const float boundary = (floorf(q) + up) * cell;
+  const float dist = up != 0.0f ? boundary - pos : pos - boundary;
   float tn = (dist - eps) * inv_ad;
-  if (d == 0.0f || isnan(tn)) tn = kFar;
-  return tn;
+  if (isnan(tn)) tn = kFar;
+  return tn;  // never NaN
 }
 
 // One bit per cell, 32 cells per word, little-endian within the word.
 __global__ void hit_bits_kernel(const int32_t* __restrict__ table, int n_cells,
                                 uint32_t* __restrict__ bits) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);  // the march may start
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const bool b = c < n_cells && ((table[c] >> 24) & 1) != 0;
-  const uint32_t word = __ballot_sync(0xFFFFFFFFu, b);
+  const uint32_t word = __ballot_sync(kFull, b);
   if ((threadIdx.x & 31) == 0 && c < n_cells) bits[c >> 5] = word;
 }
 
-template <bool kShared>
+template <bool kDda, bool kShared>
 __global__ void __launch_bounds__(kThreads)
 voxel_march_kernel(const FrVoxelParams p, const float* __restrict__ sx,
                    const float* __restrict__ sy, const float* __restrict__ sz,
@@ -122,6 +155,17 @@ voxel_march_kernel(const FrVoxelParams p, const float* __restrict__ sx,
                    const float* __restrict__ times, const uint32_t* __restrict__ bits_g,
                    int32_t* __restrict__ out) {
   extern __shared__ uint32_t s_bits[];
+  // The ray is read while the hit-bit pass may still run (the march is its
+  // programmatic dependent launch); the bitmap only after it.
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = i < p.n && alive[i] != 0;
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, tm = 0.0f;
+  if (live) {
+    s0 = sx[i], s1 = sy[i], s2 = sz[i];
+    d0 = dx[i], d1 = dy[i], d2 = dz[i];
+    tm = tmax[i];
+  }
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const uint32_t* bits = bits_g;
   if (kShared) {
     const int n_words = (p.r * p.r * p.r + 31) >> 5;
@@ -129,37 +173,48 @@ voxel_march_kernel(const FrVoxelParams p, const float* __restrict__ sx,
     __syncthreads();
     bits = s_bits;
   }
-  const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= p.n) return;
 
   bool hit = false;
-  int flat = 0;
-  if (alive[i] != 0) {
-    const float s0 = sx[i], s1 = sy[i], s2 = sz[i];
-    const float d0 = dx[i], d1 = dy[i], d2 = dz[i];
-    const float tm = tmax[i];
+  unsigned flat = 0;
+  if (live) {
     const int kmax = p.n_times - 1;
-    const float i0 = 1.0f / fabsf(d0), i1 = 1.0f / fabsf(d1), i2 = 1.0f / fabsf(d2);
+    // per axis, once a ray: up = 1 where d > 0, and the step's reciprocal
+    // (dda: 1 / d in float64; fixed: 1 / |d|), NaN where d == 0
+    const float u0 = d0 > 0.0f ? 1.0f : 0.0f, u1 = d1 > 0.0f ? 1.0f : 0.0f,
+                u2 = d2 > 0.0f ? 1.0f : 0.0f;
+    const double nan64 = __longlong_as_double(0x7FF8000000000000LL);
+    const double r0 = d0 != 0.0f ? 1.0 / (double)d0 : nan64,
+                 r1 = d1 != 0.0f ? 1.0 / (double)d1 : nan64,
+                 r2 = d2 != 0.0f ? 1.0 / (double)d2 : nan64;
+    const float nan32 = __int_as_float(0x7FC00000);
+    const float i0 = d0 != 0.0f ? 1.0f / fabsf(d0) : nan32,
+                i1 = d1 != 0.0f ? 1.0f / fabsf(d1) : nan32,
+                i2 = d2 != 0.0f ? 1.0f / fabsf(d2) : nan32;
     float t = 0.0f;
     int k = 0;  // fixed mode: t == times[k] until t_max clamps it
     for (int it = 0; it < p.max_steps; ++it) {
       const float px = s0 + t * d0, py = s1 + t * d1, pz = s2 + t * d2;
-      bool inside;
-      flat = flat_cell(p, px, py, pz, inside);
+      // one quotient per axis, shared by the cell index and the step
+      const float qx = cell_q(p, px), qy = cell_q(p, py), qz = cell_q(p, pz);
+      const bool inside = px >= 0.0f && px < p.length && py >= 0.0f && py < p.length &&
+                          pz >= 0.0f && pz < p.length;
+      flat = (cell_index(p, qx) * p.r + cell_index(p, qy)) * p.r + cell_index(p, qz);
       hit = inside && ((bits[flat >> 5] >> (flat & 31)) & 1u) != 0;
       if (hit || t >= tm) break;
       float next;
-      if (p.dda) {
-        const float dt = min_nan(min_nan(axis_dt(px, d0, p.cell), axis_dt(py, d1, p.cell)),
-                                 axis_dt(pz, d2, p.cell));
+      if constexpr (kDda) {
+        const float dt = fminf(fminf(axis_dt(qx, px, u0, r0, p.cell),
+                                     axis_dt(qy, py, u1, r1, p.cell)),
+                               axis_dt(qz, pz, u2, r2, p.cell));
         next = (t + dt) + p.eps;
       } else {
         next = t + p.per_t;
         int kn = k + 1;
         // skip samples k+1 .. k+x, all in this cell; land on k+x+1
-        const float jdt = min_nan(min_nan(axis_jump(px, d0, i0, p.cell, p.eps_jump),
-                                          axis_jump(py, d1, i1, p.cell, p.eps_jump)),
-                                  axis_jump(pz, d2, i2, p.cell, p.eps_jump));
+        const float jdt = fminf(fminf(axis_jump(qx, px, u0, i0, p.cell, p.eps_jump),
+                                      axis_jump(qy, py, u1, i1, p.cell, p.eps_jump)),
+                                axis_jump(qz, pz, u2, i2, p.cell, p.eps_jump));
         const float reach = min_nan(jdt, (tm - t) - p.eps_jump);
         const float xs = floorf(reach * p.inv_per_t);
         if (xs >= 1.0f && xs <= (float)(kmax - 1 - k)) {
@@ -192,12 +247,23 @@ extern "C" int fr_voxel_march(FrVoxelParams p, const float* sx, const float* sy,
   if (err != cudaSuccess) return (int)err;
   const int n_words = (n_cells + 31) >> 5;
   const int grid = (p.n + kThreads - 1) / kThreads;
-  if (n_words <= kSharedBitsMax) {
-    voxel_march_kernel<true><<<grid, kThreads, n_words * sizeof(uint32_t), s>>>(
-        p, sx, sy, sz, dx, dy, dz, tmax, alive, table, times, words, out);
-  } else {
-    voxel_march_kernel<false><<<grid, kThreads, 0, s>>>(p, sx, sy, sz, dx, dy, dz, tmax, alive,
-                                                        table, times, words, out);
-  }
-  return (int)cudaGetLastError();
+  const bool shared = n_words <= kSharedBitsMax;
+  const size_t smem = shared ? n_words * sizeof(uint32_t) : 0;
+  auto kernel = p.dda
+      ? (shared ? voxel_march_kernel<true, true> : voxel_march_kernel<true, false>)
+      : (shared ? voxel_march_kernel<false, true> : voxel_march_kernel<false, false>);
+  // behind the hit-bit pass with programmatic stream serialization: the
+  // march's blocks start, and read their rays, while the pass runs
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, p, sx, sy, sz, dx, dy, dz, tmax, alive, table, times,
+                                 (const uint32_t*)words, out);
 }

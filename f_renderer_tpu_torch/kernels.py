@@ -85,6 +85,7 @@ class VoxelParams(ctypes.Structure):
         ("eps", ctypes.c_float),
         ("inv_per_t", ctypes.c_float),
         ("eps_jump", ctypes.c_float),
+        ("inv_cell", ctypes.c_float),
     ]
 
 
@@ -210,6 +211,12 @@ def _check_bins(off, tri_i32, tri_f32, th, n_ctx, h_pad, w_pad):
     return ntx, nty
 
 
+def _tiles_scratch(ntx, nty, dev) -> torch.Tensor:
+    """Scratch of the raster kernels: each tile's pair ranges, 8 int32 words
+    a tile, heaviest tile first (written by their order pass)."""
+    return torch.empty((ntx * nty, 8), dtype=torch.int32, device=dev)
+
+
 def fused_raster(
     off, tri_i32, tri_f32, view_pos, dims, texels, *,
     th, n_ctx, h_pad, w_pad, kind, opaque, bg_packed, light_pos, light_color,
@@ -239,13 +246,13 @@ def fused_raster(
     rgba = torch.empty((h_pad, w_pad), dtype=torch.int32, device=dev)
     depth = torch.empty((h_pad, w_pad), dtype=torch.float32, device=dev)
     winner = torch.empty((h_pad, w_pad), dtype=torch.int32, device=dev)
-    order = torch.empty((ntx * nty,), dtype=torch.int32, device=dev)  # scratch: tiles, heaviest first
+    tiles = _tiles_scratch(ntx, nty, dev)
     stream = _stream(dev)
     err = lib.fr_fused_raster(
         params,
         off.data_ptr(), tri_i32.data_ptr(), tri_f32.data_ptr(),
         view_pos.data_ptr(), dims.data_ptr(), texels.data_ptr(),
-        rgba.data_ptr(), depth.data_ptr(), winner.data_ptr(), order.data_ptr(), stream,
+        rgba.data_ptr(), depth.data_ptr(), winner.data_ptr(), tiles.data_ptr(), stream,
     )
     _check(lib, err, "fr_fused_raster")
     fused_raster.launches += 1
@@ -268,14 +275,14 @@ def raster_planes(off, tri_i32, tri_f32, *, th, n_ctx, h_pad, w_pad, interp):
     if interp:
         ps = torch.empty((h_pad, w_pad), dtype=torch.int32, device=dev)
         ctx = torch.empty((n_ctx, h_pad, w_pad), dtype=torch.float32, device=dev)
-    order = torch.empty((ntx * nty,), dtype=torch.int32, device=dev)  # scratch: tiles, heaviest first
+    tiles = _tiles_scratch(ntx, nty, dev)
     err = lib.fr_raster_planes(
         th, ntx, nty, tri_i32.shape[1], n_ctx,
         off.data_ptr(), tri_i32.data_ptr(), tri_f32.data_ptr(),
         depth.data_ptr(), winner.data_ptr(),
         None if ps is None else ps.data_ptr(),
         None if ctx is None or n_ctx == 0 else ctx.data_ptr(),
-        order.data_ptr(), _stream(dev),
+        tiles.data_ptr(), _stream(dev),
     )
     _check(lib, err, "fr_raster_planes")
     raster_planes.launches += 1
@@ -338,8 +345,8 @@ def voxel_march(start, dirs, t_max, alive, table, times, k):
     lib = load_library()
     params = VoxelParams(
         n=n, r=k.r, dda=int(k.dda), max_steps=k.max_steps,
-        bg_packed=k.bg_packed, n_times=k.n_times, length=k.length, cell=k.cell, per_t=k.per_t, eps=k.eps, inv_per_t=k.inv_per_t,
-        eps_jump=k.eps_jump,
+        bg_packed=k.bg_packed, n_times=k.n_times, length=k.length, cell=k.cell, per_t=k.per_t,
+        eps=k.eps, inv_per_t=k.inv_per_t, eps_jump=k.eps_jump, inv_cell=k.inv_cell,
     )
     bits = torch.empty(((k.r ** 3 + 31) // 32,), dtype=torch.int32, device=dev)
     err = lib.fr_voxel_march(

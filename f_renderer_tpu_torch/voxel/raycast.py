@@ -223,6 +223,11 @@ class MarchConstants:
     # 128 ulp of the largest sample time.
     eps_jump: float
     n_times: int  # entries of the sample-time table (sample_times)
+    # 1 / cell where cell is a power of two and r · cell == length, else 0:
+    # then p · inv_cell is p / cell, bit for bit, so the kernel multiplies
+    # instead of dividing, and a point inside the cube has its cell index in
+    # [0, r) unclamped.
+    inv_cell: float
 
 
 def march_constants(config: VoxelRenderConfig, r: int) -> MarchConstants:
@@ -249,7 +254,16 @@ def march_constants(config: VoxelRenderConfig, r: int) -> MarchConstants:
         inv_per_t=float(f32(1.0 / float(per_t))),
         eps_jump=float(f32(128.0) * np.spacing(times[-1])),
         n_times=len(times),
+        inv_cell=float(f32(1.0) / cell) if power_of_two(cell) and f32(cell * f32(r)) == length else 0.0,
     )
+
+
+def power_of_two(x) -> bool:
+    """Whether the float32 ``x`` is 2^k with 2^k and 2^-k normal floats, so
+    that ``p · (1 / x)`` and ``p / x`` round to the same float for every
+    float32 ``p``."""
+    x, tiny = np.float32(x), np.finfo(np.float32).tiny
+    return bool(tiny <= x < np.inf and np.frexp(x)[0] == 0.5 and np.float32(1.0) / x >= tiny)
 
 
 @functools.lru_cache(maxsize=None)
@@ -326,8 +340,9 @@ def march_plain(start, dirs, t_max, alive, table, k: MarchConstants, *, count_qu
                 serial=False):
     """Plain PyTorch version of K5, on the tensors' device: the whole-frame
     march → packed BGRA int32 of t_max's shape. With ``count_queries`` it
-    also returns how many point queries the rays made (the march's work on
-    this frame, which a bound on the kernel's time counts). ``serial``
+    also returns how many point queries each ray made, int32 of t_max's
+    shape (the march's work on this frame, which a bound on the kernel's
+    time counts, and how far a warp's rays diverge). ``serial``
     marches the fixed step's serial chain without the jump, query by query,
     as the JAX jnp march does: the reference the jump is held to.
 
@@ -352,7 +367,7 @@ def march_plain(start, dirs, t_max, alive, table, k: MarchConstants, *, count_qu
     done = ~alive
     hit = torch.zeros_like(alive)
     v = torch.zeros(t_max.shape, dtype=torch.int32, device=dev)
-    queries = torch.zeros((), dtype=torch.int64, device=dev)
+    queries = torch.zeros(t_max.shape, dtype=torch.int32, device=dev)
     jumps = not k.dda and not serial
     if jumps:
         times = sample_times(k, dev)
@@ -362,7 +377,7 @@ def march_plain(start, dirs, t_max, alive, table, k: MarchConstants, *, count_qu
     for step in range(k.max_steps):
         if step % 8 == 0 and bool(done.all()):  # a host sync every 8 steps
             break
-        queries = queries + (~done).sum()
+        queries = queries + (~done).to(torch.int32)
         h, val, p = _query(k, table, start, dirs, t)
         h = h & ~done
         v = torch.where(h, val, v)
@@ -386,7 +401,7 @@ def march_plain(start, dirs, t_max, alive, table, k: MarchConstants, *, count_qu
         t = torch.where(done, t, t_next)
     color = (v & 0x00FFFFFF) | -16777216  # | 0xFF000000 as int32
     packed = torch.where(hit, color, k.bg_packed).to(torch.int32)
-    return (packed, int(queries)) if count_queries else packed
+    return (packed, queries) if count_queries else packed
 
 
 def march(start, dirs, t_max, alive, table, k: MarchConstants):

@@ -276,7 +276,7 @@ def test_shade_deferred_matches_rasterize_interp(ref):
     frame_bar(got.numpy(), want.numpy())
 
 
-def bbox_scene(name):
+def bbox_scene(name, width=128, height=128):
     """The phong1080 shapes (a 40x80 sphere and two 0.8 cubes, bench
     camera and angle) at 128x128, or the sliver scene, on the CPU."""
     from f_renderer_tpu_torch import Camera, make_phong_scene
@@ -284,14 +284,14 @@ def bbox_scene(name):
     from f_renderer_tpu_torch.scene import make_sliver_scene
 
     if name == "sliver":
-        return make_sliver_scene(128, 128, device="cpu")
+        return make_sliver_scene(width, height, device="cpu")
     cube = make_cube(0.8)
     cube["pos"] = cube["pos"] + np.array([1.6, 0.0, 0.0], np.float32)
     cube2 = make_cube(0.8)
     cube2["pos"] = cube2["pos"] + np.array([-1.6, 0.0, 0.0], np.float32)
     cam = Camera.create([0.0, 0.5, 4.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], "cpu")
     scene = make_phong_scene(
-        128, 128, meshes=[make_uv_sphere(40, 80), cube, cube2], camera=cam, clip_cap=64, device="cpu",
+        width, height, meshes=[make_uv_sphere(40, 80), cube, cube2], camera=cam, clip_cap=64, device="cpu",
         textures=[make_checker_texture(*t) for t in TEXTURES],
     )
     scene.vs_uniform = dict(scene.vs_uniform, model=set_rotate([0.0, 1.0, 0.0], 0.10, "cpu"))
@@ -331,6 +331,98 @@ def test_covered_pixels_lie_in_bbox(name):
             covered += int(cover.sum())
     assert covered > (2000 if name == "sliver" else 5000)
     assert ranges >= ({0, 1} if name == "sliver" else {0})
+
+
+def untouched_tiles(prep, scan=32):
+    """The raster kernels' order pass (csrc/raster_loop.cuh, tile_desc): a
+    tile with no fine pairs and at most ``scan`` coarse and spill pairs,
+    none of whose bboxes reaches the tile's pixels, gets an empty list →
+    [(ty, tx, pairs skipped)]."""
+    th, ntx, nty = prep.th, prep.w_pad // raster.LANES, prep.h_pad // prep.th
+    off = prep.off.tolist()
+    minx, miny = raster.unpack_xy(prep.tri_i32[raster.MINXY].long())
+    maxx, maxy = raster.unpack_xy(prep.tri_i32[raster.MAXXY].long())
+    out = []
+    for ty in range(nty):
+        for tx in range(ntx):
+            fine, coarse, spill = raster.tile_lists(prep, ty, tx)
+            idx = torch.cat([torch.arange(off[r], off[r + 1]) for r in (coarse, spill)])
+            if off[fine + 1] > off[fine] or idx.numel() > scan:
+                continue
+            x0, y0 = tx * raster.LANES, ty * th
+            reach = ((minx[idx] < x0 + raster.LANES) & (maxx[idx] > x0)
+                     & (miny[idx] < y0 + th) & (maxy[idx] > y0))
+            if not reach.any():
+                out.append((ty, tx, idx.numel()))
+    return out
+
+
+def slot_pixels(th, patch, patch_w=8):
+    """The raster kernels' pixel layout (csrc/raster_loop.cuh, tile_slot and
+    the warp rects of raster_tile) for a (th, 128) tile at the origin →
+    {(block, warp, row step): (pixels of the lanes, the warp's rect)}."""
+    tw, ty = raster.LANES, 4
+    rt = 1 if th < 8 else 2
+    blocks = th // (ty * rt)
+    rows_w = 32 // patch_w
+    out = {}
+    for s in range(blocks):
+        for tid in range(tw * ty):
+            lane, warp = tid % 32, tid // 32
+            if patch:
+                across = tw // patch_w
+                cx = patch_w * (warp % across) + lane % patch_w
+                row0 = s * ty * rt + (warp // across) * rows_w * rt + lane // patch_w
+                step, wx0, wcols = rows_w, cx - lane % patch_w, patch_w
+                wrow0, wspan = row0 - lane // patch_w, rows_w
+            else:
+                cx, row0, step = tid % tw, s + blocks * (tid // tw), ty * blocks
+                wx0, wcols, wrow0, wspan = cx - lane, 32, row0, 1
+            for r in range(rt):
+                pix, rect = out.setdefault((s, warp, r), (set(), set()))
+                pix.add((row0 + step * r, cx))
+                rect.add((wx0, wcols, wrow0 + step * r, wspan))
+    return out
+
+
+@pytest.mark.parametrize("th", [4, 8, 16, 32, 64, 128])
+def test_warp_layouts_tile_the_tile(th):
+    """Both pixel layouts of the raster kernels give every pixel of a tile
+    to exactly one (block, thread, row step), and each warp's rect, which
+    its ballot tests the staged bboxes against, is warp-uniform and holds
+    every pixel its lanes own in that row step (so the culling is exact)."""
+    for patch in (True, False):
+        owned = []
+        for (s, warp, r), (pix, rect) in slot_pixels(th, patch).items():
+            assert len(pix) == 32 and len(rect) == 1
+            (wx0, wcols, wy0, wspan), = rect
+            assert all(wx0 <= x < wx0 + wcols and wy0 <= y < wy0 + wspan for y, x in pix)
+            assert wcols * wspan == 32  # the rect is the lanes' pixels, no more
+            owned += pix
+        assert len(owned) == len(set(owned)) == th * raster.LANES
+
+
+@pytest.mark.parametrize("size", [(640, 360), (384, 256)])
+def test_untouched_tiles_are_background(size):
+    """A tile that the order pass empties is background in the plain raster
+    (no winner, depth 0): its blocks may skip the walk. The phong1080
+    shapes in (16, 128) tiles have such tiles with coarse and spill pairs to
+    skip."""
+    from f_renderer_tpu_torch.pipeline.render import build_triangles
+
+    scene = bbox_scene("phong", *size)
+    scene.config = dataclasses.replace(scene.config, tile=(16, 128))
+    tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+    prep = raster.prep_binned(tri, scene.config.width, scene.config.height, scene.config.tile,
+                              bin_k=scene.config.bin_k)
+    empty = untouched_tiles(prep)
+    assert len(empty) >= 3 and sum(n for _, _, n in empty) > 0
+    depth, wpair = raster.raster_tiles_plain(prep)
+    th = prep.th
+    for ty, tx, _ in empty:
+        rows, cols = slice(ty * th, (ty + 1) * th), slice(tx * raster.LANES, (tx + 1) * raster.LANES)
+        assert (wpair[rows, cols] == -1).all() and (depth[rows, cols] == 0.0).all(), (ty, tx)
+    assert (wpair >= 0).any()
 
 
 @pytest.mark.cuda

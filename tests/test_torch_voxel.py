@@ -9,7 +9,10 @@
   and its plain dda march equals ``backend="pallas_interpret",
   traversal="dda"``, byte for byte;
 - one tiny frame against the scalar oracle ``voxel/golden.py`` within the
-  JAX suite's own budget (tests/test_voxel.py: at most 2% of pixels).
+  JAX suite's own budget (tests/test_voxel.py: at most 2% of pixels);
+- the kernel's exact shortcuts, modelled in numpy and torch against the
+  plain march's arithmetic: p · (1 / cell) for a power-of-two cell, the
+  float64 product for the dda quotient, and the whole dda step.
 
 The JAX frames come from a subprocess with ``--xla_cpu_max_isa=AVX``: the
 march loop is compiled even when called eagerly, and XLA's CPU backend
@@ -27,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from f_renderer_tpu_torch.math.transforms import true_div
 from f_renderer_tpu_torch.voxel import octree as poct
 from f_renderer_tpu_torch.voxel import raycast as pray
 
@@ -83,11 +87,13 @@ def write_reference(path):
             out[f"{i}/{name}"] = np.asarray(frame)
     color3, hit3 = joct.densify(joct.gen_randomly(LEVEL3, np.random.default_rng(SEED)), LEVEL3)
     out["l3/color"], out["l3/hit"] = color3, hit3
-    cfg = jray.VoxelRenderConfig(width=W, height=H, level=LEVEL3, length=LENGTH, backend="jnp")
-    for name, (eye, inv_mvp) in (("orbit0", orbit_view(0, W, H, LENGTH)), ("crafted", crafted_view())):
-        frame = jray.render_voxel_frame(jnp.asarray(color3), jnp.asarray(hit3), eye, inv_mvp, cfg)
-        out[f"l3/{name}/eye"], out[f"l3/{name}/inv_mvp"] = eye, inv_mvp
-        out[f"l3/{name}"] = np.asarray(frame)
+    for traversal, over in (("fixed", dict(backend="jnp")),
+                            ("dda", dict(backend="pallas_interpret", traversal="dda"))):
+        cfg = jray.VoxelRenderConfig(width=W, height=H, level=LEVEL3, length=LENGTH, **over)
+        for name, (eye, inv_mvp) in (("orbit0", orbit_view(0, W, H, LENGTH)), ("crafted", crafted_view())):
+            frame = jray.render_voxel_frame(jnp.asarray(color3), jnp.asarray(hit3), eye, inv_mvp, cfg)
+            out[f"l3/{name}/eye"], out[f"l3/{name}/inv_mvp"] = eye, inv_mvp
+            out[f"l3/{name}/{traversal}"] = np.asarray(frame)
     np.savez(path, **out)
 
 
@@ -189,17 +195,19 @@ def level3_rays(ref, name):
     return pray.prepare_rays(eye, inv_mvp, cfg), table, pray.march_constants(cfg, ref["l3/hit"].shape[0])
 
 
+@pytest.mark.parametrize("traversal", ["fixed", "dda"])
 @pytest.mark.parametrize("name", ["orbit0", "crafted"])
-def test_plain_march_level3_equals_jax(ref, name):
-    """At the bench's level 3 the jumping fixed-step march equals the JAX
-    package's serial jnp march byte for byte: on the bench's orbit view,
+def test_plain_march_level3_equals_jax(ref, name, traversal):
+    """At the bench's level 3 the plain march equals the JAX package's byte
+    for byte: the jumping fixed-step march its serial jnp march, the dda
+    march its dda march (Pallas, interpreted); on the bench's orbit view,
     and on a view of axis-parallel rays, rays on a grid plane and one
     NaN-direction ray (whose t_max is NaN)."""
-    cfg = pray.VoxelRenderConfig(width=W, height=H, level=LEVEL3, length=LENGTH)
+    cfg = pray.VoxelRenderConfig(width=W, height=H, level=LEVEL3, length=LENGTH, traversal=traversal)
     frame = pray.render_voxel_frame(
         ref["l3/color"], ref["l3/hit"], ref[f"l3/{name}/eye"], ref[f"l3/{name}/inv_mvp"], cfg, device="cpu"
     )
-    want = ref[f"l3/{name}"]
+    want = ref[f"l3/{name}/{traversal}"]
     np.testing.assert_array_equal(frame.numpy(), want)
     assert 0.02 < (want[..., :3] != 0).any(-1).mean() < 0.95
     if name == "crafted":
@@ -211,6 +219,127 @@ def test_plain_march_level3_equals_jax(ref, name):
         assert alive[H // 2, 1:].any()  # the rays along +z reach the cube
 
 
+def cell_plane_values(cell, r, rng):
+    """float32 positions for the cell-index quotient: normals over the cube
+    and far past it, subnormals, ±0, ±inf, NaN, and each cell plane k·cell
+    with its float neighbours."""
+    f32 = np.float32
+    planes = np.array([k * cell for k in range(-1, r + 2)], f32)
+    near = np.concatenate([planes, np.nextafter(planes, f32(np.inf)), np.nextafter(planes, f32(-np.inf))])
+    near = np.concatenate([near, near * f32(1 + 2**-22), near * f32(1 - 2**-22)])
+    tiny = np.finfo(f32).tiny
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, tiny, -tiny, tiny / 2, tiny / 3,
+                        np.finfo(f32).max, -np.finfo(f32).max], f32)
+    return np.concatenate([
+        near, special,
+        rng.uniform(-0.5, 2.5, 4000).astype(f32),
+        (rng.standard_normal(2000) * 10.0 ** rng.uniform(-40, 38, 2000)).astype(f32),
+        (rng.uniform(-1, 1, 500) * tiny).astype(f32),  # subnormals
+    ])
+
+
+@pytest.mark.parametrize("r", [1, 2, 4, 8, 16, 32, 64])
+def test_power_of_two_cell_multiplies_exactly(r):
+    """Where cell = length / r is a power of two (length 2.0, any r that
+    octree.densify makes), p · (1 / cell), the kernel's quotient, is
+    p / cell, the plain march's, bit for bit: both round the same real
+    number. Zeros, subnormals, infinities and NaN included."""
+    cfg = pray.VoxelRenderConfig(width=W, height=H, level=3, length=LENGTH, traversal="dda")
+    k = pray.march_constants(cfg, r)
+    assert k.inv_cell == 1.0 / k.cell and pray.power_of_two(k.cell)
+    p = torch.from_numpy(cell_plane_values(k.cell, r, np.random.default_rng(r)))
+    div = true_div(p, k.cell)
+    mul = p * torch.tensor(k.inv_cell, dtype=torch.float32)
+    assert torch.equal(torch.isnan(div), torch.isnan(mul)) and int(torch.isnan(p).sum()) == 1
+    ok = ~torch.isnan(div)
+    assert torch.equal(div[ok].view(torch.int32), mul[ok].view(torch.int32))
+    assert ((div[ok] != 0) & (div[ok].abs() < np.finfo(np.float32).tiny)).any()  # subnormal quotients
+
+
+def test_other_cell_keeps_the_division():
+    """At length 3.0 the cell 3/16 is no power of two: p · rn(1 / cell) is
+    not always p / cell, so the kernel divides there (inv_cell = 0)."""
+    cfg = pray.VoxelRenderConfig(width=W, height=H, level=3, length=3.0, traversal="dda")
+    k = pray.march_constants(cfg, 16)
+    assert k.inv_cell == 0.0 and not pray.power_of_two(k.cell)
+    p = torch.from_numpy(cell_plane_values(k.cell, 16, np.random.default_rng(7)))
+    div = true_div(p, k.cell)
+    mul = p * torch.tensor(np.float32(1.0) / np.float32(k.cell), dtype=torch.float32)
+    ok = torch.isfinite(div)
+    assert (div[ok] != mul[ok]).any()
+
+
+def quotient_pairs(kind, rng, n=400_000):
+    """float32 (numerator, divisor) pairs: ``bits`` every bit pattern (all
+    exponents, subnormals, ±0, ±inf, NaN), ``march`` the dda step's range
+    (distances to a plane over direction components), ``boundary`` quotients
+    within a rounding of a float32 midpoint (the hardest to round)."""
+    f32 = np.float32
+    if kind == "bits":
+        return (rng.integers(0, 2**32, (2, n), dtype=np.uint64).astype(np.uint32).view(f32))
+    if kind == "march":
+        return rng.uniform(-2, 2, n).astype(f32), rng.uniform(-1, 1, n).astype(f32)
+    mid = (rng.integers(2**24, 2**25, n) | 1).astype(np.float64) * 2.0 ** rng.integers(-140, 100, n)
+    d = rng.uniform(0.5, 1.0, n).astype(f32)
+    return (mid * d.astype(np.float64)).astype(f32), d
+
+
+@pytest.mark.parametrize("kind", ["bits", "march", "boundary"])
+def test_float64_product_is_the_division(kind):
+    """The dda kernel's quotient float(double(n) · (1 / double(d))) is the
+    IEEE float32 n / d of the plain march, bit for bit: the double product
+    is within 2^-52 of n / d, and n / d is never within 2^-49 (relative) of
+    a float32 rounding boundary unless it lies on one, which it cannot."""
+    n, d = quotient_pairs(kind, np.random.default_rng(["bits", "march", "boundary"].index(kind)))
+    with np.errstate(all="ignore"):
+        want = n / d
+        got = (n.astype(np.float64) * (1.0 / d.astype(np.float64))).astype(np.float32)
+        single = n * (np.float32(1) / d)  # a float32 1 / d would not do
+    same = (want.view(np.int32) == got.view(np.int32)) | (np.isnan(want) & np.isnan(got))
+    assert same.all(), (n[~same][:4], d[~same][:4])
+    assert (want.view(np.int32) != single.view(np.int32)).any()
+
+
+def dda_dt_kernel(k, p, dirs):
+    """The dda kernel's step distance (csrc/voxel_march.cu, axis_dt and the
+    axis minimum), in torch: 1 / d in float64 once a ray, NaN where d == 0;
+    the quotient as a float64 product rounded to float32; a NaN quotient
+    gives FAR; no axis distance is NaN, so a plain minimum."""
+    dts = []
+    for a in range(3):
+        d = dirs[a]
+        inv = torch.where(d != 0.0, 1.0 / d.double(), float("nan"))
+        c = torch.floor(true_div(p[a], k.cell))
+        boundary = (c + (d > 0.0).to(torch.float32)) * k.cell
+        tn = ((boundary - p[a]).double() * inv).float()
+        dts.append(torch.clamp(torch.where(torch.isnan(tn), pray.FAR, tn), min=0.0))
+    return torch.minimum(torch.minimum(dts[0], dts[1]), dts[2])
+
+
+@pytest.mark.parametrize("length", [2.0, 3.0])
+def test_kernel_dda_step_equals_plain(length):
+    """The kernel's dda step, modelled in torch, equals the plain march's
+    ``_dda_dt`` bit for bit: on random points and directions, on points on
+    the grid planes, with axis-parallel directions (d == 0 on one or two
+    axes), ±0, a zero direction and NaN directions."""
+    rng = np.random.default_rng(11)
+    cfg = pray.VoxelRenderConfig(width=W, height=H, level=LEVEL3, length=length, traversal="dda")
+    k = pray.march_constants(cfg, 16)
+    n = 20_000
+    p = rng.uniform(-0.1, length + 0.1, (3, n)).astype(np.float32)
+    p[:, : n // 4] = (rng.integers(0, 17, (3, n // 4)) * np.float32(k.cell)).astype(np.float32)  # on planes
+    d = rng.standard_normal((3, n)).astype(np.float32)
+    d /= np.sqrt((d * d).sum(0))
+    d[0, ::7], d[1, ::5], d[2, ::11] = 0.0, -0.0, 0.0  # axis-parallel rays
+    d[:, 3], d[:, 4] = 0.0, np.nan
+    d[1, 5] = np.nan
+    p_t, d_t = torch.from_numpy(p), torch.from_numpy(d)
+    want = pray._dda_dt(k, list(p_t), list(d_t))
+    got = dda_dt_kernel(k, list(p_t), list(d_t))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert int((want == pray.FAR).sum()) >= 2 and int((want == 0.0).sum()) > 0
+
+
 def test_jump_cuts_queries(ref):
     """The jump skips only samples that miss: the frame equals the serial
     chain's (the same march without the jump), with at least 20x fewer
@@ -220,6 +349,8 @@ def test_jump_cuts_queries(ref):
     got, queries = pray.march_plain(*rays, table, k, count_queries=True)
     serial, serial_queries = pray.march_plain(*rays, table, k, count_queries=True, serial=True)
     assert torch.equal(got, serial)
+    assert queries.shape == serial_queries.shape == rays[2].shape and (queries <= serial_queries).all()
+    queries, serial_queries = int(queries.sum()), int(serial_queries.sum())
     assert serial_queries >= 20 * queries > 0, (serial_queries, queries)
 
 
