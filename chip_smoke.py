@@ -19,7 +19,17 @@ Phases, each reported on its own lines:
      textured, and sliver640: slivers and 1-pixel triangles on the edges
      of the warps' rectangles and of the tiles, in all three ranges).
      Winner ids bit-equal, depth within rtol 2.4e-7, colour within 2 u8
-     with at most 0.2% of pixels at 2;
+     with at most 0.2% of pixels at 2. On four phong1080 tiles (the pole
+     tile among them) K1's winner and depth also against
+     ``rasterize_portable``, which bins nothing;
+   - K1 at stress4k (a million triangles at 3840x2160, the default config:
+     64-row tiles, two fine tiles a triangle, bin_pairs' packed 31-bit
+     sort) against its plain version and ``rasterize_portable`` on eight
+     tiles (the heaviest, the one with the most coarse pairs, one no pair
+     reaches, five drawn with a seeded generator); again with 32-row tiles,
+     where the sort key needs 32 bits and the stable two-operand sort runs,
+     which must give the same frame; K1's device time there, with every
+     pair list empty, and its bound;
    - K4, the non-fused raster: phong1080_tex2048 at the same angles, both
      entry points, a custom shader with 12 varyings at 640x360, and
      sliver640. Winner ids, texture ids and varyings bit-equal, depth
@@ -46,11 +56,17 @@ Phases, each reported on its own lines:
    (K5);
 4. the main paths through the entry points a user calls, each driven with
    the launch counters set to 0 just before it and read just after:
-   phong1080 ``Scene.render()`` (K1 once a frame), phong1080_tex2048
-   ``Scene.render()`` (K4 and K3 once a frame, K1 never), the custom
-   12-varying shader's ``Scene.render()`` (K4 once a frame) and
-   ``render_voxel_frame`` for voxel540 and voxel540dda (K5 once a frame),
-   with frame times (CUDA events) and checksums;
+   phong1080 ``Scene.render()`` (K1 once a frame), phong1080
+   ``render_prepared`` (``prepare()`` once, then K1 alone a frame while the
+   eye moves and the textures trade places; the first and last frames equal
+   to ``Scene.render()`` at the same uniforms), stress4k
+   ``Scene.render()`` at 0.10 / 0.15 / 0.20 (K1 once a frame, no face past
+   the clip cap, frame 0 equal to the checked K1 frame), cube1080_flat
+   through the portable backend (no kernel; winner equal to the kernel
+   path's), phong1080_tex2048 ``Scene.render()`` (K4 and K3 once a frame,
+   K1 never), the custom 12-varying shader's ``Scene.render()`` (K4 once a
+   frame) and ``render_voxel_frame`` for voxel540 and voxel540dda (K5 once
+   a frame), with frame times (CUDA events), checksums and per-stage times;
 5. one JSON line describing the kernels, the card's identity line, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -80,7 +96,7 @@ VOXEL_LEVEL, VOXEL_LENGTH, VOXEL_W, VOXEL_H = 3, 2.0, 960, 540
 # Frame sizes of the scenes, and the side of phong1080_tex2048's textures.
 SIZES = {"phong1080": (1920, 1080), "custom12_360": (640, 360), "phong_bin_k1": (640, 360),
          "textured_wide": (800, 600), "gouraud800": (800, 600), "cube1080_flat": (1920, 1080),
-         "sliver640": (640, 360)}
+         "sliver640": (640, 360), "stress4k": (3840, 2160)}
 SIZES["phong1080_tex2048"] = SIZES["phong1080"]
 TEX_SIDE = 2048
 
@@ -139,18 +155,18 @@ def custom12_shaders():
 
 
 def build_scene(name, device):
-    """The bench scenes the port runs, built with the port's own builders."""
+    """The scenes the port runs, built with the port's own builders: the
+    bench scenes of ``bench_scenes`` (``bench.py:60-154``) and variants."""
     from f_renderer_tpu_torch import Camera, make_checker_texture, make_phong_scene, make_uv_sphere
+    from f_renderer_tpu_torch import bench_scenes
 
+    if name in ("phong1080", "gouraud800", "stress4k"):
+        return bench_scenes.build_scene(name, device)
+    if name == "cube1080_flat":
+        return bench_scenes.build_scene("cube1080", device)
     w, h = SIZES[name]
     cam = Camera.create([0.0, 0.5, 4.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], device)
     sphere_cam = Camera.create([0.0, 0.0, 3.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], device)
-    if name == "phong1080":  # bench.py:105-129
-        return make_phong_scene(
-            w, h, clip_cap=64, meshes=three_meshes(), camera=cam, device=device,
-            textures=[make_checker_texture(512, 32), make_checker_texture(512, 16),
-                      make_checker_texture(512, 24)],
-        )
     if name == "phong1080_tex2048":  # phong1080 with 2048^2 diffuse maps: a 48 MiB stack
         n = TEX_SIDE
         return make_phong_scene(
@@ -177,32 +193,19 @@ def build_scene(name, device):
             w, h, clip_cap=64, meshes=[make_uv_sphere(24, 48)], camera=sphere_cam,
             textures=[make_checker_texture(300, 20)], shader="textured", device=device,
         )
-    if name == "gouraud800":  # bench.py:83-94
-        return make_phong_scene(
-            w, h, clip_cap=64, meshes=[make_uv_sphere(36, 72)], camera=sphere_cam,
-            shader="gouraud", device=device,
-        )
     if name == "sliver640":  # slivers and 1-px triangles on warp and tile edges, bin_k=1
         from f_renderer_tpu_torch.scene import make_sliver_scene
 
         return make_sliver_scene(w, h, device=device)
-    if name == "cube1080_flat":  # bench.py:67-82
-        from f_renderer_tpu_torch import make_cube
-
-        return make_phong_scene(
-            w, h, clip_cap=16, meshes=[make_cube()], camera=cam, shader="flat",
-            device=device,
-        )
     raise ValueError(name)
 
 
 def set_angle(scene, angle):
     """Rotate the scene's model by ``angle`` about y (None: leave it)."""
-    from f_renderer_tpu_torch.math import set_rotate
+    from f_renderer_tpu_torch import bench_scenes
 
-    if angle is None:
-        return
-    scene.vs_uniform = dict(scene.vs_uniform, model=set_rotate([0.0, 1.0, 0.0], angle, scene.device))
+    if angle is not None:
+        bench_scenes.set_angle(scene, angle)
 
 
 def voxel_view(i, length=VOXEL_LENGTH):
@@ -376,11 +379,13 @@ def tile_pair_pixels(prep):
 
 def raster_work(prep, out_planes, per_pixel_ops, extra_bytes=0):
     """(bytes, ops, ops at every pixel of the tile) of a raster kernel: its inputs
-    read once, its output planes written once; 12 integer operations for
-    each cover test (edges, sign OR, bbox max) inside the pair's bbox (or
-    at every pixel of the tile), ``per_pixel_ops`` for each pixel's
-    epilogue."""
-    nbytes = 4 * (prep.off.numel() + prep.tri_i32.numel() + prep.tri_f32.numel())
+    read once (the offsets and the pair columns the lists hold, not the
+    padding columns after them), its output planes written once; 12 integer
+    operations for each cover test (edges, sign OR, bbox max) inside the
+    pair's bbox (or at every pixel of the tile), ``per_pixel_ops`` for each
+    pixel's epilogue."""
+    pairs = int(prep.off[-1])
+    nbytes = 4 * (prep.off.numel() + pairs * (prep.tri_i32.shape[0] + prep.tri_f32.shape[0]))
     nbytes += 4 * out_planes * prep.h_pad * prep.w_pad + extra_bytes
     every, inside = tile_pair_pixels(prep)
     epilogue = per_pixel_ops * prep.h_pad * prep.w_pad
@@ -483,6 +488,146 @@ def warp_queries(queries):
     return float(q.amax(1).float().mean()), float(q.float().mean())
 
 
+def tile_ranges(prep):
+    """Pairs of every bin tile → (fine, coarse, spill) lists indexed by tile
+    t = ty * ntx + tx."""
+    from f_renderer_tpu_torch.pipeline.raster import LANES, tile_lists
+
+    off = prep.off.tolist()
+    nty, ntx = prep.h_pad // prep.th, prep.w_pad // LANES
+    out = []
+    for t in range(nty * ntx):
+        out.append(tuple(off[r + 1] - off[r] for r in tile_lists(prep, t // ntx, t % ntx)))
+    return out
+
+
+def reaches(prep, t):
+    """Whether a pair of tile t's coarse or spill range has a bbox that
+    reaches the tile (the order pass's test, for a tile with no fine pair)."""
+    import torch
+
+    from f_renderer_tpu_torch.pipeline.raster import LANES, MAXXY, MINXY, tile_lists, unpack_xy
+
+    off = prep.off.tolist()
+    ntx = prep.w_pad // LANES
+    _, c, sp = tile_lists(prep, t // ntx, t % ntx)
+    idx = torch.cat([torch.arange(off[r], off[r + 1], device=prep.off.device) for r in (c, sp)])
+    x0, y0 = (t % ntx) * LANES, (t // ntx) * prep.th
+    minx, miny = unpack_xy(prep.tri_i32[MINXY, idx])
+    maxx, maxy = unpack_xy(prep.tri_i32[MAXXY, idx])
+    return bool(((minx < x0 + LANES) & (maxx > x0) & (miny < y0 + prep.th) & (maxy > y0)).any())
+
+
+def check_tiles(prep, n_random, seed=0, with_coarse_and_empty=True):
+    """The bin tiles to hold a kernel to its plain version on → ([(ty, tx)],
+    what each is): the heaviest tile (most fine and coarse pairs); with
+    ``with_coarse_and_empty`` the tile with the most coarse pairs and a tile
+    whose list the order pass empties (no fine pair, at most 32 coarse and
+    spill pairs, none whose bbox reaches it), or else the first tile with
+    no fine pair that no pair reaches; and ``n_random`` tiles with pairs,
+    drawn with a seeded numpy generator."""
+    import numpy as np
+
+    from f_renderer_tpu_torch.pipeline.raster import LANES
+
+    ntx = prep.w_pad // LANES
+    ranges = tile_ranges(prep)
+    picks, what = [], []
+
+    def pick(t, label):
+        picks.append(t)
+        what.append(f"{label} ({t // ntx},{t % ntx}) pairs {'/'.join(map(str, ranges[t]))}")
+
+    pick(max(range(len(ranges)), key=lambda t: ranges[t][0] + ranges[t][1]), "heaviest")
+    if with_coarse_and_empty:
+        pick(max(range(len(ranges)), key=lambda t: ranges[t][1]), "most coarse")
+        empty = [t for t, (f, c, sp) in enumerate(ranges) if f == 0 and not reaches(prep, t)]
+        emptied = [t for t in empty if sum(ranges[t]) <= 32]
+        if emptied:
+            pick(emptied[0], "emptied by the order pass")
+        elif empty:
+            pick(empty[0], f"reached by no pair (none emptied: the spill range holds {ranges[0][2]} > 32 pairs)")
+        else:
+            what.append("no tile without fine pairs that no pair reaches")
+    rest = [t for t, r in enumerate(ranges) if sum(r) > 0 and t not in picks]
+    for t in np.random.default_rng(seed).choice(rest, n_random, replace=False):
+        pick(int(t), "random")
+    return [(t // ntx, t % ntx) for t in picks], what
+
+
+def crop_tiles(plane, tiles, th):
+    """The pixels of ``plane`` (H, W, ...) inside the bin tiles, joined
+    (tiles at the frame's bottom edge are cut to the frame)."""
+    import torch
+
+    from f_renderer_tpu_torch.pipeline.raster import LANES
+
+    return torch.cat([plane[ty * th:(ty + 1) * th, tx * LANES:(tx + 1) * LANES].reshape(-1, *plane.shape[2:])
+                      for ty, tx in tiles])
+
+
+def portable_tile(tri, th, ty, tx, width, height):
+    """``rasterize_portable`` on one bin tile of the frame, fed only the
+    valid slots whose bbox (clamped to the frame, as the rasterizer clamps
+    it) reaches the tile, a plain bbox test that bins nothing; exact, since
+    every accepted pixel lies in its triangle's bbox → (winner slot ids,
+    depth), cut to the frame, and the slots fed."""
+    import dataclasses as dc
+
+    import torch
+
+    from f_renderer_tpu_torch.pipeline.raster import LANES
+    from f_renderer_tpu_torch.pipeline.raster_portable import rasterize_portable
+
+    x0, y0 = tx * LANES, ty * th
+    sx, sy = tri.spi[:, 0].long(), tri.spi[:, 1].long()
+    keep = (tri.valid & (sx.amin(0).clamp(0, width) < x0 + LANES) & (sx.amax(0).clamp(0, width) > x0)
+            & (sy.amin(0).clamp(0, height) < y0 + th) & (sy.amax(0).clamp(0, height) > y0))
+    ids = torch.nonzero(keep).flatten()
+    sub = type(tri)(**{f.name: getattr(tri, f.name)[..., ids] for f in dc.fields(tri)})
+    winner, depth = rasterize_portable(sub, LANES, th, tile=(th, LANES), origin=(y0, x0),
+                                       full_size=(height, width))
+    slot = torch.cat([ids, ids.new_full((1,), -1)]).to(torch.int32)  # winner -1 reads the last: -1
+    winner = slot[winner.long()]
+    rows = min(th, height - y0)
+    return winner[:rows], depth[:rows], ids.numel()
+
+
+def compare_portable(tag, tri, prep, tiles, got, width, height):
+    """K1's winner and depth on the tiles against ``rasterize_portable``,
+    the oracle that does not depend on ``bin_pairs`` → (depth err, ms)."""
+    import torch
+
+    _, depth_k, winner_k = got
+    start = time.perf_counter()
+    worst, fed = 0.0, []
+    for ty, tx in tiles:
+        winner_p, depth_p, n = plain(portable_tile, tri, prep.th, ty, tx, width, height)
+        fed.append(n)
+        w_k = crop_tiles(winner_k, [(ty, tx)], prep.th).reshape(winner_p.shape)
+        d_k = crop_tiles(depth_k, [(ty, tx)], prep.th).reshape(depth_p.shape)
+        check(torch.equal(w_k, winner_p), f"{tag} tile ({ty},{tx}): winner differs from rasterize_portable "
+              f"at {int((w_k != winner_p).sum())} px")
+        derr = (d_k - depth_p).abs()
+        check(bool((derr <= DEPTH_RTOL * depth_p.abs()).all()),
+              f"{tag} tile ({ty},{tx}): depth beyond rtol of rasterize_portable, max {float(derr.max())}")
+        worst = max(worst, float(derr.max()))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - start) * 1e3
+    log(f"  {tag}: K1 against rasterize_portable on {len(tiles)} tiles (slots fed {fed}): winner equal, "
+        f"depth max abs err {worst:.3g} ({ms:.0f} ms)")
+    return worst, ms
+
+
+def sort_bits(tri, prep):
+    """Bits of bin_pairs' packed (key, slot) sort key: the keys' and the
+    slots' (over 31, the two-operand stable sort runs)."""
+    from f_renderer_tpu_torch.pipeline.raster import LANES, cdiv
+
+    m_pad = cdiv(tri.num_slots + 1, LANES) * LANES
+    return prep.off.numel().bit_length(), max((m_pad - 1).bit_length(), 1)
+
+
 def main() -> int:
     import torch
 
@@ -494,13 +639,14 @@ def main() -> int:
 
         from f_renderer_tpu_torch import kernels
         from f_renderer_tpu_torch.pipeline import fused, raster, shade
-        from f_renderer_tpu_torch.pipeline.render import build_triangles, context_codec
+        from f_renderer_tpu_torch.pipeline.render import build_triangles, context_codec, rasterize
         from f_renderer_tpu_torch.shaders.builtin import shade_plain
         from f_renderer_tpu_torch.voxel import octree, raycast
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 1
 
+    t_start = time.time()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     # 1. identity
@@ -541,6 +687,9 @@ def main() -> int:
         worst_frame, worst_depth = max(worst_frame, f_err), max(worst_depth, d_err)
         if scene_name == "phong1080" and "K1" not in rows:
             reference_frame = got[0].clone()
+            tiles, what = check_tiles(prep, 3, with_coarse_and_empty=False)
+            log(f"  phong1080@{angle} tiles held to rasterize_portable: {'; '.join(what)}")
+            compare_portable(f"phong1080@{angle}", tri, prep, tiles, got, *SIZES["phong1080"])
             launch = kernel_call("fused_raster", lambda: fused.render_fused_prepared(*args))
             k_ms, p_ms, w_ms, each = timed(lambda: fused.render_fused_prepared(*args), launch,
                                            lambda: fused.render_fused_plain(*args), 20)
@@ -571,6 +720,96 @@ def main() -> int:
                 f"{b2_ms:.4f} ms by {b2_by}) (CUDA events; {smi})")
     rows["K1"]["max_abs_err"] = worst_frame
     rows["K1"]["max_abs_err_depth"] = worst_depth
+
+    # 3a. K1 at stress4k: a million triangles at 3840x2160 through the
+    # default config (th = 64, k = 2, bin_pairs' packed 31-bit sort), held to
+    # the plain version and to rasterize_portable on eight tiles (the whole
+    # plain frame tests every pixel of a tile against every pair of its lists)
+    log("[kernel-vs-plain] K1 fused_raster at stress4k")
+    stress = build_scene("stress4k", dev)
+    set_angle(stress, ANGLES[0])
+    sw, sh = SIZES["stress4k"]
+    tri, stats = build_triangles(stress.draws, stress.vertex_shader, stress.vs_uniform, stress.config)
+    check(int(stats["num_clipped"]) <= stress.config.clip_cap, "stress4k: clip_cap dropped faces")
+    prep = fused.prep_fused(tri, stress.config)
+    key_bits, slot_bits = sort_bits(tri, prep)
+    check(prep.th == 64 and key_bits + slot_bits <= 31,
+          f"stress4k: th {prep.th}, sort key {key_bits} + {slot_bits} bits: not the packed sort at th = 64")
+    args = (prep, stress.pixel_shader, stress.ps_uniform, stress.config)
+    stress_got = fused.render_fused_prepared(*args)
+    ranges = tile_ranges(prep)
+    heavy = sum(f + c >= 256 for f, c, _ in ranges)
+    heaviest = max(f + c for f, c, _ in ranges)
+    tiles, what = check_tiles(prep, 5)
+    log(f"  stress4k@{ANGLES[0]}: th={prep.th} slots {tri.num_slots} clipped {int(stats['num_clipped'])} "
+        f"pair columns {prep.tri_i32.shape[1]} ranges {range_sizes(prep)} (fine/coarse/spill), tiles "
+        f"{len(ranges)}, heavy tiles (>= 256 fine + coarse pairs, rows interleaved) {heavy}, heaviest tile "
+        f"{heaviest} pairs; sort key {key_bits} + {slot_bits} = {key_bits + slot_bits} bits (packed)")
+    log(f"  stress4k tiles checked: {'; '.join(what)}")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain(fused.render_fused_plain, *args, tiles=tiles)
+    end.record()
+    torch.cuda.synchronize()
+    plain_tiles_ms = start.elapsed_time(end)
+    f_err, d_err = compare_fused(f"stress4k@{ANGLES[0]} th={prep.th} on {len(tiles)} tiles",
+                                 [crop_tiles(t, tiles, prep.th) for t in stress_got],
+                                 [crop_tiles(t, tiles, prep.th) for t in want])
+    del want
+    p_err, portable_ms = compare_portable(f"stress4k@{ANGLES[0]}", tri, prep, tiles, stress_got, sw, sh)
+    launch = kernel_call("fused_raster", lambda: fused.render_fused_prepared(*args))
+    k_ms = [device_ms(launch, 10) for _ in range(2)]
+    no_pairs = torch.zeros_like(prep.off)
+    k_empty = [device_ms(lambda: launch(no_pairs), 10) for _ in range(2)]
+    w_ms = cuda_ms(lambda: fused.render_fused_prepared(*args), 5)
+    stack = stress.ps_uniform["textures"]
+    # every texel of the 64^2 stack: a million triangles' random uvs reach them all
+    nbytes, ops, ops_every = raster_work(prep, 3, 192, extra_bytes=4 * (stack.texels.numel() + stack.dims.numel()))
+    b_ms, b_by = bound_ms(nbytes, ops)
+    b2_ms, b2_by = bound_ms(nbytes, ops_every)
+    log(f"  stress4k K1 time: kernel {k_ms[0]:.4f} / {k_ms[1]:.4f} ms (device), every pair list empty "
+        f"{k_empty[0]:.4f} / {k_empty[1]:.4f} ms, wrapper {w_ms:.4f} ms, plain on the {len(tiles)} checked "
+        f"tiles only {plain_tiles_ms:.1f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} B, {ops} ops; at every "
+        f"pixel {ops_every} ops, {b2_ms:.4f} ms by {b2_by}), share {b_ms / min(k_ms):.3f} (CUDA events; {smi})")
+    rows["K1"].update(
+        stress4k_ms=sum(k_ms) / 2, stress4k_ms_each=k_ms, stress4k_ms_no_pairs=k_empty, stress4k_wrapper_ms=w_ms,
+        stress4k_plain_ms_checked_tiles=plain_tiles_ms, stress4k_checked_tiles=len(tiles),
+        stress4k_portable_ms_checked_tiles=portable_ms,
+        stress4k_bound_ms=b_ms, stress4k_bound_by=b_by, stress4k_bound_ms_every_pixel=b2_ms,
+        stress4k_bound_by_every_pixel=b2_by, stress4k_bytes=nbytes, stress4k_ops=ops,
+        stress4k_ops_every_pixel=ops_every, stress4k_max_abs_err=f_err, stress4k_max_abs_err_depth=max(d_err, p_err),
+        stress4k_th=prep.th, stress4k_pair_columns=prep.tri_i32.shape[1], stress4k_ranges=range_sizes(prep),
+        stress4k_heavy_tiles=heavy, stress4k_tiles=len(ranges), stress4k_heaviest_tile_pairs=heaviest,
+        stress4k_sort_bits=key_bits + slot_bits,
+    )
+    del launch
+
+    # the second sort path: 32-row tiles (tile_auto off, or the slot count
+    # would raise them to 64) need a 12-bit key, 32 bits with the slot: the
+    # stable two-operand sort. The same pixels, so the same frame.
+    cfg32 = dataclasses.replace(stress.config, tile=(32, 128), tile_auto=False)
+    prep32 = fused.prep_fused(tri, cfg32)
+    key_bits, slot_bits = sort_bits(tri, prep32)
+    check(prep32.th == 32 and key_bits + slot_bits > 31,
+          f"stress4k th=32: th {prep32.th}, sort key {key_bits} + {slot_bits} bits: not the two-operand sort")
+    args32 = (prep32, stress.pixel_shader, stress.ps_uniform, cfg32)
+    got32 = fused.render_fused_prepared(*args32)
+    for part, a, b in zip(("frame", "depth", "winner"), got32, stress_got):
+        check(torch.equal(a, b), f"stress4k: th=32 (two-operand sort) and th=64 (packed sort) K1 {part}s differ "
+              f"at {int((a != b).reshape(a.shape[0], a.shape[1], -1).any(-1).sum())} px")
+    tiles32 = [(2 * ty + half, tx) for ty, tx in tiles for half in (0, 1) if (2 * ty + half) * 32 < sh]
+    want32 = plain(fused.render_fused_plain, *args32, tiles=tiles32)
+    f32_err, d32_err = compare_fused(
+        f"stress4k@{ANGLES[0]} th=32 (sort key {key_bits} + {slot_bits} bits, two-operand) ranges "
+        f"{range_sizes(prep32)} on the same pixels ({len(tiles32)} tiles)",
+        [crop_tiles(t, tiles32, 32) for t in got32], [crop_tiles(t, tiles32, 32) for t in want32])
+    k32 = device_ms(kernel_call("fused_raster", lambda: fused.render_fused_prepared(*args32)), 10)
+    log(f"  stress4k K1 at th=32: frame equal to th=64's={all(torch.equal(a, b) for a, b in zip(got32, stress_got))}, "
+        f"kernel {k32:.4f} ms (device; {smi})")
+    rows["K1"].update(stress4k_th32_ms=k32, stress4k_th32_max_abs_err=f32_err,
+                      stress4k_th32_max_abs_err_depth=d32_err)
+    stress_frame = stress_got[0].clone()
+    del prep32, args32, got32, want32, prep, args, stress_got, tri
 
     # 3b. K4 against plain, both entry points; 3c. K3 on the same planes
     log("[kernel-vs-plain] K4 raster_planes, K3 sample_bilinear")
@@ -854,6 +1093,78 @@ def main() -> int:
     shaded = int((outs[0][0][..., :3] != 30).any(-1).sum())
     check(0.05 * w * h < shaded < 0.9 * w * h, f"phong1080: implausible shaded pixel count {shaded}")
     raster_stages("phong1080", scene)
+    phong_frame0 = outs[0][0]
+
+    # phong1080 render_prepared: geometry and binning once, then frames that
+    # change only shading uniforms: the eye the lighting reads moves (toward
+    # the side where the reference's mirrored highlight shows), and every
+    # other frame the three textures trade places (a stack of equal shape)
+    from f_renderer_tpu_torch import make_checker_texture
+    from f_renderer_tpu_torch.shaders import TextureStack
+
+    set_angle(scene, ANGLES[0])
+    prepared = scene.prepare()
+    base = scene.ps_uniform
+    swapped = TextureStack.create([make_checker_texture(512, c) for c in (24, 16, 32)], device=dev)
+    uniforms = [dict(base, view_pos=base["view_pos"] + torch.tensor([0.3 * i, 0.2 * i, -0.8 * i], device=dev),
+                     textures=swapped if i % 2 else base["textures"]) for i in range(FRAMES)]
+    scene.render_prepared(prepared)
+
+    def prepared_frame(i):
+        scene.ps_uniform = uniforms[i]
+        return scene.render_prepared(prepared)
+
+    outs, got = drive("phong1080 render_prepared", prepared_frame, FRAMES, dict(zero, fused_raster=FRAMES), (h, w, 4))
+    launches["K1 render_prepared"] = got["fused_raster"]
+    check(torch.equal(outs[0][0], phong_frame0), "phong1080: render_prepared at 0.10 differs from Scene.render()")
+    check(not torch.equal(outs[1][0], phong_frame0), "phong1080: render_prepared ignored the swapped textures")
+    scene.ps_uniform = uniforms[FRAMES - 1]
+    check(torch.equal(outs[-1][0], scene.render()[0]), "phong1080: render_prepared's last frame differs from Scene.render()")
+    scene.ps_uniform = base
+    stages("phong1080 render_prepared", [("prepare", scene.prepare),
+                                         ("render_prepared", lambda: scene.render_prepared(prepared))])
+    del prepared
+
+    # stress4k Scene.render(): geometry of a million faces, binning and K1
+    scene = stress
+    set_angle(scene, ANGLES[0])
+    scene.render()
+
+    def stress_frame_at(i):
+        set_angle(scene, ANGLES[i])
+        return scene.render()
+
+    outs, got = drive("stress4k Scene.render()", stress_frame_at, len(ANGLES),
+                      dict(zero, fused_raster=len(ANGLES)), (sh, sw, 4))
+    launches["K1 stress4k"] = got["fused_raster"]
+    for i, (frame, depth, stats) in enumerate(outs):
+        check(bool(torch.isfinite(depth).all()), "stress4k: non-finite depth")
+        check(int(stats["num_clipped"]) <= scene.config.clip_cap, "stress4k: clip_cap dropped faces")
+        log(f"  stress4k@{ANGLES[i]}: clipped {int(stats['num_clipped'])} of {scene.config.clip_cap}, covered px "
+            f"{int((frame[..., :3] != 30).any(-1).sum())}")
+    check(torch.equal(outs[0][0], stress_frame), "stress4k: Scene.render() at 0.10 differs from the checked K1 frame")
+    raster_stages("stress4k", scene)
+    del outs, stress, scene
+
+    # cube1080_flat through the portable backend: rasterize_portable and
+    # shade_deferred, no kernel; held to the kernel path's prepare + render_prepared
+    scene = build_scene("cube1080_flat", dev)
+    set_angle(scene, ANGLES[0])
+    frame_k, depth_k, winner_k = scene.render_prepared(scene.prepare())
+    scene.config = dataclasses.replace(scene.config, backend="portable")
+    scene.render()
+    w1, h1 = SIZES["cube1080_flat"]
+    outs, _ = drive("cube1080_flat Scene.render() backend=portable", lambda i: scene.render(), 1, zero, (h1, w1, 4))
+    frame_p, depth_p, _ = outs[0]
+    tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+    winner_p, _ = plain(rasterize, tri, scene.config)
+    check(torch.equal(winner_p, winner_k), f"cube1080_flat: the portable winner differs from K1's at "
+          f"{int((winner_p != winner_k).sum())} px")
+    derr = (depth_p - depth_k).abs()
+    check(bool((derr <= DEPTH_RTOL * depth_k.abs()).all()), f"cube1080_flat: portable depth beyond rtol, {float(derr.max())}")
+    f_err, at2 = frame_bar("cube1080_flat portable", frame_p, frame_k)
+    log(f"  cube1080_flat portable vs kernels: winner equal, depth max abs err {float(derr.max()):.3g}, frame max "
+        f"diff {f_err} u8 ({at2:.4%} at 2), covered px {int((winner_p >= 0).sum())}")
 
     scene = build_scene("phong1080_tex2048", dev)
     set_angle(scene, ANGLES[0])
@@ -909,11 +1220,14 @@ def main() -> int:
     for key, row in rows.items():
         row["launches"] = launches[key]
     rows["K4"]["launches_custom12_360"] = launches["K4 custom12_360"]
+    rows["K1"]["launches_stress4k"] = launches["K1 stress4k"]
+    rows["K1"]["launches_render_prepared"] = launches["K1 render_prepared"]
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed:")
         for f in failures:
             log("  " + f)
         return 1
+    log(f"[time] chip_smoke: {time.time() - t_start:.1f} s, the build included ({smi})")
     log(json.dumps({"kernels": list(rows.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ from f_renderer_tpu_torch.scene import (
     Scene,
     make_checker_texture,
     make_cube,
+    make_instanced_soup,
     make_phong_scene,
     make_uv_sphere,
 )
@@ -22,6 +23,7 @@ __all__ = [
     "Scene",
     "make_checker_texture",
     "make_cube",
+    "make_instanced_soup",
     "make_phong_scene",
     "make_uv_sphere",
     "render_frame",

@@ -9,6 +9,8 @@ from f_renderer_tpu_torch.math.transforms import (
     set_look_at,
     set_perspective,
     set_rotate,
+    set_scale,
+    transform_points_h,
 )
 
 __all__ = [
@@ -20,4 +22,6 @@ __all__ = [
     "set_look_at",
     "set_perspective",
     "set_rotate",
+    "set_scale",
+    "transform_points_h",
 ]

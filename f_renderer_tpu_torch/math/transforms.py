@@ -122,6 +122,12 @@ def set_rotate(axis, theta, device=None):
     return torch.stack(rows)
 
 
+def set_scale(x, y, z, device=None):
+    """Diagonal scale matrix (matrix_util.rs:71-78)."""
+    return torch.diag(torch.stack([_f32(x, device), _f32(y, device), _f32(z, device),
+                                   torch.ones((), dtype=torch.float32, device=device)]))
+
+
 def reflect(light, normal):
     """``normalize(2 (L·N) N - L)`` over the last axis (vector_util.rs:4-7)."""
     light, normal = _f32(light), _f32(normal)
@@ -145,4 +151,16 @@ def mat_vec4(m, p):
             ((m[i, 0] * p[0] + m[i, 1] * p[1]) + m[i, 2] * p[2]) + m[i, 3] * p[3]
             for i in range(4)
         ]
+    )
+
+
+def transform_points_h(m, points):
+    """Apply a (4, 4) matrix to 3-D points with homogeneous w = 1:
+    ``points`` (..., 3) → (..., 4) clip-space positions, the reference's
+    per-vertex ``mvp * vec4(pos, 1)`` (phong.rs:125), each entry summed left
+    to right."""
+    m, points = _f32(m), _f32(points)
+    p = [points[..., 0], points[..., 1], points[..., 2]]
+    return torch.stack(
+        [((m[i, 0] * p[0] + m[i, 1] * p[1]) + m[i, 2] * p[2]) + m[i, 3] for i in range(4)], dim=-1
     )

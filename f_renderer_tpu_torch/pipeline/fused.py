@@ -120,16 +120,18 @@ def render_fused_prepared(prep: BinnedPrep, pixel_shader, ps_uniform, config):
     return _finish(rgba, depth, winner, prep)
 
 
-def render_fused_plain(prep: BinnedPrep, pixel_shader, ps_uniform, config):
+def render_fused_plain(prep: BinnedPrep, pixel_shader, ps_uniform, config, tiles=None):
     """Plain PyTorch version of the fused kernel, on the tensors' device.
 
     Same inputs and outputs as :func:`render_fused_prepared`; the same
     arithmetic, expression by expression, as ``csrc/fused_raster.cu``. It
     shades with the builtin bodies and the plain sampler
     (``builtin.shade_plain``), so it launches no kernel on any device.
+    ``tiles``: only these (ty, tx) bin tiles are rasterized (None: all); the
+    other pixels are background.
     """
     dev = prep.tri_i32.device
-    depth, wpair = R.raster_tiles_plain(prep)
+    depth, wpair = R.raster_tiles_plain(prep, tiles)
     ctx, winner, ps = R.interpolate_plain(prep, depth, wpair)
 
     # Shading epilogue: the builtin pixel shader on the planes, then RGBA8.

@@ -316,10 +316,13 @@ def _tile_plain(tri_i32, tri_f32, idx, cx, cy):
     return torch.where(accept, depth, 0.0), torch.where(accept, idx[arg], -1)
 
 
-def raster_tiles_plain(prep: BinnedPrep):
+def raster_tiles_plain(prep: BinnedPrep, tiles=None):
     """The per-tile loop of both raster kernels (``csrc/raster_loop.cuh``),
     plain: each tile's fine, coarse and spill pair ranges merged per pixel.
-    Returns padded (depth f32, winning pair int64 or -1), (h_pad, w_pad)."""
+    Returns padded (depth f32, winning pair int64 or -1), (h_pad, w_pad).
+
+    ``tiles``: the (ty, tx) tiles to raster (None: every tile); the pixels
+    of the others stay background (depth 0, pair -1)."""
     dev = prep.tri_i32.device
     th, tw = prep.th, LANES
     nty, ntx = prep.h_pad // th, prep.w_pad // tw
@@ -328,15 +331,16 @@ def raster_tiles_plain(prep: BinnedPrep):
     wpair = torch.full((prep.h_pad, prep.w_pad), -1, dtype=torch.int64, device=dev)
     rows = torch.arange(th, device=dev)[:, None]
     cols = torch.arange(tw, device=dev)[None, :]
-    for ty in range(nty):
-        for tx in range(ntx):
-            lists = tile_lists(prep, ty, tx)
-            idx = torch.cat([torch.arange(off[r], off[r + 1], device=dev) for r in lists])
-            if idx.numel() == 0:
-                continue
-            d, w = _tile_plain(prep.tri_i32, prep.tri_f32, idx, tx * tw + cols, ty * th + rows)
-            depth[ty * th : (ty + 1) * th, tx * tw : (tx + 1) * tw] = d
-            wpair[ty * th : (ty + 1) * th, tx * tw : (tx + 1) * tw] = w
+    if tiles is None:
+        tiles = [(ty, tx) for ty in range(nty) for tx in range(ntx)]
+    for ty, tx in tiles:
+        lists = tile_lists(prep, ty, tx)
+        idx = torch.cat([torch.arange(off[r], off[r + 1], device=dev) for r in lists])
+        if idx.numel() == 0:
+            continue
+        d, w = _tile_plain(prep.tri_i32, prep.tri_f32, idx, tx * tw + cols, ty * th + rows)
+        depth[ty * th : (ty + 1) * th, tx * tw : (tx + 1) * tw] = d
+        wpair[ty * th : (ty + 1) * th, tx * tw : (tx + 1) * tw] = w
     return depth, wpair
 
 

@@ -1,12 +1,15 @@
 """End-to-end frame rendering: geometry → raster → shade.
 
-Port of ``f_renderer_tpu/pipeline/render.py`` (its pallas backend):
-geometry over all draws builds one submission-ordered triangle list
-(phong.rs:314-387); then either one fused kernel rasterizes and shades it
-(builtin ``fused_kind`` shaders), or the raster kernel interpolates the
-varyings (``raster.rasterize_interp``) and the pixel shader runs once over
-the frame (``shade.shade_from_planes``). A "draw" is one mesh batch sharing
-a ps_index (the reference's PLACE enum selecting a texture, phong.rs:34-38).
+Port of ``f_renderer_tpu/pipeline/render.py``: geometry over all draws
+builds one submission-ordered triangle list (phong.rs:314-387). Then, with
+the default ``backend="kernels"`` (the JAX package's pallas backend), either
+one fused kernel rasterizes and shades it (builtin ``fused_kind`` shaders),
+or the raster kernel interpolates the varyings
+(``raster.rasterize_interp``) and the pixel shader runs once over the frame
+(``shade.shade_from_planes``). ``backend="portable"`` (the JAX package's jnp
+backend) runs ``raster_portable.rasterize_portable`` + ``shade_deferred``
+and launches no kernel. A "draw" is one mesh batch sharing a ps_index (the
+reference's PLACE enum selecting a texture, phong.rs:34-38).
 """
 
 from __future__ import annotations
@@ -16,12 +19,15 @@ from typing import Callable, Sequence
 
 import torch
 
+from f_renderer_tpu_torch.pipeline import raster
 from f_renderer_tpu_torch.pipeline.fused import fused_path_ok, render_fused
 from f_renderer_tpu_torch.pipeline.geometry import MAX_FAN, geometry_process
 from f_renderer_tpu_torch.pipeline.raster import rasterize_interp
-from f_renderer_tpu_torch.pipeline.shade import shade_from_planes
+from f_renderer_tpu_torch.pipeline.raster_portable import rasterize_portable
+from f_renderer_tpu_torch.pipeline.shade import shade_deferred, shade_from_planes
 from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
 from f_renderer_tpu_torch.shaders.api import ContextCodec
+from f_renderer_tpu_torch.shaders.builtin import LIGHT_COLOR, LIGHT_POS, shade_plain
 
 I32_MAX = 2147483647
 
@@ -48,6 +54,12 @@ class RenderConfig:
     # Builtin (fused_kind) shaders run in the fused kernel; False sends them
     # through rasterize_interp + shade_from_planes like custom shaders.
     fused_shade: bool = True
+    # "kernels": the CUDA kernels on the card (their plain versions on the
+    # CPU). "portable": rasterize_portable + shade_deferred, no kernel.
+    backend: str = "kernels"
+    # Call the pixel shader once on the frame; False calls it once per pixel
+    # (scalar-style custom shaders that cannot broadcast).
+    shade_vectorized: bool = True
 
 
 def apply_ps_boundary_quirk(tri: TriangleBuffer, slot_ranges) -> TriangleBuffer:
@@ -119,6 +131,27 @@ def context_codec(vertex_shader: Callable, vs_uniform, draw) -> ContextCodec:
     return ContextCodec.of(ctx)
 
 
+def rasterize(tri: TriangleBuffer, config: RenderConfig):
+    """Per-pixel (winner (H, W) int32, depth (H, W) f32) by ``config.backend``."""
+    if config.backend == "kernels":
+        return raster.rasterize(tri, config.width, config.height, tile=config.tile)
+    if config.backend == "portable":
+        return rasterize_portable(tri, config.width, config.height)
+    raise ValueError(f"unknown backend {config.backend!r}: 'kernels' or 'portable'")
+
+
+def portable_shader(pixel_shader: Callable) -> Callable:
+    """The pixel shader as the portable backend runs it: a builtin
+    (``fused_kind``) samples its textures with the plain sampler, so the
+    path launches no kernel; a custom shader runs as it is."""
+    kind = getattr(pixel_shader, "fused_kind", None)
+    if kind is None:
+        return pixel_shader
+    light_pos = getattr(pixel_shader, "light_pos", LIGHT_POS)
+    light_color = getattr(pixel_shader, "light_color", LIGHT_COLOR)
+    return lambda u, ctx, ps: shade_plain(kind, u, ctx, ps, light_pos=light_pos, light_color=light_color)
+
+
 def render_frame(
     draws: Sequence,
     vertex_shader: Callable,
@@ -134,8 +167,19 @@ def render_frame(
     ``config.fused_shade`` is set and its texture stack fits
     (``fused_path_ok``); every other shader runs on the planes that the
     raster kernel interpolates (render.py:248-267 of the JAX package).
+    ``config.backend="portable"`` rasterizes with ``rasterize_portable`` and
+    shades with ``shade_deferred`` (render.py:269-279 there), launching no
+    kernel (:func:`portable_shader`).
     """
     tri, stats = build_triangles(draws, vertex_shader, vs_uniform, config)
+    if config.backend != "kernels":
+        winner, depth = rasterize(tri, config)
+        codec = context_codec(vertex_shader, vs_uniform, draws[0])
+        frame = shade_deferred(
+            tri, winner, portable_shader(pixel_shader), ps_uniform, codec, background=config.background,
+            vectorized=config.shade_vectorized,
+        )
+        return frame, depth, stats
     if (
         config.fused_shade
         and hasattr(pixel_shader, "fused_kind")
@@ -146,6 +190,7 @@ def render_frame(
     codec = context_codec(vertex_shader, vs_uniform, draws[0])
     ctx, ps_idx, winner, depth = rasterize_interp(tri, config.width, config.height, tile=config.tile)
     frame = shade_from_planes(
-        ctx, ps_idx, winner, pixel_shader, ps_uniform, codec, background=config.background
+        ctx, ps_idx, winner, pixel_shader, ps_uniform, codec, background=config.background,
+        vectorized=config.shade_vectorized,
     )
     return frame, depth, stats

@@ -1,8 +1,10 @@
 """Scene / application layer (reference: examples/src/bin/phong.rs).
 
 Port of ``f_renderer_tpu/scene.py``: a ``Scene`` on an explicit device whose
-``render()`` runs the whole frame, plus the procedural meshes and textures
-the tests and benchmarks use (numpy builders, copied from the JAX package).
+``render()`` runs the whole frame and whose ``prepare()`` /
+``render_prepared()`` split it into geometry + binning and the fused kernel
+alone, plus the procedural meshes and textures the tests and benchmarks use
+(numpy builders, copied from the JAX package).
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ import torch
 from f_renderer_tpu_torch.camera import Camera
 from f_renderer_tpu_torch.device import resolve_device
 from f_renderer_tpu_torch.math import set_identity, set_perspective
-from f_renderer_tpu_torch.pipeline.render import RenderConfig, render_frame
+from f_renderer_tpu_torch.pipeline.fused import fused_path_ok, prep_fused, render_fused_prepared
+from f_renderer_tpu_torch.pipeline.raster import BinnedPrep
+from f_renderer_tpu_torch.pipeline.render import RenderConfig, build_triangles, render_frame
 from f_renderer_tpu_torch.shaders import (
     FlatShader,
     TextureStack,
@@ -55,6 +59,34 @@ class Scene:
             self.ps_uniform,
             self.config,
         )
+
+    def prepare(self) -> BinnedPrep:
+        """Geometry and binning for the current geometry and camera
+        (``fused.prep_fused``): pass the result to :meth:`render_prepared`.
+
+        For a static scene under animated shading (``view_pos``, light,
+        texture swaps of equal shape) a frame is then the fused kernel alone.
+        Camera or vertex motion changes the screen-space triangles the bins
+        index, so it needs a fresh ``prepare()``. Raises ``ValueError`` where
+        the fused kernel cannot run the scene: a pixel shader without
+        ``fused_kind``, a texture stack past ``PACKED_VMEM_BUDGET``, or the
+        portable backend.
+        """
+        if self.config.backend != "kernels" or not hasattr(self.pixel_shader, "fused_kind"):
+            raise ValueError(
+                "Scene.prepare requires backend='kernels' and a fused-eligible "
+                "pixel shader (builtin flat/gouraud/textured/phong)"
+            )
+        if not fused_path_ok(self.pixel_shader, self.ps_uniform):
+            raise ValueError("texture stack exceeds the fused kernel's budget (PACKED_VMEM_BUDGET)")
+        tri, _ = build_triangles(list(self.draws), self.vertex_shader, self.vs_uniform, self.config)
+        return prep_fused(tri, self.config)
+
+    def render_prepared(self, prepared: BinnedPrep):
+        """Render from :meth:`prepare` products, reading only the shading
+        uniforms (``ps_uniform``) afresh → (frame (H, W, 4) uint8, depth
+        (H, W) f32, winner (H, W) int32)."""
+        return render_fused_prepared(prepared, self.pixel_shader, self.ps_uniform, self.config)
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +162,38 @@ def make_uv_sphere(n_lat: int = 36, n_lon: int = 72, radius: float = 1.0) -> dic
         "pos": np.stack(pos) * radius,
         "uv": np.stack(uv),
         "normal": np.stack(normal),
+    }
+
+
+def make_instanced_soup(
+    n_tris: int, seed: int = 0, spread: float = 8.0, size: float = 0.08,
+    box: float | None = None,
+) -> dict:
+    """Random triangle soup for stress benchmarks (stress4k: one million
+    triangles, ``box=3.2``). Bit-identical to the JAX package's builder for
+    the same arguments.
+
+    ``box``: centres uniform in the origin-centred cube [-box, box]³, a
+    y-rotation-invariant, frustum-interior distribution. Default (None):
+    x, y ∈ ±spread, z ∈ [2, 30], which crosses the frustum planes.
+    """
+    rng = np.random.default_rng(seed)
+    if box is not None:
+        centers = rng.uniform(-box, box, (n_tris, 3)).astype(np.float32)
+    else:
+        centers = rng.uniform(
+            [-spread, -spread, 2.0], [spread, spread, 30.0], (n_tris, 3)
+        ).astype(np.float32)
+    offs = rng.uniform(-size * 10, size * 10, (n_tris, 3, 3)).astype(np.float32)
+    pos = centers[:, None, :] + offs * size / 0.08 * 0.08
+    normal = np.cross(pos[:, 1] - pos[:, 0], pos[:, 2] - pos[:, 0])
+    nn = np.linalg.norm(normal, axis=-1, keepdims=True)
+    normal = (normal / np.where(nn == 0, 1, nn)).astype(np.float32)
+    uv = rng.random((n_tris, 3, 2)).astype(np.float32)
+    return {
+        "pos": pos.astype(np.float32),
+        "uv": uv,
+        "normal": np.repeat(normal[:, None, :], 3, axis=1),
     }
 
 

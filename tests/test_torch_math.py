@@ -118,3 +118,20 @@ def test_mesh_builders_identical():
                 np.testing.assert_array_equal(got[k], want[k])
         else:
             np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("xyz", [(2.0, 0.5, -3.0), (1.0, 1.0, 1.0)])
+def test_set_scale(xyz):
+    np.testing.assert_array_equal(pm.set_scale(*xyz).numpy(), np.asarray(jm.set_scale(*xyz)))
+
+
+@pytest.mark.parametrize("batch", [(17,), (4, 5)])
+def test_transform_points_h(batch):
+    """The port sums each row left to right; the JAX package's matmul may
+    contract or reorder the sum: within 2 ulps of the row's largest term."""
+    rng = np.random.default_rng(5)
+    m = np.array(jm.set_perspective(np.pi * 0.25, 4 / 3, 0.1, 100.0) @ jm.set_rotate([0.0, 1.0, 0.0], 0.4))
+    pts = rng.uniform(-3.0, 3.0, batch + (3,)).astype(np.float32)
+    got = pm.transform_points_h(torch.from_numpy(m), torch.from_numpy(pts))
+    assert got.shape == batch + (4,)
+    assert_ulp(got, jm.transform_points_h(jnp.asarray(m), jnp.asarray(pts)), ulps=4)

@@ -79,14 +79,18 @@ def test_scene_render_matches_jax(shader, angle):
 
 
 def test_package_imports_without_jax():
-    """The port must import and render with JAX unavailable."""
+    """The port must import and render with JAX unavailable: every module,
+    the scene, pipeline, framebuffer, display, utility and io layers
+    among them."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['f_renderer_tpu'] = None\n"
         "import f_renderer_tpu_torch as p\n"
         "import importlib, pkgutil\n"
         "for m in pkgutil.walk_packages(p.__path__, 'f_renderer_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "assert 'f_renderer_tpu_torch.voxel.raycast' in sys.modules\n"
+        "for name in ('voxel.raycast', 'pipeline.raster_portable', 'framebuffer', 'display', 'bench_scenes', "
+        "'utils.metrics', 'io.obj', 'io.image', 'io.scene_io'):\n"
+        "    assert 'f_renderer_tpu_torch.' + name in sys.modules, name\n"
         "frame, depth, _ = p.make_phong_scene(64, 48, clip_cap=16, device='cpu').render()\n"
         "assert frame.shape == (48, 64, 4)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'f_renderer_tpu.')) "
