@@ -66,7 +66,23 @@ Phases, each reported on its own lines:
    path's), phong1080_tex2048 ``Scene.render()`` (K4 and K3 once a frame,
    K1 never), the custom 12-varying shader's ``Scene.render()`` (K4 once a
    frame) and ``render_voxel_frame`` for voxel540 and voxel540dda (K5 once
-   a frame), with frame times (CUDA events), checksums and per-stage times;
+   a frame), with frame times (CUDA events), checksums and per-stage times
+   (eager). On the card each of these entry points but the portable one
+   and ``render_prepared`` (eager: one K1 launch) replays one captured CUDA
+   graph a frame (``compiled.py``). A graph path's frames are replays, so
+   its launches are the kernels the device ran in them, read from CUPTI's
+   kernel records in phase 4b, after every timing (no wrapper may count
+   one). ``[graph]``
+   lines: the first call captures; the graph's K1/K3/K4/K5 nodes (from its
+   DOT) equal one eager frame's launches; the graph frames, timed in a
+   second run, and the first three of them run eagerly (``render_frame``,
+   ``voxel.voxel_frame``) are bit-equal, the prep of ``prepare()`` to
+   ``prep_fused`` too; a replay overwrites its sentinel-filled static
+   outputs; a changed draw shape and a stack of another ``opaque`` capture
+   anew and stay equal; capture ms, pool bytes, graph and eager frame ms,
+   the input copy, replay and output clone alone; and what the clip path,
+   which a graph runs on every frame, costs a replay where nothing clips
+   (phong1080, stress4k);
 5. ``[sharded]``, row slabs and the sharded frame: K1 and K4 with an
    origin against their plain versions with that origin, bit for bit (slab
    3 of 8 of phong1080, and sliver640 cut on and off its corners), with
@@ -109,6 +125,10 @@ SIZES = {"phong1080": (1920, 1080), "custom12_360": (640, 360), "phong_bin_k1": 
          "sliver640": (640, 360), "stress4k": (3840, 2160)}
 SIZES["phong1080_tex2048"] = SIZES["phong1080"]
 TEX_SIDE = 2048
+EAGER_FRAMES = 3  # the eager frames run beside a graph path's, its first ones
+# Each wrapper's kernel function (csrc/), as the device's trace names it.
+KERNEL_FUNCTIONS = {"fused_raster": "fused_raster_kernel", "raster_planes": "raster_planes_kernel",
+                    "sample_bilinear": "sample_bilinear_kernel", "voxel_march": "voxel_march_kernel"}
 
 failures = []
 
@@ -316,7 +336,7 @@ def kernel_call(name, entry):
 def counts():
     from f_renderer_tpu_torch import kernels
 
-    return {k: getattr(kernels, k).launches for k in ("fused_raster", "raster_planes", "sample_bilinear", "voxel_march")}
+    return {k: getattr(kernels, k).launches for k in KERNEL_FUNCTIONS}
 
 
 def reset_counts():
@@ -356,6 +376,186 @@ def bound_ms(nbytes, ops):
     """The least time for the work: max(bytes / HBM rate, ops / ALU rate)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def same(a, b):
+    """Two outputs (a tensor, or tuples and dicts of them) bit-equal."""
+    import torch
+
+    from f_renderer_tpu_torch import compiled
+
+    (la, sa), (lb, sb) = compiled.flatten(a), compiled.flatten(b)
+    return sa == sb and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def fill_sentinel(t):
+    """Fill a static output with a value no frame writes there: NaN for
+    floats, 0x5A5A5A5A (0x5A for bytes) for integers."""
+    import torch
+
+    t.fill_(float("nan") if t.is_floating_point() else (0x5A if t.dtype == torch.uint8 else 0x5A5A5A5A))
+
+
+def kernel_launches(names):
+    """How many of ``names`` (kernel function names, as the device's trace
+    or a graph's DOT gives them) are each wrapper's kernel, by wrapper name."""
+    names = list(names)
+    return {k: sum(fn in name for name in names) for k, fn in KERNEL_FUNCTIONS.items()}
+
+
+def launches_between_markers(events, marker="spin_kernel"):
+    """``events``: (start ns, kernel name) of the kernels a device ran, in
+    any order → for each stretch between two ``marker`` kernels, in time
+    order, the wrappers' kernels in it by wrapper name."""
+    parts, names = [], None
+    for _, name in sorted(events):
+        if marker in name:
+            if names is not None:
+                parts.append(kernel_launches(names))
+            names = []
+        elif names is not None:
+            names.append(name)
+    return parts
+
+
+class DeviceTrace:
+    """The kernels the device runs while the block is open, as CUPTI's
+    activity API records them (one record a kernel executed, graph replays
+    included): ``with DeviceTrace() as trace: ...``, then ``trace.kernels``,
+    (start ns, name) pairs. Uses the libcupti that torch loaded, with only
+    kernel records enabled (``torch.profiler`` took seconds to start).
+    Records are read at the fixed offsets of CUpti_ActivityKernel4 and its
+    successors (cupti_activity.h): start at byte 16, the name at byte 104."""
+
+    KERNEL_KIND, START, NAME, BUFFER = 10, 16, 104, 32 << 20  # CUPTI_ACTIVITY_KIND_CONCURRENT_KERNEL
+    _lib = _callbacks = None
+    _active = None  # the trace the callbacks fill
+
+    @classmethod
+    def _load(cls):
+        import ctypes
+
+        if cls._lib is not None:
+            return
+        paths = sorted({line.split()[-1] for line in open("/proc/self/maps") if "libcupti" in line})
+        if not paths:
+            raise RuntimeError("torch loaded no libcupti")
+        lib = ctypes.CDLL(paths[0])
+        buffers = []  # every buffer handed to CUPTI, kept alive
+
+        @ctypes.CFUNCTYPE(None, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t),
+                          ctypes.POINTER(ctypes.c_size_t))
+        def requested(buf, size, max_records):
+            raw = ctypes.create_string_buffer(cls.BUFFER + 8)
+            buffers.append(raw)
+            buf[0] = (ctypes.addressof(raw) + 7) & ~7
+            size[0], max_records[0] = cls.BUFFER, 0
+
+        @ctypes.CFUNCTYPE(None, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_size_t)
+        def completed(ctx, stream, buf, size, valid):
+            rec = ctypes.c_void_p()
+            while lib.cuptiActivityGetNextRecord(ctypes.c_void_p(buf), ctypes.c_size_t(valid), ctypes.byref(rec)) == 0:
+                if ctypes.c_uint32.from_address(rec.value).value == cls.KERNEL_KIND and cls._active is not None:
+                    start = ctypes.c_uint64.from_address(rec.value + cls.START).value
+                    name = ctypes.c_char_p.from_address(rec.value + cls.NAME).value or b""
+                    cls._active.kernels.append((start, name.decode(errors="replace")))
+            buffers[:] = [b for b in buffers if (ctypes.addressof(b) + 7) & ~7 != buf]
+
+        cls._lib, cls._callbacks = lib, (requested, completed)
+        cls._check(lib.cuptiActivityRegisterCallbacks(requested, completed), "cuptiActivityRegisterCallbacks")
+
+    @staticmethod
+    def _check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} returned CUPTI error {rc}")
+
+    def __enter__(self):
+        import torch
+
+        self._load()
+        self.kernels = []
+        torch.cuda.synchronize()
+        DeviceTrace._active = self
+        self._check(self._lib.cuptiActivityEnable(self.KERNEL_KIND), "cuptiActivityEnable")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.synchronize()
+        self._check(self._lib.cuptiActivityFlushAll(1), "cuptiActivityFlushAll")
+        self._check(self._lib.cuptiActivityDisable(self.KERNEL_KIND), "cuptiActivityDisable")
+        DeviceTrace._active = None
+        return False
+
+
+def kernel_nodes(frame):
+    """The K1, K4, K3 and K5 kernel nodes in a captured frame's graph, by
+    wrapper name: the nodes of the DOT that ``debug_dump`` writes whose
+    attributes name the kernel's function (debug mode, one dump a graph)."""
+    import os
+    import re
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "frame.dot")
+        frame.graph.graph.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    nodes = {}
+    for node, attrs in re.findall(r'"([A-Za-z0-9_]+)"\s*\[(.*?)\];?\s*$', text, re.S | re.M):
+        nodes.setdefault(node, "")
+        nodes[node] += attrs
+    return kernel_launches(nodes.values())
+
+
+def graph_replay_ms(fn, reps):
+    """``fn`` captured into a CUDA graph of its own → ms a replay (CUDA
+    events around ``reps`` replays)."""
+    import torch
+
+    current, side = torch.cuda.current_stream(), torch.cuda.Stream()
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        fn()
+    current.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
+def clip_path_cost(path, scene, smi):
+    """What a captured frame pays for running the clip path on every frame
+    where nothing clips: path B of ``geometry_process`` on the scene's
+    largest draw with no face clipped (the clip path and the select)
+    against the skip path alone, each in a captured graph. (The eager
+    frame asks the host and skips the clip path.)"""
+    import torch
+
+    from f_renderer_tpu_torch.pipeline import geometry
+    from f_renderer_tpu_torch.shaders.api import ContextCodec
+
+    draw = max(scene.draws, key=lambda d: next(iter(d.values())).shape[0])
+    f = next(iter(draw.values())).shape[0]
+    corners = {k: torch.cat([v[:, i] for i in range(3)]).to(torch.float32) for k, v in draw.items()}
+    clip, ctx = scene.vertex_shader(scene.vs_uniform, corners)
+    ctx_a = ContextCodec.of(ctx).flatten(ctx)
+    b_mask = torch.zeros(f, dtype=torch.bool, device=clip.device)
+    cfg = scene.config
+
+    def skip():
+        return geometry._skip_clip_path(cfg.clip_cap, ctx_a.shape[0], 0, clip.device)
+
+    def clip_path():
+        num = b_mask.sum().to(torch.int32)
+        ran = geometry._clip_path(clip, ctx_a, b_mask, cfg.clip_cap, 0, cfg.width, cfg.height)
+        return [torch.where(num > 0, r, s) for r, s in zip(ran, skip())]
+
+    g_run, g_skip = graph_replay_ms(clip_path, 20), graph_replay_ms(skip, 20)
+    log(f"[graph] {path}: the clip path on a frame with nothing clipped ({f} faces, clip_cap {cfg.clip_cap}): "
+        f"{g_run:.4f} ms a replay against the skip path's {g_skip:.4f} ms (+{g_run - g_skip:.4f} ms; "
+        f"CUDA events; {smi})")
 
 
 def tile_pair_pixels(prep):
@@ -672,7 +872,7 @@ def sharded_phase(dev, smi, rows, launches, drive):
 
     from f_renderer_tpu_torch.parallel import gather_slabs, make_render_mesh, render_frame_grid, render_frame_sharded
     from f_renderer_tpu_torch.pipeline import fused, raster, shade
-    from f_renderer_tpu_torch.pipeline.render import build_triangles, context_codec
+    from f_renderer_tpu_torch.pipeline.render import build_triangles, context_codec, render_frame
 
     n_slabs = 8
     log(f"[sharded] row slabs: K1 and K4 with an origin, {n_slabs} slabs stitched, the sharded entry")
@@ -778,10 +978,15 @@ def sharded_phase(dev, smi, rows, launches, drive):
     rows["K1"]["sharded_slabs"] = timing
 
     # the dp > 1 data path in one process: a 2 x 4 grid's stages, torch.cat
-    # for the all-gather and the ring; then the NCCL entry at world size 1
-    scene.render()
-    whole = scene.render()
-    whole_planes = dataclasses.replace(scene, config=dataclasses.replace(cfg, fused_shade=False)).render()
+    # for the all-gather and the ring; then the NCCL entry at world size 1.
+    # The single-device frames run eagerly, as the grid's stages do (and warm
+    # them as before the frame was captured)
+    def eager(s):
+        return render_frame(list(s.draws), s.vertex_shader, s.vs_uniform, s.pixel_shader, s.ps_uniform, s.config)
+
+    eager(scene)
+    whole = eager(scene)
+    whole_planes = eager(dataclasses.replace(scene, config=dataclasses.replace(cfg, fused_shade=False)))
     zero = dict.fromkeys(counts(), 0)
     grid_args = (scene.draws, scene.vertex_shader, scene.vs_uniform, scene.pixel_shader, scene.ps_uniform)
     outs, got = drive("phong1080 render_frame_grid 2 x 4 (all_gather, in one process)",
@@ -831,9 +1036,9 @@ def main() -> int:
     try:
         import numpy as np
 
-        from f_renderer_tpu_torch import kernels
+        from f_renderer_tpu_torch import compiled, kernels
         from f_renderer_tpu_torch.pipeline import fused, raster, shade
-        from f_renderer_tpu_torch.pipeline.render import build_triangles, context_codec, rasterize
+        from f_renderer_tpu_torch.pipeline.render import build_triangles, context_codec, rasterize, render_frame
         from f_renderer_tpu_torch.shaders.builtin import shade_plain
         from f_renderer_tpu_torch.voxel import octree, raycast
     except ImportError as e:
@@ -862,6 +1067,7 @@ def main() -> int:
     rows = {}  # kernel name → its JSON entry
 
     # 3a. K1 (+K2) against plain
+    log(f"[time] {time.time() - t_start:.1f} s")
     log("[kernel-vs-plain] K1 fused_raster")
     worst_frame, worst_depth = 0, 0.0
     cases = [("phong1080", a) for a in ANGLES] + [
@@ -919,6 +1125,7 @@ def main() -> int:
     # default config (th = 64, k = 2, bin_pairs' packed 31-bit sort), held to
     # the plain version and to rasterize_portable on eight tiles (the whole
     # plain frame tests every pixel of a tile against every pair of its lists)
+    log(f"[time] {time.time() - t_start:.1f} s")
     log("[kernel-vs-plain] K1 fused_raster at stress4k")
     stress = build_scene("stress4k", dev)
     set_angle(stress, ANGLES[0])
@@ -1006,6 +1213,7 @@ def main() -> int:
     del prep32, args32, got32, want32, prep, args, stress_got, tri
 
     # 3b. K4 against plain, both entry points; 3c. K3 on the same planes
+    log(f"[time] {time.time() - t_start:.1f} s")
     log("[kernel-vs-plain] K4 raster_planes, K3 sample_bilinear")
     worst_ctx, worst_d4, worst_sample, worst_frame4 = 0.0, 0.0, 0.0, 0
     for scene_name, angles in (("phong1080_tex2048", ANGLES), ("custom12_360", (0.3,)), ("sliver640", (None,)),
@@ -1115,6 +1323,7 @@ def main() -> int:
     rows["K3"]["max_abs_err"] = worst_sample
 
     # 3d. K5 against plain, on every main-path view
+    log(f"[time] {time.time() - t_start:.1f} s")
     log("[kernel-vs-plain] K5 voxel_march")
     grid_color, grid_hit = octree.densify(octree.gen_randomly(VOXEL_LEVEL, np.random.default_rng(0)), VOXEL_LEVEL)
     table = raycast.voxel_table(torch.as_tensor(grid_color, device=dev), torch.as_tensor(grid_hit, device=dev))
@@ -1214,7 +1423,17 @@ def main() -> int:
     log(f"  length 3.0 dda (cell {k.cell}, divided): BGRA equal={torch.equal(got, want)}, hit share "
         f"{float((got != k.bg_packed).float().mean()):.4f}, queries {int(queries.sum())}")
 
+    log(f"[time] {time.time() - t_start:.1f} s")
     # 4. the main paths, each with the counters set to 0 just before it
+    def checksum(path, outs, shape):
+        """Each frame's shape checked → a checksum of the frames."""
+        total = 0
+        for out in outs:
+            frame = out[0] if isinstance(out, tuple) else out
+            check(tuple(frame.shape) == shape and frame.dtype == torch.uint8, f"{path}: frame shape {tuple(frame.shape)}")
+            total += int(frame[::97, ::89, :3].int().sum())
+        return total
+
     def drive(path, render, frames, expect, shape):
         torch.cuda.synchronize()
         reset_counts()
@@ -1230,13 +1449,8 @@ def main() -> int:
         got = counts()
         frame_ms = start.elapsed_time(end) / frames
         check(got == expect, f"{path}: launches {got}, expected {expect}")
-        checksum = 0
-        for out in outs:
-            frame = out[0] if isinstance(out, tuple) else out
-            check(tuple(frame.shape) == shape and frame.dtype == torch.uint8, f"{path}: frame shape {tuple(frame.shape)}")
-            checksum += int(frame[::97, ::89, :3].int().sum())
         log(f"[main-path] {path} x{frames}: launches {got}, frame {frame_ms:.3f} ms (CUDA events), "
-            f"host {host_ms:.3f} ms/frame, checksum {checksum} ({smi})")
+            f"host {host_ms:.3f} ms/frame, checksum {checksum(path, outs, shape)} ({smi})")
         return outs, got
 
     def stages(path, parts, reps=5):
@@ -1268,18 +1482,105 @@ def main() -> int:
 
     zero = dict.fromkeys(counts(), 0)
     launches = {}
+    compiled.CACHE.debug = True  # each graph keeps its nodes until kernel_nodes() reads them
+
+    counted = []  # the graph paths' main-path runs, made after every timing (4b)
+
+    def graph_path(path, entry, eager, frames, expect, shape, keys):
+        """A main path through its entry point, whose frames replay one
+        captured graph (``entry(i)``: frame i), beside its first
+        ``EAGER_FRAMES`` frames run eagerly (``eager(i)``): the first call
+        captures; the graph's kernel nodes equal the launches of one eager
+        frame; the replays are timed; the eager frames are bit-equal to the
+        graph's; a replay into sentinel-filled static outputs overwrites
+        them; then the input copy, the replay and the output clone are timed
+        alone. The counted run of its first frames as replays (launches from
+        the device's trace) comes in 4b, after every timing, so that no time
+        is taken after tracing: ``keys`` maps the JSON line's launch keys to
+        wrapper names."""
+        torch.cuda.synchronize()
+        before = compiled.CACHE.captures
+        t0 = time.perf_counter()
+        entry(0)  # the eager warm-up frame, then the capture
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        check(compiled.CACHE.captures == before + 1,
+              f"{path}: the first frame captured {compiled.CACHE.captures - before} graphs, not 1")
+        frame = compiled.CACHE.last
+        nodes = kernel_nodes(frame)
+        per_frame = {k: n // frames for k, n in expect.items()}
+        check(nodes == per_frame, f"{path}: the graph holds kernel nodes {nodes}, one frame launches {per_frame}")
+
+        def timed(run, n):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t_host = time.time()
+            start.record()
+            res = [run(i) for i in range(n)]
+            end.record()
+            torch.cuda.synchronize()
+            return res, start.elapsed_time(end) / n, (time.time() - t_host) * 1e3 / n
+
+        reset_counts()
+        outs, graph_ms, graph_host_ms = timed(entry, frames)
+        check(counts() == zero, f"{path}: a graph frame called a wrapper ({counts()}), so it was no replay")
+        check(compiled.CACHE.captures == before + 1, f"{path}: a frame of equal key captured anew")
+        n_eager = min(EAGER_FRAMES, frames)
+        want, eager_ms, eager_host_ms = timed(eager, n_eager)
+        check(counts() == {k: n * n_eager for k, n in per_frame.items()},
+              f"{path}: {n_eager} eager frames launched {counts()}, one launches {per_frame}")
+        equal = [same(g, e) for g, e in zip(outs, want)]
+        check(all(equal), f"{path}: graph frames {[i for i, e in enumerate(equal) if not e]} differ from the eager frames")
+        for t in frame.outputs:
+            fill_sentinel(t)
+        sentinel = entry(0)
+        want_leaves = compiled.flatten(want[0])[0]
+        check(same(sentinel, want[0]) and all(torch.equal(a, b) for a, b in zip(frame.outputs, want_leaves)),
+              f"{path}: a replay did not overwrite its sentinel-filled outputs with the eager frame")
+        sources = [t.clone() for t in frame.inputs]
+        frame.result()  # the allocator's first blocks for the clones
+        copy_ms = cuda_ms(lambda: [d.copy_(s) for d, s in zip(frame.inputs, sources)], 10)
+        replay_ms = cuda_ms(frame.replay, 10)
+        clone_ms = cuda_ms(frame.result, 10)
+        in_bytes = sum(t.numel() * t.element_size() for t in frame.inputs)
+        out_bytes = sum(t.numel() * t.element_size() for t in frame.outputs)
+        log(f"[time] {time.time() - t_start:.1f} s")
+        log(f"[graph] {path}: capture {frame.capture_ms:.1f} ms (first call, warm-up frame included, "
+            f"{first_ms:.1f} ms), pool {frame.graph.pool_bytes} B, graph frame {graph_ms:.3f} ms (host "
+            f"{graph_host_ms:.3f} ms) over {frames} frames, eager frame {eager_ms:.3f} ms (host {eager_host_ms:.3f} "
+            f"ms) over the first {n_eager}, each bit-equal to its graph frame; alone: input copy {copy_ms:.4f} ms "
+            f"({in_bytes} B), replay {replay_ms:.3f} ms, output clone {clone_ms:.4f} ms ({out_bytes} B); "
+            f"kernel nodes {nodes} (CUDA events; {smi})")
+        counted.append((path, entry, frames, expect, shape, outs, keys))
+        return outs
+
+    def render_eager(s):
+        return render_frame(list(s.draws), s.vertex_shader, s.vs_uniform, s.pixel_shader, s.ps_uniform, s.config)
+
+    def recapture(tag, scene):
+        """After a change of key: the next frame captures anew, and it and a
+        replay equal the eager frame."""
+        before = compiled.CACHE.captures
+        got = [scene.render() for _ in range(2)]
+        want = render_eager(scene)
+        ok = compiled.CACHE.captures == before + 1 and same(got[0], want) and same(got[1], want)
+        check(ok, f"phong1080 {tag}: {compiled.CACHE.captures - before} captures, frames equal eager "
+              f"{same(got[0], want)} / {same(got[1], want)}")
+        log(f"[graph] phong1080 {tag}: captured anew, the first frame and a replay equal the eager frame={ok}")
 
     scene = build_scene("phong1080", dev)
-    set_angle(scene, ANGLES[0])
-    scene.render()  # warm-up (allocator, first-use costs)
-
-    def phong_frame(i):
-        set_angle(scene, 0.10 + 0.05 * i)
-        return scene.render()
-
     w, h = SIZES["phong1080"]
-    outs, got = drive("phong1080 Scene.render()", phong_frame, FRAMES, dict(zero, fused_raster=FRAMES), (h, w, 4))
-    launches["K1"] = got["fused_raster"]
+
+    def phong_frame(i, s=scene):
+        set_angle(s, 0.10 + 0.05 * i)
+        return s.render()
+
+    def phong_eager(i, s=scene):
+        set_angle(s, 0.10 + 0.05 * i)
+        return render_eager(s)
+
+    outs = graph_path("phong1080 Scene.render()", phong_frame, phong_eager, FRAMES,
+                      dict(zero, fused_raster=FRAMES), (h, w, 4), {"K1": "fused_raster"})
     for frame, depth, stats in outs:
         check(bool(torch.isfinite(depth).all()), "phong1080: non-finite depth")
         check(int(stats["num_clipped"]) <= scene.config.clip_cap, "phong1080: clip_cap dropped faces")
@@ -1288,6 +1589,18 @@ def main() -> int:
     check(0.05 * w * h < shaded < 0.9 * w * h, f"phong1080: implausible shaded pixel count {shaded}")
     raster_stages("phong1080", scene)
     phong_frame0 = outs[0][0]
+    clip_path_cost("phong1080", scene, smi)
+
+    # a key the frame reads changes: the draw shapes, the stack's opaque flag
+    set_angle(scene, ANGLES[0])
+    draws = list(scene.draws)
+    scene.draws = [draws[0], {k: v[:10] for k, v in draws[1].items()}, draws[2]]
+    recapture("draw 1 cut to 10 faces", scene)
+    scene.draws = draws
+    stack = scene.ps_uniform["textures"]
+    scene.ps_uniform = dict(scene.ps_uniform, textures=dataclasses.replace(stack, opaque=not stack.opaque))
+    recapture(f"texture stack with opaque={not stack.opaque}", scene)
+    scene.ps_uniform = dict(scene.ps_uniform, textures=stack)
 
     # phong1080 render_prepared: geometry and binning once, then frames that
     # change only shading uniforms: the eye the lighting reads moves (toward
@@ -1297,12 +1610,32 @@ def main() -> int:
     from f_renderer_tpu_torch.shaders import TextureStack
 
     set_angle(scene, ANGLES[0])
-    prepared = scene.prepare()
+    before = compiled.CACHE.captures
+    prepared = scene.prepare()  # the eager warm-up, then the capture
+    prep_graph = compiled.CACHE.last
+    tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+    want_prep = fused.prep_fused(tri, scene.config)
+    for t in prep_graph.outputs:
+        fill_sentinel(t)
+    replayed = scene.prepare()
+    prep_nodes = kernel_nodes(prep_graph)
+    ok = (compiled.CACHE.captures == before + 1 and same(prepared, want_prep) and same(replayed, want_prep)
+          and all(torch.equal(a, b) for a, b in zip(prep_graph.outputs, compiled.flatten(want_prep)[0])))
+    check(ok and not any(prep_nodes.values()), f"phong1080 prepare: graph prep equal to eager {ok}, kernel nodes {prep_nodes}")
+
+    def prepare_eager():
+        return fused.prep_fused(build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)[0],
+                                scene.config)
+
+    log(f"[graph] phong1080 prepare: capture {prep_graph.capture_ms:.1f} ms, pool {prep_graph.graph.pool_bytes} B, "
+        f"replay {cuda_ms(prep_graph.replay, 5):.3f} ms, eager prep {cuda_ms(prepare_eager, 5):.3f} ms; the prep (and "
+        f"a replay into sentinel-filled outputs) bit-equal to the eager prep={ok}, kernel nodes {prep_nodes} ({smi})")
     base = scene.ps_uniform
     swapped = TextureStack.create([make_checker_texture(512, c) for c in (24, 16, 32)], device=dev)
     uniforms = [dict(base, view_pos=base["view_pos"] + torch.tensor([0.3 * i, 0.2 * i, -0.8 * i], device=dev),
                      textures=swapped if i % 2 else base["textures"]) for i in range(FRAMES)]
-    scene.render_prepared(prepared)
+
+    scene.render_prepared(prepared)  # render_prepared is eager on the card: one K1 launch
 
     def prepared_frame(i):
         scene.ps_uniform = uniforms[i]
@@ -1315,22 +1648,23 @@ def main() -> int:
     scene.ps_uniform = uniforms[FRAMES - 1]
     check(torch.equal(outs[-1][0], scene.render()[0]), "phong1080: render_prepared's last frame differs from Scene.render()")
     scene.ps_uniform = base
-    stages("phong1080 render_prepared", [("prepare", scene.prepare),
+    stages("phong1080 render_prepared", [("prepare (eager)", prepare_eager),
                                          ("render_prepared", lambda: scene.render_prepared(prepared))])
-    del prepared
+    del prepared, want_prep, replayed
 
     # stress4k Scene.render(): geometry of a million faces, binning and K1
     scene = stress
-    set_angle(scene, ANGLES[0])
-    scene.render()
 
-    def stress_frame_at(i):
-        set_angle(scene, ANGLES[i])
-        return scene.render()
+    def stress_frame_at(i, s=scene):
+        set_angle(s, ANGLES[i])
+        return s.render()
 
-    outs, got = drive("stress4k Scene.render()", stress_frame_at, len(ANGLES),
-                      dict(zero, fused_raster=len(ANGLES)), (sh, sw, 4))
-    launches["K1 stress4k"] = got["fused_raster"]
+    def stress_eager(i, s=scene):
+        set_angle(s, ANGLES[i])
+        return render_eager(s)
+
+    outs = graph_path("stress4k Scene.render()", stress_frame_at, stress_eager, len(ANGLES),
+                      dict(zero, fused_raster=len(ANGLES)), (sh, sw, 4), {"K1 stress4k": "fused_raster"})
     for i, (frame, depth, stats) in enumerate(outs):
         check(bool(torch.isfinite(depth).all()), "stress4k: non-finite depth")
         check(int(stats["num_clipped"]) <= scene.config.clip_cap, "stress4k: clip_cap dropped faces")
@@ -1338,6 +1672,7 @@ def main() -> int:
             f"{int((frame[..., :3] != 30).any(-1).sum())}")
     check(torch.equal(outs[0][0], stress_frame), "stress4k: Scene.render() at 0.10 differs from the checked K1 frame")
     raster_stages("stress4k", scene)
+    clip_path_cost("stress4k", scene, smi)
     del outs, stress, scene
 
     # cube1080_flat through the portable backend: rasterize_portable and
@@ -1348,7 +1683,9 @@ def main() -> int:
     scene.config = dataclasses.replace(scene.config, backend="portable")
     scene.render()
     w1, h1 = SIZES["cube1080_flat"]
+    before = compiled.CACHE.captures
     outs, _ = drive("cube1080_flat Scene.render() backend=portable", lambda i: scene.render(), 1, zero, (h1, w1, 4))
+    check(compiled.CACHE.captures == before, "cube1080_flat: the portable backend captured a graph")
     frame_p, depth_p, _ = outs[0]
     tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
     winner_p, _ = plain(rasterize, tri, scene.config)
@@ -1361,43 +1698,51 @@ def main() -> int:
         f"diff {f_err} u8 ({at2:.4%} at 2), covered px {int((winner_p >= 0).sum())}")
 
     scene = build_scene("phong1080_tex2048", dev)
-    set_angle(scene, ANGLES[0])
-    scene.render()
 
-    def tex_frame(i):
-        set_angle(scene, 0.10 + 0.05 * i)
-        return scene.render()[0]
+    def tex_frame(i, s=scene):
+        set_angle(s, 0.10 + 0.05 * i)
+        return s.render()[0]
 
-    outs, got = drive("phong1080_tex2048 Scene.render()", tex_frame, FRAMES,
-                      dict(zero, raster_planes=FRAMES, sample_bilinear=FRAMES), (h, w, 4))
-    launches["K4"], launches["K3"] = got["raster_planes"], got["sample_bilinear"]
+    def tex_eager(i, s=scene):
+        set_angle(s, 0.10 + 0.05 * i)
+        return render_eager(s)[0]
+
+    outs = graph_path("phong1080_tex2048 Scene.render()", tex_frame, tex_eager, FRAMES,
+                      dict(zero, raster_planes=FRAMES, sample_bilinear=FRAMES), (h, w, 4),
+                      {"K4": "raster_planes", "K3": "sample_bilinear"})
     check(torch.equal(outs[0], tex2048_frame), "phong1080_tex2048: Scene.render() at 0.10 differs from the checked K4 + K3 frame")
     raster_stages("phong1080_tex2048", scene)
 
     scene = build_scene("custom12_360", dev)
-    scene.render()
 
-    def custom_frame(i):
-        set_angle(scene, 0.3 + 0.05 * i)
-        return scene.render()[0]
+    def custom_frame(i, s=scene):
+        set_angle(s, 0.3 + 0.05 * i)
+        return s.render()[0]
+
+    def custom_eager(i, s=scene):
+        set_angle(s, 0.3 + 0.05 * i)
+        return render_eager(s)[0]
 
     w, h = SIZES["custom12_360"]
-    _, got = drive("custom12_360 Scene.render()", custom_frame, 3, dict(zero, raster_planes=3), (h, w, 4))
-    launches["K4 custom12_360"] = got["raster_planes"]
+    graph_path("custom12_360 Scene.render()", custom_frame, custom_eager, 3, dict(zero, raster_planes=3), (h, w, 4),
+               {"K4 custom12_360": "raster_planes"})
 
     views = [voxel_view(i) for i in range(FRAMES)]
+    color_t, hit_t = torch.as_tensor(grid_color, device=dev), torch.as_tensor(grid_hit, device=dev)
     for traversal, key in (("fixed", "K5 fixed"), ("dda", "K5 dda")):
         cfg = raycast.VoxelRenderConfig(width=VOXEL_W, height=VOXEL_H, level=VOXEL_LEVEL,
                                         length=VOXEL_LENGTH, traversal=traversal)
-        raycast.render_voxel_frame(grid_color, grid_hit, *views[0], cfg, device=dev)
 
-        def voxel_frame(i):
+        def voxel_frame(i, cfg=cfg):
             return raycast.render_voxel_frame(grid_color, grid_hit, *views[i], cfg, device=dev)
 
+        def voxel_eager(i, cfg=cfg):
+            eye, inv_mvp = (torch.from_numpy(a).to(dev) for a in views[i])
+            return raycast.voxel_frame(color_t, hit_t, eye, inv_mvp, cfg)
+
         path = "voxel540" if traversal == "fixed" else "voxel540dda"
-        outs, got = drive(f"{path} render_voxel_frame", voxel_frame, FRAMES, dict(zero, voxel_march=FRAMES),
-                          (VOXEL_H, VOXEL_W, 4))
-        launches[key] = got["voxel_march"]
+        outs = graph_path(f"{path} render_voxel_frame", voxel_frame, voxel_eager, FRAMES,
+                          dict(zero, voxel_march=FRAMES), (VOXEL_H, VOXEL_W, 4), {key: "voxel_march"})
         hit = float((outs[0][..., :3] != 0).any(-1).float().mean())
         check(0.05 < hit < 0.9, f"{path}: implausible hit share {hit}")
         eye, inv_mvp = (torch.from_numpy(a).to(dev) for a in views[0])
@@ -1409,9 +1754,52 @@ def main() -> int:
                                                   torch.as_tensor(grid_hit, device=dev))),
             ("K5", lambda: raycast.march(*rays, table, k)),
         ])
+    compiled.CACHE.debug = False
+    set_up_before = cuda_ms(lambda: raycast.prepare_rays(eye, inv_mvp, cfg), 5)
 
     # 5. row slabs and the sharded frame
+    log(f"[time] {time.time() - t_start:.1f} s")
     sharded_phase(dev, smi, rows, launches, drive)
+
+    # 4b. each graph path's main-path run: the first EAGER_FRAMES of its
+    # frames again, as replays, with the counts set to 0 just before and read
+    # just after. A replay runs no wrapper, so the counts must stay 0, and the
+    # launches are the kernels the device ran (CUPTI's records, one trace for
+    # all paths, a spin kernel between two paths). Last, because tracing may
+    # slow the host's later launches (the voxel ray set-up is timed again
+    # after it)
+    log(f"[time] {time.time() - t_start:.1f} s")
+    runs = []
+    with DeviceTrace() as trace:
+        for path, entry, frames, expect, shape, outs, keys in counted:
+            n = min(EAGER_FRAMES, frames)
+            torch.cuda._sleep(1)  # where the path's kernels start in the trace
+            torch.cuda.synchronize()
+            reset_counts()
+            t_host = time.time()
+            again = [entry(i) for i in range(n)]
+            torch.cuda.synchronize()
+            runs.append((n, again, counts(), (time.time() - t_host) * 1e3 / n))
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    check(bool(trace.kernels), "CUPTI recorded no kernel on the device")
+    by_path = launches_between_markers(trace.kernels)
+    log(f"[time] {time.time() - t_start:.1f} s ({len(trace.kernels)} kernels in the trace)")
+    check(len(by_path) == len(counted), f"the trace holds {len(by_path)} paths' kernels, not {len(counted)}")
+    for (path, entry, frames, expect, shape, outs, keys), (n, again, host, host_ms), got in zip(counted, runs, by_path):
+        want = {k: v // frames * n for k, v in expect.items()}
+        check(host == zero, f"{path}: a graph frame called a wrapper ({host}), so it was no replay")
+        check(got == want, f"{path}: the device ran {got} in {n} replays, expected {want}")
+        check(all(same(a, b) for a, b in zip(outs, again)), f"{path}: the counted replays differ from the timed ones")
+        log(f"[main-path] {path} x{n}: launches {got} (the kernels the device ran in {n} replays, from "
+            f"CUPTI's records; the wrappers' counts {host}), host {host_ms:.3f} ms/frame under the trace, "
+            f"checksum {checksum(path, again, shape)} ({smi})")
+        launches.update({key: got[wrapper] for key, wrapper in keys.items()})
+    counted.clear()
+    del runs, again
+    compiled.CACHE.clear()
+    log(f"[stages] voxel540dda ray set-up {set_up_before:.3f} ms before the device trace, "
+        f"{cuda_ms(lambda: raycast.prepare_rays(eye, inv_mvp, cfg), 5):.3f} ms after it ({smi})")
 
     # 6. results
     for key, row in rows.items():

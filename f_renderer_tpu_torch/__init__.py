@@ -3,7 +3,9 @@
 Imports ``torch`` and never ``jax`` or ``f_renderer_tpu``. The main path is
 ``Scene.render()`` with a builtin ``fused_kind`` shader: geometry and binning
 as PyTorch ops, then one hand-written CUDA kernel (``csrc/``) on the card,
-or its plain PyTorch version for tensors on the CPU.
+or its plain PyTorch version for tensors on the CPU. On the card each frame
+of ``Scene.render()``, ``prepare()`` and ``voxel.render_voxel_frame`` is
+one captured CUDA graph (``compiled``).
 """
 
 from f_renderer_tpu_torch.camera import Camera

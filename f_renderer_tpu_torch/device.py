@@ -8,6 +8,10 @@ kernels) asks for it with ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import threading
+
 import torch
 
 
@@ -17,3 +21,39 @@ def resolve_device(device) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     return device
+
+
+@functools.lru_cache(maxsize=None)
+def constant(value, device: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """A device tensor of ``value`` (a number or a tuple of numbers), made
+    once per ``(value, device, dtype)``; callers never write to it.
+
+    A frame reads its constants from here, not from ``torch.tensor`` of
+    host data: that copy from pageable memory cannot be recorded into a
+    CUDA graph, and a captured graph reads the tensor by its address, so the
+    cache keeps every tensor alive (it holds a few small ones). A 0-d or
+    small tensor and not a Python number, because CUDA divides by a Python
+    number through its reciprocal (``math.transforms.true_div``).
+    """
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+_frame = threading.local()
+
+
+@contextlib.contextmanager
+def graph_frame():
+    """Run the frame inside as a captured frame runs (its capture and its
+    warm-up): no host sync, so where the eager frame asks the host (has any
+    face clipped?) it computes both answers and chooses on the device."""
+    before = getattr(_frame, "graph", False)
+    _frame.graph = True
+    try:
+        yield
+    finally:
+        _frame.graph = before
+
+
+def in_graph_frame() -> bool:
+    """Whether the caller runs inside :func:`graph_frame`."""
+    return getattr(_frame, "graph", False)

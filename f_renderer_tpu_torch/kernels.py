@@ -18,7 +18,10 @@ The kernels (the TPU kernel each replaces in brackets):
 - ``voxel_march`` — K5 (voxel/raycast_pallas.py:393).
 
 Each wrapper counts its launches (``fused_raster.launches`` …), so a run can
-show that its main path went through the kernel.
+show that its main path went through the kernel. A stream capture records a
+launch without making it, so a wrapper called under capture does not count;
+a CUDA graph replay runs no wrapper, so its launches are read from the
+device (``chip_smoke.py`` does so with CUPTI).
 """
 
 from __future__ import annotations
@@ -222,6 +225,13 @@ def _tiles_scratch(ntx, nty, dev) -> torch.Tensor:
     return torch.empty((ntx * nty, 8), dtype=torch.int32, device=dev)
 
 
+def _count(wrapper) -> None:
+    """One more launch of ``wrapper``'s kernel, unless the stream is being
+    captured: a capture records the launch into a graph and makes none."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
+
+
 def fused_raster(
     off, tri_i32, tri_f32, view_pos, dims, texels, *,
     th, n_ctx, h_pad, w_pad, kind, opaque, bg_packed, light_pos, light_color, origin=(0, 0),
@@ -262,7 +272,7 @@ def fused_raster(
         rgba.data_ptr(), depth.data_ptr(), winner.data_ptr(), tiles.data_ptr(), stream,
     )
     _check(lib, err, "fr_fused_raster")
-    fused_raster.launches += 1
+    _count(fused_raster)
     return rgba, depth, winner
 
 
@@ -293,7 +303,7 @@ def raster_planes(off, tri_i32, tri_f32, *, th, n_ctx, h_pad, w_pad, interp, ori
         tiles.data_ptr(), _stream(dev),
     )
     _check(lib, err, "fr_raster_planes")
-    raster_planes.launches += 1
+    _count(raster_planes)
     return depth, winner, ps, ctx
 
 
@@ -323,7 +333,7 @@ def sample_bilinear(texels, dims, ps, u, v, *, opaque, replicate_clamp_bug):
         ps.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(), n, _stream(dev),
     )
     _check(lib, err, "fr_sample_bilinear")
-    sample_bilinear.launches += 1
+    _count(sample_bilinear)
     return out
 
 
@@ -362,7 +372,7 @@ def voxel_march(start, dirs, t_max, alive, table, times, k):
         _stream(dev),
     )
     _check(lib, err, "fr_voxel_march")
-    voxel_march.launches += 1
+    _count(voxel_march)
     return out
 
 

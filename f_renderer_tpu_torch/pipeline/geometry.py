@@ -6,7 +6,9 @@ Port of ``f_renderer_tpu/pipeline/geometry.py``, with the same two paths:
 - Path A: faces fully inside the frustum emit one triangle each, with no
   clipping and no sort.
 - Path B: the other faces (with nonzero w) are compacted into ``clip_cap``
-  slots and clipped with the reference's exact, quirky semantics —
+  slots (a fixed-size compaction; skipped by a host sync where nothing
+  clips, but run on every frame of a captured one) and clipped with the
+  reference's exact, quirky semantics —
   intersections per (vertex pair × plane) with all originals retained,
   21 candidate slots, a stable sort by centroid angle, a fan of ≤ 19
   triangles (renderer.rs:150-266). Faces past the cap are dropped
@@ -22,6 +24,7 @@ import math
 
 import torch
 
+from f_renderer_tpu_torch.device import in_graph_frame
 from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
 from f_renderer_tpu_torch.shaders.api import ContextCodec
 
@@ -125,13 +128,17 @@ def _clip_faces(pos3, ctx3, width, height):
     """
     k = pos3.shape[0]
     ins = _insides(pos3)  # (K, 3, 6)
-    pair_a, pair_b = [0, 0, 1], [1, 2, 2]
-    a_pos, b_pos = pos3[:, pair_a], pos3[:, pair_b]  # (K, 3, 4)
-    a_ctx, b_ctx = ctx3[:, pair_a], ctx3[:, pair_b]
+
+    def pairs(x):  # vertex pairs (0, 1), (0, 2), (1, 2) on axis 1; a list index would be host data
+        return torch.stack([x[:, 0], x[:, 0], x[:, 1]], 1), torch.stack([x[:, 1], x[:, 2], x[:, 2]], 1)
+
+    a_pos, b_pos = pairs(pos3)  # (K, 3, 4)
+    a_ctx, b_ctx = pairs(ctx3)
     ratios = _ratios(a_pos, b_pos)  # (K, 3, 6)
     new_pos = a_pos[:, :, None, :] + ratios[..., None] * (b_pos - a_pos)[:, :, None, :]
     new_ctx = a_ctx[:, :, None, :] + (b_ctx - a_ctx)[:, :, None, :] * ratios[..., None]
-    differ = ins[:, pair_a] != ins[:, pair_b]
+    ins_a, ins_b = pairs(ins)
+    differ = ins_a != ins_b
     new_valid = differ & (torch.abs(new_pos[..., 3]) > EPSILON)
 
     c = ctx3.shape[-1]
@@ -181,6 +188,56 @@ def _clip_faces(pos3, ctx3, width, height):
     spf = torch.stack([fan(sx), fan(sy)], dim=-1)
     spi = torch.stack([fan(six), fan(siy)], dim=-1)
     return ndc, spf, spi, fan(rhw), fan(ctx_s), t < (n1 - 2)
+
+
+def compact_clipped(b_mask, clip_cap: int):
+    """The first ``clip_cap`` indices where ``b_mask`` is set, in index order,
+    padded with ``F`` = ``b_mask.shape[0]`` → (clip_cap,) int64: a cumsum
+    and a scatter, with no host sync (``jnp.nonzero(b_mask, size=clip_cap,
+    fill_value=F)``, geometry.py:356 of the JAX package)."""
+    f = b_mask.shape[0]
+    rank = torch.cumsum(b_mask, 0) - 1
+    # faces past the cap, and faces not clipped, land in a dump slot
+    slot = torch.where(b_mask & (rank < clip_cap), rank, clip_cap)
+    sel = torch.full((clip_cap + 1,), f, dtype=torch.int64, device=b_mask.device)
+    sel.scatter_(0, slot, torch.arange(f, device=b_mask.device))
+    return sel[:clip_cap]
+
+
+def _clip_path(clip, ctx_a, b_mask, clip_cap, order_base, width, height):
+    """Path B of :func:`geometry_process` (run_clip_path, geometry.py:355-387
+    of the JAX package): the compacted faces clipped into fan slots →
+    (ndc, spf, spi, rhw, ctx, tri_valid, order), each (clip_cap, MAX_FAN, ...).
+    ``clip`` (4, 3F) and ``ctx_a`` (C, 3F) are the corner planes, F > 0."""
+    f = b_mask.shape[0]
+    sel = compact_clipped(b_mask, clip_cap)
+    # Padding slots (sel == f) gather face f-1 as the JAX package's clamped
+    # gather does; their fan slots are masked below.
+    g = torch.clamp(sel, max=f - 1)
+    b_pos = torch.stack([torch.stack([clip[j][v * f : (v + 1) * f][g] for j in range(4)], -1) for v in range(3)], 1)
+    b_ctx = torch.stack([ctx_a[:, v * f : (v + 1) * f][:, g].T for v in range(3)], 1)
+    ndc, spf, spi, rhw, ctx_s, tri_valid = _clip_faces(b_pos, b_ctx, width, height)
+    order_b = (
+        order_base
+        + sel[:, None].to(torch.int32) * MAX_FAN
+        + torch.arange(MAX_FAN, dtype=torch.int32, device=b_mask.device)[None, :]
+    )
+    return ndc, spf, spi, rhw, ctx_s, tri_valid & (sel < f)[:, None], order_b
+
+
+def _skip_clip_path(clip_cap, c, order_base, dev):
+    """What path B gives when no face clips (skip_clip_path, geometry.py:389-
+    400 of the JAX package): zeros, no valid slot, orders ``order_base``."""
+    z = (clip_cap, MAX_FAN)
+    return (
+        torch.zeros(z + (3, 2), device=dev),
+        torch.zeros(z + (3, 2), device=dev),
+        torch.zeros(z + (3, 2), dtype=torch.int32, device=dev),
+        torch.zeros(z + (3,), device=dev),
+        torch.zeros(z + (3, c), device=dev),
+        torch.zeros(z, dtype=torch.bool, device=dev),
+        torch.full(z, order_base, dtype=torch.int32, device=dev),
+    )
 
 
 def geometry_process(
@@ -236,33 +293,22 @@ def geometry_process(
     )
 
     # ---- Path B: clipped faces, compacted to clip_cap slots ----
+    # Eagerly the host skips the clip path where nothing clips. A captured
+    # frame (device.graph_frame) takes no host sync: the clip path runs on
+    # every frame and the skip path's zeros are chosen on the device where
+    # nothing clipped, as the JAX package's ``lax.cond`` chooses there.
     b_mask = w_ok & ~all_in
     num_clipped = b_mask.sum().to(torch.int32)
     m_b = clip_cap * MAX_FAN
-    if int(num_clipped) > 0:  # host sync: skip the clip path when nothing clips
-        found = torch.nonzero(b_mask).flatten()[:clip_cap]
-        sel = torch.full((clip_cap,), f, dtype=torch.int64, device=dev)
-        sel[: found.numel()] = found
-        # Padding slots (sel == f) gather face f-1 as the JAX package's
-        # clamped gather does; their fan slots are masked below.
-        g = torch.clamp(sel, max=f - 1)
-        b_pos = torch.stack([torch.stack([vslice(clip[j], v)[g] for j in range(4)], -1) for v in range(3)], 1)
-        b_ctx = torch.stack([vslice(ctx_a, v)[:, g].T for v in range(3)], 1)
-        ndc, spf, spi, rhw, ctx_s, tri_valid = _clip_faces(b_pos, b_ctx, width, height)
-        tri_valid = tri_valid & (sel < f)[:, None]
-        order_b = (
-            order_base
-            + sel[:, None].to(torch.int32) * MAX_FAN
-            + torch.arange(MAX_FAN, dtype=torch.int32, device=dev)[None, :]
-        )
+    if f > 0 and in_graph_frame():
+        ran = _clip_path(clip, ctx_a, b_mask, clip_cap, order_base, width, height)
+        skip = _skip_clip_path(clip_cap, c, order_base, dev)
+        path_b = [torch.where(num_clipped > 0, r, s) for r, s in zip(ran, skip)]
+    elif f > 0 and int(num_clipped) > 0:  # host sync
+        path_b = _clip_path(clip, ctx_a, b_mask, clip_cap, order_base, width, height)
     else:
-        ndc = torch.zeros((clip_cap, MAX_FAN, 3, 2), device=dev)
-        spf = torch.zeros((clip_cap, MAX_FAN, 3, 2), device=dev)
-        spi = torch.zeros((clip_cap, MAX_FAN, 3, 2), dtype=torch.int32, device=dev)
-        rhw = torch.zeros((clip_cap, MAX_FAN, 3), device=dev)
-        ctx_s = torch.zeros((clip_cap, MAX_FAN, 3, c), device=dev)
-        tri_valid = torch.zeros((clip_cap, MAX_FAN), dtype=torch.bool, device=dev)
-        order_b = torch.full((clip_cap, MAX_FAN), order_base, dtype=torch.int32, device=dev)
+        path_b = _skip_clip_path(clip_cap, c, order_base, dev)
+    ndc, spf, spi, rhw, ctx_s, tri_valid, order_b = path_b
 
     def flat(x):
         return x.reshape((m_b,) + x.shape[2:])

@@ -22,6 +22,7 @@ from typing import Callable
 
 import torch
 
+from f_renderer_tpu_torch.device import constant
 from f_renderer_tpu_torch.math.transforms import true_div
 from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
 from f_renderer_tpu_torch.shaders.api import ContextCodec
@@ -103,7 +104,7 @@ def shade_from_planes(
         color = flat.reshape(4, h, w)
     q = torch.clamp(color * 255.0, 0.0, 255.0)
     u8 = torch.where(torch.isnan(q), 0.0, q).to(torch.uint8).permute(1, 2, 0)
-    bg = torch.tensor(background, dtype=torch.uint8, device=u8.device)
+    bg = constant(tuple(background), u8.device, torch.uint8)
     return torch.where((winner >= 0)[..., None], u8, bg)
 
 

@@ -3,7 +3,9 @@
 Port of ``f_renderer_tpu/scene.py``: a ``Scene`` on an explicit device whose
 ``render()`` runs the whole frame and whose ``prepare()`` /
 ``render_prepared()`` split it into geometry + binning and the fused kernel
-alone, plus the procedural meshes and textures the tests and benchmarks use
+alone (on the card ``render()`` and ``prepare()`` replay one captured CUDA
+graph a frame, ``compiled``),
+plus the procedural meshes and textures the tests and benchmarks use
 (numpy builders, copied from the JAX package).
 """
 
@@ -15,6 +17,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from f_renderer_tpu_torch import compiled
 from f_renderer_tpu_torch.camera import Camera
 from f_renderer_tpu_torch.device import resolve_device
 from f_renderer_tpu_torch.math import set_identity, set_perspective
@@ -50,7 +53,15 @@ class Scene:
         self.device = resolve_device(self.device)
 
     def render(self):
-        """Render one frame → (frame (H, W, 4) uint8, depth (H, W) f32, stats)."""
+        """Render one frame → (frame (H, W, 4) uint8, depth (H, W) f32, stats).
+
+        On the card the frame is one captured CUDA graph (``compiled``): the
+        first frame of each key runs eagerly and is captured, later ones
+        replay it with the current uniforms, draws and textures and return
+        fresh tensors. The portable backend, which launches no kernel, and
+        the CPU run eagerly (``render_frame``)."""
+        if self.device.type == "cuda" and self.config.backend == "kernels":
+            return compiled.scene_render(self)
         return render_frame(
             list(self.draws),
             self.vertex_shader,
@@ -79,13 +90,16 @@ class Scene:
             )
         if not fused_path_ok(self.pixel_shader, self.ps_uniform):
             raise ValueError("texture stack exceeds the fused kernel's budget (PACKED_VMEM_BUDGET)")
+        if self.device.type == "cuda":
+            return compiled.scene_prepare(self)
         tri, _ = build_triangles(list(self.draws), self.vertex_shader, self.vs_uniform, self.config)
         return prep_fused(tri, self.config)
 
     def render_prepared(self, prepared: BinnedPrep):
         """Render from :meth:`prepare` products, reading only the shading
         uniforms (``ps_uniform``) afresh → (frame (H, W, 4) uint8, depth
-        (H, W) f32, winner (H, W) int32)."""
+        (H, W) f32, winner (H, W) int32). Eager on the card too: the frame
+        is one K1 launch, which a captured graph made slower."""
         return render_fused_prepared(prepared, self.pixel_shader, self.ps_uniform, self.config)
 
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from f_renderer_tpu_torch.device import constant
 from f_renderer_tpu_torch.math import mat_mul4, mat_vec4, normalize, reflect
 from f_renderer_tpu_torch.math.transforms import _dot3, true_div, true_sqrt
 from f_renderer_tpu_torch.shaders.texture import TextureStack
@@ -53,9 +54,8 @@ def _mvp_transform(u, pos):
 def _phong_lighting(normal, world_pos, view_pos, light_pos, light_color):
     """The phong.rs:133-144 lighting sum on (N, 3) rows — the Gouraud vertex
     shader's form (norm and divide, as the JAX package's builtin has it)."""
-    dev = normal.device
-    lc = torch.tensor(light_color, dtype=torch.float32, device=dev)
-    lp = torch.tensor(light_pos, dtype=torch.float32, device=dev)
+    lc = constant(tuple(light_color), normal.device)
+    lp = constant(tuple(light_pos), normal.device)
     ambient = lc * AMBIENT_STRENGTH
     n = normalize(normal)
     light_dir = normalize(lp - world_pos)

@@ -10,6 +10,7 @@ from f_renderer_tpu_torch.voxel.raycast import (
     VoxelRenderConfig,
     cube_intersect,
     render_voxel_frame,
+    voxel_frame,
 )
 
 __all__ = [
@@ -21,4 +22,5 @@ __all__ = [
     "VoxelRenderConfig",
     "cube_intersect",
     "render_voxel_frame",
+    "voxel_frame",
 ]

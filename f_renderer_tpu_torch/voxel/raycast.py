@@ -32,7 +32,7 @@ import functools
 import numpy as np
 import torch
 
-from f_renderer_tpu_torch.device import resolve_device
+from f_renderer_tpu_torch.device import constant, resolve_device
 from f_renderer_tpu_torch.math.transforms import true_div, true_sqrt
 
 MAX_POINTS = 8  # ≤ 2 per axis + 2 from the axis-parallel special case
@@ -63,7 +63,7 @@ def _cube_intersect_planes(pos, dp, length):
     zero = torch.zeros_like(dp[0])
     pts = [[zero, zero, zero] for _ in range(MAX_POINTS)]
     cnt = torch.zeros(dp[0].shape, dtype=torch.int32, device=dev)
-    length = torch.tensor(length, dtype=torch.float32, device=dev)
+    length = constant(length, dev)
     pos = pos.to(torch.float32)
 
     def push(pts, cnt, point, cond):
@@ -88,10 +88,9 @@ def _cube_intersect_planes(pos, dp, length):
     # the others, so evaluating all axes independently is equivalent.
     handled_parallel = torch.zeros(dp[0].shape, dtype=torch.bool, device=dev)
     for axis in range(3):
-        n = np.zeros(3, np.float32)
-        n[axis] = 1.0
-        n_t = torch.from_numpy(n).to(dev)
-        unit_diag = torch.from_numpy((1.0 - n).astype(np.float32)).to(dev)
+        n = tuple(float(a == axis) for a in range(3))
+        n_t = constant(n, dev)
+        unit_diag = constant(tuple(1.0 - v for v in n), dev)
         cr = cross(dp, [n_t[a] for a in range(3)])
         is_parallel = ((cr[0] == 0.0) & (cr[1] == 0.0) & (cr[2] == 0.0)) & ~handled_parallel
         p = unit_diag * pos  # (3,) reduced position
@@ -280,9 +279,10 @@ def _sample_times(per_t: float, length: float) -> np.ndarray:
     return np.asarray(times, np.float32)
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def sample_times(k: MarchConstants, device) -> torch.Tensor:
-    """The (n_times,) float32 sample-time table of ``k`` on ``device``."""
+    """The (n_times,) float32 sample-time table of ``k`` on ``device``, made
+    once: a captured frame reads it by its address, so it is never freed."""
     return torch.from_numpy(_sample_times(k.per_t, k.length)).to(device)
 
 
@@ -433,19 +433,37 @@ def prepare_rays(eye, inv_mvp, config: VoxelRenderConfig):
     return start, dp, t_max, valid & (t_max >= 0.0)
 
 
+def voxel_frame(grid_color, grid_hit, eye, inv_mvp, config: VoxelRenderConfig):
+    """One frame from tensors on one device, eagerly → (H, W, 4) uint8 BGRA:
+    the ray set-up, the table and the march (K5 on CUDA tensors). What
+    :func:`render_voxel_frame` captures on the card; tools that time the
+    stages call it, or its parts, directly."""
+    k = march_constants(config, grid_hit.shape[0])
+    start, dirs, t_max, alive = prepare_rays(eye, inv_mvp, config)
+    packed = march(start, dirs, t_max, alive, voxel_table(grid_color, grid_hit), k)
+    return packed.contiguous().view(torch.uint8).reshape(config.height, config.width, 4)
+
+
 def render_voxel_frame(grid_color, grid_hit, eye, inv_mvp, config: VoxelRenderConfig, device="cuda"):
     """Render one frame → (H, W, 4) uint8 in the reference's BGRA order.
 
     ``grid_color`` (R, R, R, 4) u8 and ``grid_hit`` (R, R, R) bool are the
     densified SVO (``octree.densify``), indexed [ix, iy, iz]; ``eye`` (3,)
     and ``inv_mvp`` (4, 4) = (proj · view · model)⁻¹. Arrays or tensors.
+
+    On the card the frame is one captured CUDA graph, replayed with these
+    four as its inputs (``compiled.voxel_frame``), as the JAX package's
+    bench jits this function; on the CPU it runs :func:`voxel_frame`.
     """
     device = resolve_device(device)
-    grid_hit = torch.as_tensor(grid_hit, device=device)
-    grid_color = torch.as_tensor(grid_color, device=device)
-    eye = torch.as_tensor(eye, dtype=torch.float32, device=device)
-    inv_mvp = torch.as_tensor(inv_mvp, dtype=torch.float32, device=device)
-    k = march_constants(config, grid_hit.shape[0])
-    start, dirs, t_max, alive = prepare_rays(eye, inv_mvp, config)
-    packed = march(start, dirs, t_max, alive, voxel_table(grid_color, grid_hit), k)
-    return packed.contiguous().view(torch.uint8).reshape(config.height, config.width, 4)
+    args = (
+        torch.as_tensor(grid_color, device=device),
+        torch.as_tensor(grid_hit, device=device),
+        torch.as_tensor(eye, dtype=torch.float32, device=device),
+        torch.as_tensor(inv_mvp, dtype=torch.float32, device=device),
+    )
+    if device.type != "cuda":
+        return voxel_frame(*args, config)
+    from f_renderer_tpu_torch import compiled
+
+    return compiled.voxel_frame(*args, config)

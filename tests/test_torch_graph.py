@@ -1,0 +1,570 @@
+"""The captured frame (``compiled``) and what it needs of the frame's code.
+
+- The clip path's fixed-size compaction against the JAX package's
+  ``geometry_process`` (``jnp.nonzero(size=clip_cap)`` under ``lax.cond``):
+  every TriangleBuffer field bit-equal, padding slots included, with 0, 1,
+  ``clip_cap`` and ``clip_cap + 7`` faces clipped, both as a captured frame
+  runs it (``device.graph_frame``: no host sync) and eagerly. The vertex shader passes
+  clip-space positions through, so only the geometry stage is compared; the
+  JAX side runs in a subprocess with ``--xla_cpu_max_isa=AVX`` so XLA makes
+  no fused multiply-adds (see tests/test_torch_fused.py). This file is that
+  subprocess's script too.
+- One CPU frame of every captured path under a ``TorchDispatchMode`` that
+  fails on what a CUDA graph cannot record: a host sync
+  (``_local_scalar_dense``, ``tolist``), an op whose output shape depends on
+  the data (``nonzero``, ``masked_select``, ``unique``, indexing by a
+  boolean mask), or a tensor made from host data (``lift_fresh``, which
+  ``torch.tensor``, ``torch.as_tensor`` and ``torch.from_numpy`` all
+  dispatch). The kernels' plain versions are exempt: on the card the
+  kernel runs in their place.
+- The cache key, the input copies, the fresh outputs, the graph-frame
+  mode and the launch counters, with a stand-in for the CUDA graph that
+  replays by calling the frame again.
+- On the card (``cuda``): graph frames equal to eager ones.
+"""
+
+import contextlib
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from f_renderer_tpu_torch import compiled, kernels
+from f_renderer_tpu_torch.device import graph_frame, in_graph_frame
+from f_renderer_tpu_torch.pipeline import fused, raster
+from f_renderer_tpu_torch.pipeline.geometry import geometry_process
+from f_renderer_tpu_torch.pipeline.render import render_frame
+from f_renderer_tpu_torch.scene import make_checker_texture, make_cube, make_phong_scene
+from f_renderer_tpu_torch.shaders import TextureStack
+from f_renderer_tpu_torch.voxel import octree, raycast
+
+from _torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread: see that file)
+
+W, H = 96, 64
+CLIP_CAP = 8
+N_INSIDE = 20
+CLIPPED = (0, 1, CLIP_CAP, CLIP_CAP + 7)
+TRI_FIELDS = ("spi", "spf", "rhw", "ctx", "top_left", "valid", "order", "ps_index")
+
+
+# ---------------------------------------------------------------------------
+# (a) the clip compaction against the JAX package
+# ---------------------------------------------------------------------------
+
+
+def clip_faces(n_clip, seed=11):
+    """Clip-space corners (F, 3, 4) of ``N_INSIDE`` faces inside the frustum
+    and ``n_clip`` faces that cross one of its planes, interleaved in a
+    seeded order, and per-corner uvs (F, 3, 2)."""
+    rng = np.random.default_rng(seed + n_clip)
+    f = N_INSIDE + n_clip
+    w = rng.uniform(1.0, 2.0, (f, 3))
+    xy = rng.uniform(-0.8, 0.8, (f, 3, 2)) * w[..., None]
+    z = rng.uniform(0.1, 0.9, (f, 3)) * w
+    clipped = rng.permutation(f)[:n_clip]
+    for i, face in enumerate(clipped):
+        corner, plane = rng.integers(3), i % 3
+        if plane == 0:  # past x = -w
+            xy[face, corner, 0] = -w[face, corner] * rng.uniform(1.5, 4.0)
+        elif plane == 1:  # past y = w
+            xy[face, corner, 1] = w[face, corner] * rng.uniform(1.5, 4.0)
+        else:  # behind the near plane, z < 0
+            z[face, corner] = -w[face, corner] * rng.uniform(0.2, 0.8)
+    pos = np.concatenate([xy, z[..., None], w[..., None]], axis=-1).astype(np.float32)
+    return pos, rng.random((f, 3, 2)).astype(np.float32)
+
+
+def write_reference(path):
+    """The JAX package's geometry_process on every case → ``path`` (npz)."""
+    import jax.numpy as jnp
+
+    from f_renderer_tpu.pipeline.geometry import geometry_process as jax_geometry
+
+    def vertex(u, vin):
+        return vin["pos"], {"uv": vin["uv"]}
+
+    out = {}
+    for n in CLIPPED:
+        pos, uv = clip_faces(n)
+        tri, stats = jax_geometry({"pos": jnp.asarray(pos), "uv": jnp.asarray(uv)}, vertex, {}, W, H,
+                                  clip_cap=CLIP_CAP, ps_index=2, order_base=40)
+        out[f"{n}/num_clipped"] = np.asarray(stats["num_clipped"])
+        for f in TRI_FIELDS:
+            out[f"{n}/{f}"] = np.asarray(getattr(tri, f))
+    np.savez(path, **out)
+
+
+@pytest.fixture(scope="module")
+def jax_geometry(tmp_path_factory):
+    pytest.importorskip("jax", reason="compares the port with the JAX package")
+    path = tmp_path_factory.mktemp("jax_geometry") / "ref.npz"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["JAX_PLATFORMS"] = "cpu"
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " --xla_cpu_max_isa=AVX").strip()
+    env["PYTHONPATH"] = os.pathsep.join([repo, env.get("PYTHONPATH", "")])
+    subprocess.run([sys.executable, os.path.abspath(__file__), str(path)], env=env, check=True, timeout=600)
+    with np.load(path) as data:
+        return dict(data)
+
+
+def run_mode(graph):
+    """The frame as a captured frame runs it, or eagerly."""
+    return graph_frame() if graph else contextlib.nullcontext()
+
+
+@pytest.mark.parametrize("graph", [True, False], ids=["graph_frame", "eager"])
+@pytest.mark.parametrize("n_clip", CLIPPED)
+def test_clip_compaction_matches_jax(jax_geometry, n_clip, graph):
+    pos, uv = clip_faces(n_clip)
+
+    def vertex(u, vin):
+        return vin["pos"].T, {"uv": vin["uv"]}
+
+    with run_mode(graph):
+        tri, stats = geometry_process({"pos": torch.from_numpy(pos), "uv": torch.from_numpy(uv)}, vertex, {}, W, H,
+                                      clip_cap=CLIP_CAP, ps_index=2, order_base=40)
+    assert int(stats["num_clipped"]) == int(jax_geometry[f"{n_clip}/num_clipped"]) == n_clip
+    for f in TRI_FIELDS:
+        got, want = getattr(tri, f).numpy(), jax_geometry[f"{n_clip}/{f}"]
+        assert got.shape == want.shape and got.dtype == want.dtype, f
+        assert np.array_equal(got.view(np.uint8), want.view(np.uint8)), f"{f} differs at {n_clip} clipped"
+    kept = min(n_clip, CLIP_CAP)
+    b_valid = tri.valid[N_INSIDE + n_clip:].reshape(CLIP_CAP, -1).any(-1)
+    assert int(b_valid.sum()) == kept  # the first clip_cap clipped faces, in index order
+
+
+def test_compact_clipped_keeps_the_first_in_index_order():
+    from f_renderer_tpu_torch.pipeline.geometry import compact_clipped
+
+    mask = torch.from_numpy(np.random.default_rng(0).random(200) < 0.3)
+    want = torch.nonzero(mask).flatten()
+    for cap in (0, 5, int(mask.sum()), int(mask.sum()) + 9):
+        got = compact_clipped(mask, cap)
+        n = min(cap, want.numel())
+        assert got.shape == (cap,)
+        assert torch.equal(got[:n], want[:n]) and bool((got[n:] == 200).all())
+
+
+# ---------------------------------------------------------------------------
+# (b) nothing in a captured frame that a graph cannot record
+# ---------------------------------------------------------------------------
+
+SYNC_OPS = {"_local_scalar_dense", "item", "nonzero", "nonzero_numpy", "argwhere", "masked_select",
+            "_unique", "_unique2", "unique_dim", "unique_consecutive", "unique_dim_consecutive",
+            "lift_fresh", "lift_fresh_copy"}
+INDEX_OPS = {"index", "index_put", "index_put_", "_index_put_impl_"}
+
+
+class FrameChecker(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records every op a graph could not capture, except inside
+    :meth:`exempt` (a kernel's plain version)."""
+
+    def __init__(self):
+        super().__init__()
+        self.found, self.depth = [], 0
+
+    def exempt(self, fn):
+        def run(*args, **kw):
+            self.depth += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.depth -= 1
+
+        return run
+
+    def flag(self, what):
+        if self.depth == 0:
+            self.found.append(what)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in SYNC_OPS:
+            self.flag(str(func))
+        if name in INDEX_OPS:
+            idx = args[1] if len(args) > 1 else ()
+            if any(isinstance(t, torch.Tensor) and t.dtype == torch.bool for t in idx or ()):
+                self.flag(f"{func} with a boolean mask")
+        return func(*args, **(kwargs or {}))
+
+
+def custom_shaders():
+    """A shader pair without ``fused_kind`` (it takes the non-fused path)."""
+    from f_renderer_tpu_torch.shaders.builtin import _mvp_transform
+
+    def vertex(u, vin):
+        clip, _ = _mvp_transform(u, vin["pos"])
+        return clip, {"uv": vin["uv"], "normal": vin["normal"]}
+
+    def pixel(u, ctx, ps_index):
+        n, uv = ctx["normal"], ctx["uv"]
+        return torch.stack([0.5 + 0.5 * n[0], uv[0], uv[1] * 0.25 + 0.5 * torch.abs(n[2]), torch.ones_like(n[0])])
+
+    return vertex, pixel
+
+
+def cpu_scene(shader="phong", **config):
+    cube2 = make_cube(0.7)
+    cube2["pos"] = cube2["pos"] + np.array([0.6, 0.2, 0.3], np.float32)
+    tex = [make_checker_texture(32, 4), make_checker_texture(16, 2)]
+    scene = make_phong_scene(W, H, meshes=[make_cube(), cube2], textures=tex, clip_cap=16,
+                             shader="phong" if shader == "custom" else shader, device="cpu")
+    if shader == "custom":
+        scene.vertex_shader, scene.pixel_shader = custom_shaders()
+    scene.config = dataclasses.replace(scene.config, **config)
+    return scene
+
+
+def voxel_inputs(traversal):
+    color, hit = octree.densify(octree.gen_randomly(2, np.random.default_rng(3)), 2)
+    eye = np.array([2.8, 1.6, 2.4], np.float32)
+    inv = np.linalg.inv(np.array([[1.2, 0, -0.4, 0], [0, 1.5, 0, 0], [0.3, 0.2, 1.0, -3.0], [0.3, 0.2, 1.0, -2.9]],
+                                 np.float32)).astype(np.float32)
+    cfg = raycast.VoxelRenderConfig(width=32, height=24, level=2, traversal=traversal)
+    return (torch.from_numpy(color), torch.from_numpy(hit), torch.from_numpy(eye), torch.from_numpy(inv)), cfg
+
+
+def frame_paths():
+    """Each captured path's frame on the CPU, by name: the function each
+    entry point hands to the graph cache."""
+    paths = {}
+    for name, shader, cfg in (("fused phong", "phong", {}), ("fused gouraud", "gouraud", {}),
+                              ("non-fused textured", "textured", {"fused_shade": False}),
+                              ("custom shader", "custom", {})):
+        scene = cpu_scene(shader, **cfg)
+        paths[name] = (lambda s=scene: render_frame(list(s.draws), s.vertex_shader, s.vs_uniform, s.pixel_shader,
+                                                    s.ps_uniform, s.config))
+    scene = cpu_scene()
+    paths["prepare + render_prepared"] = lambda: scene.render_prepared(scene.prepare())  # eager on the card
+    for traversal in ("fixed", "dda"):
+        args, cfg = voxel_inputs(traversal)
+        paths[f"voxel {traversal}"] = lambda a=args, c=cfg: raycast.voxel_frame(*a, c)
+    return paths
+
+
+@pytest.mark.parametrize("path", list(frame_paths()))
+def test_frame_has_no_host_sync_or_host_data(monkeypatch, path):
+    """Each path as its graph captures it (inside ``graph_frame``)."""
+    frame = frame_paths()[path]
+
+    def run():
+        with graph_frame():
+            return frame()
+
+    run()  # warm-up: the constant caches fill here, as in a graph's warm-up frame
+    checker = FrameChecker()
+    for mod, name in ((fused, "render_fused_plain"), (raster, "raster_planes_plain"), (raycast, "march_plain")):
+        monkeypatch.setattr(mod, name, checker.exempt(getattr(mod, name)))
+    monkeypatch.setattr(TextureStack, "sample_plain", checker.exempt(TextureStack.sample_plain))
+    for name in ("tolist", "numpy", "cpu"):
+        original = getattr(torch.Tensor, name)
+
+        def hooked(self, *a, _name=name, _original=original, **kw):
+            checker.flag(f"Tensor.{_name}")
+            return _original(self, *a, **kw)
+
+        monkeypatch.setattr(torch.Tensor, name, hooked)
+    with checker:
+        out = run()
+    assert checker.found == [], f"{path}: {sorted(set(checker.found))}"
+    frame = out[0] if isinstance(out, tuple) else out
+    assert frame.dtype == torch.uint8 and frame.shape[-1] == 4
+
+
+@pytest.mark.parametrize("graph", [True, False], ids=["graph_frame", "eager"])
+def test_geometry_without_clipped_faces_matches_with_the_skip_path(graph):
+    """A frame with nothing clipped: path B's slots are the skip path's zeros
+    and ``order_base``, whether the clip path ran (a captured frame) or the
+    host skipped it (eagerly)."""
+    pos, uv = clip_faces(0)
+    with run_mode(graph):
+        tri, stats = geometry_process({"pos": torch.from_numpy(pos), "uv": torch.from_numpy(uv)},
+                                      lambda u, vin: (vin["pos"].T, {"uv": vin["uv"]}), {}, W, H,
+                                      clip_cap=CLIP_CAP, order_base=40)
+    b = slice(N_INSIDE, None)
+    assert int(stats["num_clipped"]) == 0
+    assert not bool(tri.valid[b].any()) and bool((tri.order[b] == 40).all())
+    for f in ("spi", "spf", "rhw", "ctx"):
+        assert not bool(getattr(tri, f)[..., b].any()), f
+
+
+# ---------------------------------------------------------------------------
+# (c) the cache: keys, input copies, fresh outputs, graph-frame mode, launch counts
+# ---------------------------------------------------------------------------
+
+
+class StubGraph:
+    """A stand-in for ``compiled.CudaGraph`` on the CPU: ``capture`` runs
+    the frame once and keeps its outputs; ``replay`` runs it again on the
+    same input buffers and writes the results into those outputs."""
+
+    def __init__(self, device, debug=False):
+        self.pool_bytes, self.fn, self.out = 0, None, None
+
+    def warm_up(self, fn):
+        return fn()
+
+    def capture(self, fn):
+        self.fn, self.out = fn, fn()
+        return self.out
+
+    def replay(self):
+        new = self.fn()
+        for dst, src in zip(compiled.flatten(self.out)[0], compiled.flatten(new)[0]):
+            dst.copy_(src)
+
+
+@pytest.fixture
+def stub_cache(monkeypatch):
+    cache = compiled.FrameCache(StubGraph, max_bytes=1 << 40)
+    monkeypatch.setattr(compiled, "CACHE", cache)
+    return cache
+
+
+def test_cache_key_follows_what_the_frame_reads(stub_cache):
+    scene = cpu_scene()
+    key_of = {}
+
+    def captures_after(label, entry):
+        before = stub_cache.captures
+        entry()
+        key_of[label] = stub_cache.captures - before
+
+    captures_after("first", lambda: compiled.scene_render(scene))
+    scene.vs_uniform = dict(scene.vs_uniform, model=scene.vs_uniform["model"] * 1.01)  # a value
+    scene.ps_uniform = dict(scene.ps_uniform, view_pos=scene.ps_uniform["view_pos"] + 0.5)
+    captures_after("values", lambda: compiled.scene_render(scene))
+    stack = scene.ps_uniform["textures"]
+    swapped = TextureStack(stack.texels.flip(0).contiguous(), stack.dims.flip(0).contiguous(), stack.opaque)
+    scene.ps_uniform = dict(scene.ps_uniform, textures=swapped)
+    captures_after("texture values", lambda: compiled.scene_render(scene))
+    scene.ps_uniform = dict(scene.ps_uniform, textures=dataclasses.replace(swapped, opaque=not swapped.opaque))
+    captures_after("opaque", lambda: compiled.scene_render(scene))
+    scene.draws = [scene.draws[0], {k: v[:10] for k, v in scene.draws[1].items()}]
+    captures_after("draw shape", lambda: compiled.scene_render(scene))
+    scene.draws = scene.draws[:1]
+    captures_after("draw count", lambda: compiled.scene_render(scene))
+    scene.draws = [dict(scene.draws[0], uv=scene.draws[0]["uv"].double())]
+    captures_after("dtype", lambda: compiled.scene_render(scene))
+    scene.config = dataclasses.replace(scene.config, background=(0, 0, 0, 255))
+    captures_after("config", lambda: compiled.scene_render(scene))
+    scene.pixel_shader.light_pos = (0.0, 3.0, 1.0)
+    captures_after("light_pos", lambda: compiled.scene_render(scene))
+    scene.vertex_shader, scene.pixel_shader = custom_shaders()
+    captures_after("shader", lambda: compiled.scene_render(scene))
+    assert key_of == {"first": 1, "values": 0, "texture values": 0, "opaque": 1, "draw shape": 1, "draw count": 1,
+                      "dtype": 1, "config": 1, "light_pos": 1, "shader": 1}
+
+    scene = cpu_scene()
+    captures_after("prepare", lambda: compiled.scene_prepare(scene))
+    scene.vs_uniform = dict(scene.vs_uniform, model=scene.vs_uniform["model"] * 0.9)
+    captures_after("prepare values", lambda: compiled.scene_prepare(scene))
+    scene.config = dataclasses.replace(scene.config, clip_cap=32)
+    captures_after("prepare config", lambda: compiled.scene_prepare(scene))
+    assert (key_of["prepare"], key_of["prepare values"], key_of["prepare config"]) == (1, 0, 1)
+
+    args, cfg = voxel_inputs("fixed")
+    captures_after("voxel", lambda: compiled.voxel_frame(*args, cfg))
+    captures_after("voxel eye", lambda: compiled.voxel_frame(args[0], args[1], args[2] + 0.1, args[3], cfg))
+    captures_after("voxel config", lambda: compiled.voxel_frame(*args, dataclasses.replace(cfg, traversal="dda")))
+    assert (key_of["voxel"], key_of["voxel eye"], key_of["voxel config"]) == (1, 0, 1)
+
+
+def test_replays_equal_eager_frames_and_return_fresh_tensors(stub_cache):
+    scene = cpu_scene()
+    outs = []
+    for angle in (0.1, 0.4, 0.7):
+        from f_renderer_tpu_torch.bench_scenes import set_angle
+
+        set_angle(scene, angle)
+        outs.append(compiled.scene_render(scene))
+        want = render_frame(list(scene.draws), scene.vertex_shader, scene.vs_uniform, scene.pixel_shader,
+                            scene.ps_uniform, scene.config)
+        assert torch.equal(outs[-1][0], want[0]) and torch.equal(outs[-1][1], want[1])
+        assert torch.equal(outs[-1][2]["num_clipped"], want[2]["num_clipped"])
+    assert stub_cache.captures == 1
+    assert not torch.equal(outs[0][0], outs[2][0])  # the frames moved, and none overwrote another
+    statics = stub_cache.last.outputs
+    for frame, depth, stats in outs:
+        for t in (frame, depth, stats["num_clipped"]):
+            assert all(t.data_ptr() != s.data_ptr() for s in statics)
+
+
+def test_every_call_copies_every_input(stub_cache):
+    """No input is aliased and none is skipped: every call copies each caller
+    tensor into the graph's buffers, so an in-place change is seen."""
+    scene = cpu_scene()
+    compiled.scene_render(scene)
+    frame = stub_cache.last
+    assert all(all(b.data_ptr() != t.data_ptr() for t in compiled.flatten(
+        (scene.vs_uniform, scene.ps_uniform, tuple(scene.draws)))[0]) for b in frame.inputs)
+    copies = []
+    for dst in frame.inputs:
+        real = dst.copy_
+
+        def counting(src, _real=real, _dst=dst):
+            copies.append(_dst)
+            return _real(src)
+
+        dst.copy_ = counting
+    compiled.scene_render(scene)
+    assert len(copies) == len(frame.inputs)
+    scene.vs_uniform["model"].mul_(1.5)  # the caller changes its tensor in place
+    got = compiled.scene_render(scene)
+    assert len(copies) == 2 * len(frame.inputs)
+    want = render_frame(list(scene.draws), scene.vertex_shader, scene.vs_uniform, scene.pixel_shader,
+                        scene.ps_uniform, scene.config)
+    assert torch.equal(got[0], want[0])
+
+
+def test_captured_frames_run_as_graph_frames(stub_cache):
+    """The warm-up, the capture and a replay run inside ``graph_frame`` (no
+    host sync); the caller's code outside does not."""
+    seen = []
+
+    def frame(x):
+        seen.append(in_graph_frame())
+        return x + 1.0
+
+    x = torch.ones(2)
+    stub_cache.run("mode", frame, (x,), x.device)
+    stub_cache.run("mode", frame, (x,), x.device)
+    assert seen == [True, True, True] and not in_graph_frame()
+
+
+def test_the_cache_leaves_launch_counters_to_the_wrappers(stub_cache):
+    """The cache never writes a wrapper's counter: it changes only where the
+    wrapper's Python launches, here the warm-up and the capture (the stub's
+    replay runs Python too; a real replay runs none and counts nothing)."""
+    counters = ("fused_raster", "raster_planes", "sample_bilinear", "voxel_march")
+    before = {k: getattr(kernels, k).launches for k in counters}
+
+    def frame(x):
+        kernels.fused_raster.launches += 1  # what the wrapper does when it launches K1
+        return x * 2.0
+
+    x = torch.ones(3)
+    assert torch.equal(stub_cache.run("counted", frame, (x,), x.device), x * 2.0)
+    for i in range(3):
+        assert torch.equal(stub_cache.run("counted", frame, (x + i,), x.device), (x + i) * 2.0)
+    after = {k: getattr(kernels, k).launches for k in counters}
+    kernels.fused_raster.launches = before["fused_raster"]
+    assert after == dict(before, fused_raster=before["fused_raster"] + 2 + 3)
+
+
+def test_a_wrapper_counts_no_launch_under_capture(monkeypatch):
+    """A stream capture records a launch and makes none: the wrapper's count
+    moves only where it launches (the capture stubbed on the CPU)."""
+    counted = type("Wrapper", (), {"launches": 0})
+    for capturing, want in ((False, 1), (True, 1), (False, 2)):
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda c=capturing: c)
+        kernels._count(counted)
+        assert counted.launches == want
+
+
+def test_launches_under_replay_are_read_by_kernel_name():
+    """``chip_smoke.py`` reads a graph path's launches from the device's
+    trace (and a graph's kernel nodes from its DOT) by kernel function name."""
+    import chip_smoke
+
+    names = ["void fused_raster_kernel<2, false>(FrFusedParams, int const*, float const*)",
+             "void tile_order_kernel<2, false>(int const*, int const*, unsigned long, int, int)",
+             "_Z22sample_bilinear_kernelPKiS0_iiibPKfS2_S0_Pf", "void at::native::vectorized_elementwise_kernel<4>()",
+             "voxel_march_kernel", "hit_bits_kernel", "void fused_raster_kernel<2, true>(FrFusedParams)"]
+    assert chip_smoke.kernel_launches(names) == {"fused_raster": 2, "raster_planes": 0, "sample_bilinear": 1,
+                                                 "voxel_march": 1}
+    assert set(chip_smoke.KERNEL_FUNCTIONS) == {"fused_raster", "raster_planes", "sample_bilinear", "voxel_march"}
+    spin = "at::cuda::(anonymous namespace)::spin_kernel(long)"
+    trace = [(5, spin), (9, names[0]), (7, names[1]), (12, spin), (30, names[4]), (31, spin), (2, names[2])]
+    assert chip_smoke.launches_between_markers(trace) == [  # in time order; before the first marker: ignored
+        {"fused_raster": 1, "raster_planes": 0, "sample_bilinear": 0, "voxel_march": 0},
+        {"fused_raster": 0, "raster_planes": 0, "sample_bilinear": 0, "voxel_march": 1}]
+    assert all(hasattr(getattr(kernels, k), "launches") for k in chip_smoke.KERNEL_FUNCTIONS)
+
+
+def test_cache_drops_the_least_recently_used_frame():
+    cache = compiled.FrameCache(StubGraph, max_graphs=2, max_bytes=1 << 40)
+    x = torch.ones(4)
+    for key in ("a", "b", "a", "c"):
+        cache.run(key, lambda t: t + 1, (x,), x.device)
+    assert [k for k, _ in cache.frames] == ["a", "c"] and cache.captures == 3
+    small = compiled.FrameCache(StubGraph, max_bytes=40)  # two frames of 16 input bytes fit, not three
+    for key in ("a", "b", "c"):
+        small.run(key, lambda t: t + 1, (x,), x.device)
+    assert [k for k, _ in small.frames] == ["b", "c"]
+
+
+def test_flatten_round_trip():
+    stack = TextureStack.dummy("cpu")
+    tree = ({"m": torch.ones(2), "t": stack, "n": None}, [torch.zeros(3), 4], ("x", 1.5))
+    leaves, spec = compiled.flatten(tree)
+    assert len(leaves) == 4 and hash(spec) is not None
+    back = compiled.unflatten(spec, leaves)
+    assert isinstance(back[0]["t"], TextureStack) and back[0]["t"].texels is stack.texels
+    assert back[0]["n"] is None and back[1][1] == 4 and back[2] == ("x", 1.5)
+    assert back[0]["m"] is leaves[0]
+    assert compiled.flatten(dataclasses.replace(stack, opaque=True))[1] != compiled.flatten(stack)[1]
+
+
+# ---------------------------------------------------------------------------
+# (d) on the card
+# ---------------------------------------------------------------------------
+
+
+def card_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA graph has no CPU mode")
+    scene = make_phong_scene(320, 240, meshes=[make_cube()], device="cuda")
+    return scene
+
+
+@pytest.mark.cuda
+def test_graph_frames_equal_eager_frames_on_card():
+    """Run on the card with ``python -m pytest --noconftest -m cuda
+    tests/test_torch_graph.py``."""
+    from f_renderer_tpu_torch.bench_scenes import set_angle
+
+    scene = card_scene()
+    for angle in (0.1, 0.15, 0.2, 0.1):
+        set_angle(scene, angle)
+        got = scene.render()
+        want = render_frame(list(scene.draws), scene.vertex_shader, scene.vs_uniform, scene.pixel_shader,
+                            scene.ps_uniform, scene.config)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_graph_outputs_do_not_alias_on_card():
+    from f_renderer_tpu_torch.bench_scenes import set_angle
+
+    scene = card_scene()
+    frames = []
+    for angle in (0.1, 0.6, 1.1):
+        set_angle(scene, angle)
+        frames.append(scene.render()[0])
+    kept = [f.clone() for f in frames]
+    set_angle(scene, 1.6)
+    scene.render()
+    assert all(torch.equal(f, k) for f, k in zip(frames, kept))
+    assert len({f.data_ptr() for f in frames}) == 3 and not torch.equal(frames[0], frames[2])
+
+
+@pytest.mark.cuda
+def test_graph_sees_a_mutated_caller_tensor_on_card():
+    scene = card_scene()
+    first = scene.render()[0]
+    scene.render()
+    scene.vs_uniform["model"].mul_(0.5)  # in place: same tensor, new version
+    got = scene.render()[0]
+    want = render_frame(list(scene.draws), scene.vertex_shader, scene.vs_uniform, scene.pixel_shader,
+                        scene.ps_uniform, scene.config)[0]
+    assert torch.equal(got, want) and not torch.equal(got, first)
+
+
+if __name__ == "__main__":
+    write_reference(sys.argv[1])
