@@ -22,17 +22,27 @@ Phases, each reported on its own lines:
      with at most 0.2% of pixels at 2. On four phong1080 tiles (the pole
      tile among them) K1's winner and depth also against
      ``rasterize_portable``, which bins nothing;
+   - the raster kernels' tile plan (csrc/raster_loop.cuh: each tile's
+     culled coarse and spill list and its pixel layout), read back from
+     their scratch and held to its plain mirror ``raster.tile_plan_plain``
+     (K1 at phong1080, stress4k and a row slab, K4 at phong1080_tex2048 and
+     custom12_360), with each layout's tiles, the culled and overflowed
+     tiles and the records the raster blocks stage against whole lists;
    - K1 at stress4k (a million triangles at 3840x2160, the default config:
      64-row tiles, two fine tiles a triangle, bin_pairs' packed 31-bit
-     sort) against its plain version and ``rasterize_portable`` on eight
-     tiles (the heaviest, the one with the most coarse pairs, one no pair
-     reaches, five drawn with a seeded generator); again with 32-row tiles,
-     where the sort key needs 32 bits and the stable two-operand sort runs,
-     which must give the same frame; K1's device time there, with every
-     pair list empty, and its bound;
+     sort) against its plain version and ``rasterize_portable`` on its
+     checked tiles (the heaviest, the one with the most coarse pairs, one
+     no pair reaches, the first of each layout the plan has, the one whose
+     culled list keeps the most spill pairs, five drawn with a seeded
+     generator); with a cull cap of 64, which most tiles' culled lists pass
+     (they keep their whole ranges), the same frame; again with 32-row
+     tiles, where the sort key needs 32 bits and the stable two-operand
+     sort runs, which must give the same frame; K1's device time there,
+     with every pair list empty, and its bound;
    - K4, the non-fused raster: phong1080_tex2048 at the same angles, both
      entry points, a custom shader with 12 varyings at 640x360, and
-     sliver640. Winner ids, texture ids and varyings bit-equal, depth
+     sliver640 (K4's device time at phong1080_tex2048 and custom12_360).
+     Winner ids, texture ids and varyings bit-equal, depth
      within rtol 2.4e-7; the frames shaded from the kernels' planes
      (K4 + K3) against the frames shaded from the plain planes with the
      plain sampler, under the colour bar above;
@@ -766,7 +776,7 @@ def tile_ranges(prep):
 
 def reaches(prep, t):
     """Whether a pair of tile t's coarse or spill range has a bbox that
-    reaches the tile (the order pass's test, for a tile with no fine pair)."""
+    reaches the tile (the cull's test)."""
     import torch
 
     from f_renderer_tpu_torch.pipeline.raster import LANES, MAXXY, MINXY, tile_lists, unpack_xy
@@ -781,14 +791,89 @@ def reaches(prep, t):
     return bool(((minx < x0 + LANES) & (maxx > x0) & (miny < y0 + prep.th) & (maxy > y0)).any())
 
 
-def check_tiles(prep, n_random, seed=0, with_coarse_and_empty=True):
+def plan_check(tag, launch, prep, cap=None):
+    """A raster kernel's tile plan (csrc/raster_loop.cuh), read back from its
+    scratch after ``launch(cull_cap=cap, scratch=...)``, held to its plain
+    mirror ``raster.tile_plan_plain`` at the card's resident slots: the
+    order of the tiles (the largest floor(log2) of fine pairs first), each
+    tile's flags (layout, culled or overflowed), its list's length, its
+    culled count and culled pairs, in order → (the mirror's plan, the launch's
+    outputs, a summary: tiles of each layout and kind, and the pair records
+    the raster blocks stage, and with every tile's whole lists)."""
+    import torch
+
+    from f_renderer_tpu_torch import kernels
+    from f_renderer_tpu_torch.pipeline import raster
+
+    cap = kernels.CULL_CAP if cap is None else cap
+    dev = prep.off.device
+    nty, ntx = prep.h_pad // prep.th, prep.w_pad // raster.LANES
+    ntiles = nty * ntx
+    scratch = torch.empty((kernels.plan_words(ntiles, cap),), dtype=torch.int32, device=dev)
+    out = launch(cull_cap=cap, scratch=scratch)
+    desc, counts, pairs = kernels.read_plan(scratch, ntiles, cap)
+    slots = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = plain(raster.tile_plan_plain, prep, cap=cap, slots=slots)
+    desc, counts = desc.tolist(), counts.tolist()
+    check([d[0] for d in desc] == plan.order, f"{tag}: the plan's order of the tiles differs from the mirror's")
+    bad = 0
+    for d in desc:
+        t = d[0]
+        ok = d[7] == plan.flags[t] and d[3] == plan.lists[t].numel() and counts[t] == plan.counts[t]
+        if ok and d[7] & raster.TILE_CULLED and plan.counts[t]:
+            ok = torch.equal(pairs[t, :plan.counts[t]].long(), plan.lists[t][d[1]:])
+        bad += not ok
+    check(bad == 0, f"{tag}: the kernel's plan differs from the mirror's at {bad} tiles")
+    off = prep.off.tolist()
+    s = raster.blocks_per_tile(prep.th)
+    band = prep.th // s  # a block of patches: one band of rows
+    spill0 = off[raster.tile_lists(prep, 0, 0)[2]]
+    miny, maxy = prep.tri_i32[raster.MINXY] >> 16, prep.tri_i32[raster.MAXXY] >> 16
+    before = listed = now = coarse_in = spill_in = coarse_kept = spill_kept = 0
+    for ty in range(nty):
+        for tx in range(ntx):
+            t = ty * ntx + tx
+            fine, coarse, spill = (off[r + 1] - off[r] for r in raster.tile_lists(prep, ty, tx))
+            # whole lists; a tile with no fine pair and at most 32 others, none reaching it, empty
+            emptied = fine == 0 and coarse + spill <= 32 and plan.counts[t] == 0
+            before += 0 if emptied else s * (fine + coarse + spill)
+            lst = plan.lists[t]
+            listed += s * lst.numel()
+            if plan.flags[t] & raster.TILE_ROWS or lst.numel() <= 128:  # a chunk: no selection
+                now += s * lst.numel()
+            else:  # the row selection: each block the pairs whose bbox rows meet its band
+                b0 = prep.origin[0] + ty * prep.th + band * torch.arange(s, device=dev)[:, None]
+                now += int(((miny[lst][None] < b0 + band) & (maxy[lst][None] > b0)).sum())
+            coarse_in, spill_in = coarse_in + coarse, spill_in + spill
+            if plan.flags[t] & raster.TILE_CULLED:
+                kept = plan.lists[t][fine:]
+                n_spill = int((kept >= spill0).sum())
+                coarse_kept, spill_kept = coarse_kept + kept.numel() - n_spill, spill_kept + n_spill
+    summary = {
+        "tiles": ntiles, "rows": sum(bool(f & raster.TILE_ROWS) for f in plan.flags),
+        "culled": sum(bool(f & raster.TILE_CULLED) for f in plan.flags),
+        "overflow": sum(bool(f & raster.TILE_OVERFLOW) for f in plan.flags), "cap": cap,
+        "records_staged": now, "records_listed": listed, "records_staged_whole_lists": before, "coarse_entries": coarse_in,
+        "coarse_kept": coarse_kept, "spill_entries": spill_in, "spill_kept": spill_kept,
+    }
+    log(f"  {tag} tile plan (cap {cap}): equal to the mirror's; layouts: rows {summary['rows']}, patches "
+        f"{ntiles - summary['rows']}; culled {summary['culled']}, overflowed {summary['overflow']}; culled tiles keep "
+        f"{coarse_kept} coarse and {spill_kept} spill records (of all tiles' {coarse_in} and {spill_in}); records "
+        f"the raster blocks stage {now}, {listed} without the row selection, {before} with whole lists "
+        f"({now / max(before, 1):.3f}x)")
+    return plan, out, summary
+
+
+def check_tiles(prep, n_random, seed=0, with_coarse_and_empty=True, plan=None):
     """The bin tiles to hold a kernel to its plain version on → ([(ty, tx)],
     what each is): the heaviest tile (most fine and coarse pairs); with
-    ``with_coarse_and_empty`` the tile with the most coarse pairs and a tile
-    whose list the order pass empties (no fine pair, at most 32 coarse and
-    spill pairs, none whose bbox reaches it), or else the first tile with
-    no fine pair that no pair reaches; and ``n_random`` tiles with pairs,
-    drawn with a seeded numpy generator."""
+    ``with_coarse_and_empty`` the tile with the most coarse pairs and the
+    first tile whose list the cull empties (no fine pair, and no coarse or
+    spill pair whose bbox reaches it); with ``plan`` (``tile_plan_plain``),
+    the first tile of each layout, the culled tile that keeps the most spill
+    pairs, and the first tile whose culled list overflowed, where the frame
+    has one; and ``n_random`` tiles with pairs, drawn with a seeded numpy
+    generator."""
     import numpy as np
 
     from f_renderer_tpu_torch.pipeline.raster import LANES
@@ -805,13 +890,26 @@ def check_tiles(prep, n_random, seed=0, with_coarse_and_empty=True):
     if with_coarse_and_empty:
         pick(max(range(len(ranges)), key=lambda t: ranges[t][1]), "most coarse")
         empty = [t for t, (f, c, sp) in enumerate(ranges) if f == 0 and not reaches(prep, t)]
-        emptied = [t for t in empty if sum(ranges[t]) <= 32]
-        if emptied:
-            pick(emptied[0], "emptied by the order pass")
-        elif empty:
-            pick(empty[0], f"reached by no pair (none emptied: the spill range holds {ranges[0][2]} > 32 pairs)")
+        if empty:
+            pick(empty[0], "emptied by the cull (no pair reaches it)")
         else:
             what.append("no tile without fine pairs that no pair reaches")
+    if plan is not None:
+        from f_renderer_tpu_torch.pipeline.raster import TILE_CULLED, TILE_OVERFLOW, TILE_ROWS
+
+        spill0 = int(prep.off[-2])
+        for label, want in (("rows interleaved", lambda f: f & TILE_ROWS), ("patches", lambda f: not f & TILE_ROWS),
+                            ("overflowed", lambda f: f & TILE_OVERFLOW)):
+            at = [t for t, f in enumerate(plan.flags) if want(f) and t not in picks]
+            if at:
+                pick(at[0], label)
+            else:
+                what.append(f"no other tile {label}")
+        kept = [(int((v[int(prep.off[t + 1] - prep.off[t]):] >= spill0).sum()), t)
+                for t, (f, v) in enumerate(zip(plan.flags, plan.lists)) if f & TILE_CULLED]
+        n, t = max(kept, default=(0, None))
+        if n and t not in picks:
+            pick(t, f"spill range culled to {n}")
     rest = [t for t, r in enumerate(ranges) if sum(r) > 0 and t not in picks]
     for t in np.random.default_rng(seed).choice(rest, n_random, replace=False):
         pick(int(t), "random")
@@ -946,6 +1044,7 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
                    plain(raster.raster_planes_plain, prep, interp))
     k1_slab = kernel_call("fused_raster", lambda: fused.render_fused_prepared(*args))
     k4_slab = kernel_call("raster_planes", lambda: raster.raster_planes(prep, True))
+    plan_check(f"phong1080 slab 3 of {n_slabs} K1 (origin {prep.origin})", k1_slab, prep)  # the cull in frame pixels
     full_prep = fused.prep_fused(tri, cfg)
     full_args = (full_prep, scene.pixel_shader, scene.ps_uniform, cfg)
     k1_full = kernel_call("fused_raster", lambda: fused.render_fused_prepared(*full_args))
@@ -1187,10 +1286,11 @@ def main() -> int:
         worst_frame, worst_depth = max(worst_frame, f_err), max(worst_depth, d_err)
         if scene_name == "phong1080" and "K1" not in rows:
             reference_frame = got[0].clone()
-            tiles, what = check_tiles(prep, 3, with_coarse_and_empty=False)
+            launch = kernel_call("fused_raster", lambda: fused.render_fused_prepared(*args))
+            plan, _, phong_plan = plan_check(f"phong1080@{angle}", launch, prep)
+            tiles, what = check_tiles(prep, 3, with_coarse_and_empty=False, plan=plan)
             log(f"  phong1080@{angle} tiles held to rasterize_portable: {'; '.join(what)}")
             compare_portable(f"phong1080@{angle}", tri, prep, tiles, got, *SIZES["phong1080"])
-            launch = kernel_call("fused_raster", lambda: fused.render_fused_prepared(*args))
             k_ms, p_ms, w_ms, each = timed(lambda: fused.render_fused_prepared(*args), launch,
                                            lambda: fused.render_fused_plain(*args), 20)
             _, win_p, ps_p, ctx_p = plain(raster.raster_planes_plain, prep, True)
@@ -1207,7 +1307,7 @@ def main() -> int:
                 "also_replaces": "f_renderer_tpu/shaders/texture_pallas.py:95 (csrc/sampler.cuh)",
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                 "wrapper_ms": w_ms, "bound_ms_every_pixel": b2_ms, "bound_by_every_pixel": b2_by,
-                "bytes": nbytes, "ops": ops, "ops_every_pixel": ops_every,
+                "bytes": nbytes, "ops": ops, "ops_every_pixel": ops_every, "plan": phong_plan,
             }
             # the epilogue alone: the same launch with every pair list empty
             no_pairs = torch.zeros_like(prep.off)
@@ -1238,14 +1338,15 @@ def main() -> int:
           f"stress4k: th {prep.th}, sort key {key_bits} + {slot_bits} bits: not the packed sort at th = 64")
     args = (prep, stress.pixel_shader, stress.ps_uniform, stress.config)
     stress_got = fused.render_fused_prepared(*args)
+    launch = kernel_call("fused_raster", lambda: fused.render_fused_prepared(*args))
+    plan, _, stress_plan = plan_check(f"stress4k@{ANGLES[0]}", launch, prep)
     ranges = tile_ranges(prep)
-    heavy = sum(f + c >= 256 for f, c, _ in ranges)
     heaviest = max(f + c for f, c, _ in ranges)
-    tiles, what = check_tiles(prep, 5)
+    tiles, what = check_tiles(prep, 5, plan=plan)
     log(f"  stress4k@{ANGLES[0]}: th={prep.th} slots {tri.num_slots} clipped {int(stats['num_clipped'])} "
         f"pair columns {prep.tri_i32.shape[1]} ranges {range_sizes(prep)} (fine/coarse/spill), tiles "
-        f"{len(ranges)}, heavy tiles (>= 256 fine + coarse pairs, rows interleaved) {heavy}, heaviest tile "
-        f"{heaviest} pairs; sort key {key_bits} + {slot_bits} = {key_bits + slot_bits} bits (packed)")
+        f"{len(ranges)}, rows interleaved in {stress_plan['rows']}, heaviest tile {heaviest} fine + coarse "
+        f"pairs; sort key {key_bits} + {slot_bits} = {key_bits + slot_bits} bits (packed)")
     log(f"  stress4k tiles checked: {'; '.join(what)}")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1258,7 +1359,15 @@ def main() -> int:
                                  [crop_tiles(t, tiles, prep.th) for t in want])
     del want
     p_err, portable_ms = compare_portable(f"stress4k@{ANGLES[0]}", tri, prep, tiles, stress_got, sw, sh)
-    launch = kernel_call("fused_raster", lambda: fused.render_fused_prepared(*args))
+    # a cap that most tiles' culled lists pass: those keep their whole ranges, and the frame stays the same
+    plan64, got64, stress_plan64 = plan_check(f"stress4k@{ANGLES[0]}", launch, prep, cap=64)
+    for part, a, b in zip(("frame", "depth", "winner"), fused._finish(*got64, prep), stress_got):
+        check(torch.equal(a, b), f"stress4k: K1 {part}s with cull cap 64 ({stress_plan64['overflow']} tiles "
+              f"overflowed) differ from the default cap's")
+    check(stress_plan64["overflow"] > 0, "stress4k: no tile overflowed a cull cap of 64")
+    log(f"  stress4k K1 with cull cap 64: frame, depth and winner equal the default cap's "
+        f"({stress_plan64['overflow']} tiles overflowed)")
+    del plan64, got64
     k_ms = [device_ms(launch, 10) for _ in range(2)]
     no_pairs = torch.zeros_like(prep.off)
     k_empty = [device_ms(lambda: launch(no_pairs), 10) for _ in range(2)]
@@ -1280,7 +1389,8 @@ def main() -> int:
         stress4k_bound_by_every_pixel=b2_by, stress4k_bytes=nbytes, stress4k_ops=ops,
         stress4k_ops_every_pixel=ops_every, stress4k_max_abs_err=f_err, stress4k_max_abs_err_depth=max(d_err, p_err),
         stress4k_th=prep.th, stress4k_pair_columns=prep.tri_i32.shape[1], stress4k_ranges=range_sizes(prep),
-        stress4k_heavy_tiles=heavy, stress4k_tiles=len(ranges), stress4k_heaviest_tile_pairs=heaviest,
+        stress4k_plan=stress_plan, stress4k_plan_cap64=stress_plan64, stress4k_tiles=len(ranges),
+        stress4k_heaviest_tile_pairs=heaviest,
         stress4k_sort_bits=key_bits + slot_bits,
     )
     del launch
@@ -1349,6 +1459,12 @@ def main() -> int:
                 frame_p = plain(shade.shade_from_planes, ctx_p, ps_p, winner_p, scene.pixel_shader,
                                 scene.ps_uniform, codec, background=bg)
                 worst_frame4 = max(worst_frame4, frame_bar(f"{tag} frame", frame_k, frame_p)[0])
+                # K4 at custom12_360 (C = 12): its plan and device time
+                launch = kernel_call("raster_planes", lambda: raster.raster_planes(prep, True))
+                _, _, rows["K4"]["custom12_360_plan"] = plan_check(f"{scene_name}@{angle} K4", launch, prep)
+                rows["K4"]["custom12_360_ms"] = [device_ms(launch, 20) for _ in range(2)]
+                log(f"  {scene_name}@{angle} K4 time (rasterize_interp, C={prep.n_ctx}): "
+                    f"{' / '.join(f'{v:.4f}' for v in rows['K4']['custom12_360_ms'])} ms (device; {smi})")
                 continue
             # K3 on the main path's samples: the texture id where a pair won, uv.
             psm = torch.where(winner_k >= 0, ps_k, -1).contiguous()
@@ -1370,6 +1486,7 @@ def main() -> int:
                 continue
             tex2048_frame = frame_k.clone()
             launch = kernel_call("raster_planes", lambda: raster.raster_planes(prep, True))
+            _, _, k4_plan = plan_check(f"{scene_name}@{angle} K4", launch, prep)
             k_ms, p_ms, w_ms, each = timed(lambda: raster.raster_planes(prep, True), launch,
                                            lambda: raster.raster_planes_plain(prep, True), 20)
             # epilogue per pixel: interpolation of C varyings (~20 + 5C)
@@ -1382,7 +1499,7 @@ def main() -> int:
                 "replaces": "f_renderer_tpu/pipeline/raster_pallas.py:1562",
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                 "wrapper_ms": w_ms, "bound_ms_every_pixel": b2_ms, "bound_by_every_pixel": b2_by,
-                "bytes": nbytes, "ops": ops, "ops_every_pixel": ops_every,
+                "bytes": nbytes, "ops": ops, "ops_every_pixel": ops_every, "plan": k4_plan,
             }
             # the epilogue alone: every pair list empty, all 3 + C planes of background
             no_pairs = torch.zeros_like(prep.off)

@@ -103,9 +103,9 @@ fused_raster_kernel(const FrFusedParams p, const int32_t* __restrict__ tri_i32,
                     const float* __restrict__ tri_f32, const float* __restrict__ view_pos,
                     const int32_t* __restrict__ dims, const int32_t* __restrict__ texels,
                     int32_t* __restrict__ rgba, float* __restrict__ depth_out,
-                    int32_t* __restrict__ winner_out, const TileDesc* desc) {
+                    int32_t* __restrict__ winner_out, const int32_t* plan) {
   const int oy = kOrigin ? p.oy : 0, ox = kOrigin ? p.ox : 0;
-  const TileSlot at = tile_slot(p.th, p.ntx, desc, oy, ox);
+  const TileSlot at = tile_slot(p.th, p.ntx, p.nty, plan, oy, ox);
   const int cx = at.cx;
   const float pcx = (float)cx + 0.5f;
   const size_t np = (size_t)p.n_pairs;
@@ -151,12 +151,12 @@ template <bool kOrigin>
 cudaError_t launch_fused(const FrFusedParams& p, const int32_t* off, const int32_t* tri_i32,
                          const float* tri_f32, const float* view_pos, const int32_t* dims,
                          const int32_t* texels, int32_t* rgba, float* depth, int32_t* winner,
-                         TileDesc* desc, cudaStream_t s) {
-  return launch_after_order<kOrigin>(p.th == 4 ? fused_raster_kernel<1, kOrigin>
+                         int32_t* plan, int cap, cudaStream_t s) {
+  return launch_after_plan<kOrigin>(p.th == 4 ? fused_raster_kernel<1, kOrigin>
                                                : fused_raster_kernel<RT_MAX, kOrigin>,
-                                     p.th, p.ntx, p.nty, p.oy, p.ox, off, tri_i32, p.n_pairs, desc,
-                                     s, p, tri_i32, tri_f32, view_pos, dims, texels, rgba, depth,
-                                     winner, desc);
+                                     p.th, p.ntx, p.nty, p.oy, p.ox, off, tri_i32, tri_f32, p.n_pairs,
+                                     plan, cap, s, p, tri_i32, tri_f32, view_pos, dims, texels, rgba,
+                                     depth, winner, (const int32_t*)plan);
 }
 
 }  // namespace
@@ -164,18 +164,18 @@ cudaError_t launch_fused(const FrFusedParams& p, const int32_t* off, const int32
 extern "C" int fr_fused_raster(FrFusedParams p, const int32_t* off, const int32_t* tri_i32,
                                const float* tri_f32, const float* view_pos,
                                const int32_t* dims, const int32_t* texels, int32_t* rgba,
-                               float* depth, int32_t* winner, int32_t* tiles, void* stream) {
-  if (p.n_ctx < 1 || p.n_ctx > MAX_CTX) return (int)cudaErrorInvalidValue;
+                               float* depth, int32_t* winner, int32_t* tiles, int cap,
+                               void* stream) {
+  if (p.n_ctx < 1 || p.n_ctx > MAX_CTX || cap < 0) return (int)cudaErrorInvalidValue;
   if (p.th != 4 && p.th != 8 && p.th != 16 && p.th != 32 && p.th != 64 && p.th != 128) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
-  TileDesc* desc = reinterpret_cast<TileDesc*>(tiles);
   return (int)(p.oy != 0 || p.ox != 0
                    ? launch_fused<true>(p, off, tri_i32, tri_f32, view_pos, dims, texels, rgba,
-                                        depth, winner, desc, s)
+                                        depth, winner, tiles, cap, s)
                    : launch_fused<false>(p, off, tri_i32, tri_f32, view_pos, dims, texels, rgba,
-                                         depth, winner, desc, s));
+                                         depth, winner, tiles, cap, s));
 }
 
 extern "C" const char* fr_error_string(int err) {

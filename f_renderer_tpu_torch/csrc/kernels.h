@@ -34,22 +34,25 @@ typedef struct FrFusedParams {
 //   tri_i32  (12, n_pairs) setup rows, tri_f32 (9 + 3C, n_pairs)
 //   view_pos (3), dims (t_count, 2) (h, w), texels (t_count, hmax, wmax)
 //   rgba / depth / winner: (nty*th, w_pad) outputs
-//   tiles    (ntx*nty*8) int32 scratch, 16-byte aligned: the tiles' pair
-//            ranges, heaviest first (TileDesc, raster_loop.cuh)
+//   tiles    (ntx*nty*(9 + 20*cap)) int32 scratch, 16-byte aligned: the
+//            tile plan (raster_loop.cuh): each tile's descriptor, heaviest
+//            first, its count of culled pairs and the staged records of at
+//            most cap of its coarse and spill pairs
 int fr_fused_raster(FrFusedParams p, const int32_t* off, const int32_t* tri_i32,
                     const float* tri_f32, const float* view_pos, const int32_t* dims,
                     const int32_t* texels, int32_t* rgba, float* depth,
-                    int32_t* winner, int32_t* tiles, void* stream);
+                    int32_t* winner, int32_t* tiles, int cap, void* stream);
 
 // Non-fused raster (K4) over the same binned pair list: depth / winner
 // (nty*th, ntx*128) planes and, when ps is not null, the texture id plane and
 // the (n_ctx, nty*th, ntx*128) varying planes (ctx may be null if n_ctx is 0)
-// of the rectangle at the frame's pixel (oy, ox); tiles is scratch, as for
+// of the rectangle at the frame's pixel (oy, ox); tiles and cap as for
 // fr_fused_raster.
 int fr_raster_planes(int th, int ntx, int nty, int n_pairs, int n_ctx, int oy, int ox,
                      const int32_t* off,
                      const int32_t* tri_i32, const float* tri_f32, float* depth,
-                     int32_t* winner, int32_t* ps, float* ctx, int32_t* tiles, void* stream);
+                     int32_t* winner, int32_t* ps, float* ctx, int32_t* tiles, int cap,
+                     void* stream);
 
 // Batched bilinear sampler (K3): n samples (ps, u, v) → out (4, n) f32.
 int fr_sample_bilinear(const int32_t* dims, const int32_t* texels, int t_count, int hmax,

@@ -2,11 +2,11 @@
 // and the non-fused raster kernel (K4, raster_planes.cu). A (th, 128) bin
 // tile is shared by S = th / (4 RT) thread blocks of 128 x 4 threads; each
 // thread owns RT rows (RT = 2, or 1 at th = 4) of one pixel column: each
-// warp an 8-column patch of 4 RT rows, or, in the few heaviest tiles, 32
-// columns of RT rows interleaved over the tile (tile_slot).
+// warp an 8-column patch of 4 RT rows, or, in an outlier tile, 32 columns
+// of RT rows interleaved over the tile (tile_slot).
 //
-// Over the tile's own fine pair range, its coarse-bin range and the shared
-// spill range it computes, per pixel: affine int32 edges (wrapped: computed
+// Over the tile's own fine pair range and the coarse and spill pairs that
+// reach it, it computes, per pixel: affine int32 edges (wrapped: computed
 // in uint32), e12 = area2 - e01 - e20, the sign-OR cover test against the
 // exclusive bbox max, |cross| barycentrics with an s != 0 guard, rhw, and
 // the strict (rhw, order) maximum, recording the winning pair. The grid may
@@ -14,59 +14,59 @@
 // top-left pixel is (oy, ox): every test, the bbox culling and the pixel
 // centres use frame coordinates, so a slab is bit-equal to the crop of the
 // whole frame; only the kernels' stores subtract the origin. The origin is
-// a compile-time flag (kOrigin) of the order pass and of both kernels: at
-// (0, 0) they compile to the code they had before the origin, since the
-// two live values it adds cost K4 2% on an H100 (PERF.md). This is the
-// loop of f_renderer_tpu/pipeline/raster_pallas.py:_make_kernel (the
-// tri_body at :773-889); its plain version is
-// pipeline/raster.py:raster_tiles_plain. With --fmad=false and IEEE
-// division the results match the plain version to the bit.
+// a compile-time flag (kOrigin) of the plan pass and of both kernels: at
+// (0, 0) they compile to code without it, since the two live values it adds
+// cost K4 2% on an H100 (PERF.md). This is the loop of
+// f_renderer_tpu/pipeline/raster_pallas.py:_make_kernel (the tri_body at
+// :773-889); its plain version is pipeline/raster.py:raster_tiles_plain
+// (the plan: raster.tile_plan_plain). With --fmad=false and IEEE division
+// the results match the plain version to the bit.
 //
-// What bounds it on the card: a block's latency. Two blocks fit an SM (64
-// registers), and a per-block trace of K4 at phong1080 (%globaltimer,
+// What bounds it on the card: a block's latency. Two blocks fit an SM
+// (<= 64 registers), and a per-block trace of K4 at phong1080 (%globaltimer,
 // tools/k4_trace.py) showed all 264 resident slots busy for the whole
-// kernel: its time was the sum of its blocks' latencies over 264, not bytes
-// or issue.
-// That sum is the (pair, pixel) work inside each pair's bbox as
-// latency-bound chains of pairs and rows on the warps whose pixels the pairs
-// touch, the prologue every block pays (its tile, then its first chunk),
-// and the epilogue. With the design below the sum fell by a quarter, and
-// the sphere's two pole tiles (>= 256 pairs each, ~40 us of loop) became
-// the critical path as well. The design:
+// kernel: its time is the sum of its blocks' latencies over 264, not bytes
+// or issue. That sum is the pair records each block stages and ballots, the
+// (pair, pixel) work inside each pair's bbox as latency-bound chains on the
+// warps whose pixels the pairs touch, the prologue (its tile, then its first
+// chunk) and the epilogue; the heaviest tiles' chains can be the critical
+// path as well. At stress4k (a million small triangles, 1,020 tiles of 64
+// rows) whole lists and a fixed threshold for rows (256 pairs) spent 1.79
+// of K1's 4.20 ms staging and balloting pairs that could not reach the
+// block, and walked 460 tiles in rows interleaved (tools/k1_split.py,
+// PERF.md). The design:
+//  - the plan pass (tile_plan_kernel, one block a tile) places each tile in
+//    the raster grid's order, heaviest first, chooses its layout, and culls
+//    its coarse and spill ranges to the pairs whose bbox meets the tile,
+//    copying their records into the plan; the raster grid starts behind it
+//    by programmatic dependent launch, and a block finds its tile, ranges
+//    and layout in one dependent load;
+//  - the warps' pixel layout (tile_slot): 8 x 8 patches, where a small
+//    triangle touches fewer warps and fills more lanes than a 32-pixel row;
+//    rows interleaved over the blocks only in an outlier tile whose blocks
+//    would bound the kernel (the sphere's poles at phong1080), so no warp
+//    there carries a long chain; each layout a compile-time walk;
+//  - in a tile of patches longer than a chunk, each block walks only the
+//    pairs whose bbox rows meet its own (select_rows): 0.28 of the records
+//    at stress4k;
 //  - warp-level bbox culling: the 32 lanes of a warp test 32 staged pairs'
 //    bboxes [MINXY, MAXXY) against the warp's columns and rows at once, and
 //    the warp walks only the pairs of the ballot, skipping its rows outside
-//    [min_y, max_y). Both tests are warp-uniform branches. They are exact
-//    because every pixel the cover test accepts lies inside its pair's
-//    bbox (the edges bound it from below, MAXXY from above;
-//    tests/test_torch_raster.py pins it), and the merge does not depend on
-//    the order of the pairs;
-//  - the warps' pixel layout (tile_slot): 8 x 8 patches, where a small
-//    triangle touches fewer warps and fills more lanes than a 32-pixel row
-//    (a CPU model of the ballot at phong1080, tools/raster_model.py: 38%
-//    fewer instructions, 26% less summed block chains); rows interleaved
-//    over the blocks in the heaviest tiles, so no warp there carries a long
-//    chain;
-//  - the order pass (tile_order_kernel) writes each tile's descriptor
-//    (its three ranges, 32 bytes) heaviest tile first, so the longest
-//    chains start at once and a block finds its ranges in one dependent
-//    load; the raster grid starts behind it by programmatic dependent
-//    launch, and the pass empties the list of a tile that none of its
-//    pairs' bboxes reaches (332 of phong1080's 510 tiles,
-//    tools/raster_model.py), whose blocks then
-//    write the background without staging anything;
-//  - the three ranges are one list, staged in chunks of 128 pair records of
-//    80 bytes (read as five 16-byte broadcasts) by 4-byte cp.async copies
-//    into two buffers, so chunk i + 1 loads while chunk i runs;
+//    [min_y, max_y). Every cut (tile, block, warp, row) is exact because
+//    every pixel the cover test accepts lies inside its pair's bbox (the
+//    edges bound it from below, MAXXY from above; tests/test_torch_raster.py
+//    pins it), and the merge does not depend on the order of the pairs;
+//  - the list is staged in chunks of 128 pair records of 80 bytes (read as
+//    five 16-byte broadcasts) by 4-byte cp.async copies into two buffers,
+//    so chunk i + 1 loads while chunk i runs (three buffers read no faster);
 //  - each pixel carries only (depth, pair): the winner's order, needed on
-//    an exact rhw tie alone, is read back from device memory then; the
-//    kernels fit two blocks an SM in 64 registers (three, in 40, spilled
-//    and measured no faster: PERF.md).
+//    an exact rhw tie alone, is read back from device memory then.
 // Measured slower and dropped (PERF.md): a persistent grid taking slots
 // from an atomic ticket, or statically; heaviest and lightest tiles in
 // turn; the heaviest tiles' lists cut into parts over more blocks, folded
-// by the last part (it halved the pole tiles' chain, yet K4 with varyings
-// read slower).
+// by the last part; a separate cull pass ahead of a one-block order pass
+// (its blocks held the SMs the raster grid waits on); culled lists read
+// through a column index; a runtime layout inside the walk.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,131 +94,237 @@ constexpr int RT_MAX = 2;   // rows per thread (1 at th = 4)
 __host__ __device__ constexpr int rows_per_thread(int th) { return th < TY * RT_MAX ? 1 : RT_MAX; }
 __host__ __device__ constexpr int blocks_per_tile(int th) { return th / (TY * rows_per_thread(th)); }
 
-// A tile's pair list as the raster blocks walk it: its fine, coarse and
-// spill ranges one after another, starting at starts[0..2], with len0 /
-// len01 / total pairs up to the end of each. Eight words, one 32-byte
-// sector, so a block reads its tile in one load.
+// A tile's pair list as the raster blocks walk it: its fine range, then its
+// coarse and spill ranges, pairs v = 0 .. total - 1 in that order. Fine pair
+// v < len0 is column starts[0] + v. A culled tile (TILE_CULLED, the rule)
+// has no coarse range (len01 = len0): its pairs v >= len0 are the coarse and
+// spill pairs whose bbox meets the tile (tile_plan_kernel), whose staged
+// records the plan pass wrote to the plan, field f of pair v at word
+// starts[2] + f * starts[1] + v - len0 of its record area. A tile whose
+// culled list would overflow (TILE_OVERFLOW) keeps both ranges whole: coarse
+// pair v < len01 is column starts[1] + v - len0, spill pair v >= len01
+// column starts[2] + v - len01. TILE_ROWS: the tile's rows are interleaved
+// over its blocks (tile_slot). Eight words, one 32-byte sector, so a block
+// reads its tile in one load.
+constexpr int TILE_ROWS = 1, TILE_CULLED = 2, TILE_OVERFLOW = 4;
 struct __align__(16) TileDesc {
   int t, len0, len01, total;
-  int starts[3], pad;
+  int starts[3], flags;
 };
 
-// Heaviest tiles first: one block of 1024 threads writes every tile's
-// descriptor to desc (ntiles,), the tiles with the most pairs in their fine
-// and coarse ranges (the spill range is every tile's) first, bucketed by the
-// pairs' floor(log2). Block b of the raster grid takes slice b % S of tile
-// desc[b / S], so the longest tiles start in the first wave, and a block
-// finds its tile and its ranges in one dependent load instead of the tile id
-// and then its offsets. Any order gives the same pixels.
-constexpr int ORDER_THREADS = 1024;
-// A tile with no fine pairs and at most this many coarse and spill pairs
-// has their bboxes tested against its pixels by the order pass.
-constexpr int TOUCH_SCAN = 32;
+// The tile plan, in one int32 scratch buffer of ntiles * (9 + REC * cap)
+// words: the descriptors (8 words a tile, in the order the raster grid takes
+// the tiles), each tile's count of culled pairs, then each tile's record
+// area, the staged records of its first cap culled pairs field by field
+// (REC rows of cap words).
+__host__ __device__ constexpr size_t plan_counts(int ntiles) { return (size_t)ntiles * 8; }
+__host__ __device__ constexpr size_t plan_records(int ntiles) { return (size_t)ntiles * 9; }
 
-__device__ __forceinline__ TileDesc tile_desc(const int32_t* __restrict__ off, int t, int ntx,
-                                              int nty) {
-  const int ntiles = ntx * nty, ntxc = (ntx + COARSE - 1) / COARSE;
-  const int c = ntiles + (t / ntx / COARSE) * ntxc + (t % ntx) / COARSE;
-  const int s = ntiles + ntxc * ((nty + COARSE - 1) / COARSE);
-  TileDesc d;
-  d.t = t;
-  d.starts[0] = off[t], d.starts[1] = off[c], d.starts[2] = off[s];
-  d.len0 = off[t + 1] - d.starts[0];
-  d.len01 = d.len0 + off[c + 1] - d.starts[1];
-  d.total = d.len01 + off[s + 1] - d.starts[2];
-  d.pad = 0;
-  return d;
+// Whether the bbox [mn, mx) (packed x | y << 16, frame pixels) meets the
+// rectangle [x0, x0 + TW) x [y0, y0 + th).
+__device__ __forceinline__ bool bbox_meets(int mn, int mx, int x0, int y0, int th) {
+  return (mn & 0xFFFF) < x0 + TW && (mx & 0xFFFF) > x0 && (mn >> 16) < y0 + th && (mx >> 16) > y0;
 }
 
-// Whether any pair of tile d's list may cover one of its pixels. Fine
-// pairs reach their tile by the binning; the coarse and spill pairs of a
-// tile with no fine pairs, at most TOUCH_SCAN of them, have their bboxes
-// tested against the tile (an accepted pixel lies in its pair's bbox).
-// A tile that none reaches is background: the order pass empties its list,
-// so its raster blocks stage nothing.
-__device__ __forceinline__ bool reached(const TileDesc& d, const int32_t* __restrict__ tri_i32,
-                                        size_t np, int ntx, int th, int oy, int ox) {
-  if (d.len0 != 0 || d.total > TOUCH_SCAN) return true;
-  const int x0 = ox + (d.t % ntx) * TW, y0 = oy + (d.t / ntx) * th;  // frame coordinates, as the bboxes
-  bool any = false;
-#pragma unroll 8
-  for (int v = 0; v < d.total; ++v) {  // independent loads: no early exit
-    const int pair = v < d.len01 ? d.starts[1] + v : d.starts[2] + (v - d.len01);
-    const int mn = __ldg(tri_i32 + MINXY * np + pair), mx = __ldg(tri_i32 + MAXXY * np + pair);
-    any |= (mn & 0xFFFF) < x0 + TW && (mx & 0xFFFF) > x0 && (mn >> 16) < y0 + th &&
-           (mx >> 16) > y0;
-  }
-  return any;
-}
-
-// The bucket of a tile: floor(log2) of the pairs in its fine and coarse
-// ranges, 0 for none.
-__device__ __forceinline__ int tile_weight(const TileDesc& d) {
-  return d.len01 > 0 ? 32 - __clz(d.len01) : 0;  // 0 .. 32
-}
-
-// atomicAdd(&slot[w], 1) for each active lane, one atomic per distinct w
-// in the warp (most tiles share a bucket) → the lane's position.
-__device__ __forceinline__ int bucket_add(int* slot, int w, bool active) {
-  const unsigned act = __ballot_sync(0xFFFFFFFFu, active);
-  if (!active) return 0;
-  const unsigned peers = __match_any_sync(act, w);
-  const int leader = __ffs(peers) - 1, lane = threadIdx.x & 31;
-  int base = 0;
-  if (lane == leader) base = atomicAdd(&slot[w], __popc(peers));
-  return __shfl_sync(peers, base, leader) + __popc(peers & ((1u << lane) - 1u));
-}
+// The plan pass, one block a tile, no block waiting for another: block t
+// writes tile t's descriptor at its place in the raster grid's order and
+// culls tile t's coarse and spill ranges.
+//
+// The order: the tiles with the most pairs in their fine range first,
+// bucketed by floor(log2), in tile order within a bucket; block b of the
+// raster grid takes slice b % S of the tile whose descriptor is b / S, so
+// the longest tiles start in the first wave, and a block finds its tile,
+// its ranges and its layout in one dependent load. Every block reads every
+// tile's fine count (ntiles words, once a block) to find its tile's place.
+// Any order and any layout give the same pixels.
+//
+// The layout: rows interleaved (TILE_ROWS) in an outlier, a tile of w fine
+// pairs that holds at least four times the mean of the frame's n tiles with
+// fine pairs, w * n >= 4 * W (W the sum of every tile's w), and whose blocks
+// would bound the kernel, one block's share of it outweighing twice a
+// resident slot's share of the frame, w * slots >= 2 * S * W (slots the
+// raster blocks the card holds at once); patches everywhere else. A tile of
+// many small triangles takes patches: in rows its blocks' chains are ~1.9x
+// longer (stress4k, and the tiles of a small frame of such triangles that
+// bound the kernel); an outlier is a place where triangles converge, such
+// as the sphere's pole, whose busiest patch would walk nearly all of its
+// pairs. It takes phong1080's two pole tiles (557 and 519 fine pairs; a
+// fixed threshold of 256 pairs takes the same) and no tile of stress4k
+// (5,685 against a threshold of 10,659) (tools/raster_model.py).
+//
+// The cull: the coarse and spill pairs whose bbox meets the tile, in list
+// order, the staged records of the first cap of them to the tile's record
+// area. Exact: every pixel the cover test accepts lies inside its pair's
+// bbox (tests/test_torch_raster.py pins it). At stress4k it keeps 84,380 of
+// the 478,480 coarse entries and 6,204 of the 1,582,020 spill entries of the
+// tiles' lists (tools/raster_model.py), which every block of every tile
+// staged and balloted before. A tile with more than cap keeps both ranges
+// whole (TILE_OVERFLOW). The pass copies the kept records, so the raster
+// blocks stage them as they stage a range, with no dependent load of a pair
+// column (which cost K1 0.093 ms at stress4k on an H100: PERF.md); a list of
+// at most PLAN_ROUND pairs loads every record with its bbox. A tile that
+// no pair reaches (no fine pair, none culled) gets an empty list: its blocks
+// write the background and stage nothing.
+// Blocks of 64 threads, each testing two pairs a round, in 64 registers:
+// the raster grid's blocks (launched behind the pass) find room on the SMs
+// beside them and start the moment the pass ends (256-thread blocks, or
+// four pairs a thread in 128 registers, left less and cost K1 up to 0.003
+// ms at phong1080 on an H100: PERF.md).
+constexpr int PLAN_THREADS = 64, PLAN_PAIRS = 2;
+constexpr int PLAN_ROUND = PLAN_THREADS * PLAN_PAIRS;
 
 template <bool kOrigin>
-static __global__ void __launch_bounds__(ORDER_THREADS)
-tile_order_kernel(const int32_t* __restrict__ off, const int32_t* __restrict__ tri_i32, size_t np,
-                  int ntx, int nty, int th, int origin_y, int origin_x, TileDesc* __restrict__ desc) {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::);  // the raster grid may start
+static __global__ void __launch_bounds__(PLAN_THREADS)
+tile_plan_kernel(const int32_t* __restrict__ off, const int32_t* __restrict__ tri_i32,
+                 const float* __restrict__ tri_f32, size_t np, int ntx, int nty, int th,
+                 int origin_y, int origin_x, int cap, int slots, int32_t* __restrict__ plan) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);  // the raster grid may start, and waits
   const int oy = kOrigin ? origin_y : 0, ox = kOrigin ? origin_x : 0;
-  __shared__ int slot[33];
-  const int ntiles = ntx * nty;
-  if (threadIdx.x < 33) slot[threadIdx.x] = 0;
+  constexpr int WARPS = PLAN_THREADS / 32;
+  __shared__ int heavier, before_t, warp_kept[PLAN_PAIRS][WARPS];
+  __shared__ unsigned long long frame_pairs, frame_tiles;
+  const int t = (int)blockIdx.x, ntiles = ntx * nty;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ntxc = (ntx + COARSE - 1) / COARSE;
+  const int c = ntiles + (t / ntx / COARSE) * ntxc + (t % ntx) / COARSE;
+  const int s = ntiles + ntxc * ((nty + COARSE - 1) / COARSE);
+  const int f0 = off[t], w = off[t + 1] - f0;
+  const int c0 = off[c], nc = off[c + 1] - c0, s0 = off[s], n = nc + off[s + 1] - s0;
+  const int bucket = w > 0 ? 32 - __clz(w) : 0;
+  if (threadIdx.x == 0) heavier = before_t = 0, frame_pairs = frame_tiles = 0;
   __syncthreads();
-  uint32_t unreached = 0;  // bit i: this thread's tile of round i (the first 32 rounds)
-  // whole warps in every round: bucket_add synchronises them
-  for (int t0 = 0, i = 0; t0 < ntiles; t0 += ORDER_THREADS, ++i) {
-    const int t = t0 + threadIdx.x;
-    const TileDesc d = tile_desc(off, t < ntiles ? t : 0, ntx, nty);
-    if (t < ntiles && i < 32 && !reached(d, tri_i32, np, ntx, th, oy, ox)) unreached |= 1u << i;
-    bucket_add(slot, tile_weight(d), t < ntiles);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {  // each bucket's first position, heaviest bucket first
-    int at = 0;
-    for (int w = 32; w >= 0; --w) {
-      const int n = slot[w];
-      slot[w] = at;
-      at += n;
+  // every tile's bucket: the tiles in heavier buckets, those of t's bucket
+  // before t, W and n
+  {
+    int k_heavier = 0, k_before = 0;
+    unsigned long long sum = 0, tiles = 0;
+#pragma unroll 4
+    for (int u = threadIdx.x; u < ntiles; u += PLAN_THREADS) {
+      const int wu = off[u + 1] - off[u], bu = wu > 0 ? 32 - __clz(wu) : 0;
+      k_heavier += bu > bucket;
+      k_before += bu == bucket && u < t;
+      sum += (unsigned long long)wu;
+      tiles += wu > 0;
+    }
+#pragma unroll
+    for (int k = 16; k > 0; k >>= 1) {
+      k_heavier += __shfl_xor_sync(0xFFFFFFFFu, k_heavier, k);
+      k_before += __shfl_xor_sync(0xFFFFFFFFu, k_before, k);
+      sum += __shfl_xor_sync(0xFFFFFFFFu, sum, k);
+      tiles += __shfl_xor_sync(0xFFFFFFFFu, tiles, k);
+    }
+    if (lane == 0) {
+      atomicAdd(&heavier, k_heavier);
+      atomicAdd(&before_t, k_before);
+      atomicAdd(&frame_pairs, sum);
+      atomicAdd(&frame_tiles, tiles);
     }
   }
-  __syncthreads();
-  for (int t0 = 0, i = 0; t0 < ntiles; t0 += ORDER_THREADS, ++i) {
-    const int t = t0 + threadIdx.x;
-    TileDesc d = tile_desc(off, t < ntiles ? t : 0, ntx, nty);
-    const int at = bucket_add(slot, tile_weight(d), t < ntiles);
-    if (i < 32 && (unreached >> i) & 1u) d.len01 = d.total = 0;  // an emptied tile keeps its place
-    if (t < ntiles) desc[at] = d;
+  // the cull, PLAN_PAIRS pairs a thread a round: pair v0 + k PLAN_THREADS + tid
+  const bool one_round = n <= PLAN_ROUND;  // block-uniform
+  const int x0 = ox + (t % ntx) * TW, y0 = oy + (t / ntx) * th;  // frame coordinates, as the bboxes
+  const int32_t* f32 = reinterpret_cast<const int32_t*>(tri_f32);
+  int32_t* out = plan + plan_records(ntiles) + (size_t)t * REC * cap;
+  int kept = 0;  // block-uniform
+  for (int v0 = 0; v0 < n; v0 += PLAN_ROUND) {
+    int r[PLAN_PAIRS][REC];
+    bool keep[PLAN_PAIRS];
+#pragma unroll
+    for (int k = 0; k < PLAN_PAIRS; ++k) {
+      const int v = v0 + k * PLAN_THREADS + (int)threadIdx.x;
+      const int pair = v < nc ? c0 + v : s0 + (v - nc);
+      r[k][REC_PAIR] = pair;
+      r[k][REC_MINXY] = v < n ? __ldg(tri_i32 + MINXY * np + pair) : 0;
+      r[k][REC_MAXXY] = v < n ? __ldg(tri_i32 + MAXXY * np + pair) : 0;
+      if (one_round && v < n) {  // the whole record, with the bbox
+#pragma unroll
+        for (int f = 0; f < REC_MAXXY; ++f) r[k][f] = __ldg(tri_i32 + f * np + pair);
+#pragma unroll
+        for (int f = REC_F; f < REC_PAIR; ++f) r[k][f] = __ldg(f32 + (f - REC_F) * np + pair);
+      }
+    }
+    uint32_t m[PLAN_PAIRS];
+#pragma unroll
+    for (int k = 0; k < PLAN_PAIRS; ++k) {
+      const int v = v0 + k * PLAN_THREADS + (int)threadIdx.x;
+      keep[k] = v < n && bbox_meets(r[k][REC_MINXY], r[k][REC_MAXXY], x0, y0, th);
+      if (!one_round && keep[k]) {  // the rest of its record, in flight while the block compacts
+        const int pair = r[k][REC_PAIR];
+#pragma unroll
+        for (int f = 0; f < REC_MAXXY; ++f) r[k][f] = __ldg(tri_i32 + f * np + pair);
+#pragma unroll
+        for (int f = REC_F; f < REC_PAIR; ++f) r[k][f] = __ldg(f32 + (f - REC_F) * np + pair);
+      }
+      m[k] = __ballot_sync(0xFFFFFFFFu, keep[k]);
+      if (lane == 0) warp_kept[k][warp] = __popc(m[k]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < PLAN_PAIRS; ++k) {
+      int before = 0, all = 0;
+#pragma unroll
+      for (int q = 0; q < WARPS; ++q) {
+        before += q < warp ? warp_kept[k][q] : 0;
+        all += warp_kept[k][q];
+      }
+      const int at = kept + before + __popc(m[k] & ((1u << lane) - 1u));
+      if (keep[k] && at < cap) {
+#pragma unroll
+        for (int f = 0; f < REC; ++f) out[(size_t)f * cap + at] = r[k][f];
+      }
+      kept += all;
+    }
+    __syncthreads();  // warp_kept is rewritten in the next round
   }
+  __syncthreads();  // the order's sums (an empty cull has no barrier)
+  if (threadIdx.x != 0) return;
+  plan[plan_counts(ntiles) + t] = kept;
+  TileDesc d;
+  d.t = t;
+  d.starts[0] = f0;
+  d.len0 = w;
+  if (kept <= cap) {  // the fine range, then the culled records
+    d.starts[1] = cap;
+    d.starts[2] = t * REC * cap;
+    d.len01 = w;
+    d.total = w + kept;
+    d.flags = TILE_CULLED;
+  } else {  // the three ranges whole
+    d.starts[1] = c0, d.starts[2] = s0;
+    d.len01 = w + nc;
+    d.total = w + n;
+    d.flags = TILE_OVERFLOW;
+  }
+  const unsigned long long u = (unsigned long long)w, W = frame_pairs;
+  if (u > 0 && u * frame_tiles >= 4ull * W &&
+      u * (unsigned long long)slots >= 2ull * (unsigned long long)blocks_per_tile(th) * W) {
+    d.flags |= TILE_ROWS;
+  }
+  reinterpret_cast<TileDesc*>(plan)[heavier + before_t] = d;
 }
 
-// Launch a raster kernel, ntiles * S blocks, behind tile_order_kernel on the
-// same stream with programmatic stream serialization: its blocks start while
-// the order pass runs and wait for it (griddepcontrol.wait in tile_slot).
+// Launch a raster kernel, ntiles * S blocks, behind the plan pass on the
+// same stream by programmatic stream serialization: its blocks start while
+// the plan pass runs and wait for it (griddepcontrol.wait in tile_slot).
+// ``plan`` is the ntiles * (9 + REC * cap) word scratch.
 template <bool kOrigin, typename... Params, typename... Args>
-cudaError_t launch_after_order(void (*kernel)(Params...), int th, int ntx, int nty, int oy,
-                               int ox, const int32_t* off, const int32_t* tri_i32, int n_pairs,
-                               TileDesc* desc, cudaStream_t stream, Args... args) {
-  tile_order_kernel<kOrigin><<<1, ORDER_THREADS, 0, stream>>>(off, tri_i32, (size_t)n_pairs, ntx, nty,
-                                                              th, oy, ox, desc);
-  const cudaError_t err = cudaGetLastError();
+cudaError_t launch_after_plan(void (*kernel)(Params...), int th, int ntx, int nty, int oy, int ox,
+                              const int32_t* off, const int32_t* tri_i32, const float* tri_f32,
+                              int n_pairs, int32_t* plan, int cap, cudaStream_t stream,
+                              Args... args) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int ntiles = ntx * nty;
+  tile_plan_kernel<kOrigin><<<ntiles, PLAN_THREADS, 0, stream>>>(
+      off, tri_i32, tri_f32, (size_t)n_pairs, ntx, nty, th, oy, ox, cap,
+      2 * sms,  // two raster blocks an SM (64 registers)
+      plan);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ntx * nty * blocks_per_tile(th));
+  cfg.gridDim = dim3(ntiles * blocks_per_tile(th));
   cfg.blockDim = dim3(TW, TY);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -234,20 +340,31 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
 }
 
-// Stage the pairs v0 .. v0 + n - 1 of the tile's list (the three ranges one
-// after another) into rec[0 .. n - 1]; the copies are committed as one group.
-__device__ __forceinline__ void stage_chunk(int32_t (*rec)[REC], int v0, int n,
+// The column of the pair at position v of a tile's list (TileDesc), outside
+// its culled records.
+__device__ __forceinline__ int pair_at(const int (&starts)[3], int len0, int len01, int v) {
+  return v < len0 ? starts[0] + v : v < len01 ? starts[1] + (v - len0) : starts[2] + (v - len01);
+}
+
+// Stage the pairs of items v0 .. v0 + n - 1 into rec[0 .. n - 1]: item i is
+// position sel[i] of the tile's list (TileDesc), or position i where sel is
+// null; ``recs`` is the plan's record areas where the tile is culled, else
+// null; the copies are committed as one group.
+__device__ __forceinline__ void stage_chunk(int32_t (*rec)[REC], int v0, int n, const int* sel,
                                             const int (&starts)[3], int len0, int len01,
+                                            const int32_t* __restrict__ recs,
                                             const int32_t* __restrict__ tri_i32,
                                             const float* __restrict__ tri_f32, size_t np,
                                             int tid) {
   for (int e = tid; e < REC * CHUNK; e += TW * TY) {
     const int f = e / CHUNK, j = e % CHUNK;
     if (j >= n) continue;
-    const int v = v0 + j;
-    const int pair = v < len0 ? starts[0] + v
-                     : v < len01 ? starts[1] + (v - len0)
-                                 : starts[2] + (v - len01);
+    const int v = sel != nullptr ? sel[v0 + j] : v0 + j;
+    if (v >= len01 && recs != nullptr) {  // a culled pair: its record as the plan pass wrote it
+      cp_async4(&rec[j][f], recs + starts[2] + f * starts[1] + (v - len01));
+      continue;
+    }
+    const int pair = pair_at(starts, len0, len01, v);
     if (f == REC_PAIR) {
       rec[j][f] = pair;
       continue;
@@ -328,40 +445,40 @@ __device__ __forceinline__ void merge(float rhw, const Pair& p, const int32_t* _
   }
 }
 
-// A tile whose fine and coarse ranges hold at least this many pairs keeps
-// its rows interleaved over its blocks (below).
-constexpr int HEAVY_PAIRS = 256;
 // A warp's patch: PATCH_W columns, PATCH_ROWS rows in each row step.
 constexpr int PATCH_W = 8, PATCH_ROWS = 32 / PATCH_W;
 
-// Where this block's thread sits: block b is slice s = b % S of tile
-// desc[b / S]; the thread owns column cx and rows row0 + step * r, r < RT,
-// in frame coordinates (the grid's top-left pixel is the frame's (oy, ox);
-// a kernel without kOrigin passes the constant 0).
-// Two layouts, by the tile's pairs:
+// Where this block's thread sits: block b is slice s = b % S of the tile
+// whose descriptor is b / S in the plan; the thread owns column cx and rows
+// row0 + step * r, r < RT, in frame coordinates (the grid's top-left pixel
+// is the frame's (oy, ox); a kernel without kOrigin passes the constant 0).
+// Two layouts, as the plan pass chose for the tile (TILE_ROWS):
 //  - patches (most tiles): slice s is the tile's rows [s TY RT, (s + 1) TY
 //    RT), and each warp a patch of PATCH_W columns of them, lane l at
 //    column l % PATCH_W, rows l / PATCH_W + PATCH_ROWS r. A small triangle
 //    touches few warps, and fills more of each warp's lanes;
-//  - interleaved rows (a tile of at least HEAVY_PAIRS pairs, the sphere's
-//    pole at phong1080): slice s takes rows s, s + S, ..., each warp 32
-//    columns of two rows TY S apart, so a small triangle's rows fall to
-//    several warps of several blocks (on several SMs), and the tile that is
-//    the kernel's longest chain of pairs is cut short.
+//  - interleaved rows (a tile heavy enough to bound the kernel, such as
+//    the sphere's pole at phong1080): slice s takes rows s, s + S, ...,
+//    each warp 32 columns of two rows TY S apart, so a small triangle's rows
+//    fall to several warps of several blocks (on several SMs), and the tile
+//    that is the kernel's longest chain of pairs is cut short.
 struct TileSlot {
   TileDesc d;
+  const int32_t* recs;  // the plan's record areas where the tile is culled, else null
   int cx, row0, step;
   bool patch;
 };
 
-__device__ __forceinline__ TileSlot tile_slot(int th, int ntx, const TileDesc* desc, int oy, int ox) {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // tile_order_kernel's desc
+__device__ __forceinline__ TileSlot tile_slot(int th, int ntx, int nty, const int32_t* plan, int oy,
+                                              int ox) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the plan pass's descriptors and records
   const int S = blocks_per_tile(th);
   TileSlot at;
-  at.d = desc[blockIdx.x / S];
+  at.d = reinterpret_cast<const TileDesc*>(plan)[blockIdx.x / S];
+  at.recs = (at.d.flags & TILE_CULLED) ? plan + plan_records(ntx * nty) : nullptr;
   const int s = blockIdx.x % S, tid = (int)threadIdx.y * TW + (int)threadIdx.x;
   const int x0 = ox + (at.d.t % ntx) * TW, y0 = oy + (at.d.t / ntx) * th;
-  at.patch = at.d.len01 < HEAVY_PAIRS;
+  at.patch = (at.d.flags & TILE_ROWS) == 0;
   if (at.patch) {
     const int lane = tid & 31, warp = tid >> 5, across = TW / PATCH_W, rt = rows_per_thread(th);
     at.cx = x0 + PATCH_W * (warp % across) + lane % PATCH_W;
@@ -375,48 +492,45 @@ __device__ __forceinline__ TileSlot tile_slot(int th, int ntx, const TileDesc* d
   return at;
 }
 
-// Walk the tile of slot ``at`` and leave, for each of the thread's R pixels
-// (column at.cx, rows at.row0 + at.step * r), the winning depth (0 if none)
-// and pair column (-1 if none). Every thread of the block must call it (it
-// synchronises the block).
+// A warp's pixels for the ballot: columns [x0, x0 + cols), and in row step
+// r the rows [row0 + step r, row0 + step r + span).
+struct WarpRect {
+  int x0, cols, row0, step, span;
+};
+
+// Walk items 0 .. count - 1 of the tile's list (item i: position sel[i],
+// or i where sel is null) for the thread's R pixels (column cx, rows row0 +
+// step r): the bbox ballot against the warp's rect, then each pair of the
+// ballot, merged into dep / wpair. Double-buffered chunks of CHUNK records.
 template <int R>
-__device__ __forceinline__ void raster_tile(const int32_t* __restrict__ tri_i32,
-                                            const float* __restrict__ tri_f32, size_t np,
-                                            const TileSlot& at, float (&dep)[R], int (&wpair)[R]) {
-  __shared__ __align__(16) int32_t s_rec[2][CHUNK][REC];
+__device__ __forceinline__ void walk_items(int32_t (*s_rec)[CHUNK][REC], int count, const int* sel,
+                                           const int32_t* __restrict__ tri_i32,
+                                           const float* __restrict__ tri_f32, size_t np,
+                                           const TileSlot& at, int step, const WarpRect& wr,
+                                           float (&dep)[R], int (&wpair)[R]) {
   const int tid = threadIdx.y * TW + threadIdx.x;
   const int lane = threadIdx.x & 31;
-  const int cx = at.cx, row0 = at.row0, step = at.step;
+  const int cx = at.cx, row0 = at.row0;
   const float pcx = (float)cx + 0.5f;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    dep[r] = 0.0f;
-    wpair[r] = -1;
-  }
-  // the warp's pixels: columns [wx0, wx0 + wcols), and in row step r the
-  // rows [wrow0 + step * r, wrow0 + step * r + wspan)
-  const int wx0 = cx - (at.patch ? lane % PATCH_W : lane), wcols = at.patch ? PATCH_W : 32;
-  const int wrow0 = row0 - (at.patch ? lane / PATCH_W : 0), wspan = at.patch ? PATCH_ROWS : 1;
   const TileDesc& d = at.d;
-  const int total = d.total;
-  const int nchunks = (total + CHUNK - 1) / CHUNK;
+  const int nchunks = (count + CHUNK - 1) / CHUNK;
 
   if (nchunks > 0) {
-    stage_chunk(s_rec[0], 0, min(CHUNK, total), d.starts, d.len0, d.len01, tri_i32, tri_f32, np,
-                tid);
+    stage_chunk(s_rec[0], 0, min(CHUNK, count), sel, d.starts, d.len0, d.len01, at.recs, tri_i32,
+                tri_f32, np, tid);
   }
   for (int ci = 0; ci < nchunks; ++ci) {
     if (ci + 1 < nchunks) {
       const int v1 = (ci + 1) * CHUNK;
-      stage_chunk(s_rec[(ci + 1) & 1], v1, min(CHUNK, total - v1), d.starts, d.len0, d.len01,
-                  tri_i32, tri_f32, np, tid);
+      stage_chunk(s_rec[(ci + 1) & 1], v1, min(CHUNK, count - v1), sel, d.starts, d.len0, d.len01,
+                  at.recs, tri_i32, tri_f32, np, tid);
       asm volatile("cp.async.wait_group 1;\n" ::);
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::);
     }
     __syncthreads();  // chunk ci is in shared memory for every thread
     const int32_t (*rec)[REC] = s_rec[ci & 1];
-    const int n = min(CHUNK, total - ci * CHUNK);
+    const int n = min(CHUNK, count - ci * CHUNK);
     for (int j0 = 0; j0 < n; j0 += 32) {
       // lane l tests pair j0 + l's bbox against the warp's columns and rows
       bool touch = false;
@@ -426,9 +540,9 @@ __device__ __forceinline__ void raster_tile(const int32_t* __restrict__ tri_i32,
         bool rows = false;
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          rows |= wrow0 + step * r < maxy && wrow0 + step * r + wspan > miny;
+          rows |= wr.row0 + wr.step * r < maxy && wr.row0 + wr.step * r + wr.span > miny;
         }
-        touch = rows && (mn & 0xFFFF) < wx0 + wcols && (mx & 0xFFFF) > wx0;
+        touch = rows && (mn & 0xFFFF) < wr.x0 + wr.cols && (mx & 0xFFFF) > wr.x0;
       }
       uint32_t mask = __ballot_sync(0xFFFFFFFFu, touch);
       while (mask != 0u) {
@@ -446,6 +560,116 @@ __device__ __forceinline__ void raster_tile(const int32_t* __restrict__ tri_i32,
       }
     }
     __syncthreads();  // every warp is done with buffer ci & 1 before it is refilled
+  }
+}
+
+// Positions seg0 .. seg0 + n - 1 (n <= SELECT) of the tile's list whose bbox
+// rows meet [y0, y0 + rows), in order, to sel → their count. Every thread
+// of the block must call it (it synchronises the block).
+constexpr int SELECT = 4 * TW * TY;
+__device__ __forceinline__ int select_rows(int* sel, int seg0, int n, const TileSlot& at, int y0,
+                                           int rows, const int32_t* __restrict__ tri_i32,
+                                           size_t np) {
+  constexpr int WARPS = TW * TY / 32, K = SELECT / (TW * TY);
+  __shared__ int warp_kept[K][WARPS];
+  const int tid = threadIdx.y * TW + threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const TileDesc& d = at.d;
+  bool keep[K];
+  uint32_t m[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {  // every bbox first, then the ballots
+    const int i = k * TW * TY + tid, v = seg0 + i;
+    int mn = 0, mx = 0;
+    if (i < n) {
+      if (v >= d.len01 && at.recs != nullptr) {
+        const int32_t* q = at.recs + d.starts[2] + (v - d.len01);
+        mn = __ldg(q + REC_MINXY * d.starts[1]), mx = __ldg(q + REC_MAXXY * d.starts[1]);
+      } else {
+        const int pair = pair_at(d.starts, d.len0, d.len01, v);
+        mn = __ldg(tri_i32 + MINXY * np + pair), mx = __ldg(tri_i32 + MAXXY * np + pair);
+      }
+    }
+    keep[k] = i < n && (mn >> 16) < y0 + rows && (mx >> 16) > y0;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    m[k] = __ballot_sync(0xFFFFFFFFu, keep[k]);
+    if (lane == 0) warp_kept[k][warp] = __popc(m[k]);
+  }
+  __syncthreads();
+  int count = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    int before = 0, all = 0;
+#pragma unroll
+    for (int q = 0; q < WARPS; ++q) {
+      before += q < warp ? warp_kept[k][q] : 0;
+      all += warp_kept[k][q];
+    }
+    const int at = count + before + __popc(m[k] & ((1u << lane) - 1u));
+    if (keep[k]) sel[at] = seg0 + k * TW * TY + tid;
+    count += all;
+  }
+  __syncthreads();  // sel is whole, and warp_kept free for the next call
+  return count;
+}
+
+// walk_tile for one layout (kPatch: patches, else rows interleaved), its
+// warp rects and row step compile-time where the layout fixes them: a
+// runtime layout in the loop cost K1 5% at stress4k and 0.0025 ms at
+// phong1080 on an H100 (PERF.md). A tile of patches longer than a chunk is
+// walked a segment of SELECT positions at a time, each cut first to the
+// pairs whose bbox rows meet the block's (exact, as the warps' ballot):
+// the blocks of a tile split its rows, and a small triangle's rows fall to
+// few of them (at stress4k 28% of the fine pairs' (pair, block) couples
+// meet, tools/raster_model.py), so each block stages and ballots about a
+// third of the list.
+template <int R, bool kPatch>
+__device__ __forceinline__ void walk_tile(int32_t (*s_rec)[CHUNK][REC], int* s_sel,
+                                          const int32_t* __restrict__ tri_i32,
+                                          const float* __restrict__ tri_f32, size_t np,
+                                          const TileSlot& at, float (&dep)[R], int (&wpair)[R]) {
+  const int lane = threadIdx.x & 31;
+  const int step = kPatch ? PATCH_ROWS : at.step;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    dep[r] = 0.0f;
+    wpair[r] = -1;
+  }
+  WarpRect wr;
+  wr.x0 = at.cx - (kPatch ? lane % PATCH_W : lane);
+  wr.cols = kPatch ? PATCH_W : 32;
+  wr.row0 = at.row0 - (kPatch ? lane / PATCH_W : 0);
+  wr.step = step;
+  wr.span = kPatch ? PATCH_ROWS : 1;
+  const int total = at.d.total;
+  if (!kPatch || total <= CHUNK) {
+    walk_items<R>(s_rec, total, nullptr, tri_i32, tri_f32, np, at, step, wr, dep, wpair);
+    return;
+  }
+  // every warp of a block of patches holds the same rows: the block's
+  static_assert(TW / PATCH_W == TW * TY / 32, "a block of patches is one band of rows");
+  for (int seg0 = 0; seg0 < total; seg0 += SELECT) {
+    const int count = select_rows(s_sel, seg0, min(SELECT, total - seg0), at, wr.row0,
+                                  PATCH_ROWS * R, tri_i32, np);
+    walk_items<R>(s_rec, count, s_sel, tri_i32, tri_f32, np, at, step, wr, dep, wpair);
+  }
+}
+
+// Walk the tile of slot ``at`` and leave, for each of the thread's R pixels
+// (column at.cx, rows at.row0 + at.step * r), the winning depth (0 if none)
+// and pair column (-1 if none). Every thread of the block must call it (it
+// synchronises the block).
+template <int R>
+__device__ __forceinline__ void raster_tile(const int32_t* __restrict__ tri_i32,
+                                            const float* __restrict__ tri_f32, size_t np,
+                                            const TileSlot& at, float (&dep)[R], int (&wpair)[R]) {
+  __shared__ __align__(16) int32_t s_rec[2][CHUNK][REC];
+  __shared__ int s_sel[SELECT];
+  if (at.patch) {
+    walk_tile<R, true>(s_rec, s_sel, tri_i32, tri_f32, np, at, dep, wpair);
+  } else {
+    walk_tile<R, false>(s_rec, s_sel, tri_i32, tri_f32, np, at, dep, wpair);
   }
 }
 

@@ -33,7 +33,7 @@
 // both rows issue together: one round trip for the ids and the 9 rows of
 // the weights, one for each CH_GROUP channels (0.0685 -> 0.0629 ms on an
 // H100 80GB HBM3 at 700 W, PERF.md). Tiles that no pair reaches skip the
-// loop (the order pass), but still store their 11 planes.
+// loop (the plan pass), but still store their 11 planes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,9 +53,9 @@ raster_planes_kernel(const int ntx, const int nty, const int th, const int w_pad
                      const int32_t* __restrict__ tri_i32,
                      const float* __restrict__ tri_f32, float* __restrict__ depth_out,
                      int32_t* __restrict__ winner_out, int32_t* __restrict__ ps_out,
-                     float* __restrict__ ctx_out, const TileDesc* desc) {
+                     float* __restrict__ ctx_out, const int32_t* plan) {
   const int oy = kOrigin ? origin_y : 0, ox = kOrigin ? origin_x : 0;
-  const TileSlot at = tile_slot(th, ntx, desc, oy, ox);
+  const TileSlot at = tile_slot(th, ntx, nty, plan, oy, ox);
   const int cx = at.cx;
   const float pcx = (float)cx + 0.5f;
   const size_t np = (size_t)n_pairs;
@@ -134,14 +134,14 @@ raster_planes_kernel(const int ntx, const int nty, const int th, const int w_pad
 template <bool kOrigin>
 cudaError_t launch_planes(int th, int ntx, int nty, int n_pairs, int n_ctx, int oy, int ox,
                           const int32_t* off, const int32_t* tri_i32, const float* tri_f32,
-                          float* depth, int32_t* winner, int32_t* ps, float* ctx, TileDesc* desc,
-                          cudaStream_t s) {
+                          float* depth, int32_t* winner, int32_t* ps, float* ctx, int32_t* plan,
+                          int cap, cudaStream_t s) {
   const int w_pad = ntx * TW;
-  return launch_after_order<kOrigin>(th == 4 ? raster_planes_kernel<1, kOrigin>
+  return launch_after_plan<kOrigin>(th == 4 ? raster_planes_kernel<1, kOrigin>
                                              : raster_planes_kernel<RT_MAX, kOrigin>,
-                                     th, ntx, nty, oy, ox, off, tri_i32, n_pairs, desc, s, ntx,
-                                     nty, th, w_pad, n_pairs, n_ctx, oy, ox, tri_i32, tri_f32,
-                                     depth, winner, ps, ctx, desc);
+                                     th, ntx, nty, oy, ox, off, tri_i32, tri_f32, n_pairs, plan, cap, s,
+                                     ntx, nty, th, w_pad, n_pairs, n_ctx, oy, ox, tri_i32, tri_f32,
+                                     depth, winner, ps, ctx, (const int32_t*)plan);
 }
 
 }  // namespace
@@ -149,16 +149,15 @@ cudaError_t launch_planes(int th, int ntx, int nty, int n_pairs, int n_ctx, int 
 extern "C" int fr_raster_planes(int th, int ntx, int nty, int n_pairs, int n_ctx, int oy, int ox,
                                 const int32_t* off, const int32_t* tri_i32,
                                 const float* tri_f32, float* depth, int32_t* winner,
-                                int32_t* ps, float* ctx, int32_t* tiles, void* stream) {
-  if (n_ctx < 0 || (ps == nullptr && ctx != nullptr)) return (int)cudaErrorInvalidValue;
+                                int32_t* ps, float* ctx, int32_t* tiles, int cap, void* stream) {
+  if (n_ctx < 0 || cap < 0 || (ps == nullptr && ctx != nullptr)) return (int)cudaErrorInvalidValue;
   if (th != 4 && th != 8 && th != 16 && th != 32 && th != 64 && th != 128) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
-  TileDesc* desc = reinterpret_cast<TileDesc*>(tiles);
   return (int)(oy != 0 || ox != 0
                    ? launch_planes<true>(th, ntx, nty, n_pairs, n_ctx, oy, ox, off, tri_i32,
-                                         tri_f32, depth, winner, ps, ctx, desc, s)
+                                         tri_f32, depth, winner, ps, ctx, tiles, cap, s)
                    : launch_planes<false>(th, ntx, nty, n_pairs, n_ctx, oy, ox, off, tri_i32,
-                                          tri_f32, depth, winner, ps, ctx, desc, s));
+                                          tri_f32, depth, winner, ps, ctx, tiles, cap, s));
 }

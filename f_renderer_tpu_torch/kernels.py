@@ -100,6 +100,11 @@ class VoxelParams(ctypes.Structure):
 # Tile heights the raster kernels take (th / 8 thread blocks to a tile).
 SUPPORTED_TH = (4, 8, 16, 32, 64, 128)
 MAX_CTX = 8  # the fused kernel's varying cap (K4 has none)
+# Pairs a tile's culled coarse + spill list holds (csrc/raster_loop.cuh,
+# tile_plan_kernel); a tile with more keeps both ranges whole. stress4k's
+# most is 394.
+CULL_CAP = 512
+REC = 20  # words of a staged pair record (raster_loop.cuh); word 18 is its pair column
 
 
 def _nvcc() -> str:
@@ -155,8 +160,8 @@ def load_library() -> ctypes.CDLL:
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fr_fused_raster.argtypes = [FusedParams] + [ptr] * 11
-    lib.fr_raster_planes.argtypes = [i32] * 7 + [ptr] * 9
+    lib.fr_fused_raster.argtypes = [FusedParams] + [ptr] * 10 + [i32, ptr]
+    lib.fr_raster_planes.argtypes = [i32] * 7 + [ptr] * 8 + [i32, ptr]
     lib.fr_sample_bilinear.argtypes = [ptr, ptr] + [i32] * 5 + [ptr] * 4 + [ctypes.c_int64, ptr]
     lib.fr_voxel_march.argtypes = [VoxelParams] + [ptr] * 13
     lib.fr_if_node_begin.argtypes = [ptr] * 3
@@ -226,10 +231,35 @@ def _check_bins(off, tri_i32, tri_f32, th, n_ctx, h_pad, w_pad):
     return ntx, nty
 
 
-def _tiles_scratch(ntx, nty, dev) -> torch.Tensor:
-    """Scratch of the raster kernels: each tile's pair ranges, 8 int32 words
-    a tile, heaviest tile first (written by their order pass)."""
-    return torch.empty((ntx * nty, 8), dtype=torch.int32, device=dev)
+def plan_words(ntiles: int, cap: int) -> int:
+    """int32 words of the raster kernels' tile plan (csrc/raster_loop.cuh):
+    each tile's descriptor (8 words, in the order the raster grid takes the
+    tiles), its count of culled coarse and spill pairs, and its record area
+    (the staged records of its first ``cap`` culled pairs, ``REC`` rows of
+    ``cap`` words)."""
+    if cap < 0 or ntiles * REC * cap >= 2**31:
+        raise ValueError(f"cull cap {cap} over {ntiles} tiles: need 0 <= ntiles * {REC} * cap < 2**31")
+    return ntiles * (9 + REC * cap)
+
+
+def _plan(scratch, ntx, nty, cap, dev) -> torch.Tensor:
+    """The tile plan's scratch: ``scratch`` (checked) or a new buffer."""
+    words = plan_words(ntx * nty, cap)
+    if scratch is None:
+        return torch.empty((words,), dtype=torch.int32, device=dev)
+    _need(scratch, "scratch", torch.int32, dev, (words,))
+    if scratch.data_ptr() % 16:
+        raise ValueError("scratch: the tile descriptors need a 16-byte aligned buffer")
+    return scratch
+
+
+def read_plan(plan: torch.Tensor, ntiles: int, cap: int):
+    """A tile plan the raster kernels wrote (``scratch=``) → (descriptors
+    (ntiles, 8) int32 in the order the raster grid takes them: t, len0,
+    len01, total, starts[3], flags; each tile's culled count (ntiles,); the
+    culled pairs' columns (ntiles, cap), those past a tile's count unset)."""
+    records = plan[9 * ntiles:].view(ntiles, REC, cap)
+    return plan[:8 * ntiles].view(ntiles, 8), plan[8 * ntiles:9 * ntiles], records[:, 18]
 
 
 @functools.lru_cache(maxsize=None)
@@ -274,11 +304,15 @@ def _count(wrapper) -> None:
 def fused_raster(
     off, tri_i32, tri_f32, view_pos, dims, texels, *,
     th, n_ctx, h_pad, w_pad, kind, opaque, bg_packed, light_pos, light_color, origin=(0, 0),
+    cull_cap=CULL_CAP, scratch=None,
 ):
     """Launch the fused raster + shade kernel (csrc/fused_raster.cu) on
     PyTorch's current stream → padded (rgba int32, depth f32, winner int32),
     each (h_pad, w_pad). ``origin=(y0, x0)``: the frame's pixel that the
-    planes' first one is (a row slab of a sharded frame)."""
+    planes' first one is (a row slab of a sharded frame). ``cull_cap``: the
+    pairs a tile's culled list holds; ``scratch``: a (:func:`plan_words`,)
+    int32 buffer to leave the tile plan in (:func:`read_plan`), else a new
+    one."""
     dev = _on_cuda(tri_i32, "fused_raster")
     if not 0 < n_ctx <= MAX_CTX:
         raise ValueError(f"n_ctx={n_ctx}: the kernel carries 1..{MAX_CTX} varyings")
@@ -302,13 +336,13 @@ def fused_raster(
     rgba = torch.empty((h_pad, w_pad), dtype=torch.int32, device=dev)
     depth = torch.empty((h_pad, w_pad), dtype=torch.float32, device=dev)
     winner = torch.empty((h_pad, w_pad), dtype=torch.int32, device=dev)
-    tiles = _tiles_scratch(ntx, nty, dev)
+    plan = _plan(scratch, ntx, nty, cull_cap, dev)
     stream = _stream(dev)
     err = lib.fr_fused_raster(
         params,
         off.data_ptr(), tri_i32.data_ptr(), tri_f32.data_ptr(),
         view_pos.data_ptr(), dims.data_ptr(), texels.data_ptr(),
-        rgba.data_ptr(), depth.data_ptr(), winner.data_ptr(), tiles.data_ptr(), stream,
+        rgba.data_ptr(), depth.data_ptr(), winner.data_ptr(), plan.data_ptr(), cull_cap, stream,
     )
     _check(lib, err, "fr_fused_raster")
     _count(fused_raster)
@@ -318,11 +352,12 @@ def fused_raster(
 fused_raster.launches = 0
 
 
-def raster_planes(off, tri_i32, tri_f32, *, th, n_ctx, h_pad, w_pad, interp, origin=(0, 0)):
+def raster_planes(off, tri_i32, tri_f32, *, th, n_ctx, h_pad, w_pad, interp, origin=(0, 0),
+                  cull_cap=CULL_CAP, scratch=None):
     """Launch the non-fused raster kernel (csrc/raster_planes.cu) on PyTorch's
     current stream → padded (depth f32, winner int32) and, with ``interp``,
     (ps int32, ctx (n_ctx, h_pad, w_pad) f32); else None for both. Any C.
-    ``origin`` as for :func:`fused_raster`."""
+    ``origin``, ``cull_cap`` and ``scratch`` as for :func:`fused_raster`."""
     dev = _on_cuda(tri_i32, "raster_planes")
     ntx, nty = _check_bins(off, tri_i32, tri_f32, th, n_ctx, h_pad, w_pad)
     lib = load_library()
@@ -332,14 +367,14 @@ def raster_planes(off, tri_i32, tri_f32, *, th, n_ctx, h_pad, w_pad, interp, ori
     if interp:
         ps = torch.empty((h_pad, w_pad), dtype=torch.int32, device=dev)
         ctx = torch.empty((n_ctx, h_pad, w_pad), dtype=torch.float32, device=dev)
-    tiles = _tiles_scratch(ntx, nty, dev)
+    plan = _plan(scratch, ntx, nty, cull_cap, dev)
     err = lib.fr_raster_planes(
         th, ntx, nty, tri_i32.shape[1], n_ctx, origin[0], origin[1],
         off.data_ptr(), tri_i32.data_ptr(), tri_f32.data_ptr(),
         depth.data_ptr(), winner.data_ptr(),
         None if ps is None else ps.data_ptr(),
         None if ctx is None or n_ctx == 0 else ctx.data_ptr(),
-        tiles.data_ptr(), _stream(dev),
+        plan.data_ptr(), cull_cap, _stream(dev),
     )
     _check(lib, err, "fr_raster_planes")
     _count(raster_planes)

@@ -331,6 +331,76 @@ def tile_lists(prep: BinnedPrep, ty: int, tx: int) -> tuple[int, int, int]:
     return ty * ntx + tx, ntiles + (ty // COARSE) * ntxc + tx // COARSE, spill
 
 
+# The raster kernels' tile plan (csrc/raster_loop.cuh: tile_plan_kernel),
+# the flags of a tile's descriptor.
+TILE_ROWS, TILE_CULLED, TILE_OVERFLOW = 1, 2, 4
+# Raster blocks an NVIDIA H100 holds at once (132 SMs, two blocks each): the
+# plan pass reads the card's own count.
+H100_SLOTS = 264
+
+
+def blocks_per_tile(th: int) -> int:
+    """Thread blocks of the raster kernels to a (th, 128) tile, each of 128 x
+    4 threads owning two rows a thread (one at th = 4)."""
+    return th // (4 * (1 if th < 8 else 2))
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """What the raster kernels' plan pass decides for each tile
+    t = ty · ntx + tx (:func:`tile_plan_plain`)."""
+
+    order: list  # the tiles in the order the raster grid takes them
+    flags: list  # per tile: TILE_CULLED or TILE_OVERFLOW, | TILE_ROWS
+    counts: list  # per tile: its coarse and spill pairs whose bbox meets it
+    lists: list  # per tile: the pair columns its blocks stage, in order
+    weights: list  # per tile: the pairs of its fine range
+
+
+def tile_plan_plain(prep: BinnedPrep, cap: int | None = None, slots: int = H100_SLOTS) -> TilePlan:
+    """The raster kernels' tile plan, plain (csrc/raster_loop.cuh).
+
+    The cull: a tile keeps the pairs of its coarse and spill ranges whose
+    bbox [MINXY, MAXXY) meets its pixels (frame coordinates, ``prep.origin``
+    away from the planes'), in list order, after its fine range; where more
+    than ``cap`` (None: ``kernels.CULL_CAP``) would be kept, it keeps both
+    ranges whole (TILE_OVERFLOW). Exact, since every pixel the cover test
+    accepts lies inside its pair's bbox. The layout: rows interleaved
+    (TILE_ROWS) for a tile of w > 0 pairs in its fine range with w · n >= 4
+    · W and w · slots >= 2 · S · W, W the sum of every tile's w, n the tiles
+    with w > 0 and S the blocks a tile; patches elsewhere. The order: the
+    tiles of the largest floor(log2(w)) first, in tile order within one."""
+    if cap is None:
+        from f_renderer_tpu_torch.kernels import CULL_CAP
+
+        cap = CULL_CAP
+    dev = prep.tri_i32.device
+    th, oy, ox = prep.th, *prep.origin
+    nty, ntx = prep.h_pad // th, prep.w_pad // LANES
+    off = prep.off.tolist()
+    minx, miny = unpack_xy(prep.tri_i32[MINXY].long())
+    maxx, maxy = unpack_xy(prep.tri_i32[MAXXY].long())
+    flags, counts, lists, weights = [], [], [], []
+    for ty in range(nty):
+        for tx in range(ntx):
+            fine, coarse, spill = (torch.arange(off[r], off[r + 1], device=dev) for r in tile_lists(prep, ty, tx))
+            weights.append(fine.numel())
+            rest = torch.cat([coarse, spill])
+            x0, y0 = ox + tx * LANES, oy + ty * th
+            meets = ((minx[rest] < x0 + LANES) & (maxx[rest] > x0) & (miny[rest] < y0 + th) & (maxy[rest] > y0))
+            kept = rest[meets]
+            counts.append(kept.numel())
+            culled = kept.numel() <= cap
+            flags.append(TILE_CULLED if culled else TILE_OVERFLOW)
+            lists.append(torch.cat([fine, kept if culled else rest]))
+    frame, n = sum(weights), sum(w > 0 for w in weights)
+    bound = 2 * blocks_per_tile(th) * frame
+    flags = [f | (TILE_ROWS if w > 0 and w * n >= 4 * frame and w * slots >= bound else 0)
+             for f, w in zip(flags, weights)]
+    order = sorted(range(len(weights)), key=lambda t: (-weights[t].bit_length(), t))
+    return TilePlan(order=order, flags=flags, counts=counts, lists=lists, weights=weights)
+
+
 def cover_plain(tri_i32, idx, cx, cy):
     """The cover test of both raster kernels for the pairs ``idx`` at pixels
     (cx, cy) (broadcast) → bool (P, ...): the wrapped int32 edges against 0
@@ -375,10 +445,12 @@ def _tile_plain(tri_i32, tri_f32, idx, cx, cy):
     return torch.where(accept, depth, 0.0), torch.where(accept, idx[arg], -1)
 
 
-def raster_tiles_plain(prep: BinnedPrep, tiles=None):
+def raster_tiles_plain(prep: BinnedPrep, tiles=None, plan: TilePlan | None = None):
     """The per-tile loop of both raster kernels (``csrc/raster_loop.cuh``),
-    plain: each tile's fine, coarse and spill pair ranges merged per pixel.
-    Returns padded (depth f32, winning pair int64 or -1), (h_pad, w_pad).
+    plain: each tile's fine, coarse and spill pair ranges merged per pixel
+    (with ``plan``, :func:`tile_plan_plain`'s lists instead: the pairs the
+    kernels stage). Returns padded (depth f32, winning pair int64 or -1),
+    (h_pad, w_pad).
 
     ``tiles``: the (ty, tx) tiles to raster (None: every tile); the pixels
     of the others stay background (depth 0, pair -1). The pixels are the
@@ -395,8 +467,10 @@ def raster_tiles_plain(prep: BinnedPrep, tiles=None):
     if tiles is None:
         tiles = [(ty, tx) for ty in range(nty) for tx in range(ntx)]
     for ty, tx in tiles:
-        lists = tile_lists(prep, ty, tx)
-        idx = torch.cat([torch.arange(off[r], off[r + 1], device=dev) for r in lists])
+        if plan is not None:
+            idx = plan.lists[ty * ntx + tx]
+        else:
+            idx = torch.cat([torch.arange(off[r], off[r + 1], device=dev) for r in tile_lists(prep, ty, tx)])
         if idx.numel() == 0:
             continue
         d, w = _tile_plain(prep.tri_i32, prep.tri_f32, idx, ox + tx * tw + cols, oy + ty * th + rows)

@@ -6,16 +6,16 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 tools/k1_layout.py
 
 The raster loop (csrc/raster_loop.cuh, ``tile_slot``) gives each warp an
-8 x 8 patch of a tile's pixels, and interleaves the rows of a tile whose
-fine and coarse ranges hold at least HEAVY_PAIRS = 256 pairs over its
-blocks. That threshold was set at phong1080, where it takes the sphere's
-two pole tiles; at stress4k it takes 460 of the 1,020 tiles. Copies of
-csrc/ with HEAVY_PAIRS at 1 << 30 (patches in every tile) and at 0 (rows
-interleaved in every tile) are built under f_renderer_tpu_torch/_build/
-layout/, and K1 is timed with each library in turns (the checkout's,
-patches, interleaved, the checkout's again) on stress4k and phong1080 at the
-bench angle 0.10: device time (``chip_smoke.device_ms``), and every
-variant's frame, depth and winner must equal the checkout kernel's.
+8 x 8 patch of a tile's pixels, or interleaves the tile's rows over its
+blocks, as the plan pass chose for the tile (TILE_ROWS: an outlier tile
+whose blocks would bound the kernel, such as phong1080's two pole tiles;
+no tile of stress4k). Copies of csrc/ whose ``tile_slot`` takes patches in
+every tile, and rows interleaved in every tile, are built under
+f_renderer_tpu_torch/_build/layout/, and K1 is timed with each library in
+turns (the checkout's, patches, interleaved, the checkout's again) on
+stress4k and phong1080 at the bench angle 0.10: device time
+(``chip_smoke.device_ms``), and every variant's frame, depth and winner must
+equal the checkout kernel's.
 """
 
 from __future__ import annotations
@@ -27,20 +27,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-HEAVY = "constexpr int HEAVY_PAIRS = 256;"
-VARIANTS = {"patches everywhere": "1 << 30", "rows interleaved everywhere": "0"}
+LAYOUT = "at.patch = (at.d.flags & TILE_ROWS) == 0;"
+VARIANTS = {"patches everywhere": "true", "rows interleaved everywhere": "false"}
 
 
 def variant_source(csrc: Path, slug: str, value: str) -> Path:
-    """A copy of csrc/ whose raster loop has HEAVY_PAIRS = ``value``."""
+    """A copy of csrc/ whose raster loop sets ``at.patch = value`` in every
+    tile."""
     src = ROOT / "f_renderer_tpu_torch" / "_build" / "layout" / slug / "csrc"
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(csrc, src)
     loop = src / "raster_loop.cuh"
     text = loop.read_text()
-    if text.count(HEAVY) != 1:
-        raise RuntimeError(f"raster_loop.cuh no longer has {HEAVY!r} once: update the tool")
-    loop.write_text(text.replace(HEAVY, f"constexpr int HEAVY_PAIRS = {value};"))
+    if text.count(LAYOUT) != 1:
+        raise RuntimeError(f"raster_loop.cuh no longer has {LAYOUT!r} once: update the tool")
+    loop.write_text(text.replace(LAYOUT, f"at.patch = {value};"))
     return src
 
 

@@ -1,30 +1,38 @@
 #!/usr/bin/env python3
-"""A CPU model of the raster kernels' warp-level culling (csrc/raster_loop.cuh)
-on phong1080's geometry: how much work each pixel layout gives the warps.
+"""A CPU model of the raster kernels' work (csrc/raster_loop.cuh) at
+phong1080 and stress4k: how much each pixel layout and each way of staging
+the pair lists gives the blocks and their warps.
 
-Run from the repository root (CPU only, about a minute):
+Run from the repository root (CPU only, about two minutes for both scenes):
 
-    python3 tools/raster_model.py
+    python3 tools/raster_model.py [--scene phong1080|stress4k]
 
-For every tile of the binned pair list (``prep_binned`` at 1920x1080, the
-bench angle 0.10) it walks the ballot the kernels run: a warp visits a pair
-when the pair's bbox [MINXY, MAXXY) meets the warp's columns and the rows of
-one of its row steps. Costs are counted in the model's own units, 20 a visit
-and 60 a row step inside the bbox (the visit loop's SASS is about that), and
-a block's chain is the cost of its busiest warp. Printed:
+For every tile of the binned pair list (``prep_binned`` at the bench angle
+0.10) it walks the ballot the kernels run: a warp visits a pair when the
+pair's bbox [MINXY, MAXXY) meets the warp's columns and the rows of one of
+its row steps. Costs are counted in the model's own units, 20 a visit and
+60 a row step inside the bbox (the visit loop's SASS is about that), and a
+block's chain is the cost of its busiest warp. Printed per scene:
 
-- per class of tiles (by their fine and coarse pairs): visits and the
-  busiest warp of a block, in the kernels' layout;
-- per layout: visits, row steps, the summed cost (issue), the longest chain
-  of any warp and the summed chains of the blocks (a block holds its slot
-  for its busiest warp's chain);
-- the tiles the order pass empties (no fine pair, at most 32 coarse and
-  spill pairs, none of whose bboxes reaches the tile).
+- the tile plan (``raster.tile_plan_plain``): the layouts it chooses, and
+  the coarse and spill entries of the tiles' lists against those whose
+  bbox meets their tile (the culled lists);
+- per layout (rows interleaved in every tile, 8 x 8 patches in every tile,
+  a fixed threshold: rows at >= 256 fine + coarse pairs, the plan's) and
+  per range (fine / coarse / spill): visits and row steps, and the summed
+  block chains; a pair that does not reach a tile has no visit, so the cull
+  changes none of these;
+- the pair records the blocks stage, summed over blocks, and their chunks
+  of 128: every block the tile's whole lists, the culled lists
+  (the plan), and the culled lists cut to the pairs whose bbox rows meet
+  the block's own in a tile of patches longer than a chunk (the row
+  selection);
+- the tiles no pair reaches, which the plan empties.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import argparse
 import sys
 from pathlib import Path
 
@@ -33,99 +41,125 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 VISIT, ROW_STEP = 20, 60
-HEAVY_PAIRS, TOUCH_SCAN = 256, 32  # csrc/raster_loop.cuh
+CHUNK = 128  # csrc/raster_loop.cuh
+FIXED_HEAVY = 256  # a fixed rows-interleaved threshold on fine + coarse pairs
+RANGES = ("fine", "coarse", "spill")
 
 
-def phong1080_prep():
+def scene_prep(name):
     import chip_smoke
     from f_renderer_tpu_torch.pipeline import raster
     from f_renderer_tpu_torch.pipeline.render import build_triangles
 
-    scene = chip_smoke.build_scene("custom12_360", "cpu")  # phong1080's meshes and camera, small textures
-    scene.config = dataclasses.replace(scene.config, width=1920, height=1080)
+    scene = chip_smoke.build_scene(name, "cpu")
     chip_smoke.set_angle(scene, 0.10)
     tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
-    return raster.prep_binned(tri, 1920, 1080, scene.config.tile)
+    c = scene.config
+    return raster.prep_binned(tri, c.width, c.height, c.tile, tile_auto=c.tile_auto, bin_k=c.bin_k)
 
 
-def rows_layout(th):
-    """32-column warps, rows interleaved over the S blocks of a tile →
-    blocks of warps of (first column, columns, [rows of each row step])."""
+def warp_rects(layout, th):
+    """The warps' row-step rects, (S, 16, 2, 4) as (x0, x1, y0, y1) in the
+    tile: rows interleaved (block s rows s + S k, each warp 32 columns of two
+    rows 4 S apart) or 8 x 8 patches (block s rows [8 s, 8 s + 8), each warp
+    8 columns, 4 rows a row step)."""
     s_blocks = th // 8
-    return [[(wx * 32, 32, [[s + s_blocks * ty], [s + s_blocks * ty + 4 * s_blocks]])
-             for ty in range(4) for wx in range(4)] for s in range(s_blocks)]
+    rects = np.zeros((s_blocks, 16, 2, 4), np.int64)
+    for s in range(s_blocks):
+        for w in range(16):
+            for r in range(2):
+                if layout == "rows":
+                    y = s + s_blocks * (w // 4) + 4 * s_blocks * r
+                    rects[s, w, r] = (32 * (w % 4), 32 * (w % 4) + 32, y, y + 1)
+                else:
+                    rects[s, w, r] = (8 * w, 8 * w + 8, 8 * s + 4 * r, 8 * s + 4 * r + 4)
+    return rects
 
 
-def patch_layout(th):
-    """8 x 8 patches: block s takes rows [8 s, 8 s + 8), each warp 8 columns
-    of them, rows l / 8 + 4 r for lane l and row step r."""
-    return [[(8 * w, 8, [[8 * s + k for k in range(4)], [8 * s + 4 + k for k in range(4)]])
-             for w in range(16)] for s in range(th // 8)]
+def warp_work(box, rects):
+    """(visits, row steps, cost of each warp (S, 16)) of the pairs in ``box``."""
+    bx0, bx1, by0, by1 = (v[:, None] for v in box)
+    x0, x1, y0, y1 = (rects[..., k].reshape(-1)[None, :] for k in range(4))
+    hit = ((bx0 < x1) & (bx1 > x0) & (by0 < y1) & (by1 > y0)).reshape(-1, *rects.shape[:3])
+    steps, visits = hit.sum(-1), hit.any(-1)
+    return int(visits.sum()), int(steps.sum()), VISIT * visits.sum(0) + ROW_STEP * steps.sum(0)
 
 
-def tile_work(box, x0, y0, blocks):
-    """(visits, row steps, the busiest warp's cost of each block) of one tile."""
-    minx, maxx, miny, maxy = box
-    visits = steps = 0
-    chains = []
-    for warps in blocks:
-        busiest = 0
-        for cx, cw, row_steps in warps:
-            inside = np.stack([((miny[:, None] <= y0 + np.array(rows)[None, :])
-                                & (maxy[:, None] > y0 + np.array(rows)[None, :])).any(1)
-                               for rows in row_steps], 1)
-            touch = inside.any(1) & (minx < x0 + cx + cw) & (maxx > x0 + cx)
-            v, r = int(touch.sum()), int(inside[touch].sum())
-            visits, steps = visits + v, steps + r
-            busiest = max(busiest, VISIT * v + ROW_STEP * r)
-        chains.append(busiest)
-    return visits, steps, chains
+def model(name):
+    from f_renderer_tpu_torch.pipeline import raster
+
+    prep = scene_prep(name)
+    th, nty, ntx = prep.th, prep.h_pad // prep.th, prep.w_pad // raster.LANES
+    ntiles, s_blocks = nty * ntx, th // 8
+    plan = raster.tile_plan_plain(prep)
+    off = prep.off.tolist()
+    spill0 = off[raster.tile_lists(prep, 0, 0)[2]]
+    minx, miny = (v.numpy() for v in raster.unpack_xy(prep.tri_i32[raster.MINXY].long()))
+    maxx, maxy = (v.numpy() for v in raster.unpack_xy(prep.tri_i32[raster.MAXXY].long()))
+    rects = {layout: warp_rects(layout, th) for layout in ("rows", "patches")}
+    layouts = ("rows", "patches", "threshold's", "plan's")
+    visits = {(lay, r): 0 for lay in layouts for r in RANGES}
+    steps = dict(visits)
+    chains = {lay: 0 for lay in layouts}
+    entries, kept = dict.fromkeys(RANGES, 0), dict.fromkeys(RANGES, 0)
+    staged = {key: [0, 0] for key in ("whole lists", "culled lists (plan)", "culled + row selection")}
+    emptied = fixed_rows_tiles = 0
+    for t in range(ntiles):
+        ty, tx = divmod(t, ntx)
+        x0, y0 = tx * raster.LANES, ty * th
+        lists = [np.arange(off[r], off[r + 1]) for r in raster.tile_lists(prep, ty, tx)]
+        mine = plan.lists[t].numpy()
+        for r, idx in zip(RANGES, lists):
+            entries[r] += idx.size
+        if plan.flags[t] & raster.TILE_CULLED:
+            culled = mine[lists[0].size:]
+            kept["spill"] += int((culled >= spill0).sum())
+            kept["coarse"] += int((culled < spill0).sum())
+        emptied += mine.size == 0
+        work = {}  # (layout, range) → (visits, row steps, each warp's cost)
+        for layout, rect in rects.items():
+            for r, idx in zip(RANGES, lists):
+                work[layout, r] = warp_work((minx[idx] - x0, maxx[idx] - x0, miny[idx] - y0, maxy[idx] - y0), rect)
+        fixed_rows = lists[0].size + lists[1].size >= FIXED_HEAVY
+        fixed_rows_tiles += fixed_rows
+        plan_rows = bool(plan.flags[t] & raster.TILE_ROWS)
+        for layout, rows in (("rows", True), ("patches", False), ("threshold's", fixed_rows), ("plan's", plan_rows)):
+            src = "rows" if rows else "patches"
+            for r in RANGES:
+                v, s, _ = work[src, r]
+                visits[layout, r] += v
+                steps[layout, r] += s
+            chains[layout] += int(sum(work[src, r][2] for r in RANGES).max(1).sum())  # each block's busiest warp
+        for key, n in (("whole lists", sum(v.size for v in lists)), ("culled lists (plan)", mine.size)):
+            staged[key][0] += s_blocks * n
+            staged[key][1] += s_blocks * -(-n // CHUNK)
+        for s in range(s_blocks):
+            n = mine.size
+            if not plan_rows and n > CHUNK:  # the block's rows alone
+                n = int(((miny[mine] < y0 + 8 * s + 8) & (maxy[mine] > y0 + 8 * s)).sum())
+            staged["culled + row selection"][0] += n
+            staged["culled + row selection"][1] += -(-n // CHUNK)
+    rows_tiles = sum(bool(f & raster.TILE_ROWS) for f in plan.flags)
+    print(f"{name}: {ntiles} tiles of ({th}, 128), {s_blocks} blocks a tile; the tiles' lists hold "
+          f"{entries['fine']} fine, {entries['coarse']} coarse and {entries['spill']} spill entries")
+    print(f"  the plan: rows interleaved in {rows_tiles} tiles (a fixed threshold, >= {FIXED_HEAVY} fine + coarse "
+          f"pairs: {fixed_rows_tiles}); the cull keeps {kept['coarse']} coarse and {kept['spill']} spill entries; "
+          f"{emptied} tiles emptied")
+    for layout in layouts:
+        where = "everywhere" if layout in ("rows", "patches") else "layout"
+        per = ", ".join(f"{r} {visits[layout, r]} / {steps[layout, r]}" for r in RANGES)
+        print(f"  {layout} {where}: visits / row steps {per}; summed block chains {chains[layout] / 1e6:.3f} M")
+    for key, (records, chunks) in staged.items():
+        print(f"  staged, {key}: records {records} ({records / (ntiles * s_blocks):.1f} a block), "
+              f"block-chunks {chunks}")
 
 
 def main() -> int:
-    from f_renderer_tpu_torch.pipeline import raster
-
-    prep = phong1080_prep()
-    th, nty, ntx = prep.th, prep.h_pad // prep.th, prep.w_pad // raster.LANES
-    off = prep.off.tolist()
-    minx, miny = (v.numpy() for v in raster.unpack_xy(prep.tri_i32[raster.MINXY].long()))
-    maxx, maxy = (v.numpy() for v in raster.unpack_xy(prep.tri_i32[raster.MAXXY].long()))
-    kernels_layout = "8x8 patches, rows at >= 256 pairs (the kernels')"
-    layouts = {"32-column rows interleaved": lambda w: rows_layout(th),
-               "8x8 patches": lambda w: patch_layout(th),
-               kernels_layout: lambda w: rows_layout(th) if w >= HEAVY_PAIRS else patch_layout(th)}
-    totals = {name: [0, 0, 0, []] for name in layouts}
-    classes = {}
-    emptied = 0
-    for ty in range(nty):
-        for tx in range(ntx):
-            fine, coarse, spill = raster.tile_lists(prep, ty, tx)
-            idx = np.concatenate([np.arange(off[r], off[r + 1]) for r in (fine, coarse, spill)])
-            w = (off[fine + 1] - off[fine]) + (off[coarse + 1] - off[coarse])
-            box = (minx[idx], maxx[idx], miny[idx], maxy[idx])
-            x0, y0 = tx * raster.LANES, ty * th
-            reach = ((box[0] < x0 + raster.LANES) & (box[1] > x0) & (box[2] < y0 + th) & (box[3] > y0))
-            if off[fine + 1] == off[fine] and idx.size <= TOUCH_SCAN and not reach.any():
-                emptied += 1
-            for name, layout in layouts.items():
-                v, r, chains = tile_work(box, x0, y0, layout(w))
-                t = totals[name]
-                t[0], t[1], t[2] = t[0] + v, t[1] + r, t[2] + VISIT * v + ROW_STEP * r
-                t[3] += chains
-                if name == kernels_layout:
-                    cls = next(c for c in ((0, 1), (1, 8), (8, 32), (32, 128), (128, 256), (256, 10**9))
-                               if c[0] <= w < c[1])
-                    c = classes.setdefault(cls, [0, 0, []])
-                    c[0], c[1] = c[0] + 1, c[1] + v
-                    c[2] += [ch // (VISIT + ROW_STEP) for ch in chains]
-    print(f"phong1080: {ntx * nty} tiles of ({th}, 128), {off[-1]} pairs in the lists")
-    for (lo, hi), (n, v, chains) in sorted(classes.items()):
-        print(f"  tiles of [{lo}, {hi}) fine + coarse pairs: {n:4d}, visits a tile {v / n:8.1f}, "
-              f"the busiest warp of a block ~{np.mean(chains):6.1f} visits")
-    for name, (v, r, cost, chains) in totals.items():
-        print(f"  {name:50s} visits {v:7d}, row steps {r:7d}, issue {cost / 1e6:6.2f} M, "
-              f"longest chain {max(chains):6d}, summed block chains {sum(chains) / 1e6:6.3f} M")
-    print(f"  tiles the order pass empties: {emptied}")
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--scene", choices=("phong1080", "stress4k"), default=None)
+    opts = parser.parse_args()
+    for name in (opts.scene,) if opts.scene else ("phong1080", "stress4k"):
+        model(name)
     return 0
 
 
