@@ -48,6 +48,13 @@ Phases, each reported on its own lines:
      plain sampler, under the colour bar above;
    - K3, the batched sampler, on the phong1080_tex2048 planes: within
      1e-6 of the plain version;
+   - the voxel ray set-up kernel (csrc/voxel_setup.cu, XLA's fusion of the
+     JAX package's set-up): voxel540's 10 orbit views, the tests' crafted
+     view (a zero direction, rays on a grid plane and along ±x), eyes
+     inside the cube, on a face, on an edge and on its corner, and a view
+     at length 3.0: the eight planes bit for bit (NaN equal to NaN, zeros
+     with their signs), then the frames K5 marches from each; its
+     ``ptxas`` line must show no stack frame and no spills;
    - K5, the voxel march: voxel540 and voxel540dda on all 10 main-path
      views, BGRA frames equal; for fixed steps each frame also against
      the plain serial chain without the jump (the query count of view 0
@@ -75,8 +82,9 @@ Phases, each reported on its own lines:
    through the portable backend (no kernel; winner equal to the kernel
    path's), phong1080_tex2048 ``Scene.render()`` (K4 and K3 once a frame,
    K1 never), the custom 12-varying shader's ``Scene.render()`` (K4 once a
-   frame) and ``render_voxel_frame`` for voxel540 and voxel540dda (K5 once
-   a frame), with frame times (CUDA events), checksums and per-stage times
+   frame) and ``render_voxel_frame`` for voxel540 and voxel540dda (the
+   set-up kernel and K5 once a frame, each graph under 100 nodes), with
+   frame times (CUDA events), checksums and per-stage times
    (eager). On the card each of these entry points but the portable one
    and ``render_prepared`` (eager: one K1 launch) replays one captured CUDA
    graph a frame (``compiled.py``). A graph path's frames are replays, so
@@ -152,7 +160,9 @@ TEX_SIDE = 2048
 EAGER_FRAMES = 3  # the eager frames run beside a graph path's, its first ones
 # Each wrapper's kernel function (csrc/), as the device's trace names it.
 KERNEL_FUNCTIONS = {"fused_raster": "fused_raster_kernel", "raster_planes": "raster_planes_kernel",
-                    "sample_bilinear": "sample_bilinear_kernel", "voxel_march": "voxel_march_kernel"}
+                    "sample_bilinear": "sample_bilinear_kernel", "voxel_march": "voxel_march_kernel",
+                    "voxel_setup": "voxel_setup_kernel"}
+VOXEL_GRAPH_NODES = 100  # a voxel frame's graph holds fewer nodes than this
 
 failures = []
 
@@ -278,6 +288,62 @@ def voxel_view(i, length=VOXEL_LENGTH):
     view = set_look_at(eye, center, [0, 1, 0]).numpy()
     mvp = proj @ view @ set_identity("cpu").numpy()
     return eye, np.linalg.inv(mvp).astype(np.float32)
+
+
+def look_at_view(eye, target, width, height, fov):
+    """(eye, inv_mvp) as float32 numpy of a left-handed look-at from ``eye``
+    to ``target`` and a D3D perspective of ``fov`` radians, made in float64."""
+    import numpy as np
+
+    eye64, target64 = np.asarray(eye, np.float64), np.asarray(target, np.float64)
+    z = target64 - eye64
+    z /= np.linalg.norm(z)
+    x = np.cross([0.0, 1.0, 0.0], z)
+    x /= np.linalg.norm(x)
+    view = np.eye(4)
+    view[0, :3], view[1, :3], view[2, :3] = x, np.cross(z, x), z
+    view[:3, 3] = -view[:3, :3] @ eye64
+    f, near, far = 1.0 / np.tan(fov / 2), 0.1, 100.0
+    proj = np.zeros((4, 4))
+    proj[0, 0], proj[1, 1] = f / (width / height), f
+    proj[2, 2], proj[2, 3], proj[3, 2] = far / (far - near), -near * far / (far - near), 1.0
+    return np.asarray(eye, np.float32), np.linalg.inv(proj @ view).astype(np.float32)
+
+
+def setup_views(width=VOXEL_W, height=VOXEL_H):
+    """The set-up kernel's views beside the orbit: the crafted view of
+    tests/test_torch_voxel.py (every ray in the plane y = 1.1: rays along a
+    grid plane and along ±x, a zero direction at pixel (0, H/2)) and eyes
+    inside the cube, on a face, on an edge and on the corner (0, 0, 0),
+    each looking into it with a wide field of view (rays that meet the cube
+    in more than two points: the dedupe) → (name, eye, inv_mvp)."""
+    import numpy as np
+
+    inv = np.zeros((4, 4), np.float32)
+    inv[0, 1] = 0.5
+    inv[2, 0], inv[2, 2], inv[2, 3] = 1.0, 0.5, 0.5
+    inv[3, 3] = 1.0
+    views = [("crafted", np.array([1.0, 1.1, -1.5], np.float32), inv)]
+    for name, eye, fov in (("inside", [0.7, 1.2, 0.9], np.pi / 2), ("face", [1.0, 0.6, 0.0], 2.0),
+                           ("edge", [0.0, 0.0, 1.0], 2.4), ("corner", [0.0, 0.0, 0.0], 2.4)):
+        target = [2.0, 0.4, 1.7] if name == "inside" else [1.0, 1.0, 1.0]
+        views.append((name, *look_at_view(eye, target, width, height, fov)))
+    return views
+
+
+def planes_equal(got, want):
+    """Two (start, dirs, t_max, alive) set-ups → (bit-equal, NaN equal to
+    NaN and zeros with their signs; the largest absolute difference of the
+    float planes where both are numbers)."""
+    import torch
+
+    g = [*got[0], *got[1], got[2]]
+    w = [*want[0], *want[1], want[2]]
+    ok = torch.equal(got[3], want[3]) and all(
+        bool(((a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))).all())
+        for a, b in zip(g, w))
+    err = max(float(torch.nan_to_num((a - b).abs(), nan=0.0, posinf=0.0).max()) for a, b in zip(g, w))
+    return ok, err
 
 
 def cuda_ms(fn, reps):
@@ -1539,11 +1605,61 @@ def main() -> int:
     rows["K4"]["max_abs_err_frame_u8"] = worst_frame4
     rows["K3"]["max_abs_err"] = worst_sample
 
-    # 3d. K5 against plain, on every main-path view
+    # 3d. the voxel ray set-up kernel against plain: the eight planes, then
+    # the frames K5 marches from them
     log(f"[time] {time.time() - t_start:.1f} s")
-    log("[kernel-vs-plain] K5 voxel_march")
+    log("[kernel-vs-plain] voxel_setup (the ray set-up)")
     grid_color, grid_hit = octree.densify(octree.gen_randomly(VOXEL_LEVEL, np.random.default_rng(0)), VOXEL_LEVEL)
     table = raycast.voxel_table(torch.as_tensor(grid_color, device=dev), torch.as_tensor(grid_hit, device=dev))
+    setup_lines = [line for line in kernels.ptxas_report() if line.startswith("voxel_setup_kernel:")]
+    for line in setup_lines:
+        log(f"  ptxas {line}")
+    check(any("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in line for line in setup_lines),
+          f"voxel_setup_kernel: a stack frame or spills ({setup_lines})")
+    base_cfg = raycast.VoxelRenderConfig(width=VOXEL_W, height=VOXEL_H, level=VOXEL_LEVEL, length=VOXEL_LENGTH)
+    cases = [(f"orbit {i}", *voxel_view(i), base_cfg) for i in range(FRAMES)]
+    cases += [(view, eye, inv, base_cfg) for view, eye, inv in setup_views()]
+    cases.append(("orbit 0 at length 3.0", *voxel_view(0, 3.0), dataclasses.replace(base_cfg, length=3.0)))
+    worst_setup = 0.0
+    for view, eye, inv_mvp, cfg in cases:
+        eye, inv_mvp = torch.from_numpy(eye).to(dev), torch.from_numpy(inv_mvp).to(dev)
+        got = raycast.prepare_rays(eye, inv_mvp, cfg)
+        want = plain(raycast.prepare_rays_plain, eye, inv_mvp, cfg)
+        ok, err = planes_equal(got, want)
+        worst_setup = max(worst_setup, err)
+        k = raycast.march_constants(cfg, grid_hit.shape[0])
+        frame_k, frame_p = raycast.march(*got, table, k), raycast.march(*want, table, k)
+        check(ok, f"voxel_setup {view}: the planes differ from the plain version's (max abs err {err})")
+        check(torch.equal(frame_k, frame_p), f"voxel_setup {view}: the marched frames differ at "
+              f"{int((frame_k != frame_p).sum())} rays")
+        log(f"  voxel_setup {view} (length {cfg.length}): eight planes bit-equal={ok}, alive share "
+            f"{float(got[3].float().mean()):.4f}, NaN t_max {int(torch.isnan(got[2]).sum())}, frames marched "
+            f"from them equal={torch.equal(frame_k, frame_p)}")
+    eye0, inv0 = (torch.from_numpy(a).to(dev) for a in voxel_view(0))
+    launch = kernel_call("voxel_setup", lambda: raycast.prepare_rays(eye0, inv0, base_cfg))
+    k_ms, p_ms, w_ms, each = timed(lambda: raycast.prepare_rays(eye0, inv0, base_cfg), launch,
+                                   lambda: raycast.prepare_rays_plain(eye0, inv0, base_cfg), 20)
+    n = VOXEL_W * VOXEL_H
+    # inputs read once (eye, inv_mvp), seven f32 planes and one bool plane
+    # written; ~340 float32 operations a ray on the cnt <= 2 shortcut that
+    # every ray needs at least (the kernel's note counts them)
+    nbytes, ops = 12 + 64 + 29 * n, 340 * n
+    b_ms, b_by = bound_ms(nbytes, ops)
+    rows["setup"] = {
+        "name": "voxel_setup (the voxel ray set-up, XLA's fusion)", "route": "cuda",
+        "source": "f_renderer_tpu_torch/csrc/voxel_setup.cu",
+        "replaces": "f_renderer_tpu/voxel/raycast.py:34 (no pallas_call: XLA's fusion of raycast.py:34-264, "
+                    "fenced at raycast_pallas.py:310)",
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "wrapper_ms": w_ms, "max_abs_err": worst_setup, "bytes": nbytes, "ops": ops, "ptxas": setup_lines,
+    }
+    log(f"  voxel540 voxel_setup time: kernel {each[0]:.4f} / {each[1]:.4f} ms (device), wrapper "
+        f"{each[4]:.4f} / {each[5]:.4f} ms, plain {each[2]:.2f} / {each[3]:.2f} ms, bound {b_ms:.4f} ms by {b_by} "
+        f"({nbytes} B, {ops} ops), share {b_ms / k_ms:.3f} (CUDA events; {smi})")
+
+    # 3e. K5 against plain, on every main-path view
+    log(f"[time] {time.time() - t_start:.1f} s")
+    log("[kernel-vs-plain] K5 voxel_march")
     for traversal in ("fixed", "dda"):
         cfg = raycast.VoxelRenderConfig(width=VOXEL_W, height=VOXEL_H, level=VOXEL_LEVEL,
                                         length=VOXEL_LENGTH, traversal=traversal)
@@ -1606,7 +1722,7 @@ def main() -> int:
             b2_ms, b2_by = bound_ms(36 * n + 4 * table.numel(), 25 * row["queries_serial"] + 5 * n)
             rows["K5 fixed"].update(bound_ms_serial=b2_ms, bound_by_serial=b2_by)
 
-    # 3e. K5 at level 6, where the hit bitmap (256 KiB) leaves shared memory for L2
+    # 3f. K5 at level 6, where the hit bitmap (256 KiB) leaves shared memory for L2
     color6, hit6 = octree.densify(octree.gen_randomly(6, np.random.default_rng(1)), 6)
     table6 = raycast.voxel_table(torch.as_tensor(color6, device=dev), torch.as_tensor(hit6, device=dev))
     eye, inv_mvp = (torch.from_numpy(a).to(dev) for a in voxel_view(0))
@@ -1627,7 +1743,7 @@ def main() -> int:
             f"{torch.equal(got, want)}, hit share {float((got != k.bg_packed).float().mean()):.4f}, "
             f"queries {queries}{serial}")
 
-    # 3f. K5 dda at length 3.0: cell 3/16 is no power of two, so the kernel divides
+    # 3g. K5 dda at length 3.0: cell 3/16 is no power of two, so the kernel divides
     cfg = raycast.VoxelRenderConfig(width=VOXEL_W, height=VOXEL_H, level=VOXEL_LEVEL, length=3.0,
                                     traversal="dda")
     k = raycast.march_constants(cfg, grid_hit.shape[0])
@@ -1703,7 +1819,7 @@ def main() -> int:
 
     counted = []  # the graph paths' main-path runs, made after every timing (4b)
 
-    def graph_path(path, entry, eager, frames, expect, shape, keys, geometries=0):
+    def graph_path(path, entry, eager, frames, expect, shape, keys, geometries=0, max_nodes=None):
         """A main path through its entry point, whose frames replay one
         captured graph (``entry(i)``: frame i), beside its first
         ``EAGER_FRAMES`` frames run eagerly (``eager(i)``): the first call
@@ -1712,7 +1828,8 @@ def main() -> int:
         graph's; a replay into sentinel-filled static outputs overwrites
         them; then the input copy, the replay and the output clone are timed
         alone. The graph must hold one conditional node (the clip path) for
-        each of its ``geometries`` (draws, times face shards). The counted run of its first frames as replays (launches from
+        each of its ``geometries`` (draws, times face shards), and fewer than
+        ``max_nodes`` nodes where that is given. The counted run of its first frames as replays (launches from
         the device's trace) comes in 4b, after every timing, so that no time
         is taken after tracing: ``keys`` maps the JSON line's launch keys to
         wrapper names."""
@@ -1730,6 +1847,9 @@ def main() -> int:
         check(nodes == per_frame, f"{path}: the graph holds kernel nodes {nodes}, one frame launches {per_frame}")
         check(conds == geometries, f"{path}: the graph holds {conds} conditional nodes, not one for each of its "
                                    f"{geometries} draws' geometries")
+        if max_nodes is not None:
+            check(own < max_nodes, f"{path}: the graph holds {own} nodes, not fewer than {max_nodes}")
+            log(f"[graph] {path}: {own} nodes (fewer than {max_nodes}: {own < max_nodes})")
 
         def timed(run, n):
             torch.cuda.synchronize()
@@ -1993,7 +2113,7 @@ def main() -> int:
 
     views = [voxel_view(i) for i in range(FRAMES)]
     color_t, hit_t = torch.as_tensor(grid_color, device=dev), torch.as_tensor(grid_hit, device=dev)
-    for traversal, key in (("fixed", "K5 fixed"), ("dda", "K5 dda")):
+    for traversal, key, setup_key in (("fixed", "K5 fixed", "setup"), ("dda", "K5 dda", "setup dda")):
         cfg = raycast.VoxelRenderConfig(width=VOXEL_W, height=VOXEL_H, level=VOXEL_LEVEL,
                                         length=VOXEL_LENGTH, traversal=traversal)
 
@@ -2006,7 +2126,8 @@ def main() -> int:
 
         path = "voxel540" if traversal == "fixed" else "voxel540dda"
         outs = graph_path(f"{path} render_voxel_frame", voxel_frame, voxel_eager, FRAMES,
-                          dict(zero, voxel_march=FRAMES), (VOXEL_H, VOXEL_W, 4), {key: "voxel_march"})
+                          dict(zero, voxel_march=FRAMES, voxel_setup=FRAMES), (VOXEL_H, VOXEL_W, 4),
+                          {key: "voxel_march", setup_key: "voxel_setup"}, max_nodes=VOXEL_GRAPH_NODES)
         hit = float((outs[0][..., :3] != 0).any(-1).float().mean())
         check(0.05 < hit < 0.9, f"{path}: implausible hit share {hit}")
         eye, inv_mvp = (torch.from_numpy(a).to(dev) for a in views[0])
@@ -2014,6 +2135,7 @@ def main() -> int:
         rays = raycast.prepare_rays(eye, inv_mvp, cfg)
         stages(path, [
             ("ray set-up", lambda: raycast.prepare_rays(eye, inv_mvp, cfg)),
+            ("ray set-up plain", lambda: raycast.prepare_rays_plain(eye, inv_mvp, cfg)),
             ("table", lambda: raycast.voxel_table(torch.as_tensor(grid_color, device=dev),
                                                   torch.as_tensor(grid_hit, device=dev))),
             ("K5", lambda: raycast.march(*rays, table, k)),
@@ -2077,6 +2199,7 @@ def main() -> int:
     for key, row in rows.items():
         row["launches"] = launches[key]
     rows["K4"]["launches_custom12_360"] = launches["K4 custom12_360"]
+    rows["setup"]["launches_voxel540dda"] = launches["setup dda"]
     rows["K1"]["launches_stress4k"] = launches["K1 stress4k"]
     rows["K1"]["launches_render_prepared"] = launches["K1 render_prepared"]
     rows["K1"]["launches_sharded_graph_world1"] = launches["K1 sharded graph"]
@@ -2092,7 +2215,7 @@ def main() -> int:
     log(json.dumps({"kernels": list(rows.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -85,6 +85,13 @@ int fr_voxel_march(FrVoxelParams p, const float* sx, const float* sy, const floa
                    const int32_t* alive, const int32_t* table, const float* times,
                    int32_t* bits, int32_t* out, void* stream);
 
+// Voxel ray set-up: the width x height rays from eye (3,) f32 through
+// inv_mvp (4, 4) f32 (both device pointers, read by the kernel) into a cube
+// of side length → planes (7, height, width) f32: start x/y/z, dir x/y/z,
+// t_max; alive (height, width) bytes, 0 or 1.
+int fr_voxel_setup(int width, int height, float length, const float* eye, const float* inv_mvp,
+                   float* planes, uint8_t* alive, void* stream);
+
 // A conditional node (csrc/graph_cond.cu), for the graph `parent` is
 // capturing: a kernel that sets its condition from the device bool *pred,
 // then an `if` node that later captured work on `parent` depends on; `body`

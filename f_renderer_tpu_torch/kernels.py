@@ -16,6 +16,8 @@ The kernels (the TPU kernel each replaces in brackets):
 - ``raster_planes`` — K4 (pipeline/raster_pallas.py:1562);
 - ``sample_bilinear`` — K3 (shaders/texture_pallas.py:497);
 - ``voxel_march`` — K5 (voxel/raycast_pallas.py:393);
+- ``voxel_setup`` — no Pallas kernel: XLA's fusion of the voxel ray set-up
+  (voxel/raycast.py:34-264, fenced at raycast_pallas.py:310);
 - ``if_node`` — no TPU kernel: a conditional node of a CUDA graph under
   capture, the counterpart of ``lax.cond`` in a compiled program
   (torch 2.11 has no Python API for one).
@@ -164,11 +166,12 @@ def load_library() -> ctypes.CDLL:
     lib.fr_raster_planes.argtypes = [i32] * 7 + [ptr] * 8 + [i32, ptr]
     lib.fr_sample_bilinear.argtypes = [ptr, ptr] + [i32] * 5 + [ptr] * 4 + [ctypes.c_int64, ptr]
     lib.fr_voxel_march.argtypes = [VoxelParams] + [ptr] * 13
+    lib.fr_voxel_setup.argtypes = [i32, i32, ctypes.c_float] + [ptr] * 5
     lib.fr_if_node_begin.argtypes = [ptr] * 3
     lib.fr_if_node_end.argtypes = [ptr]
     lib.fr_stream_create.argtypes = [ctypes.POINTER(ptr)]
     for fn in (lib.fr_fused_raster, lib.fr_raster_planes, lib.fr_sample_bilinear, lib.fr_voxel_march,
-               lib.fr_if_node_begin, lib.fr_if_node_end, lib.fr_stream_create):
+               lib.fr_voxel_setup, lib.fr_if_node_begin, lib.fr_if_node_end, lib.fr_stream_create):
         fn.restype = ctypes.c_int
     lib.fr_error_string.argtypes = [ctypes.c_int]
     lib.fr_error_string.restype = ctypes.c_char_p
@@ -451,3 +454,29 @@ def voxel_march(start, dirs, t_max, alive, table, times, k):
 
 
 voxel_march.launches = 0
+
+
+def voxel_setup(eye, inv_mvp, width, height, length):
+    """Launch the voxel ray set-up kernel (csrc/voxel_setup.cu) on PyTorch's
+    current stream: ``eye`` (3,) and ``inv_mvp`` (4, 4) f32, read by the
+    kernel from the card, a ``width`` x ``height`` frame, a cube of side
+    ``length`` → (start [3 planes], dirs [3 planes], t_max, alive), each
+    (height, width): f32 planes, contiguous views of one buffer, and a bool
+    plane."""
+    dev = _on_cuda(inv_mvp, "voxel_setup")
+    _need(eye, "eye", torch.float32, dev, (3,))
+    _need(inv_mvp, "inv_mvp", torch.float32, dev, (4, 4))
+    if width < 0 or height < 0 or width * height >= 2**31 - 256:
+        raise ValueError(f"voxel_setup: a {width}x{height} frame is not supported")
+    planes = torch.empty((7, height, width), dtype=torch.float32, device=dev)
+    alive = torch.empty((height, width), dtype=torch.bool, device=dev)
+    if width * height:
+        lib = load_library()
+        err = lib.fr_voxel_setup(width, height, length, eye.data_ptr(), inv_mvp.data_ptr(),
+                                 planes.data_ptr(), alive.data_ptr(), _stream(dev))
+        _check(lib, err, "fr_voxel_setup")
+        _count(voxel_setup)
+    return list(planes[:3]), list(planes[3:6]), planes[6], alive
+
+
+voxel_setup.launches = 0

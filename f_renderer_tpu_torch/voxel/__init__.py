@@ -1,8 +1,9 @@
 """Sparse-voxel-octree raycaster (reference: examples/src/bin/voxel.rs).
 
 Port of ``f_renderer_tpu/voxel``: the octree is built on the host (numpy)
-and densified into a 2^(level+1)³ table; every ray marches through it in the
-K5 kernel on the card (``csrc/voxel_march.cu``).
+and densified into a 2^(level+1)³ table; on the card one kernel sets up
+every pixel's ray (``csrc/voxel_setup.cu``) and every ray marches through
+the table in the K5 kernel (``csrc/voxel_march.cu``).
 """
 
 from f_renderer_tpu_torch.voxel.octree import SvoArrays, Voxel, densify, flatten, gen_randomly

@@ -6,12 +6,13 @@ intersect with the root cube, then march doing a point query per step into
 the densified voxel table; the first hit wins. Misses give the background
 (opaque black, ``Rgba::new()``).
 
-The ray set-up (unprojection, cube intersection, t_max) is plain PyTorch
-ops over per-axis (H, W) planes on the tensors' device, as it was XLA ops in
-the JAX package. The march is the K5 kernel (``csrc/voxel_march.cu``,
-``kernels.voxel_march``) for CUDA tensors and :func:`march_plain` for CPU
-tensors. The TPU knobs ``backend`` and ``block`` are gone: the device
-decides.
+The ray set-up (unprojection, cube intersection, t_max), which the JAX
+package wrote as XLA ops over per-axis (H, W) planes, is one kernel for
+CUDA tensors (``csrc/voxel_setup.cu``, ``kernels.voxel_setup``) and
+:func:`prepare_rays_plain`, those ops in PyTorch, for CPU tensors. The
+march is the K5 kernel (``csrc/voxel_march.cu``, ``kernels.voxel_march``)
+for CUDA tensors and :func:`march_plain` for CPU tensors. The TPU knobs
+``backend`` and ``block`` are gone: the device decides.
 
 Reference quirks replicated (SURVEY.md §7.3.10):
 
@@ -19,7 +20,8 @@ Reference quirks replicated (SURVEY.md §7.3.10):
   the dead branch is omitted;
 - the >2-intersection "dedupe" loop (voxel.rs:323-331) scrambles the
   entry/exit pair for corner-grazing rays: reproduced bit for bit;
-- t_max is an ``fmin`` chain that ignores NaN (Rust ``f32::min``);
+- t_max is an ``fmin`` chain that ignores NaN (Rust ``f32::min``), as
+  ``jnp.fmin`` takes it (:func:`fmin`);
 - fixed-step marching can skip thin leaves: the step, including the
   ``t = min(t + per_t, t_max)`` terminal step, is reproduced exactly.
 """
@@ -418,19 +420,50 @@ def march(start, dirs, t_max, alive, table, k: MarchConstants):
     )
 
 
-def prepare_rays(eye, inv_mvp, config: VoxelRenderConfig):
-    """Ray set-up for every pixel → (start [3 planes], dirs [3 planes],
-    t_max (H, W), alive (H, W)): unprojection, cube intersection and the
-    ray_cast set-up of voxel.rs:336-343."""
-    dp = _unproject_dir_planes(config.width, config.height, inv_mvp)
-    start, end, valid = _cube_intersect_planes(eye, dp, config.length)
+def fmin(a, b):
+    """``jnp.fmin``: ``a`` where ``a < b`` or ``b`` is NaN, else ``b``. It
+    ignores a NaN operand as Rust's ``f32::min`` does; of two zeros it
+    takes ``b`` (``fmin(+0, -0)`` is -0), where ``torch.fmin`` on the CPU
+    takes ``a``."""
+    return torch.where((a < b) | torch.isnan(b), a, b)
+
+
+def _rays_from_dirs(eye, dp, length):
+    """The set-up of rays from ``eye`` along the direction planes ``dp`` →
+    (start [3 planes], t_max, alive): cube intersection and the ray_cast
+    set-up of voxel.rs:336-343."""
+    start, end, valid = _cube_intersect_planes(eye, dp, length)
     # Rust f32::min ignores NaN (IEEE minNum): 0/0 components from
     # axis-parallel rays must not poison the min, hence fmin.
     tmv = [(end[a] - start[a]) / dp[a] for a in range(3)]
-    t_max = torch.fmin(torch.fmin(tmv[0], tmv[1]), tmv[2])
+    t_max = fmin(fmin(tmv[0], tmv[1]), tmv[2])
     # `while t <= t_max` (voxel.rs:344): a negative or NaN t_max marches
     # nothing, not even a query at t = 0.
-    return start, dp, t_max, valid & (t_max >= 0.0)
+    return start, t_max, valid & (t_max >= 0.0)
+
+
+def prepare_rays_plain(eye, inv_mvp, config: VoxelRenderConfig):
+    """Plain PyTorch version of the set-up kernel, on the tensors' device:
+    the JAX package's ops (raycast.py:34-264 there), element for element."""
+    dp = _unproject_dir_planes(config.width, config.height, inv_mvp)
+    start, t_max, alive = _rays_from_dirs(eye, dp, config.length)
+    return start, dp, t_max, alive
+
+
+def prepare_rays(eye, inv_mvp, config: VoxelRenderConfig):
+    """Ray set-up for every pixel → (start [3 planes], dirs [3 planes],
+    t_max (H, W) f32, alive (H, W) bool): unprojection, cube intersection
+    and the ray_cast set-up of voxel.rs:336-343. CUDA tensors launch the
+    set-up kernel (``kernels.voxel_setup``), CPU tensors run
+    :func:`prepare_rays_plain`."""
+    if inv_mvp.device.type == "cpu":
+        return prepare_rays_plain(eye, inv_mvp, config)
+    from f_renderer_tpu_torch import kernels
+
+    return kernels.voxel_setup(
+        eye.to(torch.float32).contiguous(), inv_mvp.to(torch.float32).contiguous(),
+        config.width, config.height, config.length,
+    )
 
 
 def voxel_frame(grid_color, grid_hit, eye, inv_mvp, config: VoxelRenderConfig):

@@ -643,15 +643,18 @@ def test_launches_under_replay_are_read_by_kernel_name():
     names = ["void fused_raster_kernel<2, false>(FrFusedParams, int const*, float const*)",
              "void tile_order_kernel<2, false>(int const*, int const*, unsigned long, int, int)",
              "_Z22sample_bilinear_kernelPKiS0_iiibPKfS2_S0_Pf", "void at::native::vectorized_elementwise_kernel<4>()",
-             "voxel_march_kernel", "hit_bits_kernel", "void fused_raster_kernel<2, true>(FrFusedParams)"]
+             "voxel_march_kernel", "hit_bits_kernel", "void fused_raster_kernel<2, true>(FrFusedParams)",
+             "_ZN12_GLOBAL__N_118voxel_setup_kernelEiifPKfS1_PfPh"]
     assert chip_smoke.kernel_launches(names) == {"fused_raster": 2, "raster_planes": 0, "sample_bilinear": 1,
-                                                 "voxel_march": 1}
-    assert set(chip_smoke.KERNEL_FUNCTIONS) == {"fused_raster", "raster_planes", "sample_bilinear", "voxel_march"}
+                                                 "voxel_march": 1, "voxel_setup": 1}
+    assert set(chip_smoke.KERNEL_FUNCTIONS) == {"fused_raster", "raster_planes", "sample_bilinear", "voxel_march",
+                                                "voxel_setup"}
     spin = "at::cuda::(anonymous namespace)::spin_kernel(long)"
-    trace = [(5, spin), (9, names[0]), (7, names[1]), (12, spin), (30, names[4]), (31, spin), (2, names[2])]
+    trace = [(5, spin), (9, names[0]), (7, names[1]), (12, spin), (29, names[7]), (30, names[4]), (31, spin),
+             (2, names[2])]
     assert chip_smoke.launches_between_markers(trace) == [  # in time order; before the first marker: ignored
-        {"fused_raster": 1, "raster_planes": 0, "sample_bilinear": 0, "voxel_march": 0},
-        {"fused_raster": 0, "raster_planes": 0, "sample_bilinear": 0, "voxel_march": 1}]
+        {"fused_raster": 1, "raster_planes": 0, "sample_bilinear": 0, "voxel_march": 0, "voxel_setup": 0},
+        {"fused_raster": 0, "raster_planes": 0, "sample_bilinear": 0, "voxel_march": 1, "voxel_setup": 1}]
     assert all(hasattr(getattr(kernels, k), "launches") for k in chip_smoke.KERNEL_FUNCTIONS)
 
 
