@@ -55,6 +55,21 @@ Phases, each reported on its own lines:
      at length 3.0: the eight planes bit for bit (NaN equal to NaN, zeros
      with their signs), then the frames K5 marches from each; its
      ``ptxas`` line must show no stack frame and no spills;
+   - the triangle set-up kernels (csrc/tri_setup.cu, XLA's fusions of the
+     chain from the vertex shader's outputs to the packed rows) and the
+     binning kernels (csrc/bin_pairs.cu, the binning and pair gather):
+     ``build_packed`` against ``build_packed_plain`` bit for bit (NaN equal
+     to any NaN), and ``bin_packed`` against ``bin_packed_plain`` (offsets
+     and pair columns bit for bit where the plain version takes the packed
+     31-bit sort; where it takes the two-operand sort, equal offsets and the
+     same lists, the kernels' in slot order), on phong1080 at the bench
+     camera and three more angles, with 1, cap and cap + 7 faces clipped,
+     its eight row slabs, stress4k (and at 32-row tiles), phong1080_tex2048,
+     custom12_360, sliver640, gouraud800, textured_wide, phong_bin_k1 and
+     cube1080; their ``ptxas`` lines must show no stack frame and no spills;
+     their device times at phong1080 and stress4k beside their bounds. The
+     raster kernels above run on the plain chain's preps, so every frame
+     of 4 is held to the frame the plain set-up and binning give;
    - K5, the voxel march: voxel540 and voxel540dda on all 10 main-path
      views, BGRA frames equal; for fixed steps each frame also against
      the plain serial chain without the jump (the query count of view 0
@@ -73,7 +88,8 @@ Phases, each reported on its own lines:
    (K5);
 4. the main paths through the entry points a user calls, each driven with
    the launch counters set to 0 just before it and read just after:
-   phong1080 ``Scene.render()`` (K1 once a frame), phong1080
+   phong1080 ``Scene.render()`` (K1, the set-up and the binning kernels
+   once a frame), phong1080
    ``render_prepared`` (``prepare()`` once, then K1 alone a frame while the
    eye moves and the textures trade places; the first and last frames equal
    to ``Scene.render()`` at the same uniforms), stress4k
@@ -90,7 +106,11 @@ Phases, each reported on its own lines:
    graph a frame (``compiled.py``). A graph path's frames are replays, so
    its launches are the kernels the device ran in them, read from CUPTI's
    kernel records in phase 4b, after every timing (no wrapper may count
-   one). ``[graph]``
+   one). ``[split]`` lines, in 4b too: one replay each of phong1080
+   ``render()`` and ``prepare()`` and stress4k ``render()`` under a trace
+   of its kernels, memsets and memcpys with their durations (the names
+   with the most device time, their sum and union against the replay's
+   time, the faces clipped at the bench camera). ``[graph]``
    lines: the first call captures; the graph's K1/K3/K4/K5 nodes (from its
    DOT) equal one eager frame's launches; the graph frames, timed in a
    second run, and the first three of them run eagerly (``render_frame``,
@@ -161,7 +181,8 @@ EAGER_FRAMES = 3  # the eager frames run beside a graph path's, its first ones
 # Each wrapper's kernel function (csrc/), as the device's trace names it.
 KERNEL_FUNCTIONS = {"fused_raster": "fused_raster_kernel", "raster_planes": "raster_planes_kernel",
                     "sample_bilinear": "sample_bilinear_kernel", "voxel_march": "voxel_march_kernel",
-                    "voxel_setup": "voxel_setup_kernel"}
+                    "voxel_setup": "voxel_setup_kernel", "tri_setup": "tri_setup_kernel",
+                    "bin_pairs": "bin_pairs_kernel"}
 VOXEL_GRAPH_NODES = 100  # a voxel frame's graph holds fewer nodes than this
 
 failures = []
@@ -509,15 +530,20 @@ def launches_between_markers(events, marker="spin_kernel"):
 
 
 class DeviceTrace:
-    """The kernels the device runs while the block is open, as CUPTI's
-    activity API records them (one record a kernel executed, graph replays
-    included): ``with DeviceTrace() as trace: ...``, then ``trace.kernels``,
-    (start ns, name) pairs. Uses the libcupti that torch loaded, with only
-    kernel records enabled (``torch.profiler`` took seconds to start).
-    Records are read at the fixed offsets of CUpti_ActivityKernel4 and its
-    successors (cupti_activity.h): start at byte 16, the name at byte 104."""
+    """The work the device runs while the block is open, as CUPTI's activity
+    API records it (one record a kernel, memset or memcpy executed, graph
+    replays included): ``with DeviceTrace() as trace: ...``, then
+    ``trace.kernels``, (start ns, name) pairs of the kernels, and
+    ``trace.records``, (start ns, end ns, name) of every record, a memset
+    named ``[memset]`` and a memcpy ``[memcpy]``. Uses the libcupti that
+    torch loaded (``torch.profiler`` took seconds to start). Records are
+    read at fixed offsets (cupti_activity.h): start at byte 16 and end at
+    byte 24 in CUpti_ActivityKernel4 and its successors, in
+    CUpti_ActivityMemset4 and in CUpti_ActivityMemcpy5; a kernel's name at
+    byte 104."""
 
-    KERNEL_KIND, START, NAME, BUFFER = 10, 16, 104, 32 << 20  # CUPTI_ACTIVITY_KIND_CONCURRENT_KERNEL
+    KERNEL_KIND, START, END, NAME, BUFFER = 10, 16, 24, 104, 32 << 20  # CUPTI_ACTIVITY_KIND_CONCURRENT_KERNEL
+    OTHER_KINDS = {1: "[memcpy]", 2: "[memset]"}  # CUPTI_ACTIVITY_KIND_MEMCPY, CUPTI_ACTIVITY_KIND_MEMSET
     _lib = _callbacks = None
     _active = None  # the trace the callbacks fill
 
@@ -545,10 +571,17 @@ class DeviceTrace:
         def completed(ctx, stream, buf, size, valid):
             rec = ctypes.c_void_p()
             while lib.cuptiActivityGetNextRecord(ctypes.c_void_p(buf), ctypes.c_size_t(valid), ctypes.byref(rec)) == 0:
-                if ctypes.c_uint32.from_address(rec.value).value == cls.KERNEL_KIND and cls._active is not None:
-                    start = ctypes.c_uint64.from_address(rec.value + cls.START).value
-                    name = ctypes.c_char_p.from_address(rec.value + cls.NAME).value or b""
-                    cls._active.kernels.append((start, name.decode(errors="replace")))
+                kind = ctypes.c_uint32.from_address(rec.value).value
+                if cls._active is None or (kind != cls.KERNEL_KIND and kind not in cls.OTHER_KINDS):
+                    continue
+                start = ctypes.c_uint64.from_address(rec.value + cls.START).value
+                end = ctypes.c_uint64.from_address(rec.value + cls.END).value
+                if kind == cls.KERNEL_KIND:
+                    name = (ctypes.c_char_p.from_address(rec.value + cls.NAME).value or b"").decode(errors="replace")
+                    cls._active.kernels.append((start, name))
+                else:
+                    name = cls.OTHER_KINDS[kind]
+                cls._active.records.append((start, end, name))
             buffers[:] = [b for b in buffers if (ctypes.addressof(b) + 7) & ~7 != buf]
 
         cls._lib, cls._callbacks = lib, (requested, completed)
@@ -563,10 +596,11 @@ class DeviceTrace:
         import torch
 
         self._load()
-        self.kernels = []
+        self.kernels, self.records = [], []
         torch.cuda.synchronize()
         DeviceTrace._active = self
-        self._check(self._lib.cuptiActivityEnable(self.KERNEL_KIND), "cuptiActivityEnable")
+        for kind in (self.KERNEL_KIND, *self.OTHER_KINDS):
+            self._check(self._lib.cuptiActivityEnable(kind), "cuptiActivityEnable")
         return self
 
     def __exit__(self, *exc):
@@ -574,9 +608,63 @@ class DeviceTrace:
 
         torch.cuda.synchronize()
         self._check(self._lib.cuptiActivityFlushAll(1), "cuptiActivityFlushAll")
-        self._check(self._lib.cuptiActivityDisable(self.KERNEL_KIND), "cuptiActivityDisable")
+        for kind in (self.KERNEL_KIND, *self.OTHER_KINDS):
+            self._check(self._lib.cuptiActivityDisable(kind), "cuptiActivityDisable")
         DeviceTrace._active = None
         return False
+
+
+def records_between_markers(records, marker="spin_kernel"):
+    """``records``: (start ns, end ns, name) in any order → the records of
+    each stretch between two ``marker`` kernels, in time order."""
+    parts, part = [], None
+    for rec in sorted(records):
+        if marker in rec[2]:
+            if part is not None:
+                parts.append(part)
+            part = []
+        elif part is not None:
+            part.append(rec)
+    return parts
+
+
+@functools.lru_cache(maxsize=None)
+def demangle(name):
+    """A kernel's C++ name as ``c++filt`` prints it (the name as given where
+    that fails), cut to 110 characters."""
+    try:
+        out = subprocess.run(["c++filt"], input=name, capture_output=True, text=True, timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        out = ""
+    out = out or name
+    return out if len(out) <= 110 else out[:107] + "..."
+
+
+def split(records, top=15):
+    """One replay's device records (start, end, name) → a summary: the
+    ``top`` names by device time with their count and total us; the sum of
+    every record's time; the span from the first start to the last end; the
+    time the device was busy (the union of the records); the idle gap (span
+    less busy); and the records by kind."""
+    by_name = {}
+    for start, end, name in records:
+        n, us = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, us + (end - start) / 1e3)
+    busy, last_end = 0, None
+    for start, end, _ in sorted(records):
+        if last_end is None or start >= last_end:
+            busy += end - start
+            last_end = end
+        elif end > last_end:
+            busy += end - last_end
+            last_end = end
+    span = (max(e for _, e, _ in records) - min(s for s, _, _ in records)) if records else 0
+    kinds = {k: sum(1 for *_, n in records if n == k) for k in ("[memset]", "[memcpy]")}
+    kinds["kernels"] = len(records) - sum(kinds.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"top": [(demangle(n), c, us) for n, (c, us) in ranked],
+            "sum_us": sum(us for _, us in by_name.values()), "span_us": span / 1e3, "busy_us": busy / 1e3,
+            "gap_us": (span - busy) / 1e3, "records": kinds}
 
 
 def graph_summary(frame):
@@ -663,6 +751,16 @@ def clip_path_cost(path, scene, smi):
         f"the conditional node (predicate false) {g_node:.4f} ms, the skip path alone {g_skip:.4f} ms "
         f"(+{g_node - g_skip:.4f} ms), the clip path and a select on every frame {g_select:.4f} ms "
         f"(+{g_select - g_skip:.4f} ms) (CUDA events; {smi})")
+
+
+def clipped_per_draw(scene, angle):
+    """Each draw's faces clipped (path B's ``num_clipped``) at ``angle``."""
+    from f_renderer_tpu_torch.pipeline.geometry import geometry_process
+
+    set_angle(scene, angle)
+    cfg = scene.config
+    return [int(geometry_process(d, scene.vertex_shader, scene.vs_uniform, cfg.width, cfg.height,
+                                 clip_cap=cfg.clip_cap)[1]["num_clipped"]) for d in scene.draws]
 
 
 def clipped_draws(draws, vs_uniform, n, seed=0):
@@ -1046,13 +1144,16 @@ def compare_portable(tag, tri, prep, tiles, got, width, height):
     return worst, ms
 
 
-def sort_bits(tri, prep):
-    """Bits of bin_pairs' packed (key, slot) sort key: the keys' and the
-    slots' (over 31, the two-operand stable sort runs)."""
-    from f_renderer_tpu_torch.pipeline.raster import LANES, cdiv
+def sort_bits(prep, m):
+    """Bits of bin_pairs' packed (key, slot) sort key for a prep of ``m``
+    packed columns: the keys' and the slots' (over 31, the two-operand
+    stable sort runs)."""
+    return prep.off.numel().bit_length(), max((m - 1).bit_length(), 1)
 
-    m_pad = cdiv(tri.num_slots + 1, LANES) * LANES
-    return prep.off.numel().bit_length(), max((m_pad - 1).bit_length(), 1)
+
+def packed_columns(tri):
+    """The columns ``raster.pack_binned`` packs a TriangleBuffer into."""
+    return -(-(tri.num_slots + 1) // 128) * 128
 
 
 def slab_check(tag, got, want):
@@ -1074,6 +1175,106 @@ def stitch(tag, render_slab, full, n, slab):
         joined = torch.cat([p[k] for p in parts])
         check(torch.equal(joined, whole), f"{tag}: the {n} stitched slabs' output {k} differs from the whole frame")
     return parts
+
+
+def bin_settings(cfg, fused_path):
+    """The bin settings ``render_frame`` gives ``raster.bin_packed``: the
+    config's for the fused path (``fused.prep_packed``), the tile alone
+    for K4's (as ``raster.rasterize_interp``)."""
+    if not fused_path:
+        return {}
+    return dict(tile_auto=cfg.tile_auto, tile_auto_threshold=cfg.tile_auto_threshold, bin_k=cfg.bin_k)
+
+
+def plain_prep(tri, cfg, **kw):
+    """The prep of a TriangleBuffer through the plain versions of the
+    set-up's pack and of the binning kernels (``raster.pack_binned``, then
+    ``raster.bin_packed_plain``), on the card: the raster kernels' inputs as
+    the plain chain makes them."""
+    from f_renderer_tpu_torch.pipeline import raster
+
+    ti, tf = raster.pack_binned(tri, cfg.width, cfg.height)
+    return raster.bin_packed_plain(ti, tf, tri.num_slots, tri.num_channels, cfg.width, cfg.height, cfg.tile, **kw)
+
+
+def bits_equal(a, b):
+    """Two tensors equal bit for bit, a float NaN equal to any NaN."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return bool(((a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
+
+
+def float_err(a, b):
+    """The largest |a - b| where both are finite (0 for empty tensors)."""
+    import torch
+
+    both = torch.isfinite(a) & torch.isfinite(b)
+    return float(torch.where(both, (a - b).abs(), 0.0).max()) if a.numel() else 0.0
+
+
+def bins_equal(got, want, ti, tf, packed):
+    """The binning kernels' prep against the plain one: equal offsets, and
+    the pair columns bit for bit where the plain version takes the packed
+    sort (both order pairs by (key, slot)); where it takes the two-operand
+    sort, each key's list the same set of slots (the kernels' in slot
+    order), each pair column its slot's packed column, and the padding
+    columns equal."""
+    import torch
+
+    from f_renderer_tpu_torch.pipeline.raster import SLOT
+
+    if not torch.equal(got.off, want.off):
+        return False
+    if packed:
+        return bits_equal(got.tri_i32, want.tri_i32) and bits_equal(got.tri_f32, want.tri_f32)
+    total = int(want.off[-1])
+    pairs = torch.arange(total, device=got.off.device)
+    key = torch.searchsorted(want.off.long(), pairs, right=True) - 1
+    slots_g, slots_w = got.tri_i32[SLOT, :total].long(), want.tri_i32[SLOT, :total].long()
+    same_sets = torch.equal(torch.sort((key << 32) | slots_g).values, torch.sort((key << 32) | slots_w).values)
+    in_order = bool((((key[1:] << 32) | slots_g[1:]) > ((key[:-1] << 32) | slots_g[:-1])).all())
+    return (same_sets and in_order and bits_equal(got.tri_i32[:, :total], ti[:, slots_g])
+            and bits_equal(got.tri_f32[:, :total], tf[:, slots_g])
+            and bits_equal(got.tri_i32[:, total:], want.tri_i32[:, total:])
+            and bits_equal(got.tri_f32[:, total:], want.tri_f32[:, total:]))
+
+
+def setup_launch(entry):
+    """Run ``entry()`` (a ``build_packed`` call) once with the set-up
+    kernels' wrappers recorded → a function that launches those kernels
+    alone with the same arguments: launch 1 (a fresh zeroed accumulator
+    and outputs), then launches 2 and 3 on its outputs and the recorded
+    clip path's fan words."""
+    from f_renderer_tpu_torch import kernels
+
+    seen, first, rest = {}, kernels.tri_setup, kernels.tri_setup_slots
+
+    def spy_first(*a, **kw):
+        seen["first"] = (a, kw)
+        return first(*a, **kw)
+
+    def spy_rest(*a, **kw):
+        seen["rest"] = (a, kw)
+        return rest(*a, **kw)
+
+    spy_first.launches, spy_rest.launches = first.launches, rest.launches  # each counts on its module name
+    kernels.tri_setup, kernels.tri_setup_slots = spy_first, spy_rest
+    try:
+        entry()
+    finally:
+        kernels.tri_setup, kernels.tri_setup_slots = first, rest
+        first.launches, rest.launches = spy_first.launches, spy_rest.launches
+
+    def launch():
+        (a1, kw1), (a2, kw2) = seen["first"], seen["rest"]
+        ti, tf, _, acc = first(*a1, **kw1)
+        rest(a2[0], a2[1], ti, tf, acc, **kw2)
+
+    return launch
 
 
 def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
@@ -1207,14 +1408,15 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
     zero = dict.fromkeys(counts(), 0)
     grid_args = (scene.draws, scene.vertex_shader, scene.vs_uniform, scene.pixel_shader, scene.ps_uniform)
     outs, got = drive("phong1080 render_frame_grid 2 x 4 (all_gather, in one process)",
-                      lambda i: render_frame_grid(*grid_args, cfg, 2, 4), 1, dict(zero, fused_raster=8), (h, w, 4))
+                      lambda i: render_frame_grid(*grid_args, cfg, 2, 4), 1, dict(zero, fused_raster=8, bin_pairs=8),
+                      (h, w, 4))
     launches["K1 grid 2x4"] = got["fused_raster"]
     check(torch.equal(outs[0][0], whole[0]) and torch.equal(outs[0][1], whole[1]),
           "phong1080: the 2 x 4 grid's frame differs from the single-device frame")
     stream_cfg = dataclasses.replace(cfg, comm_mode="stream")
     outs, got = drive("phong1080 render_frame_grid 2 x 4 (stream, in one process)",
                       lambda i: render_frame_grid(*grid_args, stream_cfg, 2, 4), 1,
-                      dict(zero, raster_planes=16, sample_bilinear=8), (h, w, 4))
+                      dict(zero, raster_planes=16, sample_bilinear=8, bin_pairs=16), (h, w, 4))
     launches["K4 grid 2x4 stream"] = got["raster_planes"]
     check(torch.equal(outs[0][0], whole_planes[0]) and torch.equal(outs[0][1], whole_planes[1]),
           "phong1080: the 2 x 4 grid's stream frame differs from the single-device fused_shade=False frame")
@@ -1230,7 +1432,7 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
 
     sharded(0)
     outs, got = drive("phong1080 render_frame_sharded (NCCL, world size 1)", sharded, FRAMES,
-                      dict(zero, fused_raster=FRAMES), (h, w, 4))
+                      dict(zero, fused_raster=FRAMES, bin_pairs=FRAMES), (h, w, 4))
     launches["K1 sharded world 1"] = got["fused_raster"]
     set_angle(scene, ANGLES[0])
     check(torch.equal(outs[0][0], whole[0]) and torch.equal(outs[0][1], whole[1]),
@@ -1250,7 +1452,8 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
         return render_frame_sharded(*sharded_args(), cfg, mesh)
 
     outs = graph_path("phong1080 compiled.sharded_frame (NCCL, world size 1)", sharded_graph, sharded_eager, FRAMES,
-                      dict(zero, fused_raster=FRAMES), (h, w, 4), {"K1 sharded graph": "fused_raster"}, geometries=3)
+                      dict(zero, fused_raster=FRAMES, bin_pairs=FRAMES), (h, w, 4),
+                      {"K1 sharded graph": "fused_raster", "bin_pairs sharded graph": "bin_pairs"}, geometries=3)
     check(torch.equal(outs[0][0], whole[0]) and torch.equal(outs[0][1], whole[1]),
           "phong1080: compiled.sharded_frame at world size 1 differs from the single-device frame")
     set_angle(scene, ANGLES[0])
@@ -1259,9 +1462,9 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
 
     # the 2 x 4 grid captured in this process: dp = 2 under a graph on one card
     for tag, c, single_cfg, expect, keys in (
-            ("all_gather", cfg, cfg, {"fused_raster": 8}, {"K1 grid 2x4 graph": "fused_raster"}),
+            ("all_gather", cfg, cfg, {"fused_raster": 8, "bin_pairs": 8}, {"K1 grid 2x4 graph": "fused_raster"}),
             ("stream", stream_cfg, dataclasses.replace(cfg, fused_shade=False),
-             {"raster_planes": 16, "sample_bilinear": 8},
+             {"raster_planes": 16, "sample_bilinear": 8, "bin_pairs": 16},
              {"K4 grid 2x4 stream graph": "raster_planes", "K3 grid 2x4 stream graph": "sample_bilinear"})):
         def grid_now(c=c):
             return compiled.grid_frame(*sharded_args(), c, 2, 4)
@@ -1291,6 +1494,151 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
     rows["K4"]["launches_grid_2x4_stream"] = launches.pop("K4 grid 2x4 stream")
 
 
+def setup_phase(dev, smi, rows):
+    """3h. the triangle set-up kernels (csrc/tri_setup.cu) and the binning
+    kernels (csrc/bin_pairs.cu) against their plain versions on the card:
+    ``build_packed`` against ``build_packed_plain`` bit for bit (NaN equal
+    to any NaN), and ``bin_packed`` against ``bin_packed_plain`` on the
+    plain packed arrays (``bins_equal``), on phong1080 at the bench camera
+    and three more angles, its clip-flip frames and its eight row slabs,
+    stress4k (and its 32-row tiles: the two-operand sort),
+    phong1080_tex2048, custom12_360, sliver640, gouraud800, textured_wide,
+    phong_bin_k1 (coarse and spill ranges) and cube1080; their device
+    times at phong1080 and stress4k beside their bounds."""
+    import torch
+
+    from f_renderer_tpu_torch import kernels
+    from f_renderer_tpu_torch.pipeline import fused, raster
+    from f_renderer_tpu_torch.pipeline.geometry import MAX_FAN
+    from f_renderer_tpu_torch.pipeline.render import build_packed, build_packed_plain
+
+    log("[kernel-vs-plain] tri_setup (the triangle set-up), bin_pairs (the binning and pair gather)")
+    lines = [line for line in kernels.ptxas_report() if line.split(":")[0].startswith(("tri_", "bin_"))]
+    for line in lines:
+        log(f"  ptxas {line}")
+    frames = [line for line in lines if "stack frame" in line]
+    check(len(frames) == 9 and all("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in line
+                                   for line in frames), f"tri_setup / bin_pairs kernels: a stack frame or spills ({lines})")
+    worst = {"tri_setup": 0.0, "bin_pairs": 0.0}
+
+    def check_setup(tag, scene, draws=None):
+        args = (scene.draws if draws is None else draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+        got, want = build_packed(*args), plain(build_packed_plain, *args)
+        ok = (bits_equal(got[0], want[0]) and bits_equal(got[1], want[1]) and got[2:4] == want[2:4]
+              and int(got[4]["num_clipped"]) == int(want[4]["num_clipped"]))
+        worst["tri_setup"] = max(worst["tri_setup"], float_err(got[1], want[1]))
+        check(ok, f"tri_setup {tag}: the packed arrays differ from the plain version's (slots {got[2]} / "
+                  f"{want[2]}, clipped {int(got[4]['num_clipped'])} / {int(want[4]['num_clipped'])})")
+        return want, ok
+
+    def check_bins(tag, packed, cfg, fused_path, **kw):
+        ti, tf, n, c, _ = packed
+        bins = (ti, tf, n, c, cfg.width, cfg.height, cfg.tile)
+        kw = dict(bin_settings(cfg, fused_path), **kw)
+        got, want = raster.bin_packed(*bins, **kw), plain(raster.bin_packed_plain, *bins, **kw)
+        sort = sum(sort_bits(want, ti.shape[1])) <= 31
+        ok = bins_equal(got, want, ti, tf, sort)
+        if sort:
+            worst["bin_pairs"] = max(worst["bin_pairs"], float_err(got.tri_f32, want.tri_f32))
+        check(ok, f"bin_pairs {tag}: the binned prep differs from the plain version's "
+                  f"({'packed' if sort else 'two-operand'} sort)")
+        return got, ok, sort
+
+    def report(tag, packed, got, ok_a, ok_b, sort):
+        log(f"  {tag}: slots {packed[2]}, C={packed[3]}, faces clipped {int(packed[4]['num_clipped'])}: set-up "
+            f"bit-equal={ok_a}; th={got.th}, {int(got.off[-1])} pairs in {got.tri_i32.shape[1]} columns, "
+            f"ranges {range_sizes(got)}, the plain version's {'packed 31-bit' if sort else 'two-operand'} sort: "
+            f"bins {'bit-equal' if sort else 'equal offsets, the same lists in slot order'}={ok_b}")
+
+    def timing(tag, scene, packed, fused_path):
+        """Device ms of the set-up kernels and the binning kernels, their
+        entry points' and plain versions' ms, and their bounds."""
+        cfg = scene.config
+        args = (scene.draws, scene.vertex_shader, scene.vs_uniform, cfg)
+        ti, tf, n, c, _ = packed
+        bins = (ti, tf, n, c, cfg.width, cfg.height, cfg.tile)
+        kw = bin_settings(cfg, fused_path)
+        a_launch = setup_launch(lambda: build_packed(*args))
+        a = timed(lambda: build_packed(*args), a_launch, lambda: build_packed_plain(*args), 20, 3)
+        b_launch = kernel_call("bin_pairs", lambda: raster.bin_packed(*bins, **kw))
+        b = timed(lambda: raster.bin_packed(*bins, **kw), b_launch, lambda: raster.bin_packed_plain(*bins, **kw), 20, 3)
+        prep = raster.bin_packed(*bins, **kw)
+        faces = sum(next(iter(d.values())).shape[0] for d in scene.draws)
+        n_draws, nb = len(scene.draws), cfg.clip_cap * MAX_FAN
+        clipping = sum(v > 0 for v in clipped_per_draw(scene, ANGLES[0]))
+        m_pad, rows_f = ti.shape[1], tf.shape[0]
+        # set-up: the clip planes and varyings of every corner read once, the
+        # fan words of each draw that clipped, both arrays and the face mask
+        # written; ~100 operations a face, ~45 a path-B slot
+        a_bytes = 4 * (4 + c) * 3 * faces + 4 * nb * (23 + 3 * c) * clipping + 4 * (12 + rows_f) * m_pad + faces
+        a_ops = 100 * faces + 45 * n_draws * nb
+        # binning: the packed arrays read once, the pair-order arrays and the
+        # offsets written; ~30 operations a slot and ~10 a pair
+        pairs = int(prep.off[-1])
+        b_bytes = 4 * (12 + rows_f) * (m_pad + prep.tri_i32.shape[1]) + 4 * prep.off.numel()
+        b_ops = 30 * m_pad + 10 * pairs
+        out = {}
+        for name, (k_ms, p_ms, w_ms, each), nbytes, ops in (("tri_setup", a, a_bytes, a_ops),
+                                                             ("bin_pairs", b, b_bytes, b_ops)):
+            b_ms, b_by = bound_ms(nbytes, ops)
+            out[name] = {"ms": k_ms, "ms_each": each[:2], "plain_ms": p_ms, "wrapper_ms": w_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "bytes": nbytes, "ops": ops}
+            log(f"  {tag} {name} time: kernels {each[0]:.4f} / {each[1]:.4f} ms (device), entry point "
+                f"{each[4]:.4f} / {each[5]:.4f} ms, plain {each[2]:.3f} / {each[3]:.3f} ms, bound {b_ms:.4f} ms by "
+                f"{b_by} ({nbytes} B, {ops} ops), share {b_ms / k_ms:.3f} (CUDA events; {smi})")
+        return out
+
+    cases = [("phong1080", a) for a in (0.10, 0.15, 0.20, 0.35)] + [
+        ("stress4k", 0.10), ("phong1080_tex2048", 0.10), ("custom12_360", 0.3), ("sliver640", None),
+        ("gouraud800", 0.1), ("textured_wide", 0.2), ("phong_bin_k1", 0.3), ("cube1080_flat", 0.1)]
+    for name, angle in cases:
+        scene = build_scene(name, dev)
+        set_angle(scene, angle)
+        cfg = scene.config
+        fused_path = (cfg.fused_shade and hasattr(scene.pixel_shader, "fused_kind")
+                      and fused.fused_path_ok(scene.pixel_shader, scene.ps_uniform))
+        packed, ok_a = check_setup(f"{name}@{angle}", scene)
+        got, ok_b, sort = check_bins(f"{name}@{angle}", packed, cfg, fused_path)
+        report(f"{name}@{angle}", packed, got, ok_a, ok_b, sort)
+        if name == "phong1080" and angle == ANGLES[0]:
+            cap = cfg.clip_cap
+            for n in (1, cap, cap + 7):
+                draws = clipped_draws(scene.draws, scene.vs_uniform, n)
+                flip, ok_a = check_setup(f"phong1080 with {n} faces clipped", scene, draws)
+                got, ok_b, sort = check_bins(f"phong1080 with {n} faces clipped", flip, cfg, fused_path)
+                report(f"phong1080@{angle} with {n} faces of draw 0 clipped", flip, got, ok_a, ok_b, sort)
+            slab, oks = cfg.height // 8, []
+            for lin in range(8):
+                got, ok_b, sort = check_bins(f"phong1080 slab {lin} of 8", packed, cfg, fused_path,
+                                             origin=(lin * slab, 0), size=(slab, cfg.width))
+                oks.append(ok_b and sort)
+            log(f"  phong1080@{angle}: the eight row slabs' bins (origin, size) bit-equal={oks}")
+            times = timing(f"phong1080@{angle}", scene, packed, fused_path)
+            for key, tag, source, replaces in (
+                    ("tri_setup", "the triangle set-up, XLA's fusions", "tri_setup.cu",
+                     "f_renderer_tpu/pipeline/geometry.py:300 (no pallas_call: XLA's fusions of geometry.py:300-350, "
+                     "render.py:113-202 and raster_pallas.py:178 pack_setup)"),
+                    ("bin_pairs", "the binning and pair gather, XLA's fusions", "bin_pairs.cu",
+                     "f_renderer_tpu/pipeline/raster_pallas.py:319 (no pallas_call: XLA's fusions of bin_pairs and "
+                     "the pair gather, fused.py:160-183)")):
+                rows[key] = dict({"name": f"{key} ({tag})", "route": "cuda",
+                                  "source": f"f_renderer_tpu_torch/csrc/{source}", "replaces": replaces,
+                                  "library_ms": None}, **times[key])
+        if name == "stress4k":
+            times = timing(f"stress4k@{angle}", scene, packed, fused_path)
+            for key in ("tri_setup", "bin_pairs"):
+                rows[key].update({f"stress4k_{k}": v for k, v in times[key].items()})
+            cfg32 = dataclasses.replace(cfg, tile=(32, 128), tile_auto=False)
+            got, ok_b, sort = check_bins("stress4k th=32", packed, cfg32, fused_path)
+            check(not sort, "stress4k th=32: the plain version took the packed sort, not the two-operand one")
+            report("stress4k@0.1 th=32", packed, got, ok_a, ok_b, sort)
+        del scene, packed, got
+    for key in worst:
+        rows[key]["max_abs_err"] = worst[key]
+    rows["tri_setup"]["ptxas"] = [line for line in lines if line.startswith("tri_")]
+    rows["bin_pairs"]["ptxas"] = [line for line in lines if line.startswith("bin_")]
+
+
 def main() -> int:
     import torch
 
@@ -1303,7 +1651,8 @@ def main() -> int:
 
         from f_renderer_tpu_torch import compiled, kernels
         from f_renderer_tpu_torch.pipeline import fused, raster, shade
-        from f_renderer_tpu_torch.pipeline.render import build_triangles, context_codec, rasterize, render_frame
+        from f_renderer_tpu_torch.pipeline.render import (
+            build_packed, build_packed_plain, build_triangles, context_codec, rasterize, render_frame)
         from f_renderer_tpu_torch.shaders.builtin import shade_plain
         from f_renderer_tpu_torch.voxel import octree, raycast
     except ImportError as e:
@@ -1343,7 +1692,7 @@ def main() -> int:
         scene = build_scene(scene_name, dev)
         set_angle(scene, angle)
         tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
-        prep = fused.prep_fused(tri, scene.config)
+        prep = plain_prep(tri, scene.config, **bin_settings(scene.config, True))
         args = (prep, scene.pixel_shader, scene.ps_uniform, scene.config)
         got = fused.render_fused_prepared(*args)
         want = plain(fused.render_fused_plain, *args)
@@ -1398,8 +1747,8 @@ def main() -> int:
     sw, sh = SIZES["stress4k"]
     tri, stats = build_triangles(stress.draws, stress.vertex_shader, stress.vs_uniform, stress.config)
     check(int(stats["num_clipped"]) <= stress.config.clip_cap, "stress4k: clip_cap dropped faces")
-    prep = fused.prep_fused(tri, stress.config)
-    key_bits, slot_bits = sort_bits(tri, prep)
+    prep = plain_prep(tri, stress.config, **bin_settings(stress.config, True))
+    key_bits, slot_bits = sort_bits(prep, packed_columns(tri))
     check(prep.th == 64 and key_bits + slot_bits <= 31,
           f"stress4k: th {prep.th}, sort key {key_bits} + {slot_bits} bits: not the packed sort at th = 64")
     args = (prep, stress.pixel_shader, stress.ps_uniform, stress.config)
@@ -1465,8 +1814,8 @@ def main() -> int:
     # would raise them to 64) need a 12-bit key, 32 bits with the slot: the
     # stable two-operand sort. The same pixels, so the same frame.
     cfg32 = dataclasses.replace(stress.config, tile=(32, 128), tile_auto=False)
-    prep32 = fused.prep_fused(tri, cfg32)
-    key_bits, slot_bits = sort_bits(tri, prep32)
+    prep32 = plain_prep(tri, cfg32, **bin_settings(cfg32, True))
+    key_bits, slot_bits = sort_bits(prep32, packed_columns(tri))
     check(prep32.th == 32 and key_bits + slot_bits > 31,
           f"stress4k th=32: th {prep32.th}, sort key {key_bits} + {slot_bits} bits: not the two-operand sort")
     args32 = (prep32, stress.pixel_shader, stress.ps_uniform, cfg32)
@@ -1503,8 +1852,7 @@ def main() -> int:
         for angle in angles:
             set_angle(scene, angle)
             tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
-            prep = raster.prep_binned(tri, scene.config.width, scene.config.height, scene.config.tile,
-                                      bin_k=scene.config.bin_k)
+            prep = plain_prep(tri, scene.config, bin_k=scene.config.bin_k)
             tag = (f"{scene_name}@{angle} C={prep.n_ctx} th={prep.th} pairs={prep.tri_i32.shape[1]} "
                    f"ranges {range_sizes(prep)}")
             e_ctx, e_d = compare_planes(f"{tag} rasterize", raster.raster_planes(prep, False),
@@ -1756,6 +2104,8 @@ def main() -> int:
     log(f"  length 3.0 dda (cell {k.cell}, divided): BGRA equal={torch.equal(got, want)}, hit share "
         f"{float((got != k.bg_packed).float().mean()):.4f}, queries {int(queries.sum())}")
 
+    setup_phase(dev, smi, rows)
+
     log(f"[time] {time.time() - t_start:.1f} s")
     # 4. the main paths, each with the counters set to 0 just before it
     def checksum(path, outs, shape):
@@ -1796,19 +2146,24 @@ def main() -> int:
         log(f"[stages] {path}: " + ", ".join(times) + f" ({smi})")
 
     def raster_stages(path, scene):
-        tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
         cfg = scene.config
-        parts = [("geometry", lambda: build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, cfg))]
-        if fused.fused_path_ok(scene.pixel_shader, scene.ps_uniform):
-            prep = fused.prep_fused(tri, cfg)
-            parts += [("prep", lambda: fused.prep_fused(tri, cfg)),
-                      ("K1", lambda: fused.render_fused_prepared(prep, scene.pixel_shader, scene.ps_uniform, cfg))]
+        args = (scene.draws, scene.vertex_shader, scene.vs_uniform, cfg)
+        ti, tf, n, c, _ = build_packed(*args)
+        fused_ok = fused.fused_path_ok(scene.pixel_shader, scene.ps_uniform)
+        bins = (ti, tf, n, c, cfg.width, cfg.height, cfg.tile)
+        kw = bin_settings(cfg, fused_ok)
+        parts = [("set-up (the vertex shader, the tri_setup kernels, the clip path: build_packed)",
+                  lambda: build_packed(*args)),
+                 ("its plain version (build_triangles + pack_binned)", lambda: build_packed_plain(*args)),
+                 ("bin (the bin_pairs kernels: bin_packed)", lambda: raster.bin_packed(*bins, **kw)),
+                 ("its plain version (bin_packed_plain)", lambda: raster.bin_packed_plain(*bins, **kw))]
+        prep = raster.bin_packed(*bins, **kw)
+        if fused_ok:
+            parts += [("K1", lambda: fused.render_fused_prepared(prep, scene.pixel_shader, scene.ps_uniform, cfg))]
         else:
-            prep = raster.prep_binned(tri, cfg.width, cfg.height, cfg.tile)
             codec = context_codec(scene.vertex_shader, scene.vs_uniform, scene.draws[0])
             depth, winner, ps, ctx = (t[..., :cfg.height, :cfg.width] for t in raster.raster_planes(prep, True))
-            parts += [("prep", lambda: raster.prep_binned(tri, cfg.width, cfg.height, cfg.tile)),
-                      ("K4", lambda: raster.raster_planes(prep, True)),
+            parts += [("K4", lambda: raster.raster_planes(prep, True)),
                       ("shade (with K3)", lambda: shade.shade_from_planes(
                           ctx, ps, winner, scene.pixel_shader, scene.ps_uniform, codec, background=cfg.background))]
         stages(path, parts)
@@ -1818,6 +2173,7 @@ def main() -> int:
     compiled.CACHE.debug = True  # each graph keeps its nodes until graph_summary() reads them
 
     counted = []  # the graph paths' main-path runs, made after every timing (4b)
+    split_frames = {}  # path → (its GraphFrame, its replay ms, a call that loads the bench camera's frame)
 
     def graph_path(path, entry, eager, frames, expect, shape, keys, geometries=0, max_nodes=None):
         """A main path through its entry point, whose frames replay one
@@ -1893,6 +2249,7 @@ def main() -> int:
             f"kernel nodes {nodes}; {own} nodes, {conds} of them conditional (a draw's clip path each), "
             f"{in_bodies} nodes in their bodies (CUDA events; {smi})")
         counted.append((path, entry, frames, expect, shape, outs, keys))
+        split_frames[path] = (frame, replay_ms, lambda: entry(0))
         return outs
 
     def render_eager(s):
@@ -1952,7 +2309,10 @@ def main() -> int:
         return render_eager(s)
 
     outs = graph_path("phong1080 Scene.render()", phong_frame, phong_eager, FRAMES,
-                      dict(zero, fused_raster=FRAMES), (h, w, 4), {"K1": "fused_raster"}, geometries=3)
+                      dict(zero, fused_raster=FRAMES, tri_setup=FRAMES, bin_pairs=FRAMES), (h, w, 4),
+                      {"K1": "fused_raster", "tri_setup": "tri_setup", "bin_pairs": "bin_pairs"}, geometries=3)
+    clipped_at_bench = {"phong1080 Scene.render()": clipped_per_draw(scene, ANGLES[0])}
+    clipped_at_bench["phong1080 prepare()"] = clipped_at_bench["phong1080 Scene.render()"]
     for frame, depth, stats in outs:
         check(bool(torch.isfinite(depth).all()), "phong1080: non-finite depth")
         check(int(stats["num_clipped"]) <= scene.config.clip_cap, "phong1080: clip_cap dropped faces")
@@ -1988,22 +2348,25 @@ def main() -> int:
     prepared = scene.prepare()  # the eager warm-up, then the capture
     prep_graph = compiled.CACHE.last
     tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
-    want_prep = fused.prep_fused(tri, scene.config)
+    want_prep = plain_prep(tri, scene.config, **bin_settings(scene.config, True))
     for t in prep_graph.outputs:
         fill_sentinel(t)
     replayed = scene.prepare()
     prep_nodes, prep_conds, prep_own, prep_in_bodies = graph_summary(prep_graph)
     ok = (compiled.CACHE.captures == before + 1 and same(prepared, want_prep) and same(replayed, want_prep)
           and all(torch.equal(a, b) for a, b in zip(prep_graph.outputs, compiled.flatten(want_prep)[0])))
-    check(ok and not any(prep_nodes.values()) and prep_conds == 3,
+    check(ok and prep_nodes == dict(zero, tri_setup=1, bin_pairs=1) and prep_conds == 3,
           f"phong1080 prepare: graph prep equal to eager {ok}, kernel nodes {prep_nodes}, conditional nodes {prep_conds}")
 
     def prepare_eager():
-        return fused.prep_fused(build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)[0],
-                                scene.config)
+        packed = build_packed(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+        return fused.prep_packed(*packed[:4], scene.config)
 
+    prep_replay_ms = cuda_ms(prep_graph.replay, 5)
+    split_frames["phong1080 prepare()"] = (prep_graph, prep_replay_ms,
+                                           lambda s=scene: (set_angle(s, ANGLES[0]), s.prepare()))
     log(f"[graph] phong1080 prepare: capture {prep_graph.capture_ms:.1f} ms, pool {prep_graph.graph.pool_bytes} B, "
-        f"replay {cuda_ms(prep_graph.replay, 5):.3f} ms, eager prep {cuda_ms(prepare_eager, 5):.3f} ms; the prep (and "
+        f"replay {prep_replay_ms:.3f} ms, eager prep {cuda_ms(prepare_eager, 5):.3f} ms; the prep (and "
         f"a replay into sentinel-filled outputs) bit-equal to the eager prep={ok}, kernel nodes {prep_nodes}; "
         f"{prep_own} nodes, {prep_conds} of them conditional, {prep_in_bodies} nodes in their bodies ({smi})")
     clip_flip("phong1080 prepare()", scene, scene.prepare, prepare_eager)
@@ -2041,8 +2404,10 @@ def main() -> int:
         return render_eager(s)
 
     outs = graph_path("stress4k Scene.render()", stress_frame_at, stress_eager, len(ANGLES),
-                      dict(zero, fused_raster=len(ANGLES)), (sh, sw, 4), {"K1 stress4k": "fused_raster"},
+                      dict(zero, fused_raster=len(ANGLES), tri_setup=len(ANGLES), bin_pairs=len(ANGLES)), (sh, sw, 4),
+                      {"K1 stress4k": "fused_raster", "tri_setup stress4k": "tri_setup", "bin_pairs stress4k": "bin_pairs"},
                       geometries=1)
+    clipped_at_bench["stress4k Scene.render()"] = clipped_per_draw(scene, ANGLES[0])
     for i, (frame, depth, stats) in enumerate(outs):
         check(bool(torch.isfinite(depth).all()), "stress4k: non-finite depth")
         check(int(stats["num_clipped"]) <= scene.config.clip_cap, "stress4k: clip_cap dropped faces")
@@ -2088,8 +2453,9 @@ def main() -> int:
         return render_eager(s)[0]
 
     outs = graph_path("phong1080_tex2048 Scene.render()", tex_frame, tex_eager, FRAMES,
-                      dict(zero, raster_planes=FRAMES, sample_bilinear=FRAMES), (h, w, 4),
-                      {"K4": "raster_planes", "K3": "sample_bilinear"}, geometries=3)
+                      dict(zero, raster_planes=FRAMES, sample_bilinear=FRAMES, tri_setup=FRAMES, bin_pairs=FRAMES),
+                      (h, w, 4), {"K4": "raster_planes", "K3": "sample_bilinear", "tri_setup tex2048": "tri_setup",
+                                  "bin_pairs tex2048": "bin_pairs"}, geometries=3)
     check(torch.equal(outs[0], tex2048_frame), "phong1080_tex2048: Scene.render() at 0.10 differs from the checked K4 + K3 frame")
     raster_stages("phong1080_tex2048", scene)
     set_angle(scene, ANGLES[0])
@@ -2106,8 +2472,10 @@ def main() -> int:
         return render_eager(s)[0]
 
     w, h = SIZES["custom12_360"]
-    graph_path("custom12_360 Scene.render()", custom_frame, custom_eager, 3, dict(zero, raster_planes=3), (h, w, 4),
-               {"K4 custom12_360": "raster_planes"}, geometries=3)
+    graph_path("custom12_360 Scene.render()", custom_frame, custom_eager, 3,
+               dict(zero, raster_planes=3, tri_setup=3, bin_pairs=3), (h, w, 4),
+               {"K4 custom12_360": "raster_planes", "tri_setup custom12_360": "tri_setup",
+                "bin_pairs custom12_360": "bin_pairs"}, geometries=3)
     set_angle(scene, 0.3)
     clip_flip("custom12_360 Scene.render()", scene, scene.render, lambda: render_eager(scene))
 
@@ -2178,6 +2546,42 @@ def main() -> int:
                 f"checksum {checksum(path, again, shape)} ({smi})")
             launches.update({key: got[wrapper] for key, wrapper in keys.items()})
         counted.clear()
+        split_replays()
+
+    def split_replays():
+        """4b. one replay of each split path (phong1080 ``render()`` and
+        ``prepare()``, stress4k ``render()``) at the bench camera, under a
+        device trace of its kernels, memsets and memcpys with their
+        durations: where the replay's time goes."""
+        paths = [p for p in ("phong1080 Scene.render()", "phong1080 prepare()", "stress4k Scene.render()")
+                 if p in split_frames]
+        for p in paths:
+            split_frames[p][2]()  # the bench camera's inputs in the graph's buffers
+        torch.cuda.synchronize()
+        with DeviceTrace() as trace:
+            for p in paths:
+                torch.cuda._sleep(1)
+                torch.cuda.synchronize()
+                split_frames[p][0].replay()
+                torch.cuda.synchronize()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        parts = records_between_markers(trace.records)
+        check(len(parts) == len(paths), f"split: the trace holds {len(parts)} replays, not {len(paths)}")
+        for p, part in zip(paths, parts):
+            sp = split(part)
+            ran = kernel_launches(name for *_, name in part)
+            check(ran["tri_setup"] == 1 and ran["bin_pairs"] == 1,
+                  f"{p}: the traced replay ran the set-up and binning kernels {ran['tri_setup']} and "
+                  f"{ran['bin_pairs']} times, not once each")
+            log(f"[split] {p}: one replay at the bench camera ({ANGLES[0]}), faces clipped per draw "
+                f"{clipped_at_bench[p]}; {sp['records']} records; device time summed {sp['sum_us']:.1f} us, busy "
+                f"(their union) {sp['busy_us']:.1f} us over a span of {sp['span_us']:.1f} us (idle gap "
+                f"{sp['gap_us']:.1f} us); the replay {split_frames[p][1] * 1e3:.1f} us (CUDA events, untraced; "
+                f"{smi})")
+            for name, n, us in sp["top"]:
+                log(f"[split]   {us:9.2f} us  x{n:<5d} {name}")
+        split_frames.clear()
 
     # 5. row slabs and the sharded frame, on an NCCL group of one rank that
     # lives until 4b has replayed the captured sharded frame
@@ -2201,6 +2605,10 @@ def main() -> int:
     rows["K4"]["launches_custom12_360"] = launches["K4 custom12_360"]
     rows["setup"]["launches_voxel540dda"] = launches["setup dda"]
     rows["K1"]["launches_stress4k"] = launches["K1 stress4k"]
+    for key in ("tri_setup", "bin_pairs"):
+        for path in ("stress4k", "tex2048", "custom12_360"):
+            rows[key][f"launches_{path}"] = launches[f"{key} {path}"]
+    rows["bin_pairs"]["launches_sharded_graph_world1"] = launches["bin_pairs sharded graph"]
     rows["K1"]["launches_render_prepared"] = launches["K1 render_prepared"]
     rows["K1"]["launches_sharded_graph_world1"] = launches["K1 sharded graph"]
     rows["K1"]["launches_grid_2x4_graph"] = launches["K1 grid 2x4 graph"]

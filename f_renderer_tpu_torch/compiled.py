@@ -45,7 +45,7 @@ the few ops it saves).
   read from the device, as ``chip_smoke.py`` does with CUPTI.
 
 Tools that time stages call the pipeline functions (``render_frame``,
-``build_triangles``, ``prep_fused``, ``render_fused_prepared``,
+``build_packed``, ``prep_packed``, ``render_fused_prepared``,
 ``raycast.voxel_frame``, ``render_frame_sharded``) directly: those stay
 eager, as the JAX package's un-jitted functions do.
 """
@@ -61,8 +61,8 @@ import torch
 
 from f_renderer_tpu_torch import kernels
 from f_renderer_tpu_torch.device import graph_frame, node_memory
-from f_renderer_tpu_torch.pipeline.fused import prep_fused
-from f_renderer_tpu_torch.pipeline.render import build_triangles, render_frame
+from f_renderer_tpu_torch.pipeline.fused import prep_packed
+from f_renderer_tpu_torch.pipeline.render import build_packed, render_frame
 
 MAX_GRAPHS = 64
 
@@ -285,8 +285,8 @@ def scene_prepare(scene):
     vs, config = scene.vertex_shader, scene.config
 
     def frame(vs_uniform, draws):
-        tri, _ = build_triangles(list(draws), vs, vs_uniform, config)
-        return prep_fused(tri, config)
+        ti, tf, n_slots, n_ctx, _ = build_packed(list(draws), vs, vs_uniform, config)
+        return prep_packed(ti, tf, n_slots, n_ctx, config)
 
     return CACHE.run(("prepare", vs, config), frame, (scene.vs_uniform, tuple(scene.draws)), scene.device)
 

@@ -92,6 +92,64 @@ int fr_voxel_march(FrVoxelParams p, const float* sx, const float* sy, const floa
 int fr_voxel_setup(int width, int height, float length, const float* eye, const float* inv_mvp,
                    float* planes, uint8_t* alive, void* stream);
 
+// Mirrors kernels.TriSetupParams: int32 fields only (no padding).
+typedef struct FrTriSetupParams {
+  int32_t n_draws;    // D (1..256)
+  int32_t n_faces;    // faces of all draws, F_0 + ... + F_{D-1}
+  int32_t n_ctx;      // varying channels C
+  int32_t nb;         // path-B slots a draw: clip_cap * MAX_FAN
+  int32_t m;          // slots: the sum over draws of F_d + nb
+  int32_t m_pad;      // columns of the packed arrays, > m
+  int32_t width, height;
+  int32_t cull;       // drop back faces instead of repairing their winding
+  int32_t quirk;      // reduce the ps boundary quirk's per-draw partials
+} FrTriSetupParams;
+
+// Triangle set-up (csrc/tri_setup.cu), launch 1 of a frame: per face, its
+// masks and its path-A column of tri_i32 (12, m_pad) / tri_f32 (9 + 3C,
+// m_pad), from the vertex shader's clip (4, 3 n_faces) and ctx (C, 3
+// n_faces) planes (draw d's corners at 3 face_off[d] + v F_d + i).
+//   table   (4 D) int32: face_off, faces, slot_base, order_base per draw
+//   b_mask  (n_faces) bytes: 1 where a face is clipped (w != 0, not inside)
+//   acc     int32 words the caller zeroed: faces clipped per draw [D], in
+//           the frame [1], valid slots per draw [D], a byte a draw (1 where
+//           it clipped), and at word keys_word (even) D uint64 keys
+int fr_tri_setup(FrTriSetupParams p, const int32_t* table, const float* clip, const float* ctx,
+                 int32_t* tri_i32, float* tri_f32, uint8_t* b_mask, int32_t* acc, int keys_word,
+                 void* stream);
+// Launches 2 and 3: the path-B and padding columns from fan (D, nb (23 +
+// 3C)) int32 words, the clip path's arrays (read where the draw clipped a
+// face), then, with p.quirk, the ps boundary quirk's rewrite of the PS row.
+int fr_tri_setup_slots(FrTriSetupParams p, const int32_t* table, const int32_t* fan, int32_t* tri_i32,
+                       float* tri_f32, int32_t* acc, int keys_word, void* stream);
+
+// Mirrors kernels.BinParams: int32 fields only (no padding).
+typedef struct FrBinParams {
+  int32_t m;          // slot columns of the packed arrays
+  int32_t rows_f;     // rows of tri_f32 (9 + 3C)
+  int32_t th;         // bin tile rows (the tile is th x 128)
+  int32_t ntx, nty;   // fine-tile grid of the rectangle
+  int32_t k, kc;      // fine / coarse tiles a triangle may span
+  int32_t oy, ox;     // the frame's pixel that the rectangle's first one is
+  int32_t m_dummy;    // the empty-bbox column padding pairs point at
+  int32_t n_pad;      // pair columns of the outputs
+  int32_t stripe;     // slots of a stripe (a multiple of 32): one warp's
+  int32_t n_stripes;
+} FrBinParams;
+
+// Binning and pair gather (csrc/bin_pairs.cu): a counting sort of the
+// (tile key, slot) pairs of tri_i32 (12, m) by key, then by slot, and the
+// packed columns gathered into pair order.
+//   counts  (R, n_stripes) int32 scratch, R = ntx nty + ceil(ntx/4) ceil(nty/4) + 1 keys
+//   totals  (R) int32 scratch; ptri (n_pad) int32 scratch; recs (m,
+//           ceil((21 + 3C) / 8) * 8) int32 scratch: a record a slot
+//   off     (R + 1) int32: off[t] .. off[t + 1] are key t's pairs
+//   out_i32 (12, n_pad), out_f32 (rows_f, n_pad): the columns in pair order,
+//           m_dummy's past the last pair
+int fr_bin_pairs(FrBinParams p, const int32_t* tri_i32, const float* tri_f32, int32_t* counts,
+                 int32_t* totals, int32_t* off, int32_t* ptri, int32_t* recs, int32_t* out_i32,
+                 float* out_f32, void* stream);
+
 // A conditional node (csrc/graph_cond.cu), for the graph `parent` is
 // capturing: a kernel that sets its condition from the device bool *pred,
 // then an `if` node that later captured work on `parent` depends on; `body`

@@ -50,7 +50,9 @@ def sample_2d(texture, uv, *, replicate_clamp_bug: bool = True):
     no wrap mode. The weights are Rust ``fract()`` = x - trunc(x). On a
     texture wider than tall that clamp can pass the last row: the torch path
     then reads the last row, as the JAX package's jnp gathers clamp, and the
-    numpy path raises IndexError, as the JAX package's numpy path does.
+    numpy path raises IndexError, as the JAX package's numpy path does. A
+    NaN coordinate reads texel 0 on the torch path, as the jnp path does
+    (its cast turns NaN into 0), and gives NaN through the weights.
     """
     if isinstance(texture, torch.Tensor) or isinstance(uv, torch.Tensor):
         dev = texture.device if isinstance(texture, torch.Tensor) else uv.device
@@ -58,8 +60,8 @@ def sample_2d(texture, uv, *, replicate_clamp_bug: bool = True):
         uv = torch.as_tensor(uv, dtype=torch.float32, device=dev)
         trunc, clip = torch.trunc, torch.clamp
 
-        def to_index(a):
-            return a.to(torch.int64)
+        def to_index(a):  # NaN → 0 first: a float → int cast of NaN is undefined
+            return torch.where(torch.isnan(a), 0.0, a).to(torch.int64)
 
         def rows(y):
             return y.clamp(max=texture.shape[0] - 1)

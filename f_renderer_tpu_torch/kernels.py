@@ -18,6 +18,12 @@ The kernels (the TPU kernel each replaces in brackets):
 - ``voxel_march`` — K5 (voxel/raycast_pallas.py:393);
 - ``voxel_setup`` — no Pallas kernel: XLA's fusion of the voxel ray set-up
   (voxel/raycast.py:34-264, fenced at raycast_pallas.py:310);
+- ``tri_setup`` / ``tri_setup_slots`` — no Pallas kernel: XLA's fusions of
+  the triangle set-up from the vertex shader's outputs to the packed rows
+  (pipeline/geometry.py:300-350, render.py:113-202,
+  raster_pallas.py:178 pack_setup);
+- ``bin_pairs`` — no Pallas kernel: XLA's fusions of the binning and the
+  pair-order gather (raster_pallas.py:319 bin_pairs, fused.py:160-183);
 - ``if_node`` — no TPU kernel: a conditional node of a CUDA graph under
   capture, the counterpart of ``lax.cond`` in a compiled program
   (torch 2.11 has no Python API for one).
@@ -99,6 +105,20 @@ class VoxelParams(ctypes.Structure):
     ]
 
 
+class TriSetupParams(ctypes.Structure):
+    """Mirror of ``FrTriSetupParams`` in csrc/kernels.h."""
+
+    _fields_ = [(name, ctypes.c_int32) for name in (
+        "n_draws", "n_faces", "n_ctx", "nb", "m", "m_pad", "width", "height", "cull", "quirk")]
+
+
+class BinParams(ctypes.Structure):
+    """Mirror of ``FrBinParams`` in csrc/kernels.h."""
+
+    _fields_ = [(name, ctypes.c_int32) for name in (
+        "m", "rows_f", "th", "ntx", "nty", "k", "kc", "oy", "ox", "m_dummy", "n_pad", "stripe", "n_stripes")]
+
+
 # Tile heights the raster kernels take (th / 8 thread blocks to a tile).
 SUPPORTED_TH = (4, 8, 16, 32, 64, 128)
 MAX_CTX = 8  # the fused kernel's varying cap (K4 has none)
@@ -167,11 +187,15 @@ def load_library() -> ctypes.CDLL:
     lib.fr_sample_bilinear.argtypes = [ptr, ptr] + [i32] * 5 + [ptr] * 4 + [ctypes.c_int64, ptr]
     lib.fr_voxel_march.argtypes = [VoxelParams] + [ptr] * 13
     lib.fr_voxel_setup.argtypes = [i32, i32, ctypes.c_float] + [ptr] * 5
+    lib.fr_tri_setup.argtypes = [TriSetupParams] + [ptr] * 7 + [i32, ptr]
+    lib.fr_tri_setup_slots.argtypes = [TriSetupParams] + [ptr] * 5 + [i32, ptr]
+    lib.fr_bin_pairs.argtypes = [BinParams] + [ptr] * 10
     lib.fr_if_node_begin.argtypes = [ptr] * 3
     lib.fr_if_node_end.argtypes = [ptr]
     lib.fr_stream_create.argtypes = [ctypes.POINTER(ptr)]
     for fn in (lib.fr_fused_raster, lib.fr_raster_planes, lib.fr_sample_bilinear, lib.fr_voxel_march,
-               lib.fr_voxel_setup, lib.fr_if_node_begin, lib.fr_if_node_end, lib.fr_stream_create):
+               lib.fr_voxel_setup, lib.fr_tri_setup, lib.fr_tri_setup_slots, lib.fr_bin_pairs,
+               lib.fr_if_node_begin, lib.fr_if_node_end, lib.fr_stream_create):
         fn.restype = ctypes.c_int
     lib.fr_error_string.argtypes = [ctypes.c_int]
     lib.fr_error_string.restype = ctypes.c_char_p
@@ -480,3 +504,133 @@ def voxel_setup(eye, inv_mvp, width, height, length):
 
 
 voxel_setup.launches = 0
+
+
+def acc_layout(n_draws: int):
+    """int32 words of the set-up kernels' accumulator (csrc/tri_setup.cu) →
+    (words, the word its uint64 keys start at): faces clipped per draw and
+    in the frame, valid slots per draw, a byte a draw (clipped), the keys."""
+    keys = 2 * n_draws + 1 + -(-n_draws // 4)
+    keys += keys % 2
+    return keys + 2 * n_draws, keys
+
+
+def tri_setup(table, clip, ctx, *, n_draws, nb, m, m_pad, width, height, cull, quirk):
+    """Launch 1 of the triangle set-up (csrc/tri_setup.cu: tri_setup_kernel)
+    on PyTorch's current stream, over every face of the frame: ``clip`` (4,
+    3F) and ``ctx`` (C, 3F) f32 are the vertex shader's outputs, the draws'
+    corners one after the other; ``table`` the (4 D,) int32 draw table
+    (face_off, faces, slot_base, order_base). → (tri_i32 (12, m_pad),
+    tri_f32 (9 + 3C, m_pad) with every path-A column written, b_mask (F,)
+    bool, acc: the zeroed accumulator the kernel filled (:func:`acc_layout`;
+    :func:`acc_views` reads it))."""
+    dev = _on_cuda(clip, "tri_setup")
+    n_faces, n_ctx = clip.shape[1] // 3, ctx.shape[0]
+    _need(clip, "clip", torch.float32, dev, (4, 3 * n_faces))
+    _need(ctx, "ctx", torch.float32, dev, (n_ctx, 3 * n_faces))
+    _need(table, "table", torch.int32, dev, (4 * n_draws,))
+    if not (0 < n_draws <= 256 and 0 <= m < m_pad < 2**31 and 0 < width < 32768 and 0 < height < 32768):
+        raise ValueError(f"tri_setup: {n_draws} draws, {m} slots in {m_pad} columns, {width}x{height}")
+    words, keys = acc_layout(n_draws)
+    acc = torch.zeros((words,), dtype=torch.int32, device=dev)
+    tri_i32 = torch.empty((12, m_pad), dtype=torch.int32, device=dev)
+    tri_f32 = torch.empty((9 + 3 * n_ctx, m_pad), dtype=torch.float32, device=dev)
+    b_mask = torch.empty((n_faces,), dtype=torch.bool, device=dev)
+    params = TriSetupParams(n_draws=n_draws, n_faces=n_faces, n_ctx=n_ctx, nb=nb, m=m, m_pad=m_pad, width=width,
+                            height=height, cull=int(bool(cull)), quirk=int(bool(quirk)))
+    if n_faces:
+        lib = load_library()
+        err = lib.fr_tri_setup(params, table.data_ptr(), clip.data_ptr(), ctx.data_ptr(), tri_i32.data_ptr(),
+                               tri_f32.data_ptr(), b_mask.data_ptr(), acc.data_ptr(), keys, _stream(dev))
+        _check(lib, err, "fr_tri_setup")
+        _count(tri_setup)
+    return tri_i32, tri_f32, b_mask, acc
+
+
+tri_setup.launches = 0
+
+
+def acc_views(acc, n_draws: int):
+    """The set-up accumulator's (faces clipped per draw (D,) int32, in the
+    frame (0-d int32), whether each draw clipped a face (D,) bool)."""
+    clipped = acc[2 * n_draws + 1:2 * n_draws + 1 + -(-n_draws // 4)].view(torch.uint8)[:n_draws]
+    return acc[:n_draws], acc[n_draws], clipped.view(torch.bool)
+
+
+def tri_setup_slots(table, fan, tri_i32, tri_f32, acc, *, n_draws, nb, m, width, height, cull, quirk):
+    """Launches 2 and 3 of the triangle set-up (csrc/tri_setup.cu:
+    tri_slots_kernel, then with ``quirk`` tri_quirk_kernel) on PyTorch's
+    current stream, into :func:`tri_setup`'s arrays: the path-B columns
+    from ``fan`` (D, nb (23 + 3C)) int32, the clip path's arrays where the
+    draw clipped a face, the padding columns, and the ps boundary quirk."""
+    dev = _on_cuda(tri_i32, "tri_setup_slots")
+    m_pad, n_ctx = tri_i32.shape[1], (tri_f32.shape[0] - 9) // 3
+    _need(table, "table", torch.int32, dev, (4 * n_draws,))
+    _need(fan, "fan", torch.int32, dev, (n_draws, nb * (23 + 3 * n_ctx)))
+    _need(tri_i32, "tri_i32", torch.int32, dev, (12, m_pad))
+    _need(tri_f32, "tri_f32", torch.float32, dev, (9 + 3 * n_ctx, m_pad))
+    _need(acc, "acc", torch.int32, dev, (acc_layout(n_draws)[0],))
+    params = TriSetupParams(n_draws=n_draws, n_faces=0, n_ctx=n_ctx, nb=nb, m=m, m_pad=m_pad, width=width,
+                            height=height, cull=int(bool(cull)), quirk=int(bool(quirk)))
+    lib = load_library()
+    err = lib.fr_tri_setup_slots(params, table.data_ptr(), fan.data_ptr(), tri_i32.data_ptr(), tri_f32.data_ptr(),
+                                 acc.data_ptr(), acc_layout(n_draws)[1], _stream(dev))
+    _check(lib, err, "fr_tri_setup_slots")
+    _count(tri_setup_slots)
+
+
+tri_setup_slots.launches = 0
+
+# The most counters the binning's stripes may take (8 MB), and its stripes.
+BIN_COUNTERS = 1 << 21
+BIN_MAX_STRIPES = 4096
+BIN_MAX_SPAN = 64  # max(k, kc): a chunk's hash table holds 64 keys a lane
+
+
+def bin_stripes(m: int, n_keys: int) -> tuple[int, int]:
+    """(slots a stripe, stripes) of the binning's counting passes: as many
+    stripes (warps) as BIN_MAX_STRIPES and BIN_COUNTERS counters allow,
+    each a multiple of 32 slots."""
+    n = max(1, min(-(-m // 32), BIN_MAX_STRIPES, BIN_COUNTERS // n_keys))
+    stripe = -(-(-(-m // n)) // 32) * 32
+    return stripe, -(-m // stripe)
+
+
+def bin_pairs(tri_i32, tri_f32, *, th, grid_hw, k, kc, m_dummy, n_pad, origin=(0, 0)):
+    """Launch the binning and pair gather (csrc/bin_pairs.cu) on PyTorch's
+    current stream: the (tile key, slot) pairs of the packed arrays
+    ``tri_i32`` (12, m) / ``tri_f32`` (9 + 3C, m) counted, placed in (key,
+    slot) order and gathered → (off (R + 1,) int32, tri_i32 (12, n_pad),
+    tri_f32 (9 + 3C, n_pad) in pair order, ``m_dummy``'s column past the
+    last pair). ``grid_hw`` = (nty, ntx) tiles of (th, 128) pixels whose
+    top-left pixel is the frame's ``origin`` = (y0, x0)."""
+    dev = _on_cuda(tri_i32, "bin_pairs")
+    m, rows_f = tri_i32.shape[1], tri_f32.shape[0]
+    nty, ntx = grid_hw
+    _need(tri_i32, "tri_i32", torch.int32, dev, (12, m))
+    _need(tri_f32, "tri_f32", torch.float32, dev, (rows_f, m))
+    n_keys = nty * ntx + -(-nty // 4) * -(-ntx // 4) + 1
+    if not (0 <= m_dummy < m and 0 < m * max(k, kc) <= n_pad < 2**31 and n_pad % 128 == 0):
+        raise ValueError(f"bin_pairs: m_dummy {m_dummy}, {m} slots x {max(k, kc)} keys in {n_pad} pair columns")
+    if not (0 < max(k, kc) <= BIN_MAX_SPAN and th > 0 and nty > 0 and ntx > 0):
+        raise ValueError(f"bin_pairs: k={k}, kc={kc} (at most {BIN_MAX_SPAN}), tile rows {th}, grid {grid_hw}")
+    stripe, n_stripes = bin_stripes(m, n_keys)
+    counts = torch.empty((n_keys * n_stripes,), dtype=torch.int32, device=dev)
+    totals = torch.empty((n_keys,), dtype=torch.int32, device=dev)
+    ptri = torch.empty((n_pad,), dtype=torch.int32, device=dev)
+    recs = torch.empty((m * (-(-(12 + rows_f) // 8) * 8),), dtype=torch.int32, device=dev)  # a record a slot
+    off = torch.empty((n_keys + 1,), dtype=torch.int32, device=dev)
+    out_i32 = torch.empty((12, n_pad), dtype=torch.int32, device=dev)
+    out_f32 = torch.empty((rows_f, n_pad), dtype=torch.float32, device=dev)
+    params = BinParams(m=m, rows_f=rows_f, th=th, ntx=ntx, nty=nty, k=k, kc=kc, oy=int(origin[0]), ox=int(origin[1]),
+                       m_dummy=m_dummy, n_pad=n_pad, stripe=stripe, n_stripes=n_stripes)
+    lib = load_library()
+    err = lib.fr_bin_pairs(params, tri_i32.data_ptr(), tri_f32.data_ptr(), counts.data_ptr(), totals.data_ptr(),
+                           off.data_ptr(), ptri.data_ptr(), recs.data_ptr(), out_i32.data_ptr(), out_f32.data_ptr(),
+                           _stream(dev))
+    _check(lib, err, "fr_bin_pairs")
+    _count(bin_pairs)
+    return off, out_i32, out_f32
+
+
+bin_pairs.launches = 0

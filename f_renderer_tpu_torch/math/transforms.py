@@ -49,6 +49,12 @@ def true_sqrt(x):
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
+def max0(x):
+    """``jnp.maximum(x, 0.0)``: NaN stays NaN, and a zero of either sign
+    gives +0 (``torch.clamp(x, min=0.0)`` and ``torch.maximum`` keep -0)."""
+    return torch.where((x > 0.0) | torch.isnan(x), x, 0.0)
+
+
 def _dot3(a, b):
     """Σ a_i b_i over the last axis of size 3, left to right."""
     return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]

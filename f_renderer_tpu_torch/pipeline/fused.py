@@ -7,10 +7,12 @@ the whole per-pixel pipeline on each (th, 128) bin tile
 strict (rhw, order) maximum per pixel, interpolates the winner's varyings
 once, shades, samples textures in-kernel and packs RGBA8.
 
-The prep around it stays plain PyTorch on the tensors' device, as it was
-XLA in the JAX package: ``pack_setup``, ``bin_pairs`` and the pair-order
-gather (``raster.prep_binned``, shared with the non-fused raster kernel K4,
-as is the per-tile raster loop).
+The prep around it, XLA's fusions in the JAX package, is two groups of
+kernels on the card: the set-up (``render.build_packed``, csrc/tri_setup.cu)
+and the binning with the pair-order gather (``raster.bin_packed``,
+csrc/bin_pairs.cu), shared with the non-fused raster kernel K4, as is the
+per-tile raster loop; their plain versions (``pack_setup``, ``bin_pairs``,
+``index_select``) run on CPU tensors.
 
 ``render_fused_prepared`` is the kernel's wrapper: for CUDA tensors it
 launches the kernel (or raises), for CPU tensors it runs
@@ -26,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from f_renderer_tpu_torch.pipeline import raster as R
-from f_renderer_tpu_torch.pipeline.raster import BinnedPrep, prep_binned
+from f_renderer_tpu_torch.pipeline.raster import BinnedPrep
 from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
 from f_renderer_tpu_torch.shaders.api import ContextCodec
 from f_renderer_tpu_torch.shaders.builtin import LIGHT_COLOR, LIGHT_POS, shade_plain
@@ -59,8 +61,15 @@ def prep_fused(tri: TriangleBuffer, config, *, origin=(0, 0), size=None) -> Binn
     with the tile and bin settings of ``config``; ``origin`` / ``size``
     select a rectangle of the frame (``raster.bin_packed``, fused.py:374 of
     the JAX package)."""
-    return prep_binned(
-        tri, config.width, config.height, config.tile,
+    tri_i32, tri_f32 = R.pack_binned(tri, config.width, config.height)
+    return prep_packed(tri_i32, tri_f32, tri.num_slots, tri.num_channels, config, origin=origin, size=size)
+
+
+def prep_packed(tri_i32, tri_f32, n_slots: int, n_ctx: int, config, *, origin=(0, 0), size=None) -> BinnedPrep:
+    """:func:`prep_fused` from packed arrays (``render.build_packed``): the
+    bin and pair gather alone (``raster.bin_packed``)."""
+    return R.bin_packed(
+        tri_i32, tri_f32, n_slots, n_ctx, config.width, config.height, config.tile,
         tile_auto=config.tile_auto, tile_auto_threshold=config.tile_auto_threshold,
         bin_k=config.bin_k, origin=origin, size=size,
     )

@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from f_renderer_tpu_torch.device import capturing, if_node, in_graph_frame
+from f_renderer_tpu_torch.device import capturing, constant, if_node, in_graph_frame
 from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
 from f_renderer_tpu_torch.shaders.api import ContextCodec
 
@@ -274,6 +274,18 @@ def clip_or_skip(clip, ctx_a, b_mask, num_clipped, clip_cap, order_base, width, 
     return _skip_clip_path(clip_cap, c, order_base, dev)
 
 
+def vertex_stage(vs_inputs: dict, vertex_shader, vs_uniform):
+    """The vertex shader over a draw's 3F face corners (corner v of face i
+    at v · F + i) → (F, clip (4, 3F), ctx (C, 3F) channel planes)."""
+    f = next(iter(vs_inputs.values())).shape[0]
+    corners = {
+        k: torch.cat([v[:, i] for i in range(3)]).to(torch.float32)
+        for k, v in vs_inputs.items()
+    }
+    clip, ctx_dict = vertex_shader(vs_uniform, corners)  # (4, 3F), {k: (3F, ·)}
+    return f, clip, ContextCodec.of(ctx_dict).flatten(ctx_dict)
+
+
 def geometry_process(
     vs_inputs: dict,
     vertex_shader,
@@ -293,16 +305,9 @@ def geometry_process(
     the buffer has ``F + clip_cap · MAX_FAN`` slots (path A: one per face;
     path B: the fan slots of up to ``clip_cap`` clipped faces).
     """
-    f = next(iter(vs_inputs.values())).shape[0]
     dev = next(iter(vs_inputs.values())).device
-    corners = {
-        k: torch.cat([v[:, i] for i in range(3)]).to(torch.float32)
-        for k, v in vs_inputs.items()
-    }
-    clip, ctx_dict = vertex_shader(vs_uniform, corners)  # (4, 3F), {k: (3F, ·)}
-    codec = ContextCodec.of(ctx_dict)
-    ctx_a = codec.flatten(ctx_dict)  # (C, 3F)
-    c = codec.num_channels
+    f, clip, ctx_a = vertex_stage(vs_inputs, vertex_shader, vs_uniform)
+    c = ctx_a.shape[0]
 
     def vslice(arr, v):
         return arr[..., v * f : (v + 1) * f]
@@ -355,3 +360,78 @@ def geometry_process(
         cull,
     )
     return TriangleBuffer.concat([buf_a, buf_b]), {"num_clipped": num_clipped}
+
+
+def fan_views(words, clip_cap: int, c: int):
+    """One draw's fan words (clip_cap · MAX_FAN · (23 + 3C),) int32, the
+    layout the set-up kernels read (csrc/tri_setup.cu) → views shaped as
+    :func:`_clip_path`'s seven outputs, one after the other, slot-major:
+    ndc, spf (float bits), spi, rhw, ctx (float bits), valid, order."""
+    fields = (((3, 2), True), ((3, 2), True), ((3, 2), False), ((3,), True), ((3, c), True), ((), False),
+              ((), False))
+    out, at = [], 0
+    for shape, is_float in fields:
+        n = clip_cap * MAX_FAN * math.prod(shape)
+        block = words[at:at + n]
+        at += n
+        out.append((block.view(torch.float32) if is_float else block).view((clip_cap, MAX_FAN) + shape))
+    return out
+
+
+def clip_into(outs, clip, ctx_a, b_mask, num_clipped, clipped, clip_cap, order_base, width, height):
+    """Path B of a draw for the set-up kernels: the clip path written into
+    ``outs`` (:func:`fan_views`) where a face clipped. The kernel reads them
+    only where ``num_clipped`` > 0 and takes the skip path's values
+    elsewhere, so nothing is written where no face clipped:
+
+    - captured on the card: a conditional node on the 0-d bool ``clipped``
+      (``device.if_node``), as :func:`clip_or_skip`;
+    - a captured frame outside a capture (the graph's warm-up frame): the
+      clip path runs (no host sync);
+    - eagerly: the host asks, and skips the clip path where nothing clips.
+    """
+    args = (outs, clip, ctx_a, b_mask, clip_cap, order_base, width, height)
+    if capturing(clip.device):
+        if_node(clipped, clip_path_into, *args)
+    elif in_graph_frame() or int(num_clipped) > 0:  # a host sync, eagerly
+        clip_path_into(*args)
+
+
+def packed_geometry(draws, vertex_shader, vs_uniform, width: int, height: int, *, clip_cap: int, cull: bool,
+                    quirk: bool):
+    """Every draw's geometry and pack on the card, through the triangle
+    set-up kernels (csrc/tri_setup.cu; ``kernels.tri_setup``): the vertex
+    shader per draw, launch 1 over every face (masks, path-A columns), each
+    draw's clip path (:func:`clip_into`), launches 2 and 3 (path-B and
+    padding columns; the ps boundary quirk where ``quirk``) → (tri_i32 (12,
+    m_pad), tri_f32 (9 + 3C, m_pad), slots m, C, faces clipped 0-d int32):
+    what ``raster.pack_binned`` makes of ``render.build_triangles``' buffer,
+    bit for bit."""
+    from f_renderer_tpu_torch import kernels
+
+    stages = [vertex_stage(d, vertex_shader, vs_uniform) for d in draws]
+    n_draws, dev = len(stages), stages[0][1].device
+    c = stages[0][2].shape[0]
+    if any(s[2].shape[0] != c for s in stages):
+        raise ValueError("every draw's vertex shader must emit the same varyings")
+    nb = clip_cap * MAX_FAN
+    faces = [s[0] for s in stages]
+    face_off = [sum(faces[:d]) for d in range(n_draws)]
+    slot_base = [f0 + d * nb for d, f0 in enumerate(face_off)]
+    order_base = [f0 * MAX_FAN for f0 in face_off]
+    m = sum(faces) + n_draws * nb
+    m_pad = -(-(m + 1) // 128) * 128  # raster.pack_binned's columns
+    table = constant(tuple(face_off + faces + slot_base + order_base), dev, torch.int32)
+    clip = torch.cat([s[1] for s in stages], 1) if n_draws > 1 else stages[0][1]
+    ctx = torch.cat([s[2] for s in stages], 1) if n_draws > 1 else stages[0][2]
+    shape = dict(n_draws=n_draws, nb=nb, m=m, width=width, height=height, cull=cull, quirk=quirk)
+    tri_i32, tri_f32, b_mask, acc = kernels.tri_setup(
+        table, clip.to(torch.float32).contiguous(), ctx.contiguous(), m_pad=m_pad, **shape)
+    num_clipped, total, clipped = kernels.acc_views(acc, n_draws)
+    fan = torch.empty((n_draws, nb * (23 + 3 * c)), dtype=torch.int32, device=dev)
+    for d, (f, clip_d, ctx_d) in enumerate(stages):
+        if f > 0:
+            clip_into(fan_views(fan[d], clip_cap, c), clip_d, ctx_d, b_mask[face_off[d]:face_off[d] + f],
+                      num_clipped[d], clipped[d], clip_cap, order_base[d], width, height)
+    kernels.tri_setup_slots(table, fan, tri_i32, tri_f32, acc, **shape)
+    return tri_i32, tri_f32, m, c, total

@@ -1,9 +1,11 @@
 """Binned rasterization: setup, binning, and the raster without shading.
 
 Port of ``f_renderer_tpu/pipeline/raster_pallas.py``: the field-row layout,
-``pack_setup`` and ``bin_pairs`` (:47-91, :178-269, :316-436), which stay
-plain PyTorch ops on the tensors' device as they were XLA ops on the TPU,
-and the two entry points of its non-fused raster kernel (K4),
+``pack_setup`` and ``bin_pairs`` (:47-91, :178-269, :316-436), XLA ops on
+the TPU and here the plain versions of the set-up and binning kernels
+(csrc/tri_setup.cu, csrc/bin_pairs.cu: :func:`bin_packed` launches the
+latter on CUDA tensors), and the two entry points of its non-fused raster
+kernel (K4),
 :func:`rasterize` (``rasterize_pallas :1583``) and :func:`rasterize_interp`
 (``rasterize_interp_pallas :1617``).
 
@@ -236,26 +238,14 @@ def pack_binned(tri: TriangleBuffer, width: int, height: int):
     return pack_setup(tri, width, height, m_pad)
 
 
-def bin_packed(
-    tri_i32,
-    tri_f32,
-    n_slots: int,
-    n_ctx: int,
-    width: int,
-    height: int,
-    tile=None,
-    *,
-    tile_auto: bool = True,
-    tile_auto_threshold: int = 300_000,
-    bin_k: int | None = None,
-    origin=(0, 0),
-    size=None,
-    m_dummy: int | None = None,
-) -> BinnedPrep:
+def bin_packed(tri_i32, tri_f32, n_slots: int, n_ctx: int, width: int, height: int, tile=None, **kw) -> BinnedPrep:
     """Stage 2 of the prep (``prep_fused_packed``, fused.py:183): bin and
     gather the packed arrays in pair order for the rectangle ``size=(rows,
     cols)`` (None: the whole ``width`` × ``height`` frame) whose top-left
-    pixel is ``origin=(y0, x0)`` of the frame.
+    pixel is ``origin=(y0, x0)`` of the frame. CUDA tensors launch the
+    binning kernels (csrc/bin_pairs.cu, ``kernels.bin_pairs``: a counting
+    sort by (key, slot), the packed sort's order); CPU tensors run their
+    plain version, :func:`bin_pairs` and two ``index_select``.
 
     ``tile`` (rows, 128); None picks (32, 128), or (128, 128) for scenes of
     at most 2048 slots; ``tile_auto`` makes tiles at least 64 rows tall above
@@ -271,6 +261,20 @@ def bin_packed(
     exact, because the per-pixel (rhw, order) merge does not depend on the
     tiling.
     """
+    kernel = tri_i32.device.type == "cuda"
+    return _bin(kernel, tri_i32, tri_f32, n_slots, n_ctx, width, height, tile, **kw)
+
+
+def bin_packed_plain(tri_i32, tri_f32, n_slots: int, n_ctx: int, width: int, height: int, tile=None,
+                     **kw) -> BinnedPrep:
+    """The plain version of :func:`bin_packed`'s kernels, on the tensors'
+    device: :func:`bin_pairs` (a sort) and two ``index_select``."""
+    return _bin(False, tri_i32, tri_f32, n_slots, n_ctx, width, height, tile, **kw)
+
+
+def _bin(kernel: bool, tri_i32, tri_f32, n_slots: int, n_ctx: int, width: int, height: int, tile=None, *,
+         tile_auto: bool = True, tile_auto_threshold: int = 300_000, bin_k: int | None = None, origin=(0, 0),
+         size=None, m_dummy: int | None = None) -> BinnedPrep:
     rows, cols = size if size is not None else (height, width)
     th, tw = tile if tile is not None else (32, LANES)
     if tw != LANES:
@@ -282,14 +286,22 @@ def bin_packed(
     k = bin_k or (4 if n_slots <= 300_000 else 2)
     h_pad = cdiv(rows, th) * th
     w_pad = cdiv(cols, tw) * tw
-    ptri, off = bin_pairs(
-        tri_i32, (th, tw), (h_pad // th, w_pad // tw), k, LANES,
-        m_dummy=n_slots if m_dummy is None else m_dummy, kc=k, origin=origin,
-    )
+    m_dummy = n_slots if m_dummy is None else m_dummy
+    if kernel:
+        from f_renderer_tpu_torch import kernels
+
+        off, ti, tf = kernels.bin_pairs(
+            tri_i32, tri_f32, th=th, grid_hw=(h_pad // th, w_pad // tw), k=k, kc=k, m_dummy=m_dummy,
+            n_pad=cdiv(tri_i32.shape[1] * k, LANES) * LANES, origin=origin,
+        )
+    else:
+        ptri, off = bin_pairs(tri_i32, (th, tw), (h_pad // th, w_pad // tw), k, LANES, m_dummy=m_dummy, kc=k,
+                              origin=origin)
+        ti, tf = tri_i32.index_select(1, ptri), tri_f32.index_select(1, ptri)
     return BinnedPrep(
         off=off,
-        tri_i32=tri_i32.index_select(1, ptri),
-        tri_f32=tri_f32.index_select(1, ptri),
+        tri_i32=ti,
+        tri_f32=tf,
         th=th,
         n_ctx=n_ctx,
         height=rows,
@@ -562,9 +574,15 @@ def rasterize_interp(tri: TriangleBuffer, width: int, height: int, tile=None, *,
     int32, depth (H, W) f32)``; ctx is 0 and ps 0 where winner < 0. Any C.
     ``origin`` and ``full_size`` as in :func:`rasterize`.
     """
-    prep = _prep_rect(tri, width, height, tile, origin, full_size)
+    return interp_planes(_prep_rect(tri, width, height, tile, origin, full_size))
+
+
+def interp_planes(prep: BinnedPrep):
+    """K4 with interpolation on a prep → :func:`rasterize_interp`'s planes,
+    cropped to the prep's rectangle."""
     depth, winner, ps, ctx = raster_planes(prep, interp=True)
-    return ctx[:, :height, :width], ps[:height, :width], winner[:height, :width], depth[:height, :width]
+    h, w = prep.height, prep.width
+    return ctx[:, :h, :w], ps[:h, :w], winner[:h, :w], depth[:h, :w]
 
 
 def _prep_rect(tri, width, height, tile, origin, full_size):

@@ -5,7 +5,7 @@ builds one submission-ordered triangle list (phong.rs:314-387). Then, with
 the default ``backend="kernels"`` (the JAX package's pallas backend), either
 one fused kernel rasterizes and shades it (builtin ``fused_kind`` shaders),
 or the raster kernel interpolates the varyings
-(``raster.rasterize_interp``) and the pixel shader runs once over the frame
+(``raster.interp_planes``) and the pixel shader runs once over the frame
 (``shade.shade_from_planes``). ``backend="portable"`` (the JAX package's jnp
 backend) runs ``raster_portable.rasterize_portable`` + ``shade_deferred``
 and launches no kernel. A "draw" is one mesh batch sharing a ps_index (the
@@ -20,9 +20,9 @@ from typing import Callable, Sequence
 import torch
 
 from f_renderer_tpu_torch.pipeline import raster
-from f_renderer_tpu_torch.pipeline.fused import fused_path_ok, render_fused
-from f_renderer_tpu_torch.pipeline.geometry import MAX_FAN, geometry_process
-from f_renderer_tpu_torch.pipeline.raster import rasterize_interp
+from f_renderer_tpu_torch.pipeline.fused import fused_path_ok, prep_packed, render_fused_prepared
+from f_renderer_tpu_torch.pipeline.geometry import MAX_FAN, geometry_process, packed_geometry
+from f_renderer_tpu_torch.pipeline.raster import interp_planes
 from f_renderer_tpu_torch.pipeline.raster_portable import rasterize_portable
 from f_renderer_tpu_torch.pipeline.shade import shade_deferred, shade_from_planes
 from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
@@ -139,6 +139,35 @@ def build_triangles(draws: Sequence, vertex_shader: Callable, vs_uniform, config
     return tri, {"num_clipped": num_clipped}
 
 
+def build_packed(draws: Sequence, vertex_shader: Callable, vs_uniform, config: RenderConfig):
+    """Geometry over all draws, packed → (tri_i32 (12, m_pad) int32, tri_f32
+    (9 + 3C, m_pad) f32, slots m, varyings C, stats): the rows
+    ``raster.pack_binned`` makes of :func:`build_triangles`' buffer, which
+    ``raster.bin_packed`` bins. CUDA tensors launch the triangle set-up
+    kernels (csrc/tri_setup.cu, ``geometry.packed_geometry``), which write
+    them bit for bit; CPU tensors run their plain version,
+    ``pack_binned(build_triangles(...))``."""
+    if len(draws) > 256:
+        raise ValueError("at most 256 draws per frame")
+    dev = next(iter(draws[0].values())).device
+    if dev.type == "cpu":
+        return build_packed_plain(draws, vertex_shader, vs_uniform, config)
+    if dev.type != "cuda":
+        raise ValueError(f"the triangle set-up runs on CUDA or (plain) CPU, not {dev}")
+    quirk = config.replicate_ps_boundary_quirk and len(draws) > 1
+    ti, tf, m, c, num_clipped = packed_geometry(
+        draws, vertex_shader, vs_uniform, config.width, config.height, clip_cap=config.clip_cap,
+        cull=config.cull_backfaces, quirk=quirk)
+    return ti, tf, m, c, {"num_clipped": num_clipped}
+
+
+def build_packed_plain(draws: Sequence, vertex_shader: Callable, vs_uniform, config: RenderConfig):
+    """The plain version of :func:`build_packed`'s kernels, on the tensors'
+    device: ``raster.pack_binned(build_triangles(...))``."""
+    tri, stats = build_triangles(draws, vertex_shader, vs_uniform, config)
+    return (*raster.pack_binned(tri, config.width, config.height), tri.num_slots, tri.num_channels, stats)
+
+
 def context_codec(vertex_shader: Callable, vs_uniform, draw) -> ContextCodec:
     """The varying layout the vertex shader emits, from one zero vertex of
     ``draw`` (the JAX package's make_context_codec)."""
@@ -188,10 +217,11 @@ def render_frame(
     raster kernel interpolates (render.py:248-267 of the JAX package).
     ``config.backend="portable"`` rasterizes with ``rasterize_portable`` and
     shades with ``shade_deferred`` (render.py:269-279 there), launching no
-    kernel (:func:`portable_shader`).
+    kernel (:func:`portable_shader`). The kernels backend bins the packed
+    rows of :func:`build_packed`.
     """
-    tri, stats = build_triangles(draws, vertex_shader, vs_uniform, config)
     if config.backend != "kernels":
+        tri, stats = build_triangles(draws, vertex_shader, vs_uniform, config)
         winner, depth = rasterize(tri, config)
         codec = context_codec(vertex_shader, vs_uniform, draws[0])
         frame = shade_deferred(
@@ -199,15 +229,19 @@ def render_frame(
             vectorized=config.shade_vectorized,
         )
         return frame, depth, stats
+    ti, tf, n_slots, n_ctx, stats = build_packed(draws, vertex_shader, vs_uniform, config)
     if (
         config.fused_shade
         and hasattr(pixel_shader, "fused_kind")
         and fused_path_ok(pixel_shader, ps_uniform)
     ):
-        frame, depth, _ = render_fused(tri, pixel_shader, ps_uniform, config)
+        prep = prep_packed(ti, tf, n_slots, n_ctx, config)
+        frame, depth, _ = render_fused_prepared(prep, pixel_shader, ps_uniform, config)
         return frame, depth, stats
     codec = context_codec(vertex_shader, vs_uniform, draws[0])
-    ctx, ps_idx, winner, depth = rasterize_interp(tri, config.width, config.height, tile=config.tile)
+    # the bin settings of raster.rasterize_interp: the tile alone
+    prep = raster.bin_packed(ti, tf, n_slots, n_ctx, config.width, config.height, config.tile)
+    ctx, ps_idx, winner, depth = interp_planes(prep)
     frame = shade_from_planes(
         ctx, ps_idx, winner, pixel_shader, ps_uniform, codec, background=config.background,
         vectorized=config.shade_vectorized,

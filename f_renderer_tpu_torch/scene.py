@@ -21,9 +21,9 @@ from f_renderer_tpu_torch import compiled
 from f_renderer_tpu_torch.camera import Camera
 from f_renderer_tpu_torch.device import resolve_device
 from f_renderer_tpu_torch.math import set_identity, set_perspective
-from f_renderer_tpu_torch.pipeline.fused import fused_path_ok, prep_fused, render_fused_prepared
+from f_renderer_tpu_torch.pipeline.fused import fused_path_ok, prep_packed, render_fused_prepared
 from f_renderer_tpu_torch.pipeline.raster import BinnedPrep
-from f_renderer_tpu_torch.pipeline.render import RenderConfig, build_triangles, render_frame
+from f_renderer_tpu_torch.pipeline.render import RenderConfig, build_packed, render_frame
 from f_renderer_tpu_torch.shaders import (
     FlatShader,
     TextureStack,
@@ -73,7 +73,8 @@ class Scene:
 
     def prepare(self) -> BinnedPrep:
         """Geometry and binning for the current geometry and camera
-        (``fused.prep_fused``): pass the result to :meth:`render_prepared`.
+        (``render.build_packed``, then ``fused.prep_packed``): pass the
+        result to :meth:`render_prepared`.
 
         For a static scene under animated shading (``view_pos``, light,
         texture swaps of equal shape) a frame is then the fused kernel alone.
@@ -92,8 +93,8 @@ class Scene:
             raise ValueError("texture stack exceeds the fused kernel's budget (PACKED_VMEM_BUDGET)")
         if self.device.type == "cuda":
             return compiled.scene_prepare(self)
-        tri, _ = build_triangles(list(self.draws), self.vertex_shader, self.vs_uniform, self.config)
-        return prep_fused(tri, self.config)
+        ti, tf, n_slots, n_ctx, _ = build_packed(list(self.draws), self.vertex_shader, self.vs_uniform, self.config)
+        return prep_packed(ti, tf, n_slots, n_ctx, self.config)
 
     def render_prepared(self, prepared: BinnedPrep):
         """Render from :meth:`prepare` products, reading only the shading

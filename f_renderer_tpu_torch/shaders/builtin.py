@@ -28,7 +28,7 @@ import torch
 
 from f_renderer_tpu_torch.device import constant
 from f_renderer_tpu_torch.math import mat_mul4, mat_vec4, normalize, reflect
-from f_renderer_tpu_torch.math.transforms import _dot3, true_div, true_sqrt
+from f_renderer_tpu_torch.math.transforms import _dot3, max0, true_div, true_sqrt
 from f_renderer_tpu_torch.shaders.texture import TextureStack
 
 LIGHT_COLOR = (1.0, 1.0, 1.0)
@@ -59,7 +59,7 @@ def _phong_lighting(normal, world_pos, view_pos, light_pos, light_color):
     ambient = lc * AMBIENT_STRENGTH
     n = normalize(normal)
     light_dir = normalize(lp - world_pos)
-    diff = torch.clamp(_dot3(n, light_dir), min=0.0).unsqueeze(-1)
+    diff = max0(_dot3(n, light_dir)).unsqueeze(-1)  # jnp.maximum's +0 for a -0 product sum
     view_dir = normalize(view_pos - world_pos)
     reflect_dir = reflect(-light_dir, n)
     spec = pow32(torch.clamp(_dot3(view_dir, reflect_dir), min=0.0)).unsqueeze(-1)

@@ -63,6 +63,21 @@ def test_sample_2d_matches_jax(kind, quirk, h, w):
     np.testing.assert_allclose(got, want_jnp, atol=1e-6)  # its jnp gathers clamp the row
 
 
+@pytest.mark.parametrize("quirk", [True, False])
+def test_sample_2d_non_finite_uv_matches_jax(quirk):
+    """NaN, ±inf and out-of-range uv on the torch path: what the JAX
+    package's jnp path returns (a NaN coordinate reads texel 0 there and
+    gives NaN through the weights), NaN in the same places."""
+    tex, _ = _tex_uv(4, 4, 1, seed=3)
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    uv = np.array([[nan, 0.25], [0.25, nan], [nan, nan], [inf, 0.5], [0.5, -inf], [-inf, inf],
+                   [3.5, -2.0], [-1e30, 1e30], [0.25, 0.75]], np.float32)
+    got = pfb.sample_2d(torch.from_numpy(tex), torch.from_numpy(uv), replicate_clamp_bug=quirk).numpy()
+    want = np.asarray(jfb.sample_2d(jnp.asarray(tex), jnp.asarray(uv), replicate_clamp_bug=quirk))
+    assert np.isnan(got[:6]).all() and np.isfinite(got[6:]).all()
+    np.testing.assert_array_equal(got, want)  # NaN where JAX has NaN
+
+
 def test_sample_2d_width_clamp_quirk():
     """H=4, W=2: the reference clamps y with width - 1 = 1, so v near the
     bottom reads row 1, not row 3 (renderer.rs:523-525)."""

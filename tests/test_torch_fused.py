@@ -185,8 +185,10 @@ def test_cpu_tensors_take_plain_version_without_launch(ref):
 def test_custom_or_oversized_shading_raises(monkeypatch):
     """Where the JAX package leaves the fused path (a shader without
     ``fused_kind``, a texture stack past the budget) the port now routes to
-    ``rasterize_interp`` + ``shade_from_planes`` too, and renders; within
-    the budget the builtin shader stays on the fused path."""
+    K4's interpolated planes (``interp_planes``, what ``rasterize_interp``
+    returns) + ``shade_from_planes`` too, and renders; within the budget the
+    builtin shader stays on the fused path (``render_fused_prepared``). Both
+    read the packed rows of ``build_packed``."""
     from f_renderer_tpu_torch.pipeline import render as render_mod
 
     calls = []
@@ -198,8 +200,8 @@ def test_custom_or_oversized_shading_raises(monkeypatch):
 
         monkeypatch.setattr(render_mod, name, wrapped)
 
-    spy("render_fused", render_mod.render_fused)
-    spy("rasterize_interp", render_mod.rasterize_interp)
+    spy("render_fused_prepared", render_mod.render_fused_prepared)
+    spy("interp_planes", render_mod.interp_planes)
     scene = make_port_scene(W, H, clip_cap=16, device="cpu")
 
     def custom(u, ctx, ps_index):
@@ -208,15 +210,15 @@ def test_custom_or_oversized_shading_raises(monkeypatch):
 
     assert fused.fused_path_ok(scene.pixel_shader, scene.ps_uniform)
     fused_frame, _, _ = scene.render()  # within the budget: the fused path
-    assert calls == ["render_fused"]
+    assert calls == ["render_fused_prepared"]
     frame, _, _ = dataclasses.replace(scene, pixel_shader=custom).render()
-    assert calls[1:] == ["rasterize_interp"]
+    assert calls[1:] == ["interp_planes"]
     assert frame.shape == (H, W, 4) and (frame[..., 2] == 0).sum() > 300  # shaded by `custom`
     monkeypatch.setattr(fused, "PACKED_VMEM_BUDGET", 1024)
     assert scene.ps_uniform["textures"].packed_nbytes > 1024
     assert not fused.fused_path_ok(scene.pixel_shader, scene.ps_uniform)
     big_frame, _, _ = scene.render()
-    assert calls[2:] == ["rasterize_interp"]
+    assert calls[2:] == ["interp_planes"]
     # The builtin phong shader on the interpolated planes gives the fused frame.
     frame_bar(big_frame.numpy(), fused_frame.numpy())
 

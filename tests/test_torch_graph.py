@@ -644,18 +644,39 @@ def test_launches_under_replay_are_read_by_kernel_name():
              "void tile_order_kernel<2, false>(int const*, int const*, unsigned long, int, int)",
              "_Z22sample_bilinear_kernelPKiS0_iiibPKfS2_S0_Pf", "void at::native::vectorized_elementwise_kernel<4>()",
              "voxel_march_kernel", "hit_bits_kernel", "void fused_raster_kernel<2, true>(FrFusedParams)",
-             "_ZN12_GLOBAL__N_118voxel_setup_kernelEiifPKfS1_PfPh"]
+             "_ZN12_GLOBAL__N_118voxel_setup_kernelEiifPKfS1_PfPh",
+             "_ZN12_GLOBAL__N_116tri_setup_kernelE16FrTriSetupParamsPKiPKfS4_PiPfPhS5_i",
+             "(anonymous namespace)::tri_slots_kernel(FrTriSetupParams, int const*)", "tri_quirk_kernel",
+             "(anonymous namespace)::bin_pairs_kernel(FrBinParams, int const*, int*)", "bin_count_kernel",
+             "bin_gather_kernel"]
     assert chip_smoke.kernel_launches(names) == {"fused_raster": 2, "raster_planes": 0, "sample_bilinear": 1,
-                                                 "voxel_march": 1, "voxel_setup": 1}
+                                                 "voxel_march": 1, "voxel_setup": 1, "tri_setup": 1, "bin_pairs": 1}
     assert set(chip_smoke.KERNEL_FUNCTIONS) == {"fused_raster", "raster_planes", "sample_bilinear", "voxel_march",
-                                                "voxel_setup"}
+                                                "voxel_setup", "tri_setup", "bin_pairs"}
     spin = "at::cuda::(anonymous namespace)::spin_kernel(long)"
     trace = [(5, spin), (9, names[0]), (7, names[1]), (12, spin), (29, names[7]), (30, names[4]), (31, spin),
-             (2, names[2])]
+             (2, names[2]), (40, names[8]), (41, names[11]), (42, names[12]), (43, spin)]
+    none = dict.fromkeys(chip_smoke.KERNEL_FUNCTIONS, 0)
     assert chip_smoke.launches_between_markers(trace) == [  # in time order; before the first marker: ignored
-        {"fused_raster": 1, "raster_planes": 0, "sample_bilinear": 0, "voxel_march": 0, "voxel_setup": 0},
-        {"fused_raster": 0, "raster_planes": 0, "sample_bilinear": 0, "voxel_march": 1, "voxel_setup": 1}]
+        dict(none, fused_raster=1), dict(none, voxel_march=1, voxel_setup=1), dict(none, tri_setup=1, bin_pairs=1)]
     assert all(hasattr(getattr(kernels, k), "launches") for k in chip_smoke.KERNEL_FUNCTIONS)
+
+
+def test_split_reads_a_replays_records():
+    """``chip_smoke.py``'s ``[split]``: a replay's records between two spin
+    kernels, summed per name, their union (overlaps counted once) against
+    their span, memsets and memcpys apart from the kernels."""
+    import chip_smoke
+
+    spin = "at::cuda::(anonymous namespace)::spin_kernel(long)"
+    records = [(95_000, 96_000, spin), (20_000, 50_000, "k_a"), (40_000, 60_000, "k_b"), (70_000, 80_000, "[memset]"),
+               (0, 1_000, spin), (62_000, 64_000, "k_a"), (81_000, 82_000, "[memcpy]"), (99_000, 99_500, "k_a")]
+    parts = chip_smoke.records_between_markers(records)
+    assert len(parts) == 1 and [r[2] for r in parts[0]] == ["k_a", "k_b", "k_a", "[memset]", "[memcpy]"]
+    sp = chip_smoke.split(parts[0], top=2)
+    assert sp["records"] == {"[memset]": 1, "[memcpy]": 1, "kernels": 3}
+    assert sp["sum_us"] == 63.0 and sp["busy_us"] == 53.0 and sp["span_us"] == 62.0 and sp["gap_us"] == 9.0
+    assert [(name, n, us) for name, n, us in sp["top"]] == [("k_a", 2, 32.0), ("k_b", 1, 20.0)]
 
 
 def test_cache_drops_the_least_recently_used_frame():
