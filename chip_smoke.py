@@ -173,7 +173,8 @@ OPS_PER_S = 67e12
 VOXEL_LEVEL, VOXEL_LENGTH, VOXEL_W, VOXEL_H = 3, 2.0, 960, 540
 # Frame sizes of the scenes, and the side of phong1080_tex2048's textures.
 SIZES = {"phong1080": (1920, 1080), "custom12_360": (640, 360), "phong_bin_k1": (640, 360),
-         "textured_wide": (800, 600), "gouraud800": (800, 600), "cube1080_flat": (1920, 1080),
+         "textured_wide": (800, 600), "gouraud800": (800, 600), "gouraud800_color": (800, 600),
+         "cube1080_flat": (1920, 1080),
          "sliver640": (640, 360), "stress4k": (3840, 2160)}
 SIZES["phong1080_tex2048"] = SIZES["phong1080"]
 TEX_SIDE = 2048
@@ -184,6 +185,7 @@ KERNEL_FUNCTIONS = {"fused_raster": "fused_raster_kernel", "raster_planes": "ras
                     "voxel_setup": "voxel_setup_kernel", "tri_setup": "tri_setup_kernel",
                     "bin_pairs": "bin_pairs_kernel"}
 VOXEL_GRAPH_NODES = 100  # a voxel frame's graph holds fewer nodes than this
+PHONG_GRAPH_NODES = 126  # phong1080's render() graph: half the 252 nodes it held with the PyTorch vertex shader
 
 failures = []
 
@@ -249,6 +251,15 @@ def build_scene(name, device):
         return bench_scenes.build_scene(name, device)
     if name == "cube1080_flat":
         return bench_scenes.build_scene("cube1080", device)
+    if name == "gouraud800_color":  # draws with a colour: the vertex stage's base · light
+        import numpy as np
+        import torch
+
+        scene = bench_scenes.build_scene("gouraud800", device)
+        rng = np.random.default_rng(2)
+        scene.draws = [dict(d, color=torch.from_numpy(rng.uniform(0.2, 1.0, tuple(d["pos"].shape)).astype(np.float32))
+                            .to(device)) for d in scene.draws]
+        return scene
     w, h = SIZES[name]
     cam = Camera.create([0.0, 0.5, 4.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], device)
     sphere_cam = Camera.create([0.0, 0.0, 3.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], device)
@@ -402,12 +413,14 @@ def device_ms(fn, reps):
 
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3
+    host_ms = 0.0
+    for _ in range(3):  # the slowest of three calls: one call's host time varies
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = max(host_ms, (time.perf_counter() - t0) * 1e3)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    spin_ms = 2.0 * host_ms * reps + 1.0
+    spin_ms = 3.0 * host_ms * reps + 1.0
     torch.cuda._sleep(int(sleep_cycles_per_ms() * spin_ms))
     t0 = time.perf_counter()
     start.record()
@@ -640,6 +653,25 @@ def demangle(name):
     return out if len(out) <= 110 else out[:107] + "..."
 
 
+def port_kernel_names():
+    """The names of the port's kernel functions (csrc/), as ``ptxas -v``
+    listed them when the library was built, without template arguments."""
+    from f_renderer_tpu_torch import kernels
+
+    return frozenset(line.split(":")[0].split("<")[0] for line in kernels.ptxas_report())
+
+
+def foreign_kernels(records, port_names):
+    """The kernels among a replay's records (start, end, name) whose names
+    hold none of ``port_names`` (PyTorch's, CUDA's memset kernels) → {name
+    as ``demangle`` prints it: count}."""
+    out = {}
+    for *_, name in records:
+        if name not in ("[memset]", "[memcpy]") and not any(k in name for k in port_names):
+            out[demangle(name)] = out.get(demangle(name), 0) + 1
+    return out
+
+
 def split(records, top=15):
     """One replay's device records (start, end, name) → a summary: the
     ``top`` names by device time with their count and total us; the sum of
@@ -681,14 +713,32 @@ def graph_summary(frame):
         frame.graph.graph.debug_dump(path)
         with open(path) as f:
             text = f.read()
+    nodes = dot_nodes(text)
+    conditional = sum(node_type(attrs) == "CONDITIONAL" for attrs in nodes.values())
+    frame_graph = re.search(r'label="(graph_\d+)"', text).group(1) + "_"  # the first cluster is the frame's
+    own = sum(node.startswith(frame_graph) for node in nodes)
+    return kernel_launches(nodes.values()), conditional, own, len(nodes) - own
+
+
+def dot_nodes(text):
+    """A graph's DOT (``debug_dump``) → {node: its attributes}."""
+    import re
+
     nodes = {}
     for node, attrs in re.findall(r'"([A-Za-z0-9_]+)"\s*\[(.*?)\];?\s*$', text, re.S | re.M):
         nodes.setdefault(node, "")
         nodes[node] += attrs
-    conditional = sum("CONDITIONAL" in attrs.upper() for attrs in nodes.values())
-    frame_graph = re.search(r'label="(graph_\d+)"', text).group(1) + "_"  # the first cluster is the frame's
-    own = sum(node.startswith(frame_graph) for node in nodes)
-    return kernel_launches(nodes.values()), conditional, own, len(nodes) - own
+    return nodes
+
+
+def node_type(attrs):
+    """A DOT node's type, the first field of its label (``KERNEL``,
+    ``MEMSET``, ``CONDITIONAL``, ...), upper-cased; what the label says
+    after it (a kernel's name, its parameters) cannot change it."""
+    import re
+
+    found = re.search(r'label="\{?\s*([A-Za-z_]+)', attrs)
+    return found.group(1).upper() if found else ""
 
 
 def graph_replay_ms(fn, reps):
@@ -1502,28 +1552,53 @@ def setup_phase(dev, smi, rows):
     plain packed arrays (``bins_equal``), on phong1080 at the bench camera
     and three more angles, its clip-flip frames and its eight row slabs,
     stress4k (and its 32-row tiles: the two-operand sort),
-    phong1080_tex2048, custom12_360, sliver640, gouraud800, textured_wide,
-    phong_bin_k1 (coarse and spill ranges) and cube1080; their device
-    times at phong1080 and stress4k beside their bounds."""
+    phong1080_tex2048, custom12_360, sliver640, gouraud800 (with and
+    without a colour attribute), textured_wide, phong_bin_k1 (coarse and
+    spill ranges) and cube1080: launch 1 runs each builtin's vertex stage
+    (phong, gouraud, textured, flat) and reads custom12_360's planes, each
+    case checked to have taken its mode; their device times at phong1080
+    and stress4k beside their bounds."""
     import torch
 
     from f_renderer_tpu_torch import kernels
     from f_renderer_tpu_torch.pipeline import fused, raster
     from f_renderer_tpu_torch.pipeline.geometry import MAX_FAN
     from f_renderer_tpu_torch.pipeline.render import build_packed, build_packed_plain
+    from f_renderer_tpu_torch.shaders.builtin import VERTEX_KINDS
 
     log("[kernel-vs-plain] tri_setup (the triangle set-up), bin_pairs (the binning and pair gather)")
     lines = [line for line in kernels.ptxas_report() if line.split(":")[0].startswith(("tri_", "bin_"))]
     for line in lines:
         log(f"  ptxas {line}")
     frames = [line for line in lines if "stack frame" in line]
-    check(len(frames) == 9 and all("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in line
+    # tri_setup_kernel<0..4> (the planes mode and four vertex stages), tri_slots, tri_quirk, six bin_ kernels
+    check(len(frames) == 13 and all("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in line
                                    for line in frames), f"tri_setup / bin_pairs kernels: a stack frame or spills ({lines})")
     worst = {"tri_setup": 0.0, "bin_pairs": 0.0}
 
+    def mode_of(entry):
+        """The mode ``entry()`` (a ``build_packed`` call) launched the set-up
+        kernel in: a builtin's vertex stage (its kind) or ``planes``."""
+        seen, first = [], kernels.tri_setup
+
+        def spy(*a, vertex=None, **kw):
+            seen.append("planes" if vertex is None else vertex.kind)
+            return first(*a, vertex=vertex, **kw)
+
+        spy.launches = first.launches
+        kernels.tri_setup = spy
+        try:
+            out = entry()
+        finally:
+            kernels.tri_setup, first.launches = first, spy.launches
+        return out, seen
+
     def check_setup(tag, scene, draws=None):
         args = (scene.draws if draws is None else draws, scene.vertex_shader, scene.vs_uniform, scene.config)
-        got, want = build_packed(*args), plain(build_packed_plain, *args)
+        got, modes = mode_of(lambda: build_packed(*args))
+        want = plain(build_packed_plain, *args)
+        mode = getattr(scene.vertex_shader, "fused_kind", None) or "planes"
+        check(modes == [mode], f"tri_setup {tag}: launch 1 ran in {modes}, not once in the {mode} mode")
         ok = (bits_equal(got[0], want[0]) and bits_equal(got[1], want[1]) and got[2:4] == want[2:4]
               and int(got[4]["num_clipped"]) == int(want[4]["num_clipped"]))
         worst["tri_setup"] = max(worst["tri_setup"], float_err(got[1], want[1]))
@@ -1544,9 +1619,9 @@ def setup_phase(dev, smi, rows):
                   f"({'packed' if sort else 'two-operand'} sort)")
         return got, ok, sort
 
-    def report(tag, packed, got, ok_a, ok_b, sort):
+    def report(tag, packed, got, ok_a, ok_b, sort, mode_tag):
         log(f"  {tag}: slots {packed[2]}, C={packed[3]}, faces clipped {int(packed[4]['num_clipped'])}: set-up "
-            f"bit-equal={ok_a}; th={got.th}, {int(got.off[-1])} pairs in {got.tri_i32.shape[1]} columns, "
+            f"({mode_tag}) bit-equal={ok_a}; th={got.th}, {int(got.off[-1])} pairs in {got.tri_i32.shape[1]} columns, "
             f"ranges {range_sizes(got)}, the plain version's {'packed 31-bit' if sort else 'two-operand'} sort: "
             f"bins {'bit-equal' if sort else 'equal offsets, the same lists in slot order'}={ok_b}")
 
@@ -1567,11 +1642,24 @@ def setup_phase(dev, smi, rows):
         n_draws, nb = len(scene.draws), cfg.clip_cap * MAX_FAN
         clipping = sum(v > 0 for v in clipped_per_draw(scene, ANGLES[0]))
         m_pad, rows_f = ti.shape[1], tf.shape[0]
-        # set-up: the clip planes and varyings of every corner read once, the
-        # fan words of each draw that clipped, both arrays and the face mask
-        # written; ~100 operations a face, ~45 a path-B slot
-        a_bytes = 4 * (4 + c) * 3 * faces + 4 * nb * (23 + 3 * c) * clipping + 4 * (12 + rows_f) * m_pad + faces
-        a_ops = 100 * faces + 45 * n_draws * nb
+        # set-up: a builtin's vertex stage reads the attributes it takes and
+        # the uniforms, and writes the planes at the corners of the clipped
+        # faces and of each draw's last face (a custom shader's planes: read
+        # whole); the fan words of each draw that clipped read, both arrays
+        # and the face mask written. ~100 operations a face, and a stage's
+        # mat_vec4 rows (7 each: 4 clip, 3 world for phong and gouraud) and
+        # gouraud's lighting (~90) a corner; ~45 a path-B slot
+        kind = getattr(scene.vertex_shader, "fused_kind", None)
+        if kind is None:
+            vertex_bytes, vertex_ops = 4 * (4 + c) * 3 * faces, 0
+        else:
+            names = [name for name, *_ in VERTEX_KINDS[kind].attributes]
+            written = int(packed[4]["num_clipped"]) + sum(next(iter(d.values())).shape[0] > 0 for d in scene.draws)
+            vertex_bytes = (sum(4 * d[k].numel() for d in scene.draws for k in names if k in d) + 4 * (48 + 3)
+                            + 4 * (4 + c) * 3 * written)
+            vertex_ops = 3 * faces * (28 + (21 if kind in ("phong", "gouraud") else 0) + (90 if kind == "gouraud" else 0))
+        a_bytes = vertex_bytes + 4 * nb * (23 + 3 * c) * clipping + 4 * (12 + rows_f) * m_pad + faces
+        a_ops = 100 * faces + vertex_ops + 45 * n_draws * nb
         # binning: the packed arrays read once, the pair-order arrays and the
         # offsets written; ~30 operations a slot and ~10 a pair
         pairs = int(prep.off[-1])
@@ -1590,23 +1678,25 @@ def setup_phase(dev, smi, rows):
 
     cases = [("phong1080", a) for a in (0.10, 0.15, 0.20, 0.35)] + [
         ("stress4k", 0.10), ("phong1080_tex2048", 0.10), ("custom12_360", 0.3), ("sliver640", None),
-        ("gouraud800", 0.1), ("textured_wide", 0.2), ("phong_bin_k1", 0.3), ("cube1080_flat", 0.1)]
+        ("gouraud800", 0.1), ("gouraud800_color", 0.1), ("textured_wide", 0.2), ("phong_bin_k1", 0.3),
+        ("cube1080_flat", 0.1)]
     for name, angle in cases:
         scene = build_scene(name, dev)
         set_angle(scene, angle)
         cfg = scene.config
         fused_path = (cfg.fused_shade and hasattr(scene.pixel_shader, "fused_kind")
                       and fused.fused_path_ok(scene.pixel_shader, scene.ps_uniform))
+        mode = getattr(scene.vertex_shader, "fused_kind", None) or "planes"
         packed, ok_a = check_setup(f"{name}@{angle}", scene)
         got, ok_b, sort = check_bins(f"{name}@{angle}", packed, cfg, fused_path)
-        report(f"{name}@{angle}", packed, got, ok_a, ok_b, sort)
+        report(f"{name}@{angle}", packed, got, ok_a, ok_b, sort, mode)
         if name == "phong1080" and angle == ANGLES[0]:
             cap = cfg.clip_cap
             for n in (1, cap, cap + 7):
                 draws = clipped_draws(scene.draws, scene.vs_uniform, n)
                 flip, ok_a = check_setup(f"phong1080 with {n} faces clipped", scene, draws)
                 got, ok_b, sort = check_bins(f"phong1080 with {n} faces clipped", flip, cfg, fused_path)
-                report(f"phong1080@{angle} with {n} faces of draw 0 clipped", flip, got, ok_a, ok_b, sort)
+                report(f"phong1080@{angle} with {n} faces of draw 0 clipped", flip, got, ok_a, ok_b, sort, mode)
             slab, oks = cfg.height // 8, []
             for lin in range(8):
                 got, ok_b, sort = check_bins(f"phong1080 slab {lin} of 8", packed, cfg, fused_path,
@@ -1615,8 +1705,10 @@ def setup_phase(dev, smi, rows):
             log(f"  phong1080@{angle}: the eight row slabs' bins (origin, size) bit-equal={oks}")
             times = timing(f"phong1080@{angle}", scene, packed, fused_path)
             for key, tag, source, replaces in (
-                    ("tri_setup", "the triangle set-up, XLA's fusions", "tri_setup.cu",
-                     "f_renderer_tpu/pipeline/geometry.py:300 (no pallas_call: XLA's fusions of geometry.py:300-350, "
+                    ("tri_setup", "the builtin vertex stages and the triangle set-up, XLA's fusions",
+                     "tri_setup.cu",
+                     "f_renderer_tpu/pipeline/geometry.py:287 (no pallas_call: XLA's fusions of the builtin vertex "
+                     "stages, geometry.py:287-308 over shaders/builtin.py:52-166, and of geometry.py:300-350, "
                      "render.py:113-202 and raster_pallas.py:178 pack_setup)"),
                     ("bin_pairs", "the binning and pair gather, XLA's fusions", "bin_pairs.cu",
                      "f_renderer_tpu/pipeline/raster_pallas.py:319 (no pallas_call: XLA's fusions of bin_pairs and "
@@ -1631,7 +1723,7 @@ def setup_phase(dev, smi, rows):
             cfg32 = dataclasses.replace(cfg, tile=(32, 128), tile_auto=False)
             got, ok_b, sort = check_bins("stress4k th=32", packed, cfg32, fused_path)
             check(not sort, "stress4k th=32: the plain version took the packed sort, not the two-operand one")
-            report("stress4k@0.1 th=32", packed, got, ok_a, ok_b, sort)
+            report("stress4k@0.1 th=32", packed, got, ok_a, ok_b, sort, mode)
         del scene, packed, got
     for key in worst:
         rows[key]["max_abs_err"] = worst[key]
@@ -1653,7 +1745,7 @@ def main() -> int:
         from f_renderer_tpu_torch.pipeline import fused, raster, shade
         from f_renderer_tpu_torch.pipeline.render import (
             build_packed, build_packed_plain, build_triangles, context_codec, rasterize, render_frame)
-        from f_renderer_tpu_torch.shaders.builtin import shade_plain
+        from f_renderer_tpu_torch.shaders.builtin import VERTEX_KINDS, shade_plain
         from f_renderer_tpu_torch.voxel import octree, raycast
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
@@ -1877,8 +1969,15 @@ def main() -> int:
                 launch = kernel_call("raster_planes", lambda: raster.raster_planes(prep, True))
                 _, _, rows["K4"]["custom12_360_plan"] = plan_check(f"{scene_name}@{angle} K4", launch, prep)
                 rows["K4"]["custom12_360_ms"] = [device_ms(launch, 20) for _ in range(2)]
+                # as at phong1080_tex2048: interpolation of C varyings (~20 + 5C) a pixel
+                nbytes, ops, _ = raster_work(prep, 3 + prep.n_ctx, 20 + 5 * prep.n_ctx)
+                b_ms, b_by = bound_ms(nbytes, ops)
+                rows["K4"].update(custom12_360_bound_ms=b_ms, custom12_360_bound_by=b_by,
+                                  custom12_360_bytes=nbytes, custom12_360_ops=ops)
                 log(f"  {scene_name}@{angle} K4 time (rasterize_interp, C={prep.n_ctx}): "
-                    f"{' / '.join(f'{v:.4f}' for v in rows['K4']['custom12_360_ms'])} ms (device; {smi})")
+                    f"{' / '.join(f'{v:.4f}' for v in rows['K4']['custom12_360_ms'])} ms (device), bound "
+                    f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {ops} ops), share "
+                    f"{b_ms / min(rows['K4']['custom12_360_ms']):.3f} ({smi})")
                 continue
             # K3 on the main path's samples: the texture id where a pair won, uv.
             psm = torch.where(winner_k >= 0, ps_k, -1).contiguous()
@@ -2152,7 +2251,8 @@ def main() -> int:
         fused_ok = fused.fused_path_ok(scene.pixel_shader, scene.ps_uniform)
         bins = (ti, tf, n, c, cfg.width, cfg.height, cfg.tile)
         kw = bin_settings(cfg, fused_ok)
-        parts = [("set-up (the vertex shader, the tri_setup kernels, the clip path: build_packed)",
+        parts = [("set-up (the tri_setup kernels, a builtin's vertex stage in launch 1, the clip path: "
+                  "build_packed)",
                   lambda: build_packed(*args)),
                  ("its plain version (build_triangles + pack_binned)", lambda: build_packed_plain(*args)),
                  ("bin (the bin_pairs kernels: bin_packed)", lambda: raster.bin_packed(*bins, **kw)),
@@ -2310,7 +2410,8 @@ def main() -> int:
 
     outs = graph_path("phong1080 Scene.render()", phong_frame, phong_eager, FRAMES,
                       dict(zero, fused_raster=FRAMES, tri_setup=FRAMES, bin_pairs=FRAMES), (h, w, 4),
-                      {"K1": "fused_raster", "tri_setup": "tri_setup", "bin_pairs": "bin_pairs"}, geometries=3)
+                      {"K1": "fused_raster", "tri_setup": "tri_setup", "bin_pairs": "bin_pairs"}, geometries=3,
+                      max_nodes=PHONG_GRAPH_NODES)
     clipped_at_bench = {"phong1080 Scene.render()": clipped_per_draw(scene, ANGLES[0])}
     clipped_at_bench["phong1080 prepare()"] = clipped_at_bench["phong1080 Scene.render()"]
     for frame, depth, stats in outs:
@@ -2567,6 +2668,7 @@ def main() -> int:
             torch.cuda._sleep(1)
             torch.cuda.synchronize()
         parts = records_between_markers(trace.records)
+        port_names = port_kernel_names()
         check(len(parts) == len(paths), f"split: the trace holds {len(parts)} replays, not {len(paths)}")
         for p, part in zip(paths, parts):
             sp = split(part)
@@ -2574,6 +2676,13 @@ def main() -> int:
             check(ran["tri_setup"] == 1 and ran["bin_pairs"] == 1,
                   f"{p}: the traced replay ran the set-up and binning kernels {ran['tri_setup']} and "
                   f"{ran['bin_pairs']} times, not once each")
+            # phong's vertex stage runs in launch 1 (tri_setup_kernel<kPhong>): no PyTorch kernel of it is left
+            phong = VERTEX_KINDS["phong"].code
+            check(any(f"tri_setup_kernelILi{phong}E" in name for *_, name in part),
+                  f"{p}: the traced replay's set-up kernel is not the phong vertex mode")
+            others = foreign_kernels(part, port_names)
+            log(f"[split] {p}: {sum(others.values())} kernels not of csrc/ in the replay (PyTorch's, CUDA's memset "
+                f"kernels), {sorted(others.items())}")
             log(f"[split] {p}: one replay at the bench camera ({ANGLES[0]}), faces clipped per draw "
                 f"{clipped_at_bench[p]}; {sp['records']} records; device time summed {sp['sum_us']:.1f} us, busy "
                 f"(their union) {sp['busy_us']:.1f} us over a span of {sp['span_us']:.1f} us (idle gap "

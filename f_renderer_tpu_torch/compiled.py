@@ -15,7 +15,7 @@ launch, which a graph made slower (the copies and clones cost more than
 the few ops it saves).
 
 - **Key.** What JAX's cache key and retrace would see: the entry point, the
-  shaders (with a pixel shader's ``fused_kind``, ``light_pos`` and
+  shaders (with each one's ``fused_kind``, ``light_pos`` and
   ``light_color``) and the config, and the inputs' structure: every
   tensor's shape, dtype and device and every other value the frame reads
   (the number of draws, a texture stack's ``opaque``). A tensor's values
@@ -262,10 +262,13 @@ class FrameCache:
 CACHE = FrameCache()
 
 
-def _shader_key(pixel_shader):
-    """A pixel shader and the attributes the frame reads from it."""
-    attrs = (getattr(pixel_shader, a, None) for a in ("fused_kind", "light_pos", "light_color"))
-    return (pixel_shader, *(tuple(a) if isinstance(a, (list, tuple)) else a for a in attrs))
+def _shader_key(shader):
+    """A shader and the attributes the frame reads from it: a builtin's
+    ``fused_kind`` and light constants, which the set-up kernel (vertex) and
+    K1 (pixel) take as values captured into the graph, so a change of them
+    must capture anew."""
+    attrs = (getattr(shader, a, None) for a in ("fused_kind", "light_pos", "light_color"))
+    return (shader, *(tuple(a) if isinstance(a, (list, tuple)) else a for a in attrs))
 
 
 def scene_render(scene):
@@ -275,7 +278,7 @@ def scene_render(scene):
     def frame(vs_uniform, ps_uniform, draws):
         return render_frame(list(draws), vs, vs_uniform, ps, ps_uniform, config)
 
-    key = ("render", vs, _shader_key(ps), config)
+    key = ("render", _shader_key(vs), _shader_key(ps), config)
     return CACHE.run(key, frame, (scene.vs_uniform, scene.ps_uniform, tuple(scene.draws)), scene.device)
 
 
@@ -288,7 +291,7 @@ def scene_prepare(scene):
         ti, tf, n_slots, n_ctx, _ = build_packed(list(draws), vs, vs_uniform, config)
         return prep_packed(ti, tf, n_slots, n_ctx, config)
 
-    return CACHE.run(("prepare", vs, config), frame, (scene.vs_uniform, tuple(scene.draws)), scene.device)
+    return CACHE.run(("prepare", _shader_key(vs), config), frame, (scene.vs_uniform, tuple(scene.draws)), scene.device)
 
 
 def voxel_frame(grid_color, grid_hit, eye, inv_mvp, config):
@@ -326,7 +329,7 @@ def sharded_frame(draws, vertex_shader, vs_uniform, pixel_shader, ps_uniform, co
         return sharding.render_frame_sharded(list(d), vs, vs_u, ps, ps_u, config, mesh)
 
     coords = (mesh.get_local_rank("dp"), mesh.get_local_rank("sp"))
-    key = ("sharded", vs, _shader_key(ps), config, tuple(mesh.shape), coords, mesh.get_group("dp"))
+    key = ("sharded", _shader_key(vs), _shader_key(ps), config, tuple(mesh.shape), coords, mesh.get_group("dp"))
     return CACHE.run(key, frame, (vs_uniform, ps_uniform, tuple(draws)), _draws_device(draws))
 
 
@@ -340,5 +343,5 @@ def grid_frame(draws, vertex_shader, vs_uniform, pixel_shader, ps_uniform, confi
     def frame(vs_u, ps_u, d):
         return sharding.render_frame_grid(list(d), vs, vs_u, ps, ps_u, config, n_dp, n_sp)
 
-    key = ("grid", vs, _shader_key(ps), config, n_dp, n_sp)
+    key = ("grid", _shader_key(vs), _shader_key(ps), config, n_dp, n_sp)
     return CACHE.run(key, frame, (vs_uniform, ps_uniform, tuple(draws)), _draws_device(draws))

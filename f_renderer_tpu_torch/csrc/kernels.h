@@ -117,6 +117,34 @@ typedef struct FrTriSetupParams {
 int fr_tri_setup(FrTriSetupParams p, const int32_t* table, const float* clip, const float* ctx,
                  int32_t* tri_i32, float* tri_f32, uint8_t* b_mask, int32_t* acc, int keys_word,
                  void* stream);
+#define FR_MAX_DRAWS 256
+
+// Mirrors kernels.VertexArgs: a builtin's vertex stage for launch 1. Every
+// pointer is a device pointer the kernel reads (or, clip and ctx, writes)
+// on each run, so a captured graph's replay reads its input buffers afresh.
+typedef struct FrVertexArgs {
+  const float* model;     // (4, 4) row-major uniforms
+  const float* view;
+  const float* proj;
+  const float* view_pos;  // (3,), gouraud's eye; null for the other kinds
+  float* clip;            // (4, 3 n_faces) out: the clip path's corner planes,
+  float* ctx;             // (C, 3 n_faces) out: written where it reads them
+  // per draw: the (F_d, 3, k) float32 attributes the kind reads, in its
+  // slots: flat pos, color; textured pos, uv; phong pos, uv, normal;
+  // gouraud pos, normal, color (null where the draw has none)
+  const float* attr[FR_MAX_DRAWS][3];
+  float light_pos[3];     // gouraud's light, rounded to float32
+  float light_color[3];
+  int32_t kind;           // 1 flat, 2 textured, 3 phong, 4 gouraud
+} FrVertexArgs;
+
+// Launch 1 with a builtin's vertex stage in place of the planes: each
+// corner's clip position and varyings computed from the draws' attributes
+// and the uniforms (p.n_ctx varyings, 1..8), then as fr_tri_setup; the
+// clip and ctx planes written at the corners of every clipped face and of
+// each draw's last face, the entries the clip path reads, and nowhere else.
+int fr_tri_setup_vertex(FrTriSetupParams p, const int32_t* table, const FrVertexArgs* args, int32_t* tri_i32,
+                        float* tri_f32, uint8_t* b_mask, int32_t* acc, int keys_word, void* stream);
 // Launches 2 and 3: the path-B and padding columns from fan (D, nb (23 +
 // 3C)) int32 words, the clip path's arrays (read where the draw clipped a
 // face), then, with p.quirk, the ps boundary quirk's rewrite of the PS row.

@@ -19,9 +19,10 @@ The kernels (the TPU kernel each replaces in brackets):
 - ``voxel_setup`` — no Pallas kernel: XLA's fusion of the voxel ray set-up
   (voxel/raycast.py:34-264, fenced at raycast_pallas.py:310);
 - ``tri_setup`` / ``tri_setup_slots`` — no Pallas kernel: XLA's fusions of
-  the triangle set-up from the vertex shader's outputs to the packed rows
-  (pipeline/geometry.py:300-350, render.py:113-202,
-  raster_pallas.py:178 pack_setup);
+  the triangle set-up from the builtin shaders' vertex stage, or a custom
+  vertex shader's outputs, to the packed rows (pipeline/geometry.py:287-350
+  over shaders/builtin.py:52-166, render.py:113-202, raster_pallas.py:178
+  pack_setup);
 - ``bin_pairs`` — no Pallas kernel: XLA's fusions of the binning and the
   pair-order gather (raster_pallas.py:319 bin_pairs, fused.py:160-183);
 - ``if_node`` — no TPU kernel: a conditional node of a CUDA graph under
@@ -38,6 +39,7 @@ device (``chip_smoke.py`` does so with CUPTI).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -110,6 +112,27 @@ class TriSetupParams(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int32) for name in (
         "n_draws", "n_faces", "n_ctx", "nb", "m", "m_pad", "width", "height", "cull", "quirk")]
+
+
+MAX_DRAWS = 256  # FR_MAX_DRAWS: the draws of a frame (render.build_triangles' cap)
+
+
+class VertexArgs(ctypes.Structure):
+    """Mirror of ``FrVertexArgs`` in csrc/kernels.h (ctypes pads it as the C
+    compiler does)."""
+
+    _fields_ = [
+        ("model", ctypes.c_void_p),
+        ("view", ctypes.c_void_p),
+        ("proj", ctypes.c_void_p),
+        ("view_pos", ctypes.c_void_p),
+        ("clip", ctypes.c_void_p),
+        ("ctx", ctypes.c_void_p),
+        ("attr", (ctypes.c_void_p * 3) * MAX_DRAWS),
+        ("light_pos", ctypes.c_float * 3),
+        ("light_color", ctypes.c_float * 3),
+        ("kind", ctypes.c_int32),
+    ]
 
 
 class BinParams(ctypes.Structure):
@@ -188,13 +211,15 @@ def load_library() -> ctypes.CDLL:
     lib.fr_voxel_march.argtypes = [VoxelParams] + [ptr] * 13
     lib.fr_voxel_setup.argtypes = [i32, i32, ctypes.c_float] + [ptr] * 5
     lib.fr_tri_setup.argtypes = [TriSetupParams] + [ptr] * 7 + [i32, ptr]
+    lib.fr_tri_setup_vertex.argtypes = [TriSetupParams, ptr, ctypes.POINTER(VertexArgs)] + [ptr] * 4 + [i32, ptr]
     lib.fr_tri_setup_slots.argtypes = [TriSetupParams] + [ptr] * 5 + [i32, ptr]
     lib.fr_bin_pairs.argtypes = [BinParams] + [ptr] * 10
     lib.fr_if_node_begin.argtypes = [ptr] * 3
     lib.fr_if_node_end.argtypes = [ptr]
     lib.fr_stream_create.argtypes = [ctypes.POINTER(ptr)]
     for fn in (lib.fr_fused_raster, lib.fr_raster_planes, lib.fr_sample_bilinear, lib.fr_voxel_march,
-               lib.fr_voxel_setup, lib.fr_tri_setup, lib.fr_tri_setup_slots, lib.fr_bin_pairs,
+               lib.fr_voxel_setup, lib.fr_tri_setup, lib.fr_tri_setup_vertex, lib.fr_tri_setup_slots,
+               lib.fr_bin_pairs,
                lib.fr_if_node_begin, lib.fr_if_node_end, lib.fr_stream_create):
         fn.restype = ctypes.c_int
     lib.fr_error_string.argtypes = [ctypes.c_int]
@@ -515,22 +540,28 @@ def acc_layout(n_draws: int):
     return keys + 2 * n_draws, keys
 
 
-def tri_setup(table, clip, ctx, *, n_draws, nb, m, m_pad, width, height, cull, quirk):
+def tri_setup(table, clip, ctx, *, n_draws, nb, m, m_pad, width, height, cull, quirk, vertex=None):
     """Launch 1 of the triangle set-up (csrc/tri_setup.cu: tri_setup_kernel)
-    on PyTorch's current stream, over every face of the frame: ``clip`` (4,
-    3F) and ``ctx`` (C, 3F) f32 are the vertex shader's outputs, the draws'
-    corners one after the other; ``table`` the (4 D,) int32 draw table
-    (face_off, faces, slot_base, order_base). → (tri_i32 (12, m_pad),
-    tri_f32 (9 + 3C, m_pad) with every path-A column written, b_mask (F,)
-    bool, acc: the zeroed accumulator the kernel filled (:func:`acc_layout`;
-    :func:`acc_views` reads it))."""
+    on PyTorch's current stream, over every face of the frame; ``table`` is
+    the (4 D,) int32 draw table (face_off, faces, slot_base, order_base).
+    ``clip`` (4, 3F) and ``ctx`` (C, 3F) f32 hold the draws' corners one
+    after the other (draw d's corner v of face i at 3 face_off[d] + v F_d +
+    i): the vertex shader's outputs, which the kernel reads, or, with
+    ``vertex`` (a :class:`VertexStage`: a builtin's vertex stage, run in the
+    launch), planes the kernel writes at the corners of every clipped face
+    and of each draw's last face, the entries the clip path reads, leaving
+    the rest unwritten. → (tri_i32 (12, m_pad), tri_f32 (9 + 3C, m_pad) with
+    every path-A column written, b_mask (F,) bool, acc: the zeroed
+    accumulator the kernel filled (:func:`acc_layout`; :func:`acc_views`
+    reads it))."""
     dev = _on_cuda(clip, "tri_setup")
     n_faces, n_ctx = clip.shape[1] // 3, ctx.shape[0]
     _need(clip, "clip", torch.float32, dev, (4, 3 * n_faces))
     _need(ctx, "ctx", torch.float32, dev, (n_ctx, 3 * n_faces))
     _need(table, "table", torch.int32, dev, (4 * n_draws,))
-    if not (0 < n_draws <= 256 and 0 <= m < m_pad < 2**31 and 0 < width < 32768 and 0 < height < 32768):
+    if not (0 < n_draws <= MAX_DRAWS and 0 <= m < m_pad < 2**31 and 0 < width < 32768 and 0 < height < 32768):
         raise ValueError(f"tri_setup: {n_draws} draws, {m} slots in {m_pad} columns, {width}x{height}")
+    args = None if vertex is None else vertex_args(vertex, clip, ctx, dev)
     words, keys = acc_layout(n_draws)
     acc = torch.zeros((words,), dtype=torch.int32, device=dev)
     tri_i32 = torch.empty((12, m_pad), dtype=torch.int32, device=dev)
@@ -540,11 +571,62 @@ def tri_setup(table, clip, ctx, *, n_draws, nb, m, m_pad, width, height, cull, q
                             height=height, cull=int(bool(cull)), quirk=int(bool(quirk)))
     if n_faces:
         lib = load_library()
-        err = lib.fr_tri_setup(params, table.data_ptr(), clip.data_ptr(), ctx.data_ptr(), tri_i32.data_ptr(),
-                               tri_f32.data_ptr(), b_mask.data_ptr(), acc.data_ptr(), keys, _stream(dev))
-        _check(lib, err, "fr_tri_setup")
+        outs = (tri_i32.data_ptr(), tri_f32.data_ptr(), b_mask.data_ptr(), acc.data_ptr(), keys, _stream(dev))
+        if args is None:
+            err = lib.fr_tri_setup(params, table.data_ptr(), clip.data_ptr(), ctx.data_ptr(), *outs)
+        else:
+            err = lib.fr_tri_setup_vertex(params, table.data_ptr(), ctypes.byref(args), *outs)
+        _check(lib, err, "fr_tri_setup" if args is None else "fr_tri_setup_vertex")
         _count(tri_setup)
     return tri_i32, tri_f32, b_mask, acc
+
+
+@dataclasses.dataclass(frozen=True)
+class VertexStage:
+    """A builtin's vertex stage for :func:`tri_setup`: its ``kind`` (the
+    vertex shader's ``fused_kind``), the uniforms (``model``, ``view``,
+    ``proj`` (4, 4), and gouraud's ``view_pos`` (3,)), the draws (dicts of
+    (F_d, 3, k) tensors) and gouraud's light."""
+
+    kind: str
+    uniforms: dict
+    draws: list
+    light_pos: tuple = (0.0, 0.0, 0.0)
+    light_color: tuple = (0.0, 0.0, 0.0)
+
+
+def vertex_args(vertex: VertexStage, clip, ctx, dev) -> VertexArgs:
+    """The launch's :class:`VertexArgs`: every tensor checked (float32,
+    contiguous, on ``dev``, of the width the kind reads), or ValueError."""
+    from f_renderer_tpu_torch.shaders.builtin import VERTEX_KINDS  # each kind's code and attributes
+
+    if vertex.kind not in VERTEX_KINDS:
+        raise ValueError(f"tri_setup: no builtin vertex stage of kind {vertex.kind!r}")
+    spec = VERTEX_KINDS[vertex.kind]
+    n_draws, n_ctx = len(vertex.draws), ctx.shape[0]
+    if not 0 < n_draws <= MAX_DRAWS or not 0 < n_ctx <= MAX_CTX:
+        raise ValueError(f"tri_setup: {n_draws} draws, {n_ctx} varyings")
+    u = vertex.uniforms
+    names = ("model", "view", "proj") + (("view_pos",) if vertex.kind == "gouraud" else ())
+    for name in names:
+        if name not in u:
+            raise ValueError(f"tri_setup: the {vertex.kind} vertex stage reads the uniform {name!r}")
+        _need(u[name], name, torch.float32, dev, (3,) if name == "view_pos" else (4, 4))
+    args = VertexArgs(kind=spec.code, light_pos=(ctypes.c_float * 3)(*vertex.light_pos),
+                      light_color=(ctypes.c_float * 3)(*vertex.light_color),
+                      clip=clip.data_ptr(), ctx=ctx.data_ptr(),
+                      **{name: u[name].data_ptr() for name in names})
+    for d, draw in enumerate(vertex.draws):
+        f = draw["pos"].shape[0] if "pos" in draw else 0
+        for slot, (name, w, optional) in enumerate(spec.attributes):
+            t = draw.get(name)
+            if t is None and optional:
+                continue
+            if t is None:
+                raise ValueError(f"tri_setup: draw {d} lacks the attribute {name!r} the {vertex.kind} stage reads")
+            _need(t, f"draw {d} {name}", torch.float32, dev, (f, 3, n_ctx if w is None else w))
+            args.attr[d][slot] = t.data_ptr()
+    return args
 
 
 tri_setup.launches = 0

@@ -72,9 +72,11 @@ def _cross(a, b):
 
 
 def normalize(v):
-    """v / |v| over the last axis (no epsilon — glam release semantics)."""
+    """v / |v| over the last axis (no epsilon — glam release semantics), the
+    square root correctly rounded (:func:`true_sqrt`), as the JAX package's
+    and the kernels' are."""
     v = _f32(v)
-    return v / torch.sqrt(_dot3(v, v)).unsqueeze(-1)
+    return v / true_sqrt(_dot3(v, v)).unsqueeze(-1)
 
 
 def set_identity(device=None):

@@ -400,38 +400,52 @@ def clip_into(outs, clip, ctx_a, b_mask, num_clipped, clipped, clip_cap, order_b
 def packed_geometry(draws, vertex_shader, vs_uniform, width: int, height: int, *, clip_cap: int, cull: bool,
                     quirk: bool):
     """Every draw's geometry and pack on the card, through the triangle
-    set-up kernels (csrc/tri_setup.cu; ``kernels.tri_setup``): the vertex
-    shader per draw, launch 1 over every face (masks, path-A columns), each
-    draw's clip path (:func:`clip_into`), launches 2 and 3 (path-B and
-    padding columns; the ps boundary quirk where ``quirk``) → (tri_i32 (12,
-    m_pad), tri_f32 (9 + 3C, m_pad), slots m, C, faces clipped 0-d int32):
-    what ``raster.pack_binned`` makes of ``render.build_triangles``' buffer,
-    bit for bit."""
+    set-up kernels (csrc/tri_setup.cu; ``kernels.tri_setup``): launch 1 over
+    every face (a builtin's vertex stage where the vertex shader is tagged
+    ``fused_kind``, else the vertex shader per draw in PyTorch first; masks,
+    path-A columns), each draw's clip path (:func:`clip_into`), launches 2
+    and 3 (path-B and padding columns; the ps boundary quirk where
+    ``quirk``) → (tri_i32 (12, m_pad), tri_f32 (9 + 3C, m_pad), slots m, C,
+    faces clipped 0-d int32): what ``raster.pack_binned`` makes of
+    ``render.build_triangles``' buffer, bit for bit."""
     from f_renderer_tpu_torch import kernels
+    from f_renderer_tpu_torch.shaders.builtin import vertex_layout
 
-    stages = [vertex_stage(d, vertex_shader, vs_uniform) for d in draws]
-    n_draws, dev = len(stages), stages[0][1].device
-    c = stages[0][2].shape[0]
-    if any(s[2].shape[0] != c for s in stages):
+    n_draws, dev = len(draws), next(iter(draws[0].values())).device
+    kind = getattr(vertex_shader, "fused_kind", None)
+    if kind is None:
+        stages = [vertex_stage(d, vertex_shader, vs_uniform) for d in draws]
+        faces, widths = [s[0] for s in stages], [s[2].shape[0] for s in stages]
+    else:
+        faces = [next(iter(d.values())).shape[0] for d in draws]
+        widths = [sum(w for _, w in vertex_layout(vertex_shader, d)) for d in draws]
+    c = widths[0]
+    if any(w != c for w in widths):
         raise ValueError("every draw's vertex shader must emit the same varyings")
     nb = clip_cap * MAX_FAN
-    faces = [s[0] for s in stages]
     face_off = [sum(faces[:d]) for d in range(n_draws)]
     slot_base = [f0 + d * nb for d, f0 in enumerate(face_off)]
     order_base = [f0 * MAX_FAN for f0 in face_off]
     m = sum(faces) + n_draws * nb
     m_pad = -(-(m + 1) // 128) * 128  # raster.pack_binned's columns
     table = constant(tuple(face_off + faces + slot_base + order_base), dev, torch.int32)
-    clip = torch.cat([s[1] for s in stages], 1) if n_draws > 1 else stages[0][1]
-    ctx = torch.cat([s[2] for s in stages], 1) if n_draws > 1 else stages[0][2]
     shape = dict(n_draws=n_draws, nb=nb, m=m, width=width, height=height, cull=cull, quirk=quirk)
-    tri_i32, tri_f32, b_mask, acc = kernels.tri_setup(
-        table, clip.to(torch.float32).contiguous(), ctx.contiguous(), m_pad=m_pad, **shape)
+    if kind is None:
+        clip = torch.cat([s[1] for s in stages], 1) if n_draws > 1 else stages[0][1]
+        ctx = torch.cat([s[2] for s in stages], 1) if n_draws > 1 else stages[0][2]
+        clip, ctx, vertex = clip.to(torch.float32).contiguous(), ctx.contiguous(), None
+    else:  # the kernel writes the entries of these that the clip path reads
+        clip = torch.empty((4, 3 * sum(faces)), device=dev)
+        ctx = torch.empty((c, 3 * sum(faces)), device=dev)
+        vertex = kernels.VertexStage(kind, vs_uniform, list(draws), getattr(vertex_shader, "light_pos", (0.0,) * 3),
+                                     getattr(vertex_shader, "light_color", (0.0,) * 3))
+    tri_i32, tri_f32, b_mask, acc = kernels.tri_setup(table, clip, ctx, m_pad=m_pad, vertex=vertex, **shape)
     num_clipped, total, clipped = kernels.acc_views(acc, n_draws)
     fan = torch.empty((n_draws, nb * (23 + 3 * c)), dtype=torch.int32, device=dev)
-    for d, (f, clip_d, ctx_d) in enumerate(stages):
+    for d, (f, o) in enumerate(zip(faces, face_off)):
         if f > 0:
-            clip_into(fan_views(fan[d], clip_cap, c), clip_d, ctx_d, b_mask[face_off[d]:face_off[d] + f],
-                      num_clipped[d], clipped[d], clip_cap, order_base[d], width, height)
+            planes = clip[:, 3 * o:3 * (o + f)], ctx[:, 3 * o:3 * (o + f)]
+            clip_into(fan_views(fan[d], clip_cap, c), *planes, b_mask[o:o + f], num_clipped[d], clipped[d], clip_cap,
+                      order_base[d], width, height)
     kernels.tri_setup_slots(table, fan, tri_i32, tri_f32, acc, **shape)
     return tri_i32, tri_f32, m, c, total

@@ -27,7 +27,7 @@ from f_renderer_tpu_torch.pipeline.raster_portable import rasterize_portable
 from f_renderer_tpu_torch.pipeline.shade import shade_deferred, shade_from_planes
 from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
 from f_renderer_tpu_torch.shaders.api import ContextCodec
-from f_renderer_tpu_torch.shaders.builtin import LIGHT_COLOR, LIGHT_POS, shade_plain
+from f_renderer_tpu_torch.shaders.builtin import LIGHT_COLOR, LIGHT_POS, shade_plain, vertex_layout
 
 I32_MAX = 2147483647
 
@@ -169,8 +169,13 @@ def build_packed_plain(draws: Sequence, vertex_shader: Callable, vs_uniform, con
 
 
 def context_codec(vertex_shader: Callable, vs_uniform, draw) -> ContextCodec:
-    """The varying layout the vertex shader emits, from one zero vertex of
-    ``draw`` (the JAX package's make_context_codec)."""
+    """The varying layout the vertex shader emits on ``draw``: a builtin's
+    (tagged ``fused_kind``) from its tag (``builtin.vertex_layout``), with no
+    op on any device; any other shader's from one zero vertex of ``draw``
+    (the JAX package's make_context_codec)."""
+    layout = vertex_layout(vertex_shader, draw)
+    if layout is not None:
+        return ContextCodec(layout)
     example = {
         k: torch.zeros((1,) + tuple(v.shape[2:]), dtype=torch.float32, device=v.device)
         for k, v in draw.items()

@@ -9,8 +9,12 @@ Port of ``f_renderer_tpu/shaders/builtin.py``. Each factory returns
   pixel_shader(ps_uniform, context, ps_index) -> rgba (4, *S)
       ``context`` maps varying names to (k, *S) channel planes.
 
-Pixel shaders carry ``fused_kind`` (and the light constants) so the fused
-path knows them. Their bodies are the plain version of the fused kernel's
+Vertex shaders carry ``fused_kind`` (and Gouraud's light constants) so the
+triangle set-up kernel runs them in its first launch (csrc/tri_setup.cu),
+from the draws' attributes; their bodies are that stage's plain version,
+and :func:`vertex_layout` gives their varyings without running them. Pixel
+shaders carry ``fused_kind`` (and the light constants) so the fused path
+knows them. Their bodies are the plain version of the fused kernel's
 shading epilogue (``csrc/fused_raster.cu``), written with the same
 expression shapes: the JAX package's planar epilogue (fused.py:46-117),
 not its norm-based ``_phong_lighting``. The shaders sample with
@@ -24,6 +28,8 @@ ambient 0.1, specular 0.5 · (V·R)^32.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from f_renderer_tpu_torch.device import constant
@@ -35,6 +41,47 @@ LIGHT_COLOR = (1.0, 1.0, 1.0)
 LIGHT_POS = (1.2, 1.0, 2.0)
 AMBIENT_STRENGTH = 0.1
 SPECULAR_STRENGTH = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class VertexKind:
+    """A builtin vertex stage as launch 1 of csrc/tri_setup.cu runs it:
+    ``code``, its kind there (kFlat ...); ``attributes``, what it reads in
+    the kernel's slots, (name, width or None for any width passed through,
+    whether a draw may lack it); ``varyings``, what it emits in codec order
+    (sorted names, shaders/api.py), (name, width or the name of the
+    attribute whose width it takes)."""
+
+    code: int
+    attributes: tuple
+    varyings: tuple
+
+
+# Gouraud's colour may be missing: the colour is then the light itself.
+VERTEX_KINDS = {
+    "flat": VertexKind(1, (("pos", 3, False), ("color", None, False)), (("color", "color"),)),
+    "textured": VertexKind(2, (("pos", 3, False), ("uv", 2, False)), (("uv", "uv"),)),
+    "phong": VertexKind(3, (("pos", 3, False), ("uv", 2, False), ("normal", 3, False)),
+                        (("normal", "normal"), ("pos", 3), ("uv", "uv"))),
+    "gouraud": VertexKind(4, (("pos", 3, False), ("normal", 3, False), ("color", 3, True)), (("color", 3),)),
+}
+
+
+def vertex_layout(vertex_shader, draw):
+    """The varyings' layout, ((name, width), ...) in codec order, that a
+    builtin vertex shader (tagged ``fused_kind``) emits on ``draw``'s (F, 3,
+    k) attributes, without running it; None for any other vertex shader."""
+    kind = getattr(vertex_shader, "fused_kind", None)
+    if kind is None:
+        return None
+    layout = []
+    for name, width in VERTEX_KINDS[kind].varyings:
+        if isinstance(width, str):
+            if width not in draw:
+                raise ValueError(f"the {kind} vertex shader reads the attribute {width!r}, which the draw lacks")
+            width = draw[width].shape[-1] if draw[width].dim() > 2 else 1
+        layout.append((name, width))
+    return tuple(layout)
 
 
 def pow32(x):
@@ -143,6 +190,7 @@ class FlatShader:
         return _flat_pixel(ctx)
 
 
+FlatShader.vertex.fused_kind = "flat"
 FlatShader.pixel.fused_kind = "flat"
 
 
@@ -163,6 +211,7 @@ def make_phong_shaders(light_pos=LIGHT_POS, light_color=LIGHT_COLOR):
         sample = _textures(u, ps_index.device).sample
         return _phong_pixel(sample, u, ctx, ps_index, light_pos, light_color)
 
+    vertex.fused_kind = "phong"
     pixel.fused_kind = "phong"
     pixel.light_pos = tuple(light_pos)
     pixel.light_color = tuple(light_color)
@@ -179,19 +228,22 @@ def make_textured_shaders():
     def pixel(u, ctx, ps_index):
         return _textured_pixel(_textures(u, ps_index.device).sample, ctx, ps_index)
 
+    vertex.fused_kind = "textured"
     pixel.fused_kind = "textured"
     return vertex, pixel
 
 
 def make_gouraud_shaders(light_pos=LIGHT_POS, light_color=LIGHT_COLOR):
     """Vertex-lit Gouraud (BASELINE config #2): the Phong lighting sum
-    evaluated per vertex and interpolated as a color varying."""
+    evaluated per vertex and interpolated as a color varying. The vertex
+    shader reads its light from its tag (``vertex.light_pos`` /
+    ``light_color``), the one source the set-up kernel takes it from too."""
 
     def vertex(u, vin):
         clip, p = _mvp_transform(u, vin["pos"])
         world = mat_vec4(u["model"], p)
         light = _phong_lighting(
-            vin["normal"], world[:3].T, u["view_pos"], light_pos, light_color
+            vin["normal"], world[:3].T, u["view_pos"], vertex.light_pos, vertex.light_color
         )
         base = vin.get("color")
         return clip, {"color": light if base is None else base * light}
@@ -199,6 +251,9 @@ def make_gouraud_shaders(light_pos=LIGHT_POS, light_color=LIGHT_COLOR):
     def pixel(u, ctx, ps_index):
         return _gouraud_pixel(ctx)
 
+    vertex.fused_kind = "gouraud"
+    vertex.light_pos = tuple(light_pos)
+    vertex.light_color = tuple(light_color)
     pixel.fused_kind = "gouraud"
     pixel.light_pos = tuple(light_pos)
     pixel.light_color = tuple(light_color)

@@ -465,6 +465,23 @@ def test_cache_key_follows_what_the_frame_reads(stub_cache):
     assert (key_of["voxel"], key_of["voxel eye"], key_of["voxel config"]) == (1, 0, 1)
 
 
+def test_cache_key_follows_the_vertex_tag(stub_cache):
+    """A builtin vertex shader's tag (its light, which the set-up kernel
+    takes as values in the captured launch) is in the key of every entry
+    point that runs it: a change captures anew."""
+    counts = []
+    for entry in (compiled.scene_render, compiled.scene_prepare):
+        scene, before = cpu_scene("gouraud"), stub_cache.captures
+        entry(scene)
+        entry(scene)
+        scene.vertex_shader.light_color = (0.5, 0.25, 1.0)
+        entry(scene)
+        scene.vertex_shader.light_pos = (0.0, -2.0, 1.0)
+        entry(scene)
+        counts.append(stub_cache.captures - before)
+    assert counts == [3, 3]
+
+
 class FakeMesh:
     """What ``compiled.sharded_frame`` reads of a ``DeviceMesh``."""
 
@@ -662,6 +679,50 @@ def test_launches_under_replay_are_read_by_kernel_name():
     assert all(hasattr(getattr(kernels, k), "launches") for k in chip_smoke.KERNEL_FUNCTIONS)
 
 
+GRAPH_DOT = r"""digraph dot {
+subgraph cluster_1 {
+label="graph_1" graph[style="dashed"];
+"graph_1_node_1"[style="bold" shape="record" label="{KERNEL
+| {ID | 1 (topoId: 17) | _ZN45_GLOBAL__N__efb1bad4_12_tri_setup_cu_11182f7d16tri_setup_kernelILi3EEEv16FrTriSetupParamsPKiNSt11conditionalIXeqT_Li0EENS_8PlanesInE12FrVertexArgsE4typeEPiPfPhS9_i\<\<\<26,256,0\>\>\>}
+| {cooperative | 0}
+}"];
+
+"graph_1_node_3"[style="bold" shape="record" label="{
+CONDITIONAL
+| {ID | 3 (topoId: 15)}
+| {Conditional Type| IF}
+| {True|graph_2}
+}
+"];
+
+"graph_1_node_10"[style="solid" style="solid" shape="record" label="{MEMSET
+| {{ID | node handle | dptr | pitch | value | elementSize | width | height} | {10 (topoId: 8) | 0x0 | 0x0 | 0 | 0 | 1 | 691408 | 1}}}"];
+}
+subgraph cluster_2 {
+label="graph_2" graph[style="dashed"];
+"graph_2_node_0"[style="bold" shape="record" label="{KERNEL
+| {ID | 0 (topoId: 0) | _Z20set_condition_kernelyPKb\<\<\<1,1,0\>\>\>}
+}"];
+}
+}
+"""
+
+
+def test_graph_nodes_are_typed_by_their_label():
+    """``chip_smoke.py`` counts a graph's conditional nodes by each DOT
+    node's type (the first field of its label, as a card's
+    ``cudaGraphDebugDotPrint`` writes it), not by a word anywhere in its
+    attributes: a kernel whose name holds ``conditional`` is a kernel."""
+    import chip_smoke
+
+    nodes = chip_smoke.dot_nodes(GRAPH_DOT)
+    assert sorted(nodes) == ["graph_1_node_1", "graph_1_node_10", "graph_1_node_3", "graph_2_node_0"]
+    assert {n: chip_smoke.node_type(a) for n, a in nodes.items()} == {
+        "graph_1_node_1": "KERNEL", "graph_1_node_3": "CONDITIONAL", "graph_1_node_10": "MEMSET",
+        "graph_2_node_0": "KERNEL"}
+    assert chip_smoke.kernel_launches(nodes.values())["tri_setup"] == 1
+
+
 def test_split_reads_a_replays_records():
     """``chip_smoke.py``'s ``[split]``: a replay's records between two spin
     kernels, summed per name, their union (overlaps counted once) against
@@ -677,6 +738,19 @@ def test_split_reads_a_replays_records():
     assert sp["records"] == {"[memset]": 1, "[memcpy]": 1, "kernels": 3}
     assert sp["sum_us"] == 63.0 and sp["busy_us"] == 53.0 and sp["span_us"] == 62.0 and sp["gap_us"] == 9.0
     assert [(name, n, us) for name, n, us in sp["top"]] == [("k_a", 2, 32.0), ("k_b", 1, 20.0)]
+
+
+def test_split_counts_the_kernels_not_of_the_port():
+    """``chip_smoke.py``'s count of a replay's kernels that are not the
+    port's: by name, with memsets and memcpys apart."""
+    import chip_smoke
+
+    fill = "_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_10FillFunctorIiEE"
+    records = [(0, 1, "_ZN12_GLOBAL__N_116tri_setup_kernelILi3EEEv"), (1, 2, fill), (2, 3, "memset32"),
+               (3, 4, "[memset]"), (4, 5, "[memcpy]"), (5, 6, fill), (6, 7, "set_condition_kernel")]
+    names = frozenset({"tri_setup_kernel", "set_condition_kernel"})
+    got = chip_smoke.foreign_kernels(records, names)
+    assert got == {chip_smoke.demangle(fill): 2, "memset32": 1}
 
 
 def test_cache_drops_the_least_recently_used_frame():

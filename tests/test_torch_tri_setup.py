@@ -10,7 +10,12 @@ tensors, so the port's own orchestration (the vertex shader per draw, the
 draw table, the clip path written into the fan words, the accumulator's
 views) runs as it does on the card. Every packed column must equal the
 plain version's, invalid and padding columns included (NaN equal to any
-NaN), on:
+NaN). Launch 1 here reads the vertex shader's planes (its planes mode, a
+custom shader's route): the builtin shaders run untagged
+(:func:`untagged`). Its vertex modes, which run a tagged builtin's vertex
+stage in the launch, have their mirror and tests in
+tests/test_torch_vertex_setup.py, and both modes run in the ``cuda`` test.
+The cases:
 
 - a three-draw phong scene at a small size;
 - frames with 0, 1, clip_cap and clip_cap + 7 faces of draw 0 moved through
@@ -187,7 +192,11 @@ def mirror_tri_setup_slots(table, fan, ti, tf, acc, *, n_draws, nb, m, width, he
                 ti[PS, int(~keys[dd] & np.uint64(0xFFFFFFFF))] = np.searchsorted(offsets, start, side="left")
 
 
-def fake_tri_setup(table, clip, ctx, **kw):
+def fake_tri_setup(table, clip, ctx, vertex=None, **kw):
+    if vertex is not None:  # a builtin's vertex stage: its mirror is in tests/test_torch_vertex_setup.py
+        from test_torch_vertex_setup import mirror_vertex_launch
+
+        return mirror_vertex_launch(table, clip, ctx, vertex, **kw)
     ti, tf, b, acc = mirror_tri_setup(table.numpy(), clip.numpy(), ctx.numpy(), **kw)
     return torch.from_numpy(ti), torch.from_numpy(tf), torch.from_numpy(b), torch.from_numpy(acc)
 
@@ -199,9 +208,16 @@ def fake_tri_setup_slots(table, fan, tri_i32, tri_f32, acc, **kw):
 # ------------------------------------------------------------ scenes
 
 
-def scene3(shader="phong", **config):
+def untagged(vertex_shader):
+    """A builtin vertex shader without its ``fused_kind`` tag: launch 1
+    reads its planes, as it reads a custom shader's."""
+    return lambda u, vin: vertex_shader(u, vin)
+
+
+def scene3(shader="phong", planes=True, **config):
     """Three draws: a sphere and two cubes, one of them half behind the
-    camera's near plane at some angles."""
+    camera's near plane at some angles; with ``planes``, the vertex shader
+    untagged."""
     cube = make_cube(0.8)
     cube["pos"] = cube["pos"] + np.array([1.2, 0.0, 0.0], np.float32)
     cube2 = make_cube(0.6)
@@ -209,6 +225,8 @@ def scene3(shader="phong", **config):
     scene = make_phong_scene(W, H, meshes=[make_uv_sphere(8, 16), cube, cube2], clip_cap=CAP, shader=shader,
                              textures=[make_checker_texture(16, 4)] * 3, device="cpu")
     scene.config = dataclasses.replace(scene.config, **config)
+    if planes:
+        scene.vertex_shader = untagged(scene.vertex_shader)
     return scene
 
 
@@ -275,16 +293,27 @@ def same_bits(a, b):
 
 def mirrored(monkeypatch, draws, vs, vs_uniform, config, in_graph=False):
     """``geometry.packed_geometry`` on CPU tensors with the mirror in the
-    kernels' place → (tri_i32, tri_f32, m, C, faces clipped)."""
-    monkeypatch.setattr(kernels, "tri_setup", fake_tri_setup)
+    kernels' place → (tri_i32, tri_f32, m, C, faces clipped). Launch 1 must
+    run once, in the vertex mode of ``vs``'s tag, or reading planes if it
+    has none."""
+    modes = []
+
+    def setup(table, clip, ctx, vertex=None, **kw):
+        modes.append(None if vertex is None else vertex.kind)
+        return fake_tri_setup(table, clip, ctx, vertex, **kw)
+
+    monkeypatch.setattr(kernels, "tri_setup", setup)
     monkeypatch.setattr(kernels, "tri_setup_slots", fake_tri_setup_slots)
     args = (draws, vs, vs_uniform, config.width, config.height)
     kw = dict(clip_cap=config.clip_cap, cull=config.cull_backfaces,
               quirk=config.replicate_ps_boundary_quirk and len(draws) > 1)
     if in_graph:
         with graph_frame():
-            return geometry.packed_geometry(*args, **kw)
-    return geometry.packed_geometry(*args, **kw)
+            out = geometry.packed_geometry(*args, **kw)
+    else:
+        out = geometry.packed_geometry(*args, **kw)
+    assert modes == [getattr(vs, "fused_kind", None)]
+    return out
 
 
 def check_against_plain(monkeypatch, draws, vs, vs_uniform, config, in_graph=False):
@@ -363,19 +392,24 @@ def test_mirror_equals_plain_garbage_corners(monkeypatch, cull):
 def test_kernels_match_plain_on_card():
     """On the card: ``build_packed`` (the set-up kernels, launches counted)
     equals ``pack_binned(build_triangles(...))`` bit for bit on the scenes
-    above. Run it with ``python -m pytest --noconftest -m cuda
+    above, launch 1 in its planes mode and in the phong vertex mode. Run it with ``python -m pytest --noconftest -m cuda
     tests/test_torch_tri_setup.py``."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     import chip_smoke
 
-    scene = scene3()
-    cases = [(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)]
-    cases += [(chip_smoke.clipped_draws(scene.draws, scene.vs_uniform, n), scene.vertex_shader, scene.vs_uniform,
-               scene.config) for n in (1, CAP, CAP + 7)]
-    cases.append((clip_all(scene.draws, scene.vs_uniform, 1), scene.vertex_shader, scene.vs_uniform, scene.config))
-    cases.append(([scene.draws[0], {k: v[:0] for k, v in scene.draws[1].items()}, scene.draws[2]],
-                  scene.vertex_shader, scene.vs_uniform, scene.config))
+    cases = []
+    for planes in (True, False):
+        scene = scene3(planes=planes)
+        cases.append((scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config))
+        cases += [(chip_smoke.clipped_draws(scene.draws, scene.vs_uniform, n), scene.vertex_shader, scene.vs_uniform,
+                   scene.config) for n in (1, CAP, CAP + 7)]
+        cases.append((clip_all(scene.draws, scene.vs_uniform, 1), scene.vertex_shader, scene.vs_uniform,
+                      scene.config))
+        cases.append(([scene.draws[0], {k: v[:0] for k, v in scene.draws[1].items()}, scene.draws[2]],
+                      scene.vertex_shader, scene.vs_uniform, scene.config))
+        cases += [(scene.draws, scene.vertex_shader, scene.vs_uniform, dataclasses.replace(scene.config, **kw))
+                  for kw in (dict(cull_backfaces=True), dict(replicate_ps_boundary_quirk=False))]
     cases.append((garbage_draws(), passthrough_shaders()[0], {}, dataclasses.replace(scene.config, cull_backfaces=True)))
     for draws, vs, u, cfg in cases:
         draws = [{k: v.cuda() for k, v in d.items()} for d in draws]
