@@ -56,18 +56,26 @@ Phases, each reported on its own lines:
      with their signs), then the frames K5 marches from each; its
      ``ptxas`` line must show no stack frame and no spills;
    - the triangle set-up kernels (csrc/tri_setup.cu, XLA's fusions of the
-     chain from the vertex shader's outputs to the packed rows) and the
-     binning kernels (csrc/bin_pairs.cu, the binning and pair gather):
-     ``build_packed`` against ``build_packed_plain`` bit for bit (NaN equal
-     to any NaN), and ``bin_packed`` against ``bin_packed_plain`` (offsets
-     and pair columns bit for bit where the plain version takes the packed
-     31-bit sort; where it takes the two-operand sort, equal offsets and the
-     same lists, the kernels' in slot order), on phong1080 at the bench
-     camera and three more angles, with 1, cap and cap + 7 faces clipped,
-     its eight row slabs, stress4k (and at 32-row tiles), phong1080_tex2048,
-     custom12_360, sliver640, gouraud800, textured_wide, phong_bin_k1 and
-     cube1080; their ``ptxas`` lines must show no stack frame and no spills;
-     their device times at phong1080 and stress4k beside their bounds. The
+     chain from the vertex shader's outputs to the packed rows, written as
+     slot records and a bbox array) and the binning kernels
+     (csrc/bin_pairs.cu, the binning and pair gather from them):
+     ``build_packed``'s records and bboxes against ``build_packed_plain``'s
+     bit for bit (a float word's NaN equal to any NaN), and ``bin_packed``
+     against ``bin_packed_plain`` (offsets and pair columns bit for bit
+     where the plain version takes the packed 31-bit sort; where it takes
+     the two-operand sort, equal offsets and the same lists, the kernels' in
+     slot order), on phong1080 at the bench camera and three more angles,
+     with 1, cap and cap + 7 faces clipped, its eight row slabs (also from
+     packed rows with the last column the dummy, as the sharded frame bins,
+     and from rows with K4's settings, as ``raster.prep_binned``: the record
+     pass ``kernels.slot_records`` held to ``raster.slot_records``), stress4k
+     (and at 32-row tiles), phong1080_tex2048, custom12_360, sliver640,
+     gouraud800, textured_wide, phong_bin_k1 and cube1080; their ``ptxas``
+     lines must show no stack frame and no spills, and their registers,
+     shared memory and occupancy at stress4k's launch shapes are printed;
+     their device times at phong1080 and stress4k beside their bounds (the
+     binning also reading the records' own bbox words, and the record
+     pass), and the set-up and binning summed against their summed bound. The
      raster kernels above run on the plain chain's preps, so every frame
      of 4 is held to the frame the plain set-up and binning give;
    - K5, the voxel march: voxel540 and voxel540dda on all 10 main-path
@@ -107,10 +115,11 @@ Phases, each reported on its own lines:
    its launches are the kernels the device ran in them, read from CUPTI's
    kernel records in phase 4b, after every timing (no wrapper may count
    one). ``[split]`` lines, in 4b too: one replay each of phong1080
-   ``render()`` and ``prepare()`` and stress4k ``render()`` under a trace
-   of its kernels, memsets and memcpys with their durations (the names
-   with the most device time, their sum and union against the replay's
-   time, the faces clipped at the bench camera). ``[graph]``
+   ``render()`` and ``prepare()``, stress4k ``render()`` and the captured
+   sharded frame under a trace of its kernels, memsets and memcpys with
+   their durations (the names with the most device time, their sum and
+   union against the replay's time, the faces clipped at the bench camera;
+   the first three run no record pass, the sharded frame one). ``[graph]``
    lines: the first call captures; the graph's K1/K3/K4/K5 nodes (from its
    DOT) equal one eager frame's launches; the graph frames, timed in a
    second run, and the first three of them run eagerly (``render_frame``,
@@ -183,7 +192,7 @@ EAGER_FRAMES = 3  # the eager frames run beside a graph path's, its first ones
 KERNEL_FUNCTIONS = {"fused_raster": "fused_raster_kernel", "raster_planes": "raster_planes_kernel",
                     "sample_bilinear": "sample_bilinear_kernel", "voxel_march": "voxel_march_kernel",
                     "voxel_setup": "voxel_setup_kernel", "tri_setup": "tri_setup_kernel",
-                    "bin_pairs": "bin_pairs_kernel"}
+                    "bin_pairs": "bin_pairs_kernel", "slot_records": "bin_records_kernel"}
 VOXEL_GRAPH_NODES = 100  # a voxel frame's graph holds fewer nodes than this
 PHONG_GRAPH_NODES = 126  # phong1080's render() graph: half the 252 nodes it held with the PyTorch vertex shader
 
@@ -697,6 +706,19 @@ def split(records, top=15):
     return {"top": [(demangle(n), c, us) for n, (c, us) in ranked],
             "sum_us": sum(us for _, us in by_name.values()), "span_us": span / 1e3, "busy_us": busy / 1e3,
             "gap_us": (span - busy) / 1e3, "records": kinds}
+
+
+BIN_CHAIN = ("bin_count_kernel", "bin_scan_kernel", "bin_pairs_kernel", "bin_gather_kernel")
+
+
+def programmatic_leads(records):
+    """How long (us) each of the binning's kernels after the first started
+    before the kernel ahead of it in ``BIN_CHAIN`` ended, in one replay's
+    records (start, end, name): positive where it was launched by a
+    programmatic edge, which lets it start while the one ahead runs."""
+    found = {k: next(((s, e) for s, e, name in records if k in name), None) for k in BIN_CHAIN}
+    return [round((found[a][1] - found[b][0]) / 1e3, 2) for a, b in zip(BIN_CHAIN, BIN_CHAIN[1:])
+            if found[a] and found[b]]
 
 
 def graph_summary(frame):
@@ -1238,13 +1260,14 @@ def bin_settings(cfg, fused_path):
 
 def plain_prep(tri, cfg, **kw):
     """The prep of a TriangleBuffer through the plain versions of the
-    set-up's pack and of the binning kernels (``raster.pack_binned``, then
-    ``raster.bin_packed_plain``), on the card: the raster kernels' inputs as
-    the plain chain makes them."""
+    set-up's pack and of the binning kernels (``raster.pack_binned``,
+    ``raster.slot_records``, then ``raster.bin_packed_plain``), on the card:
+    the raster kernels' inputs as the plain chain makes them."""
     from f_renderer_tpu_torch.pipeline import raster
 
     ti, tf = raster.pack_binned(tri, cfg.width, cfg.height)
-    return raster.bin_packed_plain(ti, tf, tri.num_slots, tri.num_channels, cfg.width, cfg.height, cfg.tile, **kw)
+    return raster.bin_packed_plain(raster.slot_records(ti, tf), ti[raster.MINXY:raster.MAXXY + 1], tri.num_slots,
+                                   tri.num_channels, cfg.width, cfg.height, cfg.tile, **kw)
 
 
 def bits_equal(a, b):
@@ -1258,6 +1281,21 @@ def bits_equal(a, b):
     return torch.equal(a, b)
 
 
+def records_equal(a, b, n_ctx):
+    """Two record arrays (m, rec) int32 equal: the int and padding words
+    bit for bit, the float words too, a NaN equal to any NaN."""
+    rf = 12 + 9 + 3 * n_ctx
+    return (a.shape == b.shape and bits_equal(a[:, :12], b[:, :12]) and bits_equal(a[:, rf:], b[:, rf:])
+            and bits_equal(record_floats(a, n_ctx), record_floats(b, n_ctx)))
+
+
+def record_floats(recs, n_ctx):
+    """The float words of records (m, rec) int32, as float32 (m, 9 + 3C)."""
+    import torch
+
+    return recs[:, 12:21 + 3 * n_ctx].contiguous().view(torch.float32)
+
+
 def float_err(a, b):
     """The largest |a - b| where both are finite (0 for empty tensors)."""
     import torch
@@ -1266,13 +1304,13 @@ def float_err(a, b):
     return float(torch.where(both, (a - b).abs(), 0.0).max()) if a.numel() else 0.0
 
 
-def bins_equal(got, want, ti, tf, packed):
+def bins_equal(got, want, recs, packed):
     """The binning kernels' prep against the plain one: equal offsets, and
     the pair columns bit for bit where the plain version takes the packed
     sort (both order pairs by (key, slot)); where it takes the two-operand
     sort, each key's list the same set of slots (the kernels' in slot
-    order), each pair column its slot's packed column, and the padding
-    columns equal."""
+    order), each pair column its slot's record, and the padding columns
+    equal."""
     import torch
 
     from f_renderer_tpu_torch.pipeline.raster import SLOT
@@ -1281,6 +1319,7 @@ def bins_equal(got, want, ti, tf, packed):
         return False
     if packed:
         return bits_equal(got.tri_i32, want.tri_i32) and bits_equal(got.tri_f32, want.tri_f32)
+    ti, tf = recs[:, :12].T, record_floats(recs, got.n_ctx).T  # the slots' packed columns
     total = int(want.off[-1])
     pairs = torch.arange(total, device=got.off.device)
     key = torch.searchsorted(want.off.long(), pairs, right=True) - 1
@@ -1291,6 +1330,48 @@ def bins_equal(got, want, ti, tf, packed):
             and bits_equal(got.tri_f32[:, :total], tf[:, slots_g])
             and bits_equal(got.tri_i32[:, total:], want.tri_i32[:, total:])
             and bits_equal(got.tri_f32[:, total:], want.tri_f32[:, total:]))
+
+
+def occupancy(regs, smem, threads):
+    """Blocks of a kernel an H100 SM holds at once, and its share of the
+    SM's 64 warps: the least of the threads (2,048), the registers (65,536,
+    a warp's rounded up to 256), the shared memory (228 KB, 1 KB more a
+    block) and 32 blocks."""
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(2048 // threads, (65536 // per_warp) // warps, 233472 // (smem + 1024), 32)
+    return blocks, blocks * warps / 64
+
+
+def occupancy_report(lines, packed, smi):
+    """Registers, shared memory and occupancy of the set-up and binning
+    kernels at ``packed``'s shapes (stress4k), from their ``ptxas -v`` lines
+    and their launch shapes (csrc/tri_setup.cu: 128 threads, rec + 1 words
+    of staging a thread; csrc/bin_pairs.cu: 256-thread stripes with a
+    counter a key, 1,024-thread scan blocks, 128-thread gather blocks with
+    64 records at an odd stride of 16-byte pieces and m_dummy's)."""
+    import re
+
+    recs, c = packed[0], packed[3]
+    rec = recs.shape[1]
+    w, h = SIZES["stress4k"]
+    ntx, nty = -(-w // 128), -(-h // 64)
+    n_keys = ntx * nty + -(-ntx // 4) * -(-nty // 4) + 1
+    stride = min(rec // 4, 16) | 1
+    shapes = {"tri_setup_kernel<3>": (128, 4 * 32 * (rec + 1) * 4), "tri_slots_kernel": (128, 4 * 32 * (rec + 1) * 4),
+              "bin_count_kernel": (256, 4 * n_keys), "bin_scan_kernel": (1024, 0),
+              "bin_pairs_kernel": (256, 4 * n_keys), "bin_gather_kernel": (128, 64 * stride * 16 + 256)}
+    for name, (threads, dyn) in shapes.items():
+        used = [line for line in lines if line.split(":")[0] == name and "registers" in line]
+        if not used:
+            check(False, f"occupancy: no ptxas line for {name}")
+            continue
+        regs = int(re.search(r"Used (\d+) registers", used[0]).group(1))
+        static = re.search(r"(\d+) bytes smem", used[0])
+        smem = dyn + (int(static.group(1)) if static else 0)
+        blocks, share = occupancy(regs, smem, threads)
+        log(f"  occupancy {name} at stress4k (C={c}, rec={rec}, {n_keys} keys): {regs} registers, {smem} B shared "
+            f"memory ({dyn} dynamic), {threads} threads: {blocks} blocks an SM, {share:.2f} of its warps ({smi})")
 
 
 def setup_launch(entry):
@@ -1321,8 +1402,8 @@ def setup_launch(entry):
 
     def launch():
         (a1, kw1), (a2, kw2) = seen["first"], seen["rest"]
-        ti, tf, _, acc = first(*a1, **kw1)
-        rest(a2[0], a2[1], ti, tf, acc, **kw2)
+        recs, bbox, _, acc = first(*a1, **kw1)
+        rest(a2[0], a2[1], recs, bbox, acc, **kw2)
 
     return launch
 
@@ -1458,15 +1539,15 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
     zero = dict.fromkeys(counts(), 0)
     grid_args = (scene.draws, scene.vertex_shader, scene.vs_uniform, scene.pixel_shader, scene.ps_uniform)
     outs, got = drive("phong1080 render_frame_grid 2 x 4 (all_gather, in one process)",
-                      lambda i: render_frame_grid(*grid_args, cfg, 2, 4), 1, dict(zero, fused_raster=8, bin_pairs=8),
-                      (h, w, 4))
+                      lambda i: render_frame_grid(*grid_args, cfg, 2, 4), 1,
+                      dict(zero, fused_raster=8, bin_pairs=8, slot_records=8), (h, w, 4))
     launches["K1 grid 2x4"] = got["fused_raster"]
     check(torch.equal(outs[0][0], whole[0]) and torch.equal(outs[0][1], whole[1]),
           "phong1080: the 2 x 4 grid's frame differs from the single-device frame")
     stream_cfg = dataclasses.replace(cfg, comm_mode="stream")
     outs, got = drive("phong1080 render_frame_grid 2 x 4 (stream, in one process)",
                       lambda i: render_frame_grid(*grid_args, stream_cfg, 2, 4), 1,
-                      dict(zero, raster_planes=16, sample_bilinear=8, bin_pairs=16), (h, w, 4))
+                      dict(zero, raster_planes=16, sample_bilinear=8, bin_pairs=16, slot_records=16), (h, w, 4))
     launches["K4 grid 2x4 stream"] = got["raster_planes"]
     check(torch.equal(outs[0][0], whole_planes[0]) and torch.equal(outs[0][1], whole_planes[1]),
           "phong1080: the 2 x 4 grid's stream frame differs from the single-device fused_shade=False frame")
@@ -1482,7 +1563,7 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
 
     sharded(0)
     outs, got = drive("phong1080 render_frame_sharded (NCCL, world size 1)", sharded, FRAMES,
-                      dict(zero, fused_raster=FRAMES, bin_pairs=FRAMES), (h, w, 4))
+                      dict(zero, fused_raster=FRAMES, bin_pairs=FRAMES, slot_records=FRAMES), (h, w, 4))
     launches["K1 sharded world 1"] = got["fused_raster"]
     set_angle(scene, ANGLES[0])
     check(torch.equal(outs[0][0], whole[0]) and torch.equal(outs[0][1], whole[1]),
@@ -1502,8 +1583,9 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
         return render_frame_sharded(*sharded_args(), cfg, mesh)
 
     outs = graph_path("phong1080 compiled.sharded_frame (NCCL, world size 1)", sharded_graph, sharded_eager, FRAMES,
-                      dict(zero, fused_raster=FRAMES, bin_pairs=FRAMES), (h, w, 4),
-                      {"K1 sharded graph": "fused_raster", "bin_pairs sharded graph": "bin_pairs"}, geometries=3)
+                      dict(zero, fused_raster=FRAMES, bin_pairs=FRAMES, slot_records=FRAMES), (h, w, 4),
+                      {"K1 sharded graph": "fused_raster", "bin_pairs sharded graph": "bin_pairs",
+                       "slot_records": "slot_records"}, geometries=3)
     check(torch.equal(outs[0][0], whole[0]) and torch.equal(outs[0][1], whole[1]),
           "phong1080: compiled.sharded_frame at world size 1 differs from the single-device frame")
     set_angle(scene, ANGLES[0])
@@ -1512,9 +1594,10 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
 
     # the 2 x 4 grid captured in this process: dp = 2 under a graph on one card
     for tag, c, single_cfg, expect, keys in (
-            ("all_gather", cfg, cfg, {"fused_raster": 8, "bin_pairs": 8}, {"K1 grid 2x4 graph": "fused_raster"}),
+            ("all_gather", cfg, cfg, {"fused_raster": 8, "bin_pairs": 8, "slot_records": 8},
+             {"K1 grid 2x4 graph": "fused_raster"}),
             ("stream", stream_cfg, dataclasses.replace(cfg, fused_shade=False),
-             {"raster_planes": 16, "sample_bilinear": 8, "bin_pairs": 16},
+             {"raster_planes": 16, "sample_bilinear": 8, "bin_pairs": 16, "slot_records": 16},
              {"K4 grid 2x4 stream graph": "raster_planes", "K3 grid 2x4 stream graph": "sample_bilinear"})):
         def grid_now(c=c):
             return compiled.grid_frame(*sharded_args(), c, 2, 4)
@@ -1571,10 +1654,11 @@ def setup_phase(dev, smi, rows):
     for line in lines:
         log(f"  ptxas {line}")
     frames = [line for line in lines if "stack frame" in line]
-    # tri_setup_kernel<0..4> (the planes mode and four vertex stages), tri_slots, tri_quirk, six bin_ kernels
-    check(len(frames) == 13 and all("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in line
+    # tri_setup_kernel<0..4> (the planes mode and four vertex stages), tri_slots, tri_quirk; bin_count, bin_scan,
+    # bin_pairs, bin_records, bin_gather
+    check(len(frames) == 12 and all("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in line
                                    for line in frames), f"tri_setup / bin_pairs kernels: a stack frame or spills ({lines})")
-    worst = {"tri_setup": 0.0, "bin_pairs": 0.0}
+    worst = {"tri_setup": 0.0, "bin_pairs": 0.0, "slot_records": 0.0}
 
     def mode_of(entry):
         """The mode ``entry()`` (a ``build_packed`` call) launched the set-up
@@ -1599,20 +1683,33 @@ def setup_phase(dev, smi, rows):
         want = plain(build_packed_plain, *args)
         mode = getattr(scene.vertex_shader, "fused_kind", None) or "planes"
         check(modes == [mode], f"tri_setup {tag}: launch 1 ran in {modes}, not once in the {mode} mode")
-        ok = (bits_equal(got[0], want[0]) and bits_equal(got[1], want[1]) and got[2:4] == want[2:4]
+        ok = (got[2:4] == want[2:4] and records_equal(got[0], want[0], want[3]) and bits_equal(got[1], want[1])
               and int(got[4]["num_clipped"]) == int(want[4]["num_clipped"]))
-        worst["tri_setup"] = max(worst["tri_setup"], float_err(got[1], want[1]))
-        check(ok, f"tri_setup {tag}: the packed arrays differ from the plain version's (slots {got[2]} / "
+        if got[0].shape == want[0].shape:
+            worst["tri_setup"] = max(worst["tri_setup"], float_err(record_floats(got[0], want[3]),
+                                                                   record_floats(want[0], want[3])))
+        check(ok, f"tri_setup {tag}: the records or bboxes differ from the plain version's (slots {got[2]} / "
                   f"{want[2]}, clipped {int(got[4]['num_clipped'])} / {int(want[4]['num_clipped'])})")
         return want, ok
 
-    def check_bins(tag, packed, cfg, fused_path, **kw):
-        ti, tf, n, c, _ = packed
-        bins = (ti, tf, n, c, cfg.width, cfg.height, cfg.tile)
+    def check_bins(tag, packed, cfg, fused_path, rows=None, **kw):
+        """The binning from records and bboxes (``packed``) against its
+        plain version; with ``rows`` (packed rows, whose records ``packed``
+        holds) from the rows too: ``raster.bin_rows``, the record pass
+        launched once."""
+        recs, bbox, n, c, _ = packed
+        bins = (recs, bbox, n, c, cfg.width, cfg.height, cfg.tile)
         kw = dict(bin_settings(cfg, fused_path), **kw)
         got, want = raster.bin_packed(*bins, **kw), plain(raster.bin_packed_plain, *bins, **kw)
-        sort = sum(sort_bits(want, ti.shape[1])) <= 31
-        ok = bins_equal(got, want, ti, tf, sort)
+        sort = sum(sort_bits(want, recs.shape[0])) <= 31
+        ok = bins_equal(got, want, recs, sort)
+        if rows is not None:
+            before = kernels.slot_records.launches
+            from_rows = raster.bin_rows(*rows, *bins[2:], **kw)
+            ok_rows = kernels.slot_records.launches == before + 1 and bins_equal(from_rows, want, recs, sort)
+            check(ok_rows, f"bin_pairs {tag}: the binned prep from packed rows (the record pass) differs from the "
+                           f"plain version's")
+            ok = ok and ok_rows
         if sort:
             worst["bin_pairs"] = max(worst["bin_pairs"], float_err(got.tri_f32, want.tri_f32))
         check(ok, f"bin_pairs {tag}: the binned prep differs from the plain version's "
@@ -1625,23 +1722,27 @@ def setup_phase(dev, smi, rows):
             f"ranges {range_sizes(got)}, the plain version's {'packed 31-bit' if sort else 'two-operand'} sort: "
             f"bins {'bit-equal' if sort else 'equal offsets, the same lists in slot order'}={ok_b}")
 
-    def timing(tag, scene, packed, fused_path):
+    def timing(tag, scene, packed, fused_path, rows=None):
         """Device ms of the set-up kernels and the binning kernels, their
-        entry points' and plain versions' ms, and their bounds."""
+        entry points' and plain versions' ms, and their bounds; the binning
+        also reading the records' own bbox words; with ``rows`` (packed
+        rows), the record pass too."""
         cfg = scene.config
         args = (scene.draws, scene.vertex_shader, scene.vs_uniform, cfg)
-        ti, tf, n, c, _ = packed
-        bins = (ti, tf, n, c, cfg.width, cfg.height, cfg.tile)
+        recs, bbox, n, c, _ = packed
+        bins = (recs, bbox, n, c, cfg.width, cfg.height, cfg.tile)
         kw = bin_settings(cfg, fused_path)
         a_launch = setup_launch(lambda: build_packed(*args))
         a = timed(lambda: build_packed(*args), a_launch, lambda: build_packed_plain(*args), 20, 3)
         b_launch = kernel_call("bin_pairs", lambda: raster.bin_packed(*bins, **kw))
         b = timed(lambda: raster.bin_packed(*bins, **kw), b_launch, lambda: raster.bin_packed_plain(*bins, **kw), 20, 3)
+        own_bbox = recs[:, raster.MINXY:raster.MAXXY + 1].T  # the records' own bbox words: 32 B sectors, not 8 B
+        b_own = [device_ms(lambda: b_launch(recs, own_bbox), 20) for _ in range(2)]
         prep = raster.bin_packed(*bins, **kw)
         faces = sum(next(iter(d.values())).shape[0] for d in scene.draws)
         n_draws, nb = len(scene.draws), cfg.clip_cap * MAX_FAN
         clipping = sum(v > 0 for v in clipped_per_draw(scene, ANGLES[0]))
-        m_pad, rows_f = ti.shape[1], tf.shape[0]
+        m_pad, rec, rows_f = recs.shape[0], recs.shape[1], 9 + 3 * c
         # set-up: a builtin's vertex stage reads the attributes it takes and
         # the uniforms, and writes the planes at the corners of the clipped
         # faces and of each draw's last face (a custom shader's planes: read
@@ -1658,23 +1759,50 @@ def setup_phase(dev, smi, rows):
             vertex_bytes = (sum(4 * d[k].numel() for d in scene.draws for k in names if k in d) + 4 * (48 + 3)
                             + 4 * (4 + c) * 3 * written)
             vertex_ops = 3 * faces * (28 + (21 if kind in ("phong", "gouraud") else 0) + (90 if kind == "gouraud" else 0))
-        a_bytes = vertex_bytes + 4 * nb * (23 + 3 * c) * clipping + 4 * (12 + rows_f) * m_pad + faces
+        # the records (rec words a slot) and the bbox array written
+        a_bytes = vertex_bytes + 4 * nb * (23 + 3 * c) * clipping + (4 * rec + 8) * m_pad + faces
         a_ops = 100 * faces + vertex_ops + 45 * n_draws * nb
-        # binning: the packed arrays read once, the pair-order arrays and the
-        # offsets written; ~30 operations a slot and ~10 a pair
+        # binning: the records and the bbox words read once, the pair-order
+        # arrays and the offsets written; ~30 operations a slot and ~10 a pair
         pairs = int(prep.off[-1])
-        b_bytes = 4 * (12 + rows_f) * (m_pad + prep.tri_i32.shape[1]) + 4 * prep.off.numel()
+        b_bytes = (4 * rec + 8) * m_pad + 4 * (12 + rows_f) * prep.tri_i32.shape[1] + 4 * prep.off.numel()
         b_ops = 30 * m_pad + 10 * pairs
+        timings = [("tri_setup", a, a_bytes, a_ops), ("bin_pairs", b, b_bytes, b_ops)]
+        if rows is not None:  # the record pass of the rows path: the rows read, the records written
+            r_launch = kernel_call("slot_records", lambda: kernels.slot_records(*rows))
+            r = timed(lambda: kernels.slot_records(*rows), r_launch, lambda: raster.slot_records(*rows), 20, 3)
+            timings.append(("slot_records", r, 4 * (12 + rows_f + rec) * m_pad, 2 * rec * m_pad))
         out = {}
-        for name, (k_ms, p_ms, w_ms, each), nbytes, ops in (("tri_setup", a, a_bytes, a_ops),
-                                                             ("bin_pairs", b, b_bytes, b_ops)):
+        for name, (k_ms, p_ms, w_ms, each), nbytes, ops in timings:
             b_ms, b_by = bound_ms(nbytes, ops)
             out[name] = {"ms": k_ms, "ms_each": each[:2], "plain_ms": p_ms, "wrapper_ms": w_ms, "bound_ms": b_ms,
                          "bound_by": b_by, "bytes": nbytes, "ops": ops}
             log(f"  {tag} {name} time: kernels {each[0]:.4f} / {each[1]:.4f} ms (device), entry point "
                 f"{each[4]:.4f} / {each[5]:.4f} ms, plain {each[2]:.3f} / {each[3]:.3f} ms, bound {b_ms:.4f} ms by "
                 f"{b_by} ({nbytes} B, {ops} ops), share {b_ms / k_ms:.3f} (CUDA events; {smi})")
+        out["bin_pairs"]["ms_bbox_from_records"] = b_own
+        log(f"  {tag} bin_pairs reading the records' own bbox words (bb_slot {rec}) in place of the (2, m_pad) "
+            f"array: {b_own[0]:.4f} / {b_own[1]:.4f} ms (device), against {b[3][0]:.4f} / {b[3][1]:.4f} ({smi})")
+        setup_sum, bound_sum = a[0] + b[0], out["tri_setup"]["bound_ms"] + out["bin_pairs"]["bound_ms"]
+        log(f"  {tag} set-up + binning: {setup_sum:.4f} ms against the summed bound {bound_sum:.4f} ms, share "
+            f"{bound_sum / setup_sum:.3f} ({smi})")
         return out
+
+    def packed_rows(tag, scene, packed):
+        """The plain chain's packed rows of the scene (``pack_binned``), the
+        rows path's input; the record pass on them held to
+        ``raster.slot_records`` bit for bit (NaN equal to any NaN) and to the
+        set-up's records."""
+        from f_renderer_tpu_torch.pipeline.render import build_triangles
+
+        tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+        ti, tf = raster.pack_binned(tri, scene.config.width, scene.config.height)
+        got, want = kernels.slot_records(ti, tf), plain(raster.slot_records, ti, tf)
+        c = packed[3]
+        worst["slot_records"] = max(worst["slot_records"], float_err(record_floats(got, c), record_floats(want, c)))
+        check(records_equal(got, want, c) and records_equal(got, packed[0], c),
+              f"slot_records {tag}: the record pass differs from raster.slot_records or from the set-up's records")
+        return ti, tf
 
     cases = [("phong1080", a) for a in (0.10, 0.15, 0.20, 0.35)] + [
         ("stress4k", 0.10), ("phong1080_tex2048", 0.10), ("custom12_360", 0.3), ("sliver640", None),
@@ -1688,7 +1816,10 @@ def setup_phase(dev, smi, rows):
                       and fused.fused_path_ok(scene.pixel_shader, scene.ps_uniform))
         mode = getattr(scene.vertex_shader, "fused_kind", None) or "planes"
         packed, ok_a = check_setup(f"{name}@{angle}", scene)
-        got, ok_b, sort = check_bins(f"{name}@{angle}", packed, cfg, fused_path)
+        rows_path = None
+        if (name, angle) in (("phong1080", ANGLES[0]), ("stress4k", ANGLES[0]), ("custom12_360", 0.3)):
+            rows_path = packed_rows(f"{name}@{angle}", scene, packed)  # the record pass on the plain rows
+        got, ok_b, sort = check_bins(f"{name}@{angle}", packed, cfg, fused_path, rows=rows_path)
         report(f"{name}@{angle}", packed, got, ok_a, ok_b, sort, mode)
         if name == "phong1080" and angle == ANGLES[0]:
             cap = cfg.clip_cap
@@ -1698,12 +1829,18 @@ def setup_phase(dev, smi, rows):
                 got, ok_b, sort = check_bins(f"phong1080 with {n} faces clipped", flip, cfg, fused_path)
                 report(f"phong1080@{angle} with {n} faces of draw 0 clipped", flip, got, ok_a, ok_b, sort, mode)
             slab, oks = cfg.height // 8, []
-            for lin in range(8):
+            for lin in range(8):  # from records, and as the sharded frame bins them: rows, the last column the dummy
                 got, ok_b, sort = check_bins(f"phong1080 slab {lin} of 8", packed, cfg, fused_path,
                                              origin=(lin * slab, 0), size=(slab, cfg.width))
-                oks.append(ok_b and sort)
-            log(f"  phong1080@{angle}: the eight row slabs' bins (origin, size) bit-equal={oks}")
-            times = timing(f"phong1080@{angle}", scene, packed, fused_path)
+                got, ok_s, _ = check_bins(f"phong1080 slab {lin} of 8 (rows, the sharded frame's dummy)", packed,
+                                          cfg, fused_path, rows=rows_path, origin=(lin * slab, 0),
+                                          size=(slab, cfg.width), m_dummy=packed[0].shape[0] - 1)
+                oks.append(ok_b and ok_s and sort)
+            got, ok_k4, _ = check_bins("phong1080 (rows, K4's settings: raster.prep_binned)", packed, cfg, False,
+                                       rows=rows_path)
+            log(f"  phong1080@{angle}: the eight row slabs' bins (origin, size; from records, and from rows with the "
+                f"last column the dummy) bit-equal={oks}; from rows with K4's settings bit-equal={ok_k4}")
+            times = timing(f"phong1080@{angle}", scene, packed, fused_path, rows_path)
             for key, tag, source, replaces in (
                     ("tri_setup", "the builtin vertex stages and the triangle set-up, XLA's fusions",
                      "tri_setup.cu",
@@ -1716,15 +1853,22 @@ def setup_phase(dev, smi, rows):
                 rows[key] = dict({"name": f"{key} ({tag})", "route": "cuda",
                                   "source": f"f_renderer_tpu_torch/csrc/{source}", "replaces": replaces,
                                   "library_ms": None}, **times[key])
+            rows["slot_records"] = dict({
+                "name": "slot_records (the record pass of the paths whose rows PyTorch packs: the sharded frame, "
+                        "raster.prep_binned)", "route": "cuda", "source": "f_renderer_tpu_torch/csrc/bin_pairs.cu",
+                "replaces": "f_renderer_tpu/pipeline/fused.py:160 (no pallas_call: part of XLA's fusion of the pair "
+                            "gather, _pair_gather, whose reads the records make whole sectors)",
+                "library_ms": None}, **times["slot_records"])
         if name == "stress4k":
-            times = timing(f"stress4k@{angle}", scene, packed, fused_path)
-            for key in ("tri_setup", "bin_pairs"):
+            times = timing(f"stress4k@{angle}", scene, packed, fused_path, rows_path)
+            for key in ("tri_setup", "bin_pairs", "slot_records"):
                 rows[key].update({f"stress4k_{k}": v for k, v in times[key].items()})
+            occupancy_report(lines, packed, smi)
             cfg32 = dataclasses.replace(cfg, tile=(32, 128), tile_auto=False)
             got, ok_b, sort = check_bins("stress4k th=32", packed, cfg32, fused_path)
             check(not sort, "stress4k th=32: the plain version took the packed sort, not the two-operand one")
             report("stress4k@0.1 th=32", packed, got, ok_a, ok_b, sort, mode)
-        del scene, packed, got
+        del scene, packed, got, rows_path
     for key in worst:
         rows[key]["max_abs_err"] = worst[key]
     rows["tri_setup"]["ptxas"] = [line for line in lines if line.startswith("tri_")]
@@ -2247,14 +2391,15 @@ def main() -> int:
     def raster_stages(path, scene):
         cfg = scene.config
         args = (scene.draws, scene.vertex_shader, scene.vs_uniform, cfg)
-        ti, tf, n, c, _ = build_packed(*args)
+        recs, bbox, n, c, _ = build_packed(*args)
         fused_ok = fused.fused_path_ok(scene.pixel_shader, scene.ps_uniform)
-        bins = (ti, tf, n, c, cfg.width, cfg.height, cfg.tile)
+        bins = (recs, bbox, n, c, cfg.width, cfg.height, cfg.tile)
         kw = bin_settings(cfg, fused_ok)
         parts = [("set-up (the tri_setup kernels, a builtin's vertex stage in launch 1, the clip path: "
                   "build_packed)",
                   lambda: build_packed(*args)),
-                 ("its plain version (build_triangles + pack_binned)", lambda: build_packed_plain(*args)),
+                 ("its plain version (build_triangles + pack_binned + slot_records)",
+                  lambda: build_packed_plain(*args)),
                  ("bin (the bin_pairs kernels: bin_packed)", lambda: raster.bin_packed(*bins, **kw)),
                  ("its plain version (bin_packed_plain)", lambda: raster.bin_packed_plain(*bins, **kw))]
         prep = raster.bin_packed(*bins, **kw)
@@ -2654,7 +2799,8 @@ def main() -> int:
         ``prepare()``, stress4k ``render()``) at the bench camera, under a
         device trace of its kernels, memsets and memcpys with their
         durations: where the replay's time goes."""
-        paths = [p for p in ("phong1080 Scene.render()", "phong1080 prepare()", "stress4k Scene.render()")
+        sharded = "phong1080 compiled.sharded_frame (NCCL, world size 1)"
+        paths = [p for p in ("phong1080 Scene.render()", "phong1080 prepare()", "stress4k Scene.render()", sharded)
                  if p in split_frames]
         for p in paths:
             split_frames[p][2]()  # the bench camera's inputs in the graph's buffers
@@ -2673,18 +2819,29 @@ def main() -> int:
         for p, part in zip(paths, parts):
             sp = split(part)
             ran = kernel_launches(name for *_, name in part)
-            check(ran["tri_setup"] == 1 and ran["bin_pairs"] == 1,
-                  f"{p}: the traced replay ran the set-up and binning kernels {ran['tri_setup']} and "
-                  f"{ran['bin_pairs']} times, not once each")
+            # the set-up kernels write the records: no record pass, but in the sharded frame (PyTorch's rows)
+            want = (0, 1, 1) if p == sharded else (1, 1, 0)
+            check((ran["tri_setup"], ran["bin_pairs"], ran["slot_records"]) == want,
+                  f"{p}: the traced replay ran the set-up, binning and record pass kernels {ran['tri_setup']}, "
+                  f"{ran['bin_pairs']} and {ran['slot_records']} times, not {want}")
+            log(f"[split] {p}: set-up, binning and record pass (bin_records_kernel) kernels {ran['tri_setup']}, "
+                f"{ran['bin_pairs']}, {ran['slot_records']}")
+            leads = programmatic_leads(part)
+            log(f"[split] {p}: the binning's kernels start before the one ahead of them ends (programmatic edges "
+                f"kept in the graph) by {leads} us")
+            if p == "stress4k Scene.render()":
+                check(len(leads) == 3 and all(v > 0 for v in leads),
+                      f"{p}: the replay's binning kernels ran one after another ({leads} us): the graph lost its "
+                      f"programmatic edges")
             # phong's vertex stage runs in launch 1 (tri_setup_kernel<kPhong>): no PyTorch kernel of it is left
             phong = VERTEX_KINDS["phong"].code
-            check(any(f"tri_setup_kernelILi{phong}E" in name for *_, name in part),
+            check(p == sharded or any(f"tri_setup_kernelILi{phong}E" in name for *_, name in part),
                   f"{p}: the traced replay's set-up kernel is not the phong vertex mode")
             others = foreign_kernels(part, port_names)
             log(f"[split] {p}: {sum(others.values())} kernels not of csrc/ in the replay (PyTorch's, CUDA's memset "
                 f"kernels), {sorted(others.items())}")
             log(f"[split] {p}: one replay at the bench camera ({ANGLES[0]}), faces clipped per draw "
-                f"{clipped_at_bench[p]}; {sp['records']} records; device time summed {sp['sum_us']:.1f} us, busy "
+                f"{clipped_at_bench.get(p, clipped_at_bench['phong1080 Scene.render()'])}; {sp['records']} records; device time summed {sp['sum_us']:.1f} us, busy "
                 f"(their union) {sp['busy_us']:.1f} us over a span of {sp['span_us']:.1f} us (idle gap "
                 f"{sp['gap_us']:.1f} us); the replay {split_frames[p][1] * 1e3:.1f} us (CUDA events, untraced; "
                 f"{smi})")

@@ -288,8 +288,8 @@ def scene_prepare(scene):
     vs, config = scene.vertex_shader, scene.config
 
     def frame(vs_uniform, draws):
-        ti, tf, n_slots, n_ctx, _ = build_packed(list(draws), vs, vs_uniform, config)
-        return prep_packed(ti, tf, n_slots, n_ctx, config)
+        recs, bbox, n_slots, n_ctx, _ = build_packed(list(draws), vs, vs_uniform, config)
+        return prep_packed(recs, bbox, n_slots, n_ctx, config)
 
     return CACHE.run(("prepare", _shader_key(vs), config), frame, (scene.vs_uniform, tuple(scene.draws)), scene.device)
 

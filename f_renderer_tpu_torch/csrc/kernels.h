@@ -106,16 +106,19 @@ typedef struct FrTriSetupParams {
 } FrTriSetupParams;
 
 // Triangle set-up (csrc/tri_setup.cu), launch 1 of a frame: per face, its
-// masks and its path-A column of tri_i32 (12, m_pad) / tri_f32 (9 + 3C,
-// m_pad), from the vertex shader's clip (4, 3 n_faces) and ctx (C, 3
-// n_faces) planes (draw d's corners at 3 face_off[d] + v F_d + i).
+// masks and its path-A slot, from the vertex shader's clip (4, 3 n_faces)
+// and ctx (C, 3 n_faces) planes (draw d's corners at 3 face_off[d] + v F_d +
+// i). A slot is written as a record and its bbox words:
+//   recs    (m_pad, rec) int32, rec = ceil((21 + 3C) / 8) * 8: the 12 int32
+//           rows, then the 9 + 3C float32 rows as bits, then zeros
+//   bbox    (2, m_pad) int32: MINXY, MAXXY (what the binning counts)
 //   table   (4 D) int32: face_off, faces, slot_base, order_base per draw
 //   b_mask  (n_faces) bytes: 1 where a face is clipped (w != 0, not inside)
 //   acc     int32 words the caller zeroed: faces clipped per draw [D], in
 //           the frame [1], valid slots per draw [D], a byte a draw (1 where
 //           it clipped), and at word keys_word (even) D uint64 keys
 int fr_tri_setup(FrTriSetupParams p, const int32_t* table, const float* clip, const float* ctx,
-                 int32_t* tri_i32, float* tri_f32, uint8_t* b_mask, int32_t* acc, int keys_word,
+                 int32_t* recs, int32_t* bbox, uint8_t* b_mask, int32_t* acc, int keys_word,
                  void* stream);
 #define FR_MAX_DRAWS 256
 
@@ -143,40 +146,48 @@ typedef struct FrVertexArgs {
 // and the uniforms (p.n_ctx varyings, 1..8), then as fr_tri_setup; the
 // clip and ctx planes written at the corners of every clipped face and of
 // each draw's last face, the entries the clip path reads, and nowhere else.
-int fr_tri_setup_vertex(FrTriSetupParams p, const int32_t* table, const FrVertexArgs* args, int32_t* tri_i32,
-                        float* tri_f32, uint8_t* b_mask, int32_t* acc, int keys_word, void* stream);
-// Launches 2 and 3: the path-B and padding columns from fan (D, nb (23 +
-// 3C)) int32 words, the clip path's arrays (read where the draw clipped a
-// face), then, with p.quirk, the ps boundary quirk's rewrite of the PS row.
-int fr_tri_setup_slots(FrTriSetupParams p, const int32_t* table, const int32_t* fan, int32_t* tri_i32,
-                       float* tri_f32, int32_t* acc, int keys_word, void* stream);
+int fr_tri_setup_vertex(FrTriSetupParams p, const int32_t* table, const FrVertexArgs* args, int32_t* recs,
+                        int32_t* bbox, uint8_t* b_mask, int32_t* acc, int keys_word, void* stream);
+// Launches 2 and 3: the path-B and padding slots' records and bboxes from
+// fan (D, nb (23 + 3C)) int32 words, the clip path's arrays (read where the
+// draw clipped a face), then, with p.quirk, the ps boundary quirk's rewrite
+// of the PS word of each draw's least valid slot.
+int fr_tri_setup_slots(FrTriSetupParams p, const int32_t* table, const int32_t* fan, int32_t* recs,
+                       int32_t* bbox, int32_t* acc, int keys_word, void* stream);
 
 // Mirrors kernels.BinParams: int32 fields only (no padding).
 typedef struct FrBinParams {
-  int32_t m;          // slot columns of the packed arrays
-  int32_t rows_f;     // rows of tri_f32 (9 + 3C)
+  int32_t m;          // slots: records
+  int32_t rows_f;     // float rows of a record (9 + 3C)
   int32_t th;         // bin tile rows (the tile is th x 128)
   int32_t ntx, nty;   // fine-tile grid of the rectangle
   int32_t k, kc;      // fine / coarse tiles a triangle may span
   int32_t oy, ox;     // the frame's pixel that the rectangle's first one is
-  int32_t m_dummy;    // the empty-bbox column padding pairs point at
+  int32_t m_dummy;    // the empty-bbox slot padding pairs point at
   int32_t n_pad;      // pair columns of the outputs
-  int32_t stripe;     // slots of a stripe (a multiple of 32): one warp's
+  int32_t stripe;     // slots of a stripe (a multiple of 256): one block's
   int32_t n_stripes;
+  int32_t bb_slot;    // bbox words: slot s's MINXY at bbox[s * bb_slot],
+  int32_t bb_max;     // its MAXXY bb_max words after it
 } FrBinParams;
 
 // Binning and pair gather (csrc/bin_pairs.cu): a counting sort of the
-// (tile key, slot) pairs of tri_i32 (12, m) by key, then by slot, and the
-// packed columns gathered into pair order.
-//   counts  (R, n_stripes) int32 scratch, R = ntx nty + ceil(ntx/4) ceil(nty/4) + 1 keys
-//   totals  (R) int32 scratch; ptri (n_pad) int32 scratch; recs (m,
-//           ceil((21 + 3C) / 8) * 8) int32 scratch: a record a slot
+// (tile key, slot) pairs of the slots' bboxes by key, then by slot, and the
+// records gathered into pair order.
+//   recs    (m, ceil((21 + 3C) / 8) * 8) int32: a record a slot
+//   bbox    the bbox words (see bb_slot, bb_max)
+//   counts  (n_stripes, R) int32 scratch, R = ntx nty + ceil(ntx/4) ceil(nty/4) + 1 keys
+//   totals  (R) int32 scratch; ptri (n_pad) int32 scratch
 //   off     (R + 1) int32: off[t] .. off[t + 1] are key t's pairs
 //   out_i32 (12, n_pad), out_f32 (rows_f, n_pad): the columns in pair order,
 //           m_dummy's past the last pair
-int fr_bin_pairs(FrBinParams p, const int32_t* tri_i32, const float* tri_f32, int32_t* counts,
-                 int32_t* totals, int32_t* off, int32_t* ptri, int32_t* recs, int32_t* out_i32,
-                 float* out_f32, void* stream);
+int fr_bin_pairs(FrBinParams p, const int32_t* recs, const int32_t* bbox, int32_t* counts,
+                 int32_t* totals, int32_t* off, int32_t* ptri, int32_t* out_i32, float* out_f32,
+                 void* stream);
+// Packed rows tri_i32 (12, m) / tri_f32 (rows_f, m) → recs, the binning's
+// records (p.m and p.rows_f read).
+int fr_bin_records(FrBinParams p, const int32_t* tri_i32, const float* tri_f32, int32_t* recs,
+                   void* stream);
 
 // A conditional node (csrc/graph_cond.cu), for the graph `parent` is
 // capturing: a kernel that sets its condition from the device bool *pred,

@@ -1,6 +1,6 @@
 // Triangle set-up: from the draws' attributes, or the vertex shader's
-// outputs, to the packed rows that the binning and the raster kernels read,
-// one CUDA thread per slot.
+// outputs, to the slot records that the binning kernels read, one CUDA
+// thread per slot.
 //
 // Replaces no Pallas kernel but the XLA fusions of the JAX package's
 // triangle set-up: the builtin shaders' vertex stage
@@ -12,9 +12,11 @@
 // raster_pallas.py:178 pack_setup (the edge coefficients in wrapped int32,
 // the clamped bboxes, the float rows). The port ran them as several hundred
 // PyTorch ops a frame, each a node of the captured frame's graph. The plain
-// version is pipeline/raster.py:pack_binned(render.build_triangles(...));
-// every column the kernels write equals it bit for bit (invalid and padding
-// columns too; a NaN equal to any NaN), because they take its float32
+// version is render.build_packed_plain: raster.slot_records of
+// raster.pack_binned(render.build_triangles(...)); every record the kernels
+// write equals it bit for bit (invalid and padding slots too; a NaN equal to
+// any NaN, its payload kept, since a float is copied as its bits), and so
+// does the (2, m_pad) bbox array, because they take its float32
 // operations in its order: no FMA (--fmad=false), IEEE division and square
 // root, the viewport left-associative ((nx + 1) * W) * 0.5, the Rust-style
 // cast (NaN → 0, clamp to [-2^31, 2147483520], truncate), swap = nz > 0 (a
@@ -24,8 +26,16 @@
 //
 // A frame's slots lie as TriangleBuffer.concat lays them: per draw d, its
 // F_d path-A slots (one per face), then nb = clip_cap * MAX_FAN path-B
-// slots (the fan triangles of its clipped faces); then the padding columns
-// up to m_pad. Three launches a frame:
+// slots (the fan triangles of its clipped faces); then the padding slots
+// up to m_pad. A slot's record (m_pad records of rec words: the 12 int32
+// rows, the 9 + 3C float32 rows as bits, zeros to whole 32-byte sectors, as
+// csrc/bin_pairs.cu reads them) is staged in shared memory, a row of rec + 1
+// words a thread (odd: a warp's stores meet each bank once), and each warp
+// writes its 32 records out whole, rec words at a time; the bbox words go
+// straight to the (2, m_pad) array, coalesced. A bulk copy
+// (cp.async.bulk) would need the shared image to be the records' own
+// layout, rec words a thread, and 48 words a slot put a warp's stores on
+// two banks. Three launches a frame:
 //
 //   tri_setup_kernel (before the clip path): per face, its three corners'
 //     clip positions and varyings, read from the vertex shader's planes
@@ -42,13 +52,13 @@
 //   tri_slots_kernel (after it): the path-B columns, from the fan arrays the
 //     clip path wrote where the draw clipped a face, else from the skip
 //     path's values (zeros, invalid, order order_base), and the padding
-//     columns as zeros;
+//     slots as zeros;
 //   tri_quirk_kernel (one block): the ps boundary quirk. Both kernels above
 //     reduce each draw's valid slots to a count and the least (order, slot)
 //     (an atomic maximum of its complement packed in 64 bits; orders are
 //     distinct among valid slots); the quirk's targets are the left
 //     searchsorted of each draw's start in the counts' cumulative sum, and
-//     the PS row of each draw's least slot takes its target.
+//     PS word of each draw's least slot takes its target.
 //
 // The vertex stages take the plain shaders' float32 operations in their
 // order: mvp = proj · (view · model), each entry summed left to right
@@ -62,17 +72,17 @@
 // float32, and base · light where the draw has a colour.
 //
 // What bounds it on the card: bytes. In the planes mode it reads the vertex
-// shader's four clip planes and 3C varying planes (per corner) and writes
-// 12 int32 and 9 + 3C float32 rows per slot: 4 (4 + C) * 3 + 4 (21 + 3C)
-// bytes a face, ~325 MB at stress4k (a million faces, C = 8), 0.097 ms at
-// 3.35 TB/s. The phong vertex mode reads 96 bytes a face of pos, uv and
-// normal in their place (~279 MB, 0.083 ms), plus the planes of the few
-// faces the clip path reads. Its ~150 operations a face (~400 with the
+// shader's four clip planes and 3C varying planes (per corner) and writes a
+// record (4 rec bytes) and 8 bbox bytes per slot: 4 (4 + C) * 3 + 4 rec + 8
+// bytes a face, ~344 MB at stress4k (a million faces, C = 8, rec = 48),
+// 0.103 ms at 3.35 TB/s. The phong vertex mode reads 96 bytes a face of pos,
+// uv and normal in their place (~296 MB, 0.088 ms), plus the planes of the
+// few faces the clip path reads. Its ~150 operations a face (~400 with the
 // phong stage) are far below the ALU rate. So one thread a slot, slots in
-// column order: every warp reads and writes 128 contiguous bytes of each
-// plane and row, and reads a face's attribute record (36 bytes of pos)
-// beside its neighbours', the rest of each 128-byte line from L1. The
-// per-draw sums are kept in registers across a thread's faces and reduced
+// column order: every warp reads 128 contiguous bytes of each plane, writes
+// 32 records of consecutive slots, and reads a face's attribute record (36
+// bytes of pos) beside its neighbours', the rest of each 128-byte line from
+// L1. The per-draw sums are kept in registers across a thread's faces and reduced
 // over the warp before their atomics, so a million faces of one draw make a
 // few thousand atomics, not a million.
 #include <cuda_runtime.h>
@@ -83,8 +93,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 8;  // grid-stride: 8 blocks an SM of an H100
+// 4 warps a block: their staging rows (25 KB at C = 8) stay under the 48 KB
+// a block gets without asking, and more blocks fit an SM (5 of launch 1's
+// phong mode at 90 registers, where 256-thread blocks of 50 KB fit 2)
+constexpr int kThreads = 128;
+constexpr int kMaxBlocks = 132 * 16;  // grid-stride: 16 blocks an SM of an H100
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxFan = 19;          // MAX_FAN: fan triangles of a clipped face
 // tri_i32 rows (pipeline/raster.py); tri_f32: S0X..S2Y, RHW0..RHW2, then 3C varyings
 constexpr int A01 = 0, B01 = 1, C01 = 2, A20 = 3, B20 = 4, C20 = 5, AREA2 = 6, ORDER = 7, MINXY = 8,
@@ -93,6 +107,40 @@ constexpr int kCtx0 = 9;
 // launch 1's inputs (shaders/builtin.py: VERTEX_KINDS): the vertex shader's planes, or a builtin's vertex stage
 constexpr int kPlanes = 0, kFlat = 1, kTextured = 2, kPhong = 3, kGouraud = 4;
 constexpr int kMaxCtx = 8;  // varyings a vertex stage carries in registers (a flat colour's width)
+
+// Words of a slot's record (csrc/bin_pairs.cu: rec_words).
+__host__ __device__ __forceinline__ int rec_words(int n_ctx) { return (NF_I + kCtx0 + 3 * n_ctx + 7) / 8 * 8; }
+
+// This thread's staging row (rec + 1 words) in the block's dynamic shared memory.
+__device__ __forceinline__ int32_t* staging_row(int32_t* stage, int rec) { return stage + threadIdx.x * (rec + 1); }
+
+// Every lane of the warp calls this with its slot's column (-1: none),
+// after staging its record: the warp's records written out whole, 32
+// consecutive words a store. Where the 32 columns follow one another (a
+// draw's slots) the warp writes its 32 records as one run of 32 rec words;
+// magic = 2^32 / rec rounded up, so that __umulhi(i, magic) = i / rec for i
+// < 32 rec (i rec < 2^32).
+__device__ __forceinline__ void write_records(const int32_t* stage, int rec, unsigned magic, int col,
+                                              int32_t* __restrict__ recs) {
+  const int lane = threadIdx.x & 31;
+  const int32_t* rows = stage + (threadIdx.x - lane) * (rec + 1);
+  __syncwarp();
+  const int c0 = __shfl_sync(kFull, col, 0);
+  if (__all_sync(kFull, c0 >= 0 && col == c0 + lane)) {
+    int32_t* dst = recs + (size_t)c0 * rec;
+#pragma unroll 4
+    for (int i = lane; i < 32 * rec; i += 32) dst[i] = rows[i + (int)__umulhi((unsigned)i, magic)];  // row j, word i - j rec
+    __syncwarp();
+    return;
+  }
+  for (int j = 0; j < 32; ++j) {
+    const int cj = __shfl_sync(kFull, col, j);
+    if (cj < 0) continue;
+    int32_t* dst = recs + (size_t)cj * rec;
+    for (int w = lane; w < rec; w += 32) dst[w] = rows[j * (rec + 1) + w];
+  }
+  __syncwarp();
+}
 
 struct PlanesIn {  // the vertex shader's clip (4, 3F) and ctx (C, 3F) planes
   const float* clip;
@@ -182,14 +230,15 @@ __device__ __forceinline__ void add_valid(Partial& a, int d, const Acc& acc, int
 }
 
 // _setup (winding repair, top-left flags) and pack_setup for one slot →
-// column col of both arrays; ctx(v, c): varying c of vertex v, called with
+// its record, staged at w (its rec words, padding zeroed), and its bbox
+// words bb[col], bb[m_pad + col]; ctx(v, c): varying c of vertex v, called with
 // run-time indices where NC is 0 (a read from memory), else with
 // compile-time ones (registers) for the first NC of the p.n_ctx varyings.
 // Returns whether the slot is valid after the cull.
 template <int NC, class Ctx>
 __device__ __forceinline__ bool store_slot(const FrTriSetupParams& p, const Tri& t, bool valid, int32_t order,
-                                           int32_t ps, int col, Ctx ctx, int32_t* __restrict__ ti,
-                                           float* __restrict__ tf) {
+                                           int32_t ps, int col, Ctx ctx, int32_t* __restrict__ w,
+                                           int32_t* __restrict__ bb) {
   const float nz = (t.nx[1] - t.nx[0]) * (t.ny[2] - t.ny[0]) - (t.ny[1] - t.ny[0]) * (t.nx[2] - t.nx[0]);
   bool swap = nz > 0.0f;  // NaN → no swap
   if (p.cull) {
@@ -217,43 +266,48 @@ __device__ __forceinline__ bool store_slot(const FrTriSetupParams& p, const Tri&
   const uint32_t area2 = (dx01 * (y2 - y0) - dy01 * (x2 - x0)) - (uint32_t)((1 - tl0) + (1 - tl1) + (1 - tl2));
   const uint32_t c01 = (x0 * dy01 - y0 * dx01) - (uint32_t)(1 - tl0);
   const uint32_t c20 = (x2 * dy20 - y2 * dx20) - (uint32_t)(1 - tl2);
-  const size_t m = p.m_pad;
-  ti[A01 * m + col] = (int32_t)(0u - dy01);
-  ti[B01 * m + col] = (int32_t)dx01;
-  ti[C01 * m + col] = (int32_t)c01;
-  ti[A20 * m + col] = (int32_t)(0u - dy20);
-  ti[B20 * m + col] = (int32_t)dx20;
-  ti[C20 * m + col] = (int32_t)c20;
-  ti[AREA2 * m + col] = (int32_t)area2;
-  ti[ORDER * m + col] = order;
-  ti[MINXY * m + col] = mnx | (mny << 16);
-  ti[MAXXY * m + col] = mxx | (mxy << 16);
-  ti[SLOT * m + col] = col;
-  ti[PS * m + col] = ps;
+  w[A01] = (int32_t)(0u - dy01);
+  w[B01] = (int32_t)dx01;
+  w[C01] = (int32_t)c01;
+  w[A20] = (int32_t)(0u - dy20);
+  w[B20] = (int32_t)dx20;
+  w[C20] = (int32_t)c20;
+  w[AREA2] = (int32_t)area2;
+  w[ORDER] = order;
+  w[MINXY] = mnx | (mny << 16);
+  w[MAXXY] = mxx | (mxy << 16);
+  w[SLOT] = col;
+  w[PS] = ps;
+  bb[col] = mnx | (mny << 16);
+  bb[(size_t)p.m_pad + col] = mxx | (mxy << 16);
+  int32_t* tf = w + NF_I;  // the float rows, as bits
   const float sx[3] = {t.sx[0], swap ? t.sx[2] : t.sx[1], swap ? t.sx[1] : t.sx[2]};
   const float sy[3] = {t.sy[0], swap ? t.sy[2] : t.sy[1], swap ? t.sy[1] : t.sy[2]};
   const float rhw[3] = {t.rhw[0], swap ? t.rhw[2] : t.rhw[1], swap ? t.rhw[1] : t.rhw[2]};
 #pragma unroll
   for (int v = 0; v < 3; ++v) {
-    tf[(2 * v) * m + col] = sx[v];
-    tf[(2 * v + 1) * m + col] = sy[v];
-    tf[(6 + v) * m + col] = rhw[v];
+    tf[2 * v] = __float_as_int(sx[v]);
+    tf[2 * v + 1] = __float_as_int(sy[v]);
+    tf[6 + v] = __float_as_int(rhw[v]);
   }
   const int n_ctx = p.n_ctx;
   if constexpr (NC == 0) {
 #pragma unroll
     for (int v = 0; v < 3; ++v) {
-      for (int c = 0; c < n_ctx; ++c) tf[(kCtx0 + v * n_ctx + c) * m + col] = ctx(src[v], c);
+      for (int c = 0; c < n_ctx; ++c) tf[kCtx0 + v * n_ctx + c] = __float_as_int(ctx(src[v], c));
     }
   } else {
 #pragma unroll
     for (int v = 0; v < 3; ++v) {
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        if (c < n_ctx) tf[(kCtx0 + v * n_ctx + c) * m + col] = v == 0 ? ctx(0, c) : (swap ? ctx(3 - v, c) : ctx(v, c));
+        if (c < n_ctx) {
+          tf[kCtx0 + v * n_ctx + c] = __float_as_int(v == 0 ? ctx(0, c) : (swap ? ctx(3 - v, c) : ctx(v, c)));
+        }
       }
     }
   }
+  for (int r = NF_I + kCtx0 + 3 * n_ctx; r < rec_words(n_ctx); ++r) w[r] = 0;
   return valid;
 }
 
@@ -381,9 +435,10 @@ __device__ __forceinline__ void vertex_corner(const FrVertexArgs& a, const Unifo
 template <int Kind>
 __global__ void __launch_bounds__(kThreads)
 tri_setup_kernel(FrTriSetupParams p, const int32_t* __restrict__ table, const __grid_constant__ InputOf<Kind> in,
-                 int32_t* __restrict__ ti, float* __restrict__ tf, uint8_t* __restrict__ b_mask, int32_t* acc_words,
+                 int32_t* __restrict__ recs, int32_t* __restrict__ bb, uint8_t* __restrict__ b_mask, int32_t* acc_words,
                  int keys_word) {
   constexpr int NC = Kind == kPlanes ? 0 : kStageCtx<Kind>;
+  extern __shared__ int32_t stage[];
   const int n_draws = p.n_draws, n_ctx = p.n_ctx;
   const int32_t* face_off = table;
   const int32_t* faces = table + n_draws;
@@ -395,69 +450,78 @@ tri_setup_kernel(FrTriSetupParams p, const int32_t* __restrict__ table, const __
   __shared__ Uniforms u;
   __shared__ float vm[16];
   if constexpr (Kind != kPlanes) load_uniforms(in, u, vm);
+  const int rec = rec_words(n_ctx);
+  const unsigned magic = 0xFFFFFFFFu / (unsigned)rec + 1u;
+  int32_t* row = staging_row(stage, rec);
   Partial part = {-1, 0, 0, 0ull};
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < p.n_faces; i += gridDim.x * blockDim.x) {
-    const int d = draw_of(face_off, n_draws, i);
-    const int f = __ldg(faces + d), fl = i - __ldg(face_off + d);
-    const size_t base = 3 * (size_t)__ldg(face_off + d) + fl;  // corner v is base + v * f
-    float cl[3][4];  // a vertex mode's clip positions, kept for the planes it writes
-    float vary[3][NC > 0 ? NC : 1];
-    Tri t;
-    bool w_ok = true, all_in = true;
+  // a warp's 32 faces at a time (the loop is warp-uniform: write_records syncs the warp)
+  for (int i0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31); i0 < p.n_faces; i0 += gridDim.x * blockDim.x) {
+    const int i = i0 + (threadIdx.x & 31);
+    int col = -1;
+    if (i < p.n_faces) {  // else a lane past the last face: it writes no record
+      const int d = draw_of(face_off, n_draws, i);
+      const int f = __ldg(faces + d), fl = i - __ldg(face_off + d);
+      const size_t base = 3 * (size_t)__ldg(face_off + d) + fl;  // corner v is base + v * f
+      float cl[3][4];  // a vertex mode's clip positions, kept for the planes it writes
+      float vary[3][NC > 0 ? NC : 1];
+      Tri t;
+      bool w_ok = true, all_in = true;
 #pragma unroll
-    for (int v = 0; v < 3; ++v) {
-      if constexpr (Kind == kPlanes) {
+      for (int v = 0; v < 3; ++v) {
+        if constexpr (Kind == kPlanes) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) cl[v][r] = in.clip[r * nc + base + (size_t)v * f];
-      } else {
-        vertex_corner<Kind>(in, u, n_ctx, d, fl, v, cl[v], vary[v]);
+          for (int r = 0; r < 4; ++r) cl[v][r] = in.clip[r * nc + base + (size_t)v * f];
+        } else {
+          vertex_corner<Kind>(in, u, n_ctx, d, fl, v, cl[v], vary[v]);
+        }
+        const float x = cl[v][0], y = cl[v][1], z = cl[v][2], w = cl[v][3];
+        w_ok = w_ok && w != 0.0f;
+        all_in = all_in && (x >= -w) && (x <= w) && (y <= w) && (y >= -w) && (z >= 0.0f) && (z <= w);
+        const float r = 1.0f / w;
+        t.rhw[v] = r;
+        t.nx[v] = x * r;
+        t.ny[v] = y * r;
+        t.sx[v] = ((t.nx[v] + 1.0f) * wf) * 0.5f;
+        t.sy[v] = ((1.0f - t.ny[v]) * hf) * 0.5f;
+        t.ix[v] = sat_i32(t.sx[v] + 0.5f);
+        t.iy[v] = sat_i32(t.sy[v] + 0.5f);
       }
-      const float x = cl[v][0], y = cl[v][1], z = cl[v][2], w = cl[v][3];
-      w_ok = w_ok && w != 0.0f;
-      all_in = all_in && (x >= -w) && (x <= w) && (y <= w) && (y >= -w) && (z >= 0.0f) && (z <= w);
-      const float r = 1.0f / w;
-      t.rhw[v] = r;
-      t.nx[v] = x * r;
-      t.ny[v] = y * r;
-      t.sx[v] = ((t.nx[v] + 1.0f) * wf) * 0.5f;
-      t.sy[v] = ((1.0f - t.ny[v]) * hf) * 0.5f;
-      t.ix[v] = sat_i32(t.sx[v] + 0.5f);
-      t.iy[v] = sat_i32(t.sy[v] + 0.5f);
-    }
-    const bool clipped = w_ok && !all_in;
-    b_mask[i] = clipped ? 1 : 0;
-    if (clipped) {
-      if (part.d != d) {
-        flush(part, acc);
-        part = {d, 0, 0, 0ull};
+      const bool clipped = w_ok && !all_in;
+      b_mask[i] = clipped ? 1 : 0;
+      if (clipped) {
+        if (part.d != d) {
+          flush(part, acc);
+          part = {d, 0, 0, 0ull};
+        }
+        part.nclip += 1;
+        acc.clipped[d] = 1;
       }
-      part.nclip += 1;
-      acc.clipped[d] = 1;
-    }
-    if constexpr (Kind != kPlanes) {
-      if (clipped || fl == f - 1) {  // the planes the clip path gathers (geometry._clip_path)
+      if constexpr (Kind != kPlanes) {
+        if (clipped || fl == f - 1) {  // the planes the clip path gathers (geometry._clip_path)
 #pragma unroll
-        for (int v = 0; v < 3; ++v) {
-          const size_t idx = base + (size_t)v * f;
+          for (int v = 0; v < 3; ++v) {
+            const size_t idx = base + (size_t)v * f;
 #pragma unroll
-          for (int r = 0; r < 4; ++r) in.clip[r * nc + idx] = cl[v][r];
+            for (int r = 0; r < 4; ++r) in.clip[r * nc + idx] = cl[v][r];
 #pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            if (c < n_ctx) in.ctx[c * nc + idx] = vary[v][c];
+            for (int c = 0; c < NC; ++c) {
+              if (c < n_ctx) in.ctx[c * nc + idx] = vary[v][c];
+            }
           }
         }
       }
+      col = __ldg(slot_base + d) + fl;
+      const int32_t order = (int32_t)((uint32_t)__ldg(order_base + d) + (uint32_t)fl * (uint32_t)kMaxFan);
+      bool valid;
+      if constexpr (Kind == kPlanes) {
+        valid = store_slot<0>(p, t, w_ok && all_in, order, d, col,
+                              [&](int v, int c) { return in.ctx[(size_t)c * nc + base + (size_t)v * f]; }, row, bb);
+      } else {
+        valid = store_slot<NC>(p, t, w_ok && all_in, order, d, col, [&](int v, int c) { return vary[v][c]; }, row, bb);
+      }
+      if (p.quirk && valid) add_valid(part, d, acc, order, col);
     }
-    const int col = __ldg(slot_base + d) + fl;
-    const int32_t order = (int32_t)((uint32_t)__ldg(order_base + d) + (uint32_t)fl * (uint32_t)kMaxFan);
-    bool valid;
-    if constexpr (Kind == kPlanes) {
-      valid = store_slot<0>(p, t, w_ok && all_in, order, d, col,
-                            [&](int v, int c) { return in.ctx[(size_t)c * nc + base + (size_t)v * f]; }, ti, tf);
-    } else {
-      valid = store_slot<NC>(p, t, w_ok && all_in, order, d, col, [&](int v, int c) { return vary[v][c]; }, ti, tf);
-    }
-    if (p.quirk && valid) add_valid(part, d, acc, order, col);
+    write_records(stage, rec, magic, col, recs);
   }
   flush_warp(part, acc);
 }
@@ -467,46 +531,52 @@ tri_setup_kernel(FrTriSetupParams p, const int32_t* __restrict__ table, const __
 // i32, rhw (nb, 3) f32, ctx (nb, 3, C) f32, valid (nb) i32, order (nb) i32.
 __global__ void __launch_bounds__(kThreads)
 tri_slots_kernel(FrTriSetupParams p, const int32_t* __restrict__ table, const int32_t* __restrict__ fan,
-                 int32_t* __restrict__ ti, float* __restrict__ tf, int32_t* acc_words, int keys_word) {
+                 int32_t* __restrict__ recs, int32_t* __restrict__ bb, int32_t* acc_words, int keys_word) {
+  extern __shared__ int32_t stage[];
   const int n_draws = p.n_draws, nb = p.nb, n_ctx = p.n_ctx;
   const int32_t* faces = table + n_draws;
   const int32_t* slot_base = table + 2 * n_draws;
   const int32_t* order_base = table + 3 * n_draws;
   const Acc acc(acc_words, n_draws, keys_word);
   const size_t fan_words = (size_t)nb * (23 + 3 * n_ctx);
-  const int n_b = n_draws * nb, n = n_b + (p.m_pad - p.m);
+  const int n_b = n_draws * nb, n = n_b + (p.m_pad - p.m), rec = rec_words(n_ctx);
+  const unsigned magic = 0xFFFFFFFFu / (unsigned)rec + 1u;
+  int32_t* row = staging_row(stage, rec);
   Partial part = {-1, 0, 0, 0ull};
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n; j += gridDim.x * blockDim.x) {
-    if (j >= n_b) {  // a padding column: zeros
-      const int col = p.m + (j - n_b);
-      const size_t m = p.m_pad;
-      for (int r = 0; r < NF_I; ++r) ti[r * m + col] = 0;
-      for (int r = 0; r < kCtx0 + 3 * n_ctx; ++r) tf[r * m + col] = 0.0f;
-      continue;
-    }
-    const int d = j / nb, s = j - d * nb;
-    const int col = __ldg(slot_base + d) + __ldg(faces + d) + s;
-    const int32_t* fd = fan + (size_t)d * fan_words;
-    const bool ran = acc.nclip[d] > 0;  // the clip path wrote fd; else the skip path's values
-    Tri t;
+  for (int j0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31); j0 < n; j0 += gridDim.x * blockDim.x) {
+    const int j = j0 + (threadIdx.x & 31);
+    int col = -1;
+    if (j >= n_b && j < n) {  // a padding slot: zeros
+      col = p.m + (j - n_b);
+      for (int r = 0; r < rec; ++r) row[r] = 0;
+      bb[col] = 0;
+      bb[(size_t)p.m_pad + col] = 0;
+    } else if (j < n_b) {
+      const int d = j / nb, s = j - d * nb;
+      col = __ldg(slot_base + d) + __ldg(faces + d) + s;
+      const int32_t* fd = fan + (size_t)d * fan_words;
+      const bool ran = acc.nclip[d] > 0;  // the clip path wrote fd; else the skip path's values
+      Tri t;
 #pragma unroll
-    for (int v = 0; v < 3; ++v) {
-      const size_t e = ((size_t)s * 3 + v) * 2;
-      t.nx[v] = ran ? __int_as_float(fd[e]) : 0.0f;
-      t.ny[v] = ran ? __int_as_float(fd[e + 1]) : 0.0f;
-      t.sx[v] = ran ? __int_as_float(fd[6 * (size_t)nb + e]) : 0.0f;
-      t.sy[v] = ran ? __int_as_float(fd[6 * (size_t)nb + e + 1]) : 0.0f;
-      t.ix[v] = ran ? fd[12 * (size_t)nb + e] : 0;
-      t.iy[v] = ran ? fd[12 * (size_t)nb + e + 1] : 0;
-      t.rhw[v] = ran ? __int_as_float(fd[18 * (size_t)nb + (size_t)s * 3 + v]) : 0.0f;
+      for (int v = 0; v < 3; ++v) {
+        const size_t e = ((size_t)s * 3 + v) * 2;
+        t.nx[v] = ran ? __int_as_float(fd[e]) : 0.0f;
+        t.ny[v] = ran ? __int_as_float(fd[e + 1]) : 0.0f;
+        t.sx[v] = ran ? __int_as_float(fd[6 * (size_t)nb + e]) : 0.0f;
+        t.sy[v] = ran ? __int_as_float(fd[6 * (size_t)nb + e + 1]) : 0.0f;
+        t.ix[v] = ran ? fd[12 * (size_t)nb + e] : 0;
+        t.iy[v] = ran ? fd[12 * (size_t)nb + e + 1] : 0;
+        t.rhw[v] = ran ? __int_as_float(fd[18 * (size_t)nb + (size_t)s * 3 + v]) : 0.0f;
+      }
+      const int32_t* fctx = fd + 21 * (size_t)nb + (size_t)s * 3 * n_ctx;
+      const bool valid_in = ran && fd[(size_t)(21 + 3 * n_ctx) * nb + s] != 0;
+      const int32_t order = ran ? fd[(size_t)(22 + 3 * n_ctx) * nb + s] : __ldg(order_base + d);
+      const bool valid = store_slot<0>(p, t, valid_in, order, d, col,
+                                    [&](int v, int c) { return ran ? __int_as_float(fctx[v * n_ctx + c]) : 0.0f; },
+                                    row, bb);
+      if (p.quirk && valid) add_valid(part, d, acc, order, col);
     }
-    const int32_t* fctx = fd + 21 * (size_t)nb + (size_t)s * 3 * n_ctx;
-    const bool valid_in = ran && fd[(size_t)(21 + 3 * n_ctx) * nb + s] != 0;
-    const int32_t order = ran ? fd[(size_t)(22 + 3 * n_ctx) * nb + s] : __ldg(order_base + d);
-    const bool valid = store_slot<0>(p, t, valid_in, order, d, col,
-                                  [&](int v, int c) { return ran ? __int_as_float(fctx[v * n_ctx + c]) : 0.0f; },
-                                  ti, tf);
-    if (p.quirk && valid) add_valid(part, d, acc, order, col);
+    write_records(stage, rec, magic, col, recs);
   }
   flush_warp(part, acc);
 }
@@ -514,7 +584,7 @@ tri_slots_kernel(FrTriSetupParams p, const int32_t* __restrict__ table, const in
 // The ps boundary quirk (render.apply_ps_quirk_totals) from the per-draw
 // counts and least slots; one block, a thread a draw (D <= 256).
 __global__ void __launch_bounds__(256)
-tri_quirk_kernel(FrTriSetupParams p, int32_t* __restrict__ ti, int32_t* acc_words, int keys_word) {
+tri_quirk_kernel(FrTriSetupParams p, int32_t* __restrict__ recs, int32_t* acc_words, int keys_word) {
   __shared__ int32_t offsets[256];
   const int n_draws = p.n_draws, d = threadIdx.x;
   const Acc acc(acc_words, n_draws, keys_word);
@@ -530,59 +600,87 @@ tri_quirk_kernel(FrTriSetupParams p, int32_t* __restrict__ ti, int32_t* acc_word
   int target = 0;  // searchsorted(offsets, start, side="left")
   while (target < n_draws && offsets[target] < start) ++target;
   const uint32_t slot = (uint32_t)(~acc.keys[d]);
-  ti[PS * (size_t)p.m_pad + slot] = target;
+  recs[(size_t)slot * rec_words(p.n_ctx) + PS] = target;
 }
 
-int blocks(long long n) {
-  const long long b = (n + kThreads - 1) / kThreads;
-  return (int)(b < kMaxBlocks ? b : kMaxBlocks);
+// The launch shape of a staging kernel over n slots: kThreads a block
+// (fewer where the records are too long for their rows), a grid-stride
+// grid, and its dynamic shared memory: rec + 1 words a thread.
+struct Shape {
+  int blocks, threads;
+  size_t smem;
+};
+
+template <typename K>
+cudaError_t staged_shape(K kernel, long long n, int rec, Shape* sh) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  const size_t per_warp = 32 * sizeof(int32_t) * (size_t)(rec + 1);
+  const long long warps = ((long long)optin - (long long)fa.sharedSizeBytes) / (long long)per_warp;
+  if (warps < 1) return cudaErrorInvalidValue;
+  sh->threads = 32 * (int)(warps < kThreads / 32 ? warps : kThreads / 32);
+  sh->smem = per_warp * (size_t)(sh->threads / 32);
+  const long long b = (n + sh->threads - 1) / sh->threads;
+  sh->blocks = (int)(b < kMaxBlocks ? b : kMaxBlocks);
+  if (sh->smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh->smem);
+}
+
+template <int Kind, typename In>
+cudaError_t launch_setup(const FrTriSetupParams& p, const int32_t* table, const In& in, int32_t* recs, int32_t* bbox,
+                         uint8_t* b_mask, int32_t* acc, int keys_word, cudaStream_t s) {
+  Shape sh;
+  cudaError_t err = staged_shape(tri_setup_kernel<Kind>, p.n_faces, rec_words(p.n_ctx), &sh);
+  if (err != cudaSuccess) return err;
+  tri_setup_kernel<Kind><<<sh.blocks, sh.threads, sh.smem, s>>>(p, table, in, recs, bbox, b_mask, acc, keys_word);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int fr_tri_setup(FrTriSetupParams p, const int32_t* table, const float* clip, const float* ctx,
-                            int32_t* tri_i32, float* tri_f32, uint8_t* b_mask, int32_t* acc, int keys_word,
+                            int32_t* recs, int32_t* bbox, uint8_t* b_mask, int32_t* acc, int keys_word,
                             void* stream) {
   if (p.n_faces <= 0) return (int)cudaSuccess;
-  tri_setup_kernel<kPlanes><<<blocks(p.n_faces), kThreads, 0, (cudaStream_t)stream>>>(
-      p, table, PlanesIn{clip, ctx}, tri_i32, tri_f32, b_mask, acc, keys_word);
-  return (int)cudaGetLastError();
+  return (int)launch_setup<kPlanes>(p, table, PlanesIn{clip, ctx}, recs, bbox, b_mask, acc, keys_word,
+                                    (cudaStream_t)stream);
 }
 
 extern "C" int fr_tri_setup_vertex(FrTriSetupParams p, const int32_t* table, const FrVertexArgs* args,
-                                   int32_t* tri_i32, float* tri_f32, uint8_t* b_mask, int32_t* acc, int keys_word,
+                                   int32_t* recs, int32_t* bbox, uint8_t* b_mask, int32_t* acc, int keys_word,
                                    void* stream) {
   if (p.n_faces <= 0) return (int)cudaSuccess;
   if (p.n_draws > FR_MAX_DRAWS || p.n_ctx < 1 || p.n_ctx > kMaxCtx) return (int)cudaErrorInvalidValue;
-  const dim3 grid(blocks(p.n_faces)), block(kThreads);
   const cudaStream_t s = (cudaStream_t)stream;
   switch (args->kind) {
     case kFlat:
-      tri_setup_kernel<kFlat><<<grid, block, 0, s>>>(p, table, *args, tri_i32, tri_f32, b_mask, acc, keys_word);
-      break;
+      return (int)launch_setup<kFlat>(p, table, *args, recs, bbox, b_mask, acc, keys_word, s);
     case kTextured:
-      tri_setup_kernel<kTextured><<<grid, block, 0, s>>>(p, table, *args, tri_i32, tri_f32, b_mask, acc, keys_word);
-      break;
+      return (int)launch_setup<kTextured>(p, table, *args, recs, bbox, b_mask, acc, keys_word, s);
     case kPhong:
-      tri_setup_kernel<kPhong><<<grid, block, 0, s>>>(p, table, *args, tri_i32, tri_f32, b_mask, acc, keys_word);
-      break;
+      return (int)launch_setup<kPhong>(p, table, *args, recs, bbox, b_mask, acc, keys_word, s);
     case kGouraud:
-      tri_setup_kernel<kGouraud><<<grid, block, 0, s>>>(p, table, *args, tri_i32, tri_f32, b_mask, acc, keys_word);
-      break;
+      return (int)launch_setup<kGouraud>(p, table, *args, recs, bbox, b_mask, acc, keys_word, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
-extern "C" int fr_tri_setup_slots(FrTriSetupParams p, const int32_t* table, const int32_t* fan, int32_t* tri_i32,
-                                  float* tri_f32, int32_t* acc, int keys_word, void* stream) {
+extern "C" int fr_tri_setup_slots(FrTriSetupParams p, const int32_t* table, const int32_t* fan, int32_t* recs,
+                                  int32_t* bbox, int32_t* acc, int keys_word, void* stream) {
   if (p.n_draws > 256) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)p.n_draws * p.nb + (p.m_pad - p.m);
-  tri_slots_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(p, table, fan, tri_i32, tri_f32, acc,
-                                                                      keys_word);
-  cudaError_t err = cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  Shape sh;
+  cudaError_t err = staged_shape(tri_slots_kernel, (long long)p.n_draws * p.nb + (p.m_pad - p.m),
+                                 rec_words(p.n_ctx), &sh);
+  if (err != cudaSuccess) return (int)err;
+  tri_slots_kernel<<<sh.blocks, sh.threads, sh.smem, s>>>(p, table, fan, recs, bbox, acc, keys_word);
+  err = cudaGetLastError();
   if (err != cudaSuccess || !p.quirk) return (int)err;
-  tri_quirk_kernel<<<1, 256, 0, (cudaStream_t)stream>>>(p, tri_i32, acc, keys_word);
+  tri_quirk_kernel<<<1, 256, 0, s>>>(p, recs, acc, keys_word);
   return (int)cudaGetLastError();
 }

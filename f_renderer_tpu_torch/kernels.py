@@ -22,9 +22,10 @@ The kernels (the TPU kernel each replaces in brackets):
   the triangle set-up from the builtin shaders' vertex stage, or a custom
   vertex shader's outputs, to the packed rows (pipeline/geometry.py:287-350
   over shaders/builtin.py:52-166, render.py:113-202, raster_pallas.py:178
-  pack_setup);
+  pack_setup), written as the binning's slot records;
 - ``bin_pairs`` — no Pallas kernel: XLA's fusions of the binning and the
-  pair-order gather (raster_pallas.py:319 bin_pairs, fused.py:160-183);
+  pair-order gather (raster_pallas.py:319 bin_pairs, fused.py:160-183), from
+  slot records; ``slot_records`` turns packed rows into those records;
 - ``if_node`` — no TPU kernel: a conditional node of a CUDA graph under
   capture, the counterpart of ``lax.cond`` in a compiled program
   (torch 2.11 has no Python API for one).
@@ -139,7 +140,8 @@ class BinParams(ctypes.Structure):
     """Mirror of ``FrBinParams`` in csrc/kernels.h."""
 
     _fields_ = [(name, ctypes.c_int32) for name in (
-        "m", "rows_f", "th", "ntx", "nty", "k", "kc", "oy", "ox", "m_dummy", "n_pad", "stripe", "n_stripes")]
+        "m", "rows_f", "th", "ntx", "nty", "k", "kc", "oy", "ox", "m_dummy", "n_pad", "stripe", "n_stripes",
+        "bb_slot", "bb_max")]
 
 
 # Tile heights the raster kernels take (th / 8 thread blocks to a tile).
@@ -213,13 +215,14 @@ def load_library() -> ctypes.CDLL:
     lib.fr_tri_setup.argtypes = [TriSetupParams] + [ptr] * 7 + [i32, ptr]
     lib.fr_tri_setup_vertex.argtypes = [TriSetupParams, ptr, ctypes.POINTER(VertexArgs)] + [ptr] * 4 + [i32, ptr]
     lib.fr_tri_setup_slots.argtypes = [TriSetupParams] + [ptr] * 5 + [i32, ptr]
-    lib.fr_bin_pairs.argtypes = [BinParams] + [ptr] * 10
+    lib.fr_bin_pairs.argtypes = [BinParams] + [ptr] * 9
+    lib.fr_bin_records.argtypes = [BinParams] + [ptr] * 4
     lib.fr_if_node_begin.argtypes = [ptr] * 3
     lib.fr_if_node_end.argtypes = [ptr]
     lib.fr_stream_create.argtypes = [ctypes.POINTER(ptr)]
     for fn in (lib.fr_fused_raster, lib.fr_raster_planes, lib.fr_sample_bilinear, lib.fr_voxel_march,
                lib.fr_voxel_setup, lib.fr_tri_setup, lib.fr_tri_setup_vertex, lib.fr_tri_setup_slots,
-               lib.fr_bin_pairs,
+               lib.fr_bin_pairs, lib.fr_bin_records,
                lib.fr_if_node_begin, lib.fr_if_node_end, lib.fr_stream_create):
         fn.restype = ctypes.c_int
     lib.fr_error_string.argtypes = [ctypes.c_int]
@@ -550,8 +553,9 @@ def tri_setup(table, clip, ctx, *, n_draws, nb, m, m_pad, width, height, cull, q
     ``vertex`` (a :class:`VertexStage`: a builtin's vertex stage, run in the
     launch), planes the kernel writes at the corners of every clipped face
     and of each draw's last face, the entries the clip path reads, leaving
-    the rest unwritten. → (tri_i32 (12, m_pad), tri_f32 (9 + 3C, m_pad) with
-    every path-A column written, b_mask (F,) bool, acc: the zeroed
+    the rest unwritten. → (recs (m_pad, :func:`rec_words`) int32, the slot
+    records, and bbox (2, m_pad) int32, their MINXY and MAXXY words, with
+    every path-A slot written; b_mask (F,) bool; acc: the zeroed
     accumulator the kernel filled (:func:`acc_layout`; :func:`acc_views`
     reads it))."""
     dev = _on_cuda(clip, "tri_setup")
@@ -564,21 +568,21 @@ def tri_setup(table, clip, ctx, *, n_draws, nb, m, m_pad, width, height, cull, q
     args = None if vertex is None else vertex_args(vertex, clip, ctx, dev)
     words, keys = acc_layout(n_draws)
     acc = torch.zeros((words,), dtype=torch.int32, device=dev)
-    tri_i32 = torch.empty((12, m_pad), dtype=torch.int32, device=dev)
-    tri_f32 = torch.empty((9 + 3 * n_ctx, m_pad), dtype=torch.float32, device=dev)
+    recs = torch.empty((m_pad, rec_words(9 + 3 * n_ctx)), dtype=torch.int32, device=dev)
+    bbox = torch.empty((2, m_pad), dtype=torch.int32, device=dev)
     b_mask = torch.empty((n_faces,), dtype=torch.bool, device=dev)
     params = TriSetupParams(n_draws=n_draws, n_faces=n_faces, n_ctx=n_ctx, nb=nb, m=m, m_pad=m_pad, width=width,
                             height=height, cull=int(bool(cull)), quirk=int(bool(quirk)))
     if n_faces:
         lib = load_library()
-        outs = (tri_i32.data_ptr(), tri_f32.data_ptr(), b_mask.data_ptr(), acc.data_ptr(), keys, _stream(dev))
+        outs = (recs.data_ptr(), bbox.data_ptr(), b_mask.data_ptr(), acc.data_ptr(), keys, _stream(dev))
         if args is None:
             err = lib.fr_tri_setup(params, table.data_ptr(), clip.data_ptr(), ctx.data_ptr(), *outs)
         else:
             err = lib.fr_tri_setup_vertex(params, table.data_ptr(), ctypes.byref(args), *outs)
         _check(lib, err, "fr_tri_setup" if args is None else "fr_tri_setup_vertex")
         _count(tri_setup)
-    return tri_i32, tri_f32, b_mask, acc
+    return recs, bbox, b_mask, acc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -639,23 +643,23 @@ def acc_views(acc, n_draws: int):
     return acc[:n_draws], acc[n_draws], clipped.view(torch.bool)
 
 
-def tri_setup_slots(table, fan, tri_i32, tri_f32, acc, *, n_draws, nb, m, width, height, cull, quirk):
+def tri_setup_slots(table, fan, recs, bbox, acc, *, n_draws, nb, m, n_ctx, width, height, cull, quirk):
     """Launches 2 and 3 of the triangle set-up (csrc/tri_setup.cu:
     tri_slots_kernel, then with ``quirk`` tri_quirk_kernel) on PyTorch's
-    current stream, into :func:`tri_setup`'s arrays: the path-B columns
-    from ``fan`` (D, nb (23 + 3C)) int32, the clip path's arrays where the
-    draw clipped a face, the padding columns, and the ps boundary quirk."""
-    dev = _on_cuda(tri_i32, "tri_setup_slots")
-    m_pad, n_ctx = tri_i32.shape[1], (tri_f32.shape[0] - 9) // 3
+    current stream, into :func:`tri_setup`'s records and bboxes: the path-B
+    slots from ``fan`` (D, nb (23 + 3C)) int32, the clip path's arrays where
+    the draw clipped a face, the padding slots, and the ps boundary quirk."""
+    dev = _on_cuda(recs, "tri_setup_slots")
+    m_pad = recs.shape[0]
     _need(table, "table", torch.int32, dev, (4 * n_draws,))
     _need(fan, "fan", torch.int32, dev, (n_draws, nb * (23 + 3 * n_ctx)))
-    _need(tri_i32, "tri_i32", torch.int32, dev, (12, m_pad))
-    _need(tri_f32, "tri_f32", torch.float32, dev, (9 + 3 * n_ctx, m_pad))
+    _need(recs, "recs", torch.int32, dev, (m_pad, rec_words(9 + 3 * n_ctx)))
+    _need(bbox, "bbox", torch.int32, dev, (2, m_pad))
     _need(acc, "acc", torch.int32, dev, (acc_layout(n_draws)[0],))
     params = TriSetupParams(n_draws=n_draws, n_faces=0, n_ctx=n_ctx, nb=nb, m=m, m_pad=m_pad, width=width,
                             height=height, cull=int(bool(cull)), quirk=int(bool(quirk)))
     lib = load_library()
-    err = lib.fr_tri_setup_slots(params, table.data_ptr(), fan.data_ptr(), tri_i32.data_ptr(), tri_f32.data_ptr(),
+    err = lib.fr_tri_setup_slots(params, table.data_ptr(), fan.data_ptr(), recs.data_ptr(), bbox.data_ptr(),
                                  acc.data_ptr(), acc_layout(n_draws)[1], _stream(dev))
     _check(lib, err, "fr_tri_setup_slots")
     _count(tri_setup_slots)
@@ -663,56 +667,95 @@ def tri_setup_slots(table, fan, tri_i32, tri_f32, acc, *, n_draws, nb, m, width,
 
 tri_setup_slots.launches = 0
 
-# The most counters the binning's stripes may take (8 MB), and its stripes.
+
+def rec_words(rows_f: int) -> int:
+    """int32 words of a slot's record (csrc/bin_pairs.cu, raster.slot_records):
+    its 12 int rows and ``rows_f`` float rows, padded to whole 32-byte
+    sectors."""
+    return -(-(12 + rows_f) // 8) * 8
+
+
+# The most counters the binning's stripes may take (8 MB), its stripes, and
+# the keys a block counts in shared memory (128 KB).
 BIN_COUNTERS = 1 << 21
-BIN_MAX_STRIPES = 4096
-BIN_MAX_SPAN = 64  # max(k, kc): a chunk's hash table holds 64 keys a lane
+BIN_MAX_STRIPES = 1024
+BIN_MAX_KEYS = 1 << 15
+BIN_MAX_SPAN = 64  # max(k, kc): the most pair keys a slot may have
+BIN_BLOCK = 256  # slots a block takes at a time: a stripe is a multiple of it
 
 
 def bin_stripes(m: int, n_keys: int) -> tuple[int, int]:
     """(slots a stripe, stripes) of the binning's counting passes: as many
-    stripes (warps) as BIN_MAX_STRIPES and BIN_COUNTERS counters allow,
-    each a multiple of 32 slots."""
-    n = max(1, min(-(-m // 32), BIN_MAX_STRIPES, BIN_COUNTERS // n_keys))
-    stripe = -(-(-(-m // n)) // 32) * 32
+    stripes (blocks) as BIN_MAX_STRIPES and BIN_COUNTERS counters allow,
+    each a multiple of BIN_BLOCK slots."""
+    n = max(1, min(-(-m // BIN_BLOCK), BIN_MAX_STRIPES, BIN_COUNTERS // n_keys))
+    stripe = -(-(-(-m // n)) // BIN_BLOCK) * BIN_BLOCK
     return stripe, -(-m // stripe)
 
 
-def bin_pairs(tri_i32, tri_f32, *, th, grid_hw, k, kc, m_dummy, n_pad, origin=(0, 0)):
-    """Launch the binning and pair gather (csrc/bin_pairs.cu) on PyTorch's
-    current stream: the (tile key, slot) pairs of the packed arrays
-    ``tri_i32`` (12, m) / ``tri_f32`` (9 + 3C, m) counted, placed in (key,
-    slot) order and gathered → (off (R + 1,) int32, tri_i32 (12, n_pad),
-    tri_f32 (9 + 3C, n_pad) in pair order, ``m_dummy``'s column past the
-    last pair). ``grid_hw`` = (nty, ntx) tiles of (th, 128) pixels whose
+def bin_pairs(recs, bbox, *, n_ctx, th, grid_hw, k, kc, m_dummy, n_pad, origin=(0, 0)):
+    """Launch the binning and pair gather (csrc/bin_pairs.cu: count, scan,
+    place and gather, chained by programmatic stream serialization) on
+    PyTorch's current stream: the (tile key, slot) pairs of the slots whose
+    records are ``recs`` (m, :func:`rec_words`) int32 and bbox words
+    ``bbox`` (2, m) int32 (MINXY, MAXXY; any strides: the set-up's array, a
+    view of packed rows or of the records) counted, placed in (key, slot)
+    order and gathered → (off (R + 1,) int32, tri_i32 (12, n_pad), tri_f32
+    (9 + 3C, n_pad) in pair order, ``m_dummy``'s column past the last
+    pair). ``grid_hw`` = (nty, ntx) tiles of (th, 128) pixels whose
     top-left pixel is the frame's ``origin`` = (y0, x0)."""
-    dev = _on_cuda(tri_i32, "bin_pairs")
-    m, rows_f = tri_i32.shape[1], tri_f32.shape[0]
+    dev = _on_cuda(recs, "bin_pairs")
+    m, rows_f = recs.shape[0], 9 + 3 * n_ctx
     nty, ntx = grid_hw
-    _need(tri_i32, "tri_i32", torch.int32, dev, (12, m))
-    _need(tri_f32, "tri_f32", torch.float32, dev, (rows_f, m))
+    _need(recs, "recs", torch.int32, dev, (m, rec_words(rows_f)))
+    if bbox.device != dev or bbox.dtype != torch.int32 or tuple(bbox.shape) != (2, m) or min(bbox.stride()) < 1:
+        raise ValueError(f"bbox: need a (2, {m}) int32 view on {dev}, got {tuple(bbox.shape)} {bbox.dtype} on "
+                         f"{bbox.device} with strides {bbox.stride()}")
     n_keys = nty * ntx + -(-nty // 4) * -(-ntx // 4) + 1
     if not (0 <= m_dummy < m and 0 < m * max(k, kc) <= n_pad < 2**31 and n_pad % 128 == 0):
         raise ValueError(f"bin_pairs: m_dummy {m_dummy}, {m} slots x {max(k, kc)} keys in {n_pad} pair columns")
-    if not (0 < max(k, kc) <= BIN_MAX_SPAN and th > 0 and nty > 0 and ntx > 0):
-        raise ValueError(f"bin_pairs: k={k}, kc={kc} (at most {BIN_MAX_SPAN}), tile rows {th}, grid {grid_hw}")
+    if not (0 < max(k, kc) <= BIN_MAX_SPAN and th > 0 and nty > 0 and ntx > 0 and n_keys <= BIN_MAX_KEYS):
+        raise ValueError(f"bin_pairs: k={k}, kc={kc} (at most {BIN_MAX_SPAN}), tile rows {th}, grid {grid_hw} "
+                         f"({n_keys} keys, at most {BIN_MAX_KEYS})")
     stripe, n_stripes = bin_stripes(m, n_keys)
-    counts = torch.empty((n_keys * n_stripes,), dtype=torch.int32, device=dev)
+    params = BinParams(m=m, rows_f=rows_f, th=th, ntx=ntx, nty=nty, k=k, kc=kc, oy=int(origin[0]), ox=int(origin[1]),
+                       m_dummy=m_dummy, n_pad=n_pad, stripe=stripe, n_stripes=n_stripes, bb_slot=bbox.stride(1),
+                       bb_max=bbox.stride(0))
+    counts = torch.empty((n_stripes * n_keys,), dtype=torch.int32, device=dev)
     totals = torch.empty((n_keys,), dtype=torch.int32, device=dev)
     ptri = torch.empty((n_pad,), dtype=torch.int32, device=dev)
-    recs = torch.empty((m * (-(-(12 + rows_f) // 8) * 8),), dtype=torch.int32, device=dev)  # a record a slot
     off = torch.empty((n_keys + 1,), dtype=torch.int32, device=dev)
     out_i32 = torch.empty((12, n_pad), dtype=torch.int32, device=dev)
     out_f32 = torch.empty((rows_f, n_pad), dtype=torch.float32, device=dev)
-    params = BinParams(m=m, rows_f=rows_f, th=th, ntx=ntx, nty=nty, k=k, kc=kc, oy=int(origin[0]), ox=int(origin[1]),
-                       m_dummy=m_dummy, n_pad=n_pad, stripe=stripe, n_stripes=n_stripes)
     lib = load_library()
-    err = lib.fr_bin_pairs(params, tri_i32.data_ptr(), tri_f32.data_ptr(), counts.data_ptr(), totals.data_ptr(),
-                           off.data_ptr(), ptri.data_ptr(), recs.data_ptr(), out_i32.data_ptr(), out_f32.data_ptr(),
-                           _stream(dev))
+    err = lib.fr_bin_pairs(params, recs.data_ptr(), bbox.data_ptr(), counts.data_ptr(), totals.data_ptr(),
+                           off.data_ptr(), ptri.data_ptr(), out_i32.data_ptr(), out_f32.data_ptr(), _stream(dev))
     _check(lib, err, "fr_bin_pairs")
     _count(bin_pairs)
     return off, out_i32, out_f32
 
 
 bin_pairs.launches = 0
+
+
+def slot_records(tri_i32, tri_f32):
+    """Launch the record pass (csrc/bin_pairs.cu: bin_records_kernel) on
+    PyTorch's current stream: packed rows ``tri_i32`` (12, m) int32 and
+    ``tri_f32`` (9 + 3C, m) f32 → the slots' records (m, :func:`rec_words`)
+    int32, as :func:`bin_pairs` reads them (the paths whose rows PyTorch
+    packs; the set-up kernels write records themselves)."""
+    dev = _on_cuda(tri_i32, "slot_records")
+    m, rows_f = tri_i32.shape[1], tri_f32.shape[0]
+    _need(tri_i32, "tri_i32", torch.int32, dev, (12, m))
+    _need(tri_f32, "tri_f32", torch.float32, dev, (rows_f, m))
+    recs = torch.empty((m, rec_words(rows_f)), dtype=torch.int32, device=dev)
+    if m:
+        lib = load_library()
+        err = lib.fr_bin_records(BinParams(m=m, rows_f=rows_f), tri_i32.data_ptr(), tri_f32.data_ptr(),
+                                 recs.data_ptr(), _stream(dev))
+        _check(lib, err, "fr_bin_records")
+        _count(slot_records)
+    return recs
+
+
+slot_records.launches = 0

@@ -18,7 +18,8 @@ How the triangles reach a slab (``RenderConfig.comm_mode``):
 - ``None`` / ``"all_gather"``: the fused path packs its local slots
   (``raster.pack_binned``), offsets their slot ids by ``dp · m_pad_local``,
   all-gathers the packed arrays over dp and bins them for its slab
-  (``bin_packed(origin=, size=, m_dummy=)``), then K1. Other shaders, and the
+  (``bin_rows(origin=, size=, m_dummy=)``: the rows' records, then
+  ``bin_packed``), then K1. Other shaders, and the
   portable backend, all-gather the TriangleBuffer, then K4 (or
   ``rasterize_portable``) with an origin and ``shade_deferred(origin=)``;
 - ``"stream"`` with dp > 1: the face shards travel round a dp ring of
@@ -54,7 +55,8 @@ from f_renderer_tpu_torch.device import resolve_device
 from f_renderer_tpu_torch.pipeline import raster
 from f_renderer_tpu_torch.pipeline.fused import fused_path_ok, render_fused_prepared
 from f_renderer_tpu_torch.pipeline.geometry import MAX_FAN, geometry_process
-from f_renderer_tpu_torch.pipeline.raster import ORDER_NONE, SLOT, bin_packed, pack_binned
+from f_renderer_tpu_torch.pipeline.fused import bin_settings
+from f_renderer_tpu_torch.pipeline.raster import ORDER_NONE, SLOT, bin_rows, pack_binned
 from f_renderer_tpu_torch.pipeline.raster_portable import rasterize_portable
 from f_renderer_tpu_torch.pipeline.render import (
     RenderConfig,
@@ -186,12 +188,10 @@ def fused_slab(ti, tf, n_slots: int, n_ctx: int, pixel_shader, ps_uniform, confi
                plan: ShardPlan, lin: int):
     """Slab ``lin`` through K1 from the gathered packed arrays of every
     shard → (frame (slab, W, 4) u8, depth (slab, W) f32). The last column is
-    an empty-bbox padding slot of the last shard: the bin dummy."""
-    prep = bin_packed(
-        ti, tf, n_slots, n_ctx, config.width, config.height, config.tile,
-        tile_auto=config.tile_auto, tile_auto_threshold=config.tile_auto_threshold, bin_k=config.bin_k,
-        origin=(lin * plan.slab, 0), size=(plan.slab, config.width), m_dummy=ti.shape[1] - 1,
-    )
+    an empty-bbox padding slot of the last shard: the bin dummy. The rows
+    are turned into records first (``raster.bin_rows``)."""
+    prep = bin_rows(ti, tf, n_slots, n_ctx, config.width, config.height, config.tile, **bin_settings(config),
+                    origin=(lin * plan.slab, 0), size=(plan.slab, config.width), m_dummy=ti.shape[1] - 1)
     frame, depth, _ = render_fused_prepared(prep, pixel_shader, ps_uniform, config)
     return frame, depth
 

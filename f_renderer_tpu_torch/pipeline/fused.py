@@ -8,11 +8,12 @@ strict (rhw, order) maximum per pixel, interpolates the winner's varyings
 once, shades, samples textures in-kernel and packs RGBA8.
 
 The prep around it, XLA's fusions in the JAX package, is two groups of
-kernels on the card: the set-up (``render.build_packed``, csrc/tri_setup.cu)
-and the binning with the pair-order gather (``raster.bin_packed``,
-csrc/bin_pairs.cu), shared with the non-fused raster kernel K4, as is the
-per-tile raster loop; their plain versions (``pack_setup``, ``bin_pairs``,
-``index_select``) run on CPU tensors.
+kernels on the card: the set-up (``render.build_packed``, csrc/tri_setup.cu),
+which writes a record a slot, and the binning with the pair-order gather
+(``raster.bin_packed``, csrc/bin_pairs.cu), shared with the non-fused
+raster kernel K4, as is the per-tile raster loop; their plain versions
+(``pack_setup``, ``slot_records``, ``bin_bbox``, ``index_select``) run on
+CPU tensors.
 
 ``render_fused_prepared`` is the kernel's wrapper: for CUDA tensors it
 launches the kernel (or raises), for CPU tensors it runs
@@ -62,17 +63,21 @@ def prep_fused(tri: TriangleBuffer, config, *, origin=(0, 0), size=None) -> Binn
     select a rectangle of the frame (``raster.bin_packed``, fused.py:374 of
     the JAX package)."""
     tri_i32, tri_f32 = R.pack_binned(tri, config.width, config.height)
-    return prep_packed(tri_i32, tri_f32, tri.num_slots, tri.num_channels, config, origin=origin, size=size)
+    return R.bin_rows(tri_i32, tri_f32, tri.num_slots, tri.num_channels, config.width, config.height,
+                      config.tile, **bin_settings(config), origin=origin, size=size)
 
 
-def prep_packed(tri_i32, tri_f32, n_slots: int, n_ctx: int, config, *, origin=(0, 0), size=None) -> BinnedPrep:
-    """:func:`prep_fused` from packed arrays (``render.build_packed``): the
-    bin and pair gather alone (``raster.bin_packed``)."""
-    return R.bin_packed(
-        tri_i32, tri_f32, n_slots, n_ctx, config.width, config.height, config.tile,
-        tile_auto=config.tile_auto, tile_auto_threshold=config.tile_auto_threshold,
-        bin_k=config.bin_k, origin=origin, size=size,
-    )
+def bin_settings(config) -> dict:
+    """The bin settings of ``config`` the fused path takes."""
+    return dict(tile_auto=config.tile_auto, tile_auto_threshold=config.tile_auto_threshold, bin_k=config.bin_k)
+
+
+def prep_packed(recs, bbox, n_slots: int, n_ctx: int, config, *, origin=(0, 0), size=None) -> BinnedPrep:
+    """:func:`prep_fused` from slot records and bboxes
+    (``render.build_packed``): the bin and pair gather alone
+    (``raster.bin_packed``)."""
+    return R.bin_packed(recs, bbox, n_slots, n_ctx, config.width, config.height, config.tile,
+                        **bin_settings(config), origin=origin, size=size)
 
 
 def background_packed(background) -> int:

@@ -404,9 +404,10 @@ def packed_geometry(draws, vertex_shader, vs_uniform, width: int, height: int, *
     every face (a builtin's vertex stage where the vertex shader is tagged
     ``fused_kind``, else the vertex shader per draw in PyTorch first; masks,
     path-A columns), each draw's clip path (:func:`clip_into`), launches 2
-    and 3 (path-B and padding columns; the ps boundary quirk where
-    ``quirk``) → (tri_i32 (12, m_pad), tri_f32 (9 + 3C, m_pad), slots m, C,
-    faces clipped 0-d int32): what ``raster.pack_binned`` makes of
+    and 3 (path-B and padding slots; the ps boundary quirk where
+    ``quirk``) → (recs (m_pad, rec) int32, bbox (2, m_pad) int32, slots m,
+    C, faces clipped 0-d int32): the records (``raster.slot_records``) and
+    bbox rows of what ``raster.pack_binned`` makes of
     ``render.build_triangles``' buffer, bit for bit."""
     from f_renderer_tpu_torch import kernels
     from f_renderer_tpu_torch.shaders.builtin import vertex_layout
@@ -439,7 +440,7 @@ def packed_geometry(draws, vertex_shader, vs_uniform, width: int, height: int, *
         ctx = torch.empty((c, 3 * sum(faces)), device=dev)
         vertex = kernels.VertexStage(kind, vs_uniform, list(draws), getattr(vertex_shader, "light_pos", (0.0,) * 3),
                                      getattr(vertex_shader, "light_color", (0.0,) * 3))
-    tri_i32, tri_f32, b_mask, acc = kernels.tri_setup(table, clip, ctx, m_pad=m_pad, vertex=vertex, **shape)
+    recs, bbox, b_mask, acc = kernels.tri_setup(table, clip, ctx, m_pad=m_pad, vertex=vertex, **shape)
     num_clipped, total, clipped = kernels.acc_views(acc, n_draws)
     fan = torch.empty((n_draws, nb * (23 + 3 * c)), dtype=torch.int32, device=dev)
     for d, (f, o) in enumerate(zip(faces, face_off)):
@@ -447,5 +448,5 @@ def packed_geometry(draws, vertex_shader, vs_uniform, width: int, height: int, *
             planes = clip[:, 3 * o:3 * (o + f)], ctx[:, 3 * o:3 * (o + f)]
             clip_into(fan_views(fan[d], clip_cap, c), *planes, b_mask[o:o + f], num_clipped[d], clipped[d], clip_cap,
                       order_base[d], width, height)
-    kernels.tri_setup_slots(table, fan, tri_i32, tri_f32, acc, **shape)
-    return tri_i32, tri_f32, m, c, total
+    kernels.tri_setup_slots(table, fan, recs, bbox, acc, n_ctx=c, **shape)
+    return recs, bbox, m, c, total

@@ -9,6 +9,12 @@ kernel (K4),
 :func:`rasterize` (``rasterize_pallas :1583``) and :func:`rasterize_interp`
 (``rasterize_interp_pallas :1617``).
 
+The set-up hands the binning a record a slot (:func:`slot_records`: the
+packed rows slot-major, padded to whole 32-byte sectors) and the slots'
+bbox words; the set-up kernels write both themselves, and the paths whose
+rows PyTorch packs (:func:`prep_binned`, the sharded frame) turn rows into
+records first (:func:`bin_rows`).
+
 Both kernels that rasterize, the fused one (K1, ``pipeline/fused.py``) and
 K4, read the same prep (:func:`prep_binned`: pack, bin, pair-order gather)
 and run the same per-tile loop (``csrc/raster_loop.cuh``); their plain
@@ -125,7 +131,8 @@ def pack_setup(tri: TriangleBuffer, width: int, height: int, m_pad: int):
 
 
 def bin_pairs(tri_i32, tile, grid_hw, k: int, chunk: int, m_dummy: int, kc: int = 6, origin=(0, 0)):
-    """Hierarchical per-tile triangle lists via (tile, triangle) pair expansion.
+    """Hierarchical per-tile triangle lists via (tile, triangle) pair expansion
+    (:func:`bin_bbox` on the packed rows' MINXY and MAXXY).
 
     Each triangle lands in exactly one level: a span of ≤ ``k`` fine tiles
     gives one pair per covered fine tile; else a span of ≤ ``kc`` coarse
@@ -140,6 +147,12 @@ def bin_pairs(tri_i32, tile, grid_hw, k: int, chunk: int, m_dummy: int, kc: int 
     the full frame by :func:`pack_setup`, are shifted by it before they are
     clamped to the grid (raster_pallas.py:360-366).
     """
+    return bin_bbox(tri_i32[MINXY:MAXXY + 1], tile, grid_hw, k, chunk, m_dummy, kc, origin)
+
+
+def bin_bbox(bbox, tile, grid_hw, k: int, chunk: int, m_dummy: int, kc: int = 6, origin=(0, 0)):
+    """:func:`bin_pairs` from the slots' bbox words ``bbox`` (2, m) int32:
+    MINXY, MAXXY."""
     th, tw = tile
     y_org, x_org = origin
     nty, ntx = grid_hw
@@ -147,8 +160,8 @@ def bin_pairs(tri_i32, tile, grid_hw, k: int, chunk: int, m_dummy: int, kc: int 
     ntxc = cdiv(ntx, COARSE)
     ntilesc = cdiv(nty, COARSE) * ntxc
     big = ntiles + ntilesc + 1
-    bminx, bminy = unpack_xy(tri_i32[MINXY])
-    bmaxx, bmaxy = unpack_xy(tri_i32[MAXXY])
+    bminx, bminy = unpack_xy(bbox[0])
+    bmaxx, bmaxy = unpack_xy(bbox[1])
     minx = torch.clamp(bminx - x_org, 0, ntx * tw)
     maxx = torch.clamp(bmaxx - x_org, 0, ntx * tw)
     miny = torch.clamp(bminy - y_org, 0, nty * th)
@@ -168,7 +181,7 @@ def bin_pairs(tri_i32, tile, grid_hw, k: int, chunk: int, m_dummy: int, kc: int 
     mid = nonempty & ~small & (cspan <= kc)
     spill = nonempty & ~small & ~mid
 
-    m = tri_i32.shape[1]
+    m = bbox.shape[1]
     # The levels are exclusive per triangle, so they share max(k, kc) key
     # slots per triangle (spill uses slot 0).
     nk = max(k, kc)
@@ -238,21 +251,51 @@ def pack_binned(tri: TriangleBuffer, width: int, height: int):
     return pack_setup(tri, width, height, m_pad)
 
 
-def bin_packed(tri_i32, tri_f32, n_slots: int, n_ctx: int, width: int, height: int, tile=None, **kw) -> BinnedPrep:
-    """Stage 2 of the prep (``prep_fused_packed``, fused.py:183): bin and
-    gather the packed arrays in pair order for the rectangle ``size=(rows,
-    cols)`` (None: the whole ``width`` × ``height`` frame) whose top-left
-    pixel is ``origin=(y0, x0)`` of the frame. CUDA tensors launch the
-    binning kernels (csrc/bin_pairs.cu, ``kernels.bin_pairs``: a counting
-    sort by (key, slot), the packed sort's order); CPU tensors run their
-    plain version, :func:`bin_pairs` and two ``index_select``.
+def slot_records(tri_i32, tri_f32):
+    """The packed rows as one record a slot (plain, on the tensors' device)
+    → (m, ``kernels.rec_words(rows_f)``) int32: slot s's NF_I int words,
+    then its float words as their bits (a NaN's payload kept), then zeros to
+    whole 32-byte sectors. What the set-up kernels write
+    (``render.build_packed``) and the binning reads."""
+    from f_renderer_tpu_torch.kernels import rec_words
+
+    m, rows_f = tri_i32.shape[1], tri_f32.shape[0]
+    recs = torch.zeros((m, rec_words(rows_f)), dtype=torch.int32, device=tri_i32.device)
+    recs[:, :NF_I] = tri_i32.T
+    recs[:, NF_I:NF_I + rows_f] = tri_f32.view(torch.int32).T
+    return recs
+
+
+def bin_rows(tri_i32, tri_f32, n_slots: int, n_ctx: int, width: int, height: int, tile=None, **kw) -> BinnedPrep:
+    """:func:`bin_packed` from packed rows (``pack_binned``): CUDA tensors
+    launch the record pass (``kernels.slot_records``), CPU tensors run
+    :func:`slot_records`; the binning reads the bbox words from the rows."""
+    if tri_i32.device.type == "cuda":
+        from f_renderer_tpu_torch import kernels
+
+        recs = kernels.slot_records(tri_i32, tri_f32)
+    else:
+        recs = slot_records(tri_i32, tri_f32)
+    return bin_packed(recs, tri_i32[MINXY:MAXXY + 1], n_slots, n_ctx, width, height, tile, **kw)
+
+
+def bin_packed(recs, bbox, n_slots: int, n_ctx: int, width: int, height: int, tile=None, **kw) -> BinnedPrep:
+    """Stage 2 of the prep (``prep_fused_packed``, fused.py:183): bin the
+    slots whose records are ``recs`` (m, ``kernels.rec_words``) int32 and
+    bbox words ``bbox`` (2, m) int32 (MINXY, MAXXY), and gather their
+    columns in pair order for the rectangle ``size=(rows, cols)`` (None: the
+    whole ``width`` × ``height`` frame) whose top-left pixel is
+    ``origin=(y0, x0)`` of the frame. CUDA tensors launch the binning
+    kernels (csrc/bin_pairs.cu, ``kernels.bin_pairs``: a counting sort by
+    (key, slot), the packed sort's order); CPU tensors run their plain
+    version, :func:`bin_bbox` and an ``index_select`` of the records.
 
     ``tile`` (rows, 128); None picks (32, 128), or (128, 128) for scenes of
     at most 2048 slots; ``tile_auto`` makes tiles at least 64 rows tall above
     ``tile_auto_threshold`` slots. ``bin_k`` caps the fine tiles a triangle
     may span before it goes to the coarse or spill range (None: size
     heuristic). ``n_slots`` drives these heuristics (in a sharded frame, the
-    count over every shard). ``m_dummy`` is an empty-bbox column the padding
+    count over every shard). ``m_dummy`` is an empty-bbox slot the padding
     pairs point at (None: ``n_slots``, the first padding slot of
     :func:`pack_binned`).
 
@@ -261,18 +304,19 @@ def bin_packed(tri_i32, tri_f32, n_slots: int, n_ctx: int, width: int, height: i
     exact, because the per-pixel (rhw, order) merge does not depend on the
     tiling.
     """
-    kernel = tri_i32.device.type == "cuda"
-    return _bin(kernel, tri_i32, tri_f32, n_slots, n_ctx, width, height, tile, **kw)
+    kernel = recs.device.type == "cuda"
+    return _bin(kernel, recs, bbox, n_slots, n_ctx, width, height, tile, **kw)
 
 
-def bin_packed_plain(tri_i32, tri_f32, n_slots: int, n_ctx: int, width: int, height: int, tile=None,
+def bin_packed_plain(recs, bbox, n_slots: int, n_ctx: int, width: int, height: int, tile=None,
                      **kw) -> BinnedPrep:
     """The plain version of :func:`bin_packed`'s kernels, on the tensors'
-    device: :func:`bin_pairs` (a sort) and two ``index_select``."""
-    return _bin(False, tri_i32, tri_f32, n_slots, n_ctx, width, height, tile, **kw)
+    device: :func:`bin_bbox` (a sort) and an ``index_select`` of the
+    records."""
+    return _bin(False, recs, bbox, n_slots, n_ctx, width, height, tile, **kw)
 
 
-def _bin(kernel: bool, tri_i32, tri_f32, n_slots: int, n_ctx: int, width: int, height: int, tile=None, *,
+def _bin(kernel: bool, recs, bbox, n_slots: int, n_ctx: int, width: int, height: int, tile=None, *,
          tile_auto: bool = True, tile_auto_threshold: int = 300_000, bin_k: int | None = None, origin=(0, 0),
          size=None, m_dummy: int | None = None) -> BinnedPrep:
     rows, cols = size if size is not None else (height, width)
@@ -291,13 +335,15 @@ def _bin(kernel: bool, tri_i32, tri_f32, n_slots: int, n_ctx: int, width: int, h
         from f_renderer_tpu_torch import kernels
 
         off, ti, tf = kernels.bin_pairs(
-            tri_i32, tri_f32, th=th, grid_hw=(h_pad // th, w_pad // tw), k=k, kc=k, m_dummy=m_dummy,
-            n_pad=cdiv(tri_i32.shape[1] * k, LANES) * LANES, origin=origin,
+            recs, bbox, n_ctx=n_ctx, th=th, grid_hw=(h_pad // th, w_pad // tw), k=k, kc=k, m_dummy=m_dummy,
+            n_pad=cdiv(recs.shape[0] * k, LANES) * LANES, origin=origin,
         )
     else:
-        ptri, off = bin_pairs(tri_i32, (th, tw), (h_pad // th, w_pad // tw), k, LANES, m_dummy=m_dummy, kc=k,
-                              origin=origin)
-        ti, tf = tri_i32.index_select(1, ptri), tri_f32.index_select(1, ptri)
+        ptri, off = bin_bbox(bbox, (th, tw), (h_pad // th, w_pad // tw), k, LANES, m_dummy=m_dummy, kc=k,
+                             origin=origin)
+        pairs = recs.index_select(0, ptri)
+        ti = pairs[:, :NF_I].T.contiguous()
+        tf = pairs[:, NF_I:NF_I + 9 + 3 * n_ctx].T.contiguous().view(torch.float32)
     return BinnedPrep(
         off=off,
         tri_i32=ti,
@@ -325,9 +371,9 @@ def prep_binned(
     size=None,
 ) -> BinnedPrep:
     """Pack + bin + pair-order gather (fused.py:160-350 of the JAX package):
-    :func:`pack_binned`, then :func:`bin_packed` with the same settings."""
+    :func:`pack_binned`, then :func:`bin_rows` with the same settings."""
     tri_i32, tri_f32 = pack_binned(tri, width, height)
-    return bin_packed(
+    return bin_rows(
         tri_i32, tri_f32, tri.num_slots, tri.num_channels, width, height, tile,
         tile_auto=tile_auto, tile_auto_threshold=tile_auto_threshold, bin_k=bin_k,
         origin=origin, size=size,

@@ -140,13 +140,14 @@ def build_triangles(draws: Sequence, vertex_shader: Callable, vs_uniform, config
 
 
 def build_packed(draws: Sequence, vertex_shader: Callable, vs_uniform, config: RenderConfig):
-    """Geometry over all draws, packed → (tri_i32 (12, m_pad) int32, tri_f32
-    (9 + 3C, m_pad) f32, slots m, varyings C, stats): the rows
-    ``raster.pack_binned`` makes of :func:`build_triangles`' buffer, which
+    """Geometry over all draws, packed → (recs (m_pad, rec) int32, bbox (2,
+    m_pad) int32, slots m, varyings C, stats): the slot records
+    (``raster.slot_records``) of the rows ``raster.pack_binned`` makes of
+    :func:`build_triangles`' buffer, and their MINXY and MAXXY words, which
     ``raster.bin_packed`` bins. CUDA tensors launch the triangle set-up
     kernels (csrc/tri_setup.cu, ``geometry.packed_geometry``), which write
     them bit for bit; CPU tensors run their plain version,
-    ``pack_binned(build_triangles(...))``."""
+    :func:`build_packed_plain`."""
     if len(draws) > 256:
         raise ValueError("at most 256 draws per frame")
     dev = next(iter(draws[0].values())).device
@@ -155,17 +156,20 @@ def build_packed(draws: Sequence, vertex_shader: Callable, vs_uniform, config: R
     if dev.type != "cuda":
         raise ValueError(f"the triangle set-up runs on CUDA or (plain) CPU, not {dev}")
     quirk = config.replicate_ps_boundary_quirk and len(draws) > 1
-    ti, tf, m, c, num_clipped = packed_geometry(
+    recs, bbox, m, c, num_clipped = packed_geometry(
         draws, vertex_shader, vs_uniform, config.width, config.height, clip_cap=config.clip_cap,
         cull=config.cull_backfaces, quirk=quirk)
-    return ti, tf, m, c, {"num_clipped": num_clipped}
+    return recs, bbox, m, c, {"num_clipped": num_clipped}
 
 
 def build_packed_plain(draws: Sequence, vertex_shader: Callable, vs_uniform, config: RenderConfig):
     """The plain version of :func:`build_packed`'s kernels, on the tensors'
-    device: ``raster.pack_binned(build_triangles(...))``."""
+    device: ``raster.pack_binned(build_triangles(...))``, its rows turned
+    into records (``raster.slot_records``), and its bbox rows."""
     tri, stats = build_triangles(draws, vertex_shader, vs_uniform, config)
-    return (*raster.pack_binned(tri, config.width, config.height), tri.num_slots, tri.num_channels, stats)
+    ti, tf = raster.pack_binned(tri, config.width, config.height)
+    bbox = ti[raster.MINXY:raster.MAXXY + 1].clone()
+    return raster.slot_records(ti, tf), bbox, tri.num_slots, tri.num_channels, stats
 
 
 def context_codec(vertex_shader: Callable, vs_uniform, draw) -> ContextCodec:
@@ -222,8 +226,8 @@ def render_frame(
     raster kernel interpolates (render.py:248-267 of the JAX package).
     ``config.backend="portable"`` rasterizes with ``rasterize_portable`` and
     shades with ``shade_deferred`` (render.py:269-279 there), launching no
-    kernel (:func:`portable_shader`). The kernels backend bins the packed
-    rows of :func:`build_packed`.
+    kernel (:func:`portable_shader`). The kernels backend bins the slot
+    records of :func:`build_packed`.
     """
     if config.backend != "kernels":
         tri, stats = build_triangles(draws, vertex_shader, vs_uniform, config)
@@ -234,18 +238,18 @@ def render_frame(
             vectorized=config.shade_vectorized,
         )
         return frame, depth, stats
-    ti, tf, n_slots, n_ctx, stats = build_packed(draws, vertex_shader, vs_uniform, config)
+    recs, bbox, n_slots, n_ctx, stats = build_packed(draws, vertex_shader, vs_uniform, config)
     if (
         config.fused_shade
         and hasattr(pixel_shader, "fused_kind")
         and fused_path_ok(pixel_shader, ps_uniform)
     ):
-        prep = prep_packed(ti, tf, n_slots, n_ctx, config)
+        prep = prep_packed(recs, bbox, n_slots, n_ctx, config)
         frame, depth, _ = render_fused_prepared(prep, pixel_shader, ps_uniform, config)
         return frame, depth, stats
     codec = context_codec(vertex_shader, vs_uniform, draws[0])
     # the bin settings of raster.rasterize_interp: the tile alone
-    prep = raster.bin_packed(ti, tf, n_slots, n_ctx, config.width, config.height, config.tile)
+    prep = raster.bin_packed(recs, bbox, n_slots, n_ctx, config.width, config.height, config.tile)
     ctx, ps_idx, winner, depth = interp_planes(prep)
     frame = shade_from_planes(
         ctx, ps_idx, winner, pixel_shader, ps_uniform, codec, background=config.background,

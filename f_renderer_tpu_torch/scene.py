@@ -93,8 +93,9 @@ class Scene:
             raise ValueError("texture stack exceeds the fused kernel's budget (PACKED_VMEM_BUDGET)")
         if self.device.type == "cuda":
             return compiled.scene_prepare(self)
-        ti, tf, n_slots, n_ctx, _ = build_packed(list(self.draws), self.vertex_shader, self.vs_uniform, self.config)
-        return prep_packed(ti, tf, n_slots, n_ctx, self.config)
+        recs, bbox, n_slots, n_ctx, _ = build_packed(list(self.draws), self.vertex_shader, self.vs_uniform,
+                                                     self.config)
+        return prep_packed(recs, bbox, n_slots, n_ctx, self.config)
 
     def render_prepared(self, prepared: BinnedPrep):
         """Render from :meth:`prepare` products, reading only the shading

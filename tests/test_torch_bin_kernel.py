@@ -1,21 +1,27 @@
 """The binning kernels (csrc/bin_pairs.cu) against their plain version,
-``raster.bin_packed`` on CPU tensors (``bin_pairs``' sort and two
-``index_select``).
+``raster.bin_packed`` on CPU tensors (``bin_bbox``' sort and an
+``index_select`` of the slot records).
 
 The kernels run only on the card. Here a numpy mirror of their counting
-sort stands in for them: the same stripes of slots (``kernels.bin_stripes``),
-each stripe's count per key, the exclusive scans over the stripes and over
-the keys (``off``), each pair placed at off[key] + its stripe's prefix +
-the pairs of that key earlier in the stripe (slot order), the padding pairs
-pointing at ``m_dummy``, and every packed row gathered. Where the plain
-version takes the packed 31-bit sort, ``off`` and every pair column must
-equal it bit for bit: both order the pairs by (key, slot). Cases: tiles of
-16, 32, 64 and 128 rows, k = 1, 2 and 4, the row slabs of
-tests/test_torch_origin.py (an origin), the sharded frame's ``m_dummy`` (the
-last column). Where it takes the stable two-operand sort (keys past 31
-bits), ``off`` is equal and each key's list is a permutation of the plain
-one. On the card the kernels are held to the plain version (``cuda``
-test).
+sort stands in for them, step by step: the stripes of slots
+(``kernels.bin_stripes``, a block each), each stripe's count per key
+(bin_count_kernel), the exclusive scans over the stripes (bin_scan_kernel)
+and over the keys (``off``), then bin_pairs_kernel: each key's running
+place in a block (off[key] + the pairs of earlier stripes), 256 slots at a
+time, their pairs laid out slot-major and placed 256 at a time, a pair at
+its key's running place + the pairs of that key of earlier lanes of its
+warp (the kernel's ``__match_any_sync``), the warps' leaders moving each
+key's place on warp by warp; the padding pairs pointing at ``m_dummy``,
+and every record gathered in pair order (bin_gather_kernel). Where the
+plain version takes the packed 31-bit sort, ``off`` and every pair column
+must equal it bit for bit: both order the pairs by (key, slot). Cases:
+tiles of 16, 32, 64 and 128 rows, k = 1, 2 and 4, the row slabs of
+tests/test_torch_origin.py (an origin), the sharded frame's ``m_dummy``
+(the last column). Where it takes the stable two-operand sort (keys past
+31 bits), ``off`` is equal and each key's list is a permutation of the
+plain one. On the card the kernels are held to the plain version (``cuda``
+test), from the set-up's bbox array, from packed rows (the record pass,
+``raster.bin_rows``) and from the records' own bbox words.
 """
 
 import dataclasses
@@ -27,20 +33,22 @@ import torch
 from f_renderer_tpu_torch import kernels, make_checker_texture, make_cube, make_phong_scene, make_uv_sphere
 from f_renderer_tpu_torch.pipeline import raster
 from f_renderer_tpu_torch.pipeline.raster import COARSE, LANES, MAXXY, MINXY, cdiv
-from f_renderer_tpu_torch.pipeline.render import build_packed
+from f_renderer_tpu_torch.pipeline.render import build_packed, build_triangles
 
 W, H = 640, 360
+BLOCK = kernels.BIN_BLOCK  # threads of a stripe's block: slots a chunk, pairs a round
 
 
 # ------------------------------------------------------------ the mirror
 
 
-def slot_keys(ti, th, grid_hw, k, kc, origin):
-    """Each slot's pair keys, as the kernels' ``slot_keys`` computes them
-    → (slot ids, keys) of every pair, slot-major."""
+def slot_keys(bbox, th, grid_hw, k, kc, origin):
+    """Each slot's pair keys as the kernels' ``slot_keys`` describes them →
+    (offset, y0, x0, ncols, stride, n) per slot: key j < n is offset + (y0
+    + j // ncols) * stride + x0 + j % ncols."""
     nty, ntx = grid_hw
     oy, ox = origin
-    lo, hi = ti[MINXY].astype(np.int64), ti[MAXXY].astype(np.int64)
+    lo, hi = bbox[0].astype(np.int64), bbox[1].astype(np.int64)
     minx, maxx = np.clip((lo & 0xFFFF) - ox, 0, ntx * LANES), np.clip((hi & 0xFFFF) - ox, 0, ntx * LANES)
     miny, maxy = np.clip((lo >> 16) - oy, 0, nty * th), np.clip((hi >> 16) - oy, 0, nty * th)
     nonempty = (maxx > minx) & (maxy > miny)
@@ -59,49 +67,74 @@ def slot_keys(ti, th, grid_hw, k, kc, origin):
     offset = np.where(small, 0, np.where(mid, ntiles, ntiles + cdiv(nty, COARSE) * ntxc))
     y0, x0 = np.where(small, ty0, np.where(mid, cy0, 0)), np.where(small, tx0, np.where(mid, cx0, 0))
     nc, stride = np.where(small, ncols, np.where(mid, ncolsc, 1)), np.where(small, ntx, np.where(mid, ntxc, 0))
-    slots, keys = [], []
-    for j in range(max(k, kc)):
-        on = j < n
-        s = np.nonzero(on)[0]
-        slots.append(s)
-        keys.append(offset[s] + (y0[s] + j // nc[s]) * stride[s] + x0[s] + j % nc[s])
-    slots, keys = np.concatenate(slots), np.concatenate(keys)
-    order = np.lexsort((keys, slots))  # slot-major, a slot's keys in j order
-    return slots[order], keys[order]
+    return offset, y0, x0, nc, stride, n
 
 
-def mirror_bin_pairs(tri_i32, tri_f32, *, th, grid_hw, k, kc, m_dummy, n_pad, origin=(0, 0)):
-    """The five launches of ``kernels.bin_pairs``, in numpy → (off, tri_i32,
-    tri_f32) in pair order."""
-    ti, tf = np.asarray(tri_i32), np.asarray(tri_f32)
-    m = ti.shape[1]
+def key_of(keys, s, j):
+    offset, y0, x0, nc, stride, _ = keys
+    return offset[s] + (y0[s] + j // nc[s]) * stride[s] + x0[s] + j % nc[s]
+
+
+def place_round(run, key, slot, ptri):
+    """One round of bin_pairs_kernel: ``key`` and ``slot`` of up to 256
+    consecutive pairs (thread t's pair t). Within each warp, a pair's rank
+    among the earlier lanes of its key (``__match_any_sync``); then warp 0
+    moves each key's running place on, warp by warp, and every pair lands
+    at its group's place + its rank."""
+    for w in range(0, key.size, 32):
+        kw, sw = key[w:w + 32], slot[w:w + 32]
+        for kk in np.unique(kw):
+            lanes = np.flatnonzero(kw == kk)  # the match: lanes in order, the first the leader
+            ptri[run[kk] + np.arange(lanes.size)] = sw[lanes]
+            run[kk] += lanes.size
+
+
+def mirror_bin_pairs(recs, bbox, *, n_ctx, th, grid_hw, k, kc, m_dummy, n_pad, origin=(0, 0)):
+    """The four launches of ``kernels.bin_pairs``, in numpy → (off,
+    tri_i32, tri_f32) in pair order."""
+    recs, bbox = np.asarray(recs), np.asarray(bbox)
+    m = recs.shape[0]
     nty, ntx = grid_hw
     n_keys = nty * ntx + cdiv(nty, COARSE) * cdiv(ntx, COARSE) + 1
     stripe, n_stripes = kernels.bin_stripes(m, n_keys)
-    slots, keys = slot_keys(ti, th, grid_hw, k, kc, origin)
-    stripes = slots // stripe
-    counts = np.zeros((n_keys, n_stripes), np.int64)  # bin_count_kernel
-    np.add.at(counts, (keys, stripes), 1)
-    prefix = np.cumsum(counts, axis=1) - counts  # bin_scan_kernel
-    off = np.concatenate([[0], np.cumsum(counts.sum(1))]).astype(np.int32)  # bin_offsets_kernel
-    # bin_pairs_kernel: a stripe's slots in order, each key's pairs counted on
-    by = np.lexsort((slots, stripes, keys))
-    group = keys[by] * n_stripes + stripes[by]
-    first = np.r_[True, group[1:] != group[:-1]]
-    start = np.maximum.accumulate(np.where(first, np.arange(by.size), 0))
-    rank = np.arange(by.size) - start
-    ptri = np.zeros(n_pad, np.int64)
-    ptri[off[keys[by]] + prefix[keys[by], stripes[by]] + rank] = slots[by]
+    assert stripe % BLOCK == 0
+    keys = slot_keys(bbox, th, grid_hw, k, kc, origin)
+    n = keys[5]
+    counts = np.zeros((n_stripes, n_keys), np.int64)  # bin_count_kernel
+    for j in range(int(n.max(initial=0))):
+        s = np.flatnonzero(j < n)
+        np.add.at(counts, (s // stripe, key_of(keys, s, j)), 1)
+    totals = counts.sum(0)  # bin_scan_kernel
+    prefix = np.cumsum(counts, axis=0) - counts
+    off = np.concatenate([[0], np.cumsum(totals)]).astype(np.int32)
+    ptri = np.full(n_pad, -1, np.int64)  # bin_pairs_kernel
+    for b in range(n_stripes):
+        run = off[:-1].astype(np.int64) + prefix[b]
+        hi = min((b + 1) * stripe, m)
+        for base in range(b * stripe, hi, BLOCK):
+            slots = np.arange(base, min(base + BLOCK, hi))
+            counts_t = n[slots]
+            total = int(counts_t.sum())
+            if total == 0:
+                continue
+            pre = np.cumsum(counts_t) - counts_t
+            for r in range(0, total, BLOCK):
+                q = np.arange(r, min(r + BLOCK, total))
+                lane_slot = np.searchsorted(pre, q, side="right") - 1  # the binary search
+                s = slots[lane_slot]
+                place_round(run, key_of(keys, s, q - pre[lane_slot]), s, ptri)
+    assert (ptri[:off[-1]] >= 0).all()
     src = np.where(np.arange(n_pad) < off[-1], ptri, m_dummy)  # bin_gather_kernel
-    return off, ti[:, src], tf[:, src]
+    pairs = recs[src]
+    rows_f = 9 + 3 * n_ctx
+    return off, pairs[:, :12].T.copy(), pairs[:, 12:12 + rows_f].T.copy().view(np.float32)
 
 
 # ------------------------------------------------------------ cases
 
 
-def packed_scene(th=None, bin_k=None):
-    """Three draws at 640 x 360 through ``build_packed`` (the plain set-up
-    on the CPU)."""
+def three_draws(th=None, bin_k=None):
+    """Three draws at 640 x 360 on the CPU, with the tile and bin_k."""
     cube = make_cube(0.8)
     cube["pos"] = cube["pos"] + np.array([1.2, 0.0, 0.0], np.float32)
     cube2 = make_cube(0.6)
@@ -110,13 +143,27 @@ def packed_scene(th=None, bin_k=None):
                              textures=[make_checker_texture(16, 4)] * 3, device="cpu")
     scene.config = dataclasses.replace(scene.config, tile=None if th is None else (th, 128), bin_k=bin_k,
                                        tile_auto=th is None)
-    ti, tf, n, c, _ = build_packed(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
-    return scene.config, ti, tf, n, c
+    return scene
+
+
+def packed_scene(th=None, bin_k=None):
+    """:func:`three_draws` through ``build_packed`` (the plain set-up on
+    the CPU) → (config, records, bbox, slots, C)."""
+    scene = three_draws(th, bin_k)
+    recs, bbox, n, c, _ = build_packed(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+    return scene.config, recs, bbox, n, c
+
+
+def packed_rows(th=None, bin_k=None):
+    """:func:`three_draws`' packed rows (``raster.pack_binned``)."""
+    scene = three_draws(th, bin_k)
+    tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+    return raster.pack_binned(tri, W, H)
 
 
 def bins(prep, k):
     """The args ``bin_packed`` gives the kernels for ``prep``'s grid."""
-    return dict(th=prep.th, grid_hw=(prep.h_pad // prep.th, prep.w_pad // LANES), k=k, kc=k)
+    return dict(n_ctx=prep.n_ctx, th=prep.th, grid_hw=(prep.h_pad // prep.th, prep.w_pad // LANES), k=k, kc=k)
 
 
 def assert_equal(got, prep):
@@ -134,10 +181,10 @@ def packed_sort(prep, m):
 @pytest.mark.parametrize("th", [16, 32, 64, 128])
 @pytest.mark.parametrize("k", [1, 2, 4])
 def test_mirror_equals_plain(th, k):
-    cfg, ti, tf, n, c = packed_scene(th, k)
-    prep = raster.bin_packed(ti, tf, n, c, cfg.width, cfg.height, cfg.tile, tile_auto=False, bin_k=k)
-    assert prep.th == th and packed_sort(prep, ti.shape[1])
-    got = mirror_bin_pairs(ti, tf, **bins(prep, k), m_dummy=n, n_pad=prep.tri_i32.shape[1])
+    cfg, recs, bbox, n, c = packed_scene(th, k)
+    prep = raster.bin_packed(recs, bbox, n, c, cfg.width, cfg.height, cfg.tile, tile_auto=False, bin_k=k)
+    assert prep.th == th and packed_sort(prep, recs.shape[0])
+    got = mirror_bin_pairs(recs, bbox, **bins(prep, k), m_dummy=n, n_pad=prep.tri_i32.shape[1])
     assert_equal(got, prep)
     off, ntiles = prep.off.numpy(), (prep.h_pad // th) * (prep.w_pad // LANES)
     assert off[-1] > 300 and (k > 1 or off[-1] > off[ntiles])  # at k = 1, coarse or spill pairs too
@@ -147,24 +194,26 @@ def test_mirror_equals_plain(th, k):
 def test_mirror_equals_plain_row_slabs(sp):
     """Row slabs with an origin, as tests/test_torch_origin.py cuts them, and
     cuts off the tile rows."""
-    cfg, ti, tf, n, c = packed_scene()
+    cfg, recs, bbox, n, c = packed_scene()
     slab = cfg.height // sp
     for y0, rows in [(lin * slab, slab) for lin in range(sp)] + [(8, 45), (45, 51)]:
-        prep = raster.bin_packed(ti, tf, n, c, cfg.width, cfg.height, cfg.tile, origin=(y0, 0),
+        prep = raster.bin_packed(recs, bbox, n, c, cfg.width, cfg.height, cfg.tile, origin=(y0, 0),
                                  size=(rows, cfg.width))
         k = 4
-        got = mirror_bin_pairs(ti, tf, **bins(prep, k), m_dummy=n, n_pad=prep.tri_i32.shape[1], origin=(y0, 0))
+        got = mirror_bin_pairs(recs, bbox, **bins(prep, k), m_dummy=n, n_pad=prep.tri_i32.shape[1],
+                               origin=(y0, 0))
         assert_equal(got, prep)
 
 
 def test_mirror_equals_plain_sharded_dummy():
     """The sharded frame's bin: the gathered columns' last one is the dummy
     (``parallel.sharding.fused_slab``)."""
-    cfg, ti, tf, n, c = packed_scene()
-    m = ti.shape[1]
-    prep = raster.bin_packed(ti, tf, n, c, cfg.width, cfg.height, cfg.tile, origin=(90, 0), size=(90, cfg.width),
-                             m_dummy=m - 1)
-    got = mirror_bin_pairs(ti, tf, **bins(prep, 4), m_dummy=m - 1, n_pad=prep.tri_i32.shape[1], origin=(90, 0))
+    cfg, recs, bbox, n, c = packed_scene()
+    m = recs.shape[0]
+    prep = raster.bin_packed(recs, bbox, n, c, cfg.width, cfg.height, cfg.tile, origin=(90, 0),
+                             size=(90, cfg.width), m_dummy=m - 1)
+    got = mirror_bin_pairs(recs, bbox, **bins(prep, 4), m_dummy=m - 1, n_pad=prep.tri_i32.shape[1],
+                           origin=(90, 0))
     assert_equal(got, prep)
     assert (prep.tri_i32.numpy()[raster.SLOT, int(prep.off[-1]):] == 0).all()  # the dummy: a padding column
 
@@ -186,9 +235,10 @@ def test_mirror_two_operand_sort_is_a_permutation():
     ti[raster.SLOT] = np.arange(m)
     tf[0] = np.arange(m, dtype=np.float32)
     ti_t, tf_t = torch.from_numpy(ti), torch.from_numpy(tf)
-    prep = raster.bin_packed(ti_t, tf_t, m - 1, 0, 1920, 1080, (16, 128), tile_auto=False, bin_k=2)
+    recs, bbox = raster.slot_records(ti_t, tf_t), ti_t[MINXY:MAXXY + 1]
+    prep = raster.bin_packed(recs, bbox, m - 1, 0, 1920, 1080, (16, 128), tile_auto=False, bin_k=2)
     assert not packed_sort(prep, m)
-    off, got_i, got_f = mirror_bin_pairs(ti, tf, **bins(prep, 2), m_dummy=m - 1, n_pad=prep.tri_i32.shape[1])
+    off, got_i, got_f = mirror_bin_pairs(recs, bbox, **bins(prep, 2), m_dummy=m - 1, n_pad=prep.tri_i32.shape[1])
     want = prep.off.numpy()
     np.testing.assert_array_equal(off, want)
     plain_slots = prep.tri_i32.numpy()[raster.SLOT]
@@ -200,22 +250,41 @@ def test_mirror_two_operand_sort_is_a_permutation():
     assert (got_f[0] == got_i[raster.SLOT]).all()  # every row is its slot's
 
 
+def test_rows_path_equals_records_path():
+    """``bin_rows`` (packed rows: their records, ``raster.slot_records``,
+    and their own bbox rows) gives the prep of ``bin_packed`` on the
+    set-up's records, and the records' own bbox words give it too."""
+    cfg, recs, bbox, n, c = packed_scene()
+    ti, tf = packed_rows()
+    args = (n, c, cfg.width, cfg.height, cfg.tile)
+    want = raster.bin_packed(recs, bbox, *args)
+    for got in (raster.bin_rows(ti, tf, *args), raster.bin_packed(recs, recs[:, MINXY:MAXXY + 1].T, *args)):
+        assert torch.equal(got.off, want.off) and torch.equal(got.tri_i32, want.tri_i32)
+        assert torch.equal(got.tri_f32.view(torch.int32), want.tri_f32.view(torch.int32))
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """On the card: ``bin_packed`` (the binning kernels, launches counted)
-    equals its plain version on the CPU, for the tiles, k and slabs above.
-    Run it with ``python -m pytest --noconftest -m cuda
-    tests/test_torch_bin_kernel.py``."""
+    equals its plain version on the CPU, for the tiles, k and slabs above,
+    from the set-up's bbox array, from the records' own bbox words and from
+    packed rows (``bin_rows``: the record pass, launched once). Run it with
+    ``python -m pytest --noconftest -m cuda tests/test_torch_bin_kernel.py``."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     for th, k, origin, size in [(16, 1, (0, 0), None), (32, 2, (0, 0), None), (64, 4, (0, 0), None),
                                 (128, 4, (0, 0), None), (None, None, (45, 0), (90, W)), (None, None, (8, 0), (37, W))]:
-        cfg, ti, tf, n, c = packed_scene(th, k)
+        cfg, recs, bbox, n, c = packed_scene(th, k)
+        ti, tf = packed_rows(th, k)
         args = (n, c, cfg.width, cfg.height, cfg.tile)
         kw = dict(tile_auto=th is None, bin_k=k, origin=origin, size=size)
-        want = raster.bin_packed(ti, tf, *args, **kw)
-        before = kernels.bin_pairs.launches
-        got = raster.bin_packed(ti.cuda(), tf.cuda(), *args, **kw)
-        assert kernels.bin_pairs.launches == before + 1
-        assert torch.equal(got.off.cpu(), want.off) and torch.equal(got.tri_i32.cpu(), want.tri_i32)
-        assert torch.equal(got.tri_f32.cpu().view(torch.int32), want.tri_f32.view(torch.int32))
+        want = raster.bin_packed(recs, bbox, *args, **kw)
+        r, b = recs.cuda(), bbox.cuda()
+        for run in (lambda: raster.bin_packed(r, b, *args, **kw),
+                    lambda: raster.bin_packed(r, r[:, MINXY:MAXXY + 1].T, *args, **kw),
+                    lambda: raster.bin_rows(ti.cuda(), tf.cuda(), *args, **kw)):
+            before = kernels.bin_pairs.launches, kernels.slot_records.launches
+            got = run()
+            assert kernels.bin_pairs.launches == before[0] + 1 and kernels.slot_records.launches - before[1] <= 1
+            assert torch.equal(got.off.cpu(), want.off) and torch.equal(got.tri_i32.cpu(), want.tri_i32)
+            assert torch.equal(got.tri_f32.cpu().view(torch.int32), want.tri_f32.view(torch.int32))

@@ -1,5 +1,7 @@
 """The triangle set-up kernels (csrc/tri_setup.cu) against their plain
-version, ``raster.pack_binned(render.build_triangles(...))``, bit for bit.
+version, ``render.build_packed_plain``: the slot records
+(``raster.slot_records``) of ``raster.pack_binned(render.build_triangles(...))``
+and their bbox rows, bit for bit.
 
 The kernels run only on the card. Here a numpy mirror of them (one
 function per launch, the kernels' per-slot arithmetic in their order:
@@ -8,9 +10,11 @@ saturating cast, uint32 edge coefficients, the per-draw reductions and the
 quirk's pass) stands in for them under ``geometry.packed_geometry`` on CPU
 tensors, so the port's own orchestration (the vertex shader per draw, the
 draw table, the clip path written into the fan words, the accumulator's
-views) runs as it does on the card. Every packed column must equal the
-plain version's, invalid and padding columns included (NaN equal to any
-NaN). Launch 1 here reads the vertex shader's planes (its planes mode, a
+views) runs as it does on the card. The mirror writes a record a slot
+(the 12 int words, the float words as bits, zeros to whole sectors) and the
+(2, m_pad) bbox array, into arrays it fills with ``GARBAGE`` first: every
+record and bbox word must equal the plain version's, invalid and padding
+slots included (a float word's NaN equal to any NaN). Launch 1 here reads the vertex shader's planes (its planes mode, a
 custom shader's route): the builtin shaders run untagged
 (:func:`untagged`). Its vertex modes, which run a tagged builtin's vertex
 stage in the launch, have their mirror and tests in
@@ -58,10 +62,18 @@ def sat_i32(x):
     return np.clip(x, F32(-2147483648.0), F32(2147483520.0)).astype(np.int32)
 
 
-def store_slots(ti, tf, col, t, ctx, valid, order, ps, cull, width, height):
-    """The kernels' ``store_slot`` over slots ``col``: ``t`` maps nx, ny,
-    sx, sy, rhw, ix, iy to (3, N) arrays, ``ctx`` is (3, C, N). Returns
-    the valid mask after the cull."""
+def record_views(recs, rows_f):
+    """The records (m_pad, rec) int32 seen as the packed rows: (tri_i32 (12,
+    m_pad), tri_f32 (rows_f, m_pad)) views that write through."""
+    return recs[:, :12].T, recs[:, 12:12 + rows_f].view(F32).T
+
+
+def store_slots(recs, bbox, col, t, ctx, valid, order, ps, cull, width, height):
+    """The kernels' ``store_slot`` over slots ``col``: each slot's record
+    (its padding words zeroed) and bbox words; ``t`` maps nx, ny, sx, sy,
+    rhw, ix, iy to (3, N) arrays, ``ctx`` is (3, C, N). Returns the valid
+    mask after the cull."""
+    ti, tf = record_views(recs, 9 + 3 * ctx.shape[1])
     nx, ny = t["nx"], t["ny"]
     nz = (nx[1] - nx[0]) * (ny[2] - ny[0]) - (ny[1] - ny[0]) * (nx[2] - nx[0])
     swap = nz > 0
@@ -102,6 +114,8 @@ def store_slots(ti, tf, col, t, ctx, valid, order, ps, cull, width, height):
     cs = np.stack([ctx[0], np.where(swap, ctx[2], ctx[1]), np.where(swap, ctx[1], ctx[2])])
     for v in range(3):
         tf[9 + v * c:9 + (v + 1) * c, col] = cs[v]
+    recs[col, 21 + 3 * c:] = 0
+    bbox[0, col], bbox[1, col] = ti[MINXY, col], ti[MAXXY, col]
     return valid
 
 
@@ -116,14 +130,15 @@ def accumulate(acc, n_draws, keys_word, d, valid, order, col):
 
 
 def mirror_tri_setup(table, clip, ctx, *, n_draws, nb, m, m_pad, width, height, cull, quirk):
-    """Launch 1 (tri_setup_kernel): every face's masks and path-A column."""
+    """Launch 1 (tri_setup_kernel): every face's masks, path-A record and
+    bbox words."""
     face_off, faces, slot_base, order_base = np.asarray(table, np.int64).reshape(4, n_draws)
     clip, ctx = np.asarray(clip, F32), np.asarray(ctx, F32)
     n_faces = clip.shape[1] // 3
     words, keys_word = kernels.acc_layout(n_draws)
     acc = np.zeros(words, np.int32)
-    ti = np.full((12, m_pad), GARBAGE, np.int32)
-    tf = np.full((9 + 3 * ctx.shape[0], m_pad), GARBAGE, np.int32).view(F32)
+    recs = np.full((m_pad, kernels.rec_words(9 + 3 * ctx.shape[0])), GARBAGE, np.int32)
+    bbox = np.full((2, m_pad), GARBAGE, np.int32)
     i = np.arange(n_faces)
     d = np.searchsorted(face_off, i, side="right") - 1
     fl = i - face_off[d]
@@ -140,7 +155,7 @@ def mirror_tri_setup(table, clip, ctx, *, n_draws, nb, m, m_pad, width, height, 
         b = w_ok & ~all_in
         col = slot_base[d] + fl
         order = (order_base[d] + fl * geometry.MAX_FAN).astype(np.int32)
-        valid = store_slots(ti, tf, col, t, np.stack([ctx[:, j] for j in idx]), w_ok & all_in, order,
+        valid = store_slots(recs, bbox, col, t, np.stack([ctx[:, j] for j in idx]), w_ok & all_in, order,
                             d.astype(np.int32), cull, width, height)
     for dd in range(n_draws):
         acc[dd] = (b & (d == dd)).sum()
@@ -148,13 +163,13 @@ def mirror_tri_setup(table, clip, ctx, *, n_draws, nb, m, m_pad, width, height, 
     acc[n_draws] = b.sum()
     if quirk:
         accumulate(acc, n_draws, keys_word, d, valid, order, col)
-    return ti, tf, b, acc
+    return recs, bbox, b, acc
 
 
-def mirror_tri_setup_slots(table, fan, ti, tf, acc, *, n_draws, nb, m, width, height, cull, quirk):
+def mirror_tri_setup_slots(table, fan, recs, bbox, acc, *, n_draws, nb, m, n_ctx, width, height, cull, quirk):
     """Launches 2 and 3 (tri_slots_kernel, tri_quirk_kernel), in place."""
     _, faces, slot_base, order_base = np.asarray(table, np.int64).reshape(4, n_draws)
-    c = (tf.shape[0] - 9) // 3
+    c = n_ctx
     fan = np.asarray(fan, np.int32)
     j = np.arange(n_draws * nb)
     d, s = j // nb, j % nb
@@ -177,9 +192,9 @@ def mirror_tri_setup_slots(table, fan, ti, tf, acc, *, n_draws, nb, m, width, he
     order = np.where(ran, fields["order"][:, 0], order_base[d]).astype(np.int32)
     col = slot_base[d] + faces[d] + s
     with np.errstate(all="ignore"):
-        valid = store_slots(ti, tf, col, t, ctx, valid_in, order, d.astype(np.int32), cull, width, height)
-    ti[:, m:] = 0
-    tf[:, m:] = 0
+        valid = store_slots(recs, bbox, col, t, ctx, valid_in, order, d.astype(np.int32), cull, width, height)
+    recs[m:] = 0
+    bbox[:, m:] = 0
     if quirk:
         words, keys_word = kernels.acc_layout(n_draws)
         accumulate(acc, n_draws, keys_word, d, valid, order, col)
@@ -189,7 +204,7 @@ def mirror_tri_setup_slots(table, fan, ti, tf, acc, *, n_draws, nb, m, width, he
         for dd in range(n_draws):
             if counts[dd] > 0:
                 start = offsets[dd - 1] if dd else 0
-                ti[PS, int(~keys[dd] & np.uint64(0xFFFFFFFF))] = np.searchsorted(offsets, start, side="left")
+                recs[int(~keys[dd] & np.uint64(0xFFFFFFFF)), PS] = np.searchsorted(offsets, start, side="left")
 
 
 def fake_tri_setup(table, clip, ctx, vertex=None, **kw):
@@ -197,12 +212,12 @@ def fake_tri_setup(table, clip, ctx, vertex=None, **kw):
         from test_torch_vertex_setup import mirror_vertex_launch
 
         return mirror_vertex_launch(table, clip, ctx, vertex, **kw)
-    ti, tf, b, acc = mirror_tri_setup(table.numpy(), clip.numpy(), ctx.numpy(), **kw)
-    return torch.from_numpy(ti), torch.from_numpy(tf), torch.from_numpy(b), torch.from_numpy(acc)
+    recs, bbox, b, acc = mirror_tri_setup(table.numpy(), clip.numpy(), ctx.numpy(), **kw)
+    return torch.from_numpy(recs), torch.from_numpy(bbox), torch.from_numpy(b), torch.from_numpy(acc)
 
 
-def fake_tri_setup_slots(table, fan, tri_i32, tri_f32, acc, **kw):
-    mirror_tri_setup_slots(table.numpy(), fan.numpy(), tri_i32.numpy(), tri_f32.numpy(), acc.numpy(), **kw)
+def fake_tri_setup_slots(table, fan, recs, bbox, acc, **kw):
+    mirror_tri_setup_slots(table.numpy(), fan.numpy(), recs.numpy(), bbox.numpy(), acc.numpy(), **kw)
 
 
 # ------------------------------------------------------------ scenes
@@ -291,9 +306,18 @@ def same_bits(a, b):
     return a.shape == b.shape and bool((a == b).all())
 
 
+def same_records(a, b, n_ctx):
+    """Two record arrays (m_pad, rec) int32 equal: their int and padding
+    words bit for bit, their float words too, a NaN equal to any NaN."""
+    a, b = np.asarray(a), np.asarray(b)
+    rf = 9 + 3 * n_ctx
+    return (a.shape == b.shape and same_bits(a[:, :12], b[:, :12]) and same_bits(a[:, 12 + rf:], b[:, 12 + rf:])
+            and same_bits(record_views(a, rf)[1], record_views(b, rf)[1]))
+
+
 def mirrored(monkeypatch, draws, vs, vs_uniform, config, in_graph=False):
     """``geometry.packed_geometry`` on CPU tensors with the mirror in the
-    kernels' place → (tri_i32, tri_f32, m, C, faces clipped). Launch 1 must
+    kernels' place → (recs, bbox, m, C, faces clipped). Launch 1 must
     run once, in the vertex mode of ``vs``'s tag, or reading planes if it
     has none."""
     modes = []
@@ -317,15 +341,16 @@ def mirrored(monkeypatch, draws, vs, vs_uniform, config, in_graph=False):
 
 
 def check_against_plain(monkeypatch, draws, vs, vs_uniform, config, in_graph=False):
-    ti, tf, m, c, clipped = mirrored(monkeypatch, draws, vs, vs_uniform, config, in_graph)
+    recs, bbox, m, c, clipped = mirrored(monkeypatch, draws, vs, vs_uniform, config, in_graph)
     tri, stats = build_triangles(draws, vs, vs_uniform, config)
     pi, pf = raster.pack_binned(tri, config.width, config.height)
+    want = raster.slot_records(pi, pf).numpy()
     assert (m, c) == (tri.num_slots, tri.num_channels)
     assert int(clipped) == int(stats["num_clipped"])
-    assert same_bits(ti.numpy(), pi.numpy()), np.argwhere(ti.numpy() != pi.numpy())[:8]
-    assert same_bits(tf.numpy(), pf.numpy())
-    bi, bf, bm, bc, bstats = build_packed(draws, vs, vs_uniform, config)  # on the CPU: the plain version
-    assert same_bits(bi.numpy(), pi.numpy()) and same_bits(bf.numpy(), pf.numpy()) and (bm, bc) == (m, c)
+    assert same_records(recs.numpy(), want, c), np.argwhere(recs.numpy() != want)[:8]
+    assert same_bits(bbox.numpy(), pi.numpy()[MINXY:MAXXY + 1])
+    br, bb, bm, bc, bstats = build_packed(draws, vs, vs_uniform, config)  # on the CPU: the plain version
+    assert same_records(br.numpy(), want, c) and same_bits(bb.numpy(), bbox.numpy()) and (bm, bc) == (m, c)
     assert int(bstats["num_clipped"]) == int(clipped)
     return tri, int(clipped)
 
@@ -391,7 +416,8 @@ def test_mirror_equals_plain_garbage_corners(monkeypatch, cull):
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """On the card: ``build_packed`` (the set-up kernels, launches counted)
-    equals ``pack_binned(build_triangles(...))`` bit for bit on the scenes
+    equals the records and bbox rows of ``pack_binned(build_triangles(...))``
+    bit for bit on the scenes
     above, launch 1 in its planes mode and in the phong vertex mode. Run it with ``python -m pytest --noconftest -m cuda
     tests/test_torch_tri_setup.py``."""
     if not torch.cuda.is_available():
@@ -415,9 +441,10 @@ def test_kernels_match_plain_on_card():
         draws = [{k: v.cuda() for k, v in d.items()} for d in draws]
         u = {k: v.cuda() for k, v in u.items()}
         before = kernels.tri_setup.launches
-        ti, tf, m, c, stats = build_packed(draws, vs, u, cfg)
+        recs, bbox, m, c, stats = build_packed(draws, vs, u, cfg)
         assert kernels.tri_setup.launches == before + 1
         tri, want = build_triangles(draws, vs, u, cfg)
         pi, pf = raster.pack_binned(tri, cfg.width, cfg.height)
-        assert same_bits(ti.cpu().numpy(), pi.cpu().numpy()) and same_bits(tf.cpu().numpy(), pf.cpu().numpy())
+        assert same_records(recs.cpu().numpy(), raster.slot_records(pi, pf).cpu().numpy(), c)
+        assert same_bits(bbox.cpu().numpy(), pi[MINXY:MAXXY + 1].cpu().numpy())
         assert int(stats["num_clipped"]) == int(want["num_clipped"])

@@ -36,8 +36,9 @@ plain version.
    clip path reads written and every other entry left as ``GARBAGE``)
    stands in for the kernel under ``geometry.packed_geometry`` on CPU
    tensors, with tests/test_torch_tri_setup.py's mirror of the rest of the
-   launch; every packed column must equal ``build_packed_plain``'s bit for
-   bit (a NaN equal to any NaN), for each kind, on a three-draw scene, the
+   launch; every slot record and bbox word must equal
+   ``build_packed_plain``'s bit for bit (a float word's NaN equal to any
+   NaN), for each kind, on a three-draw scene, the
    clip flips at 0, 1, cap and cap + 7 faces eagerly and in a graph frame's
    warm-up, back-face culling and the ps quirk on and off, one draw, an
    empty draw, a draw whose faces are all clipped, and corners with w = 0,
@@ -361,7 +362,7 @@ def mirror_vertex_launch(table, clip, ctx, vertex, **kw):
     corners of clipped faces and of each draw's last face."""
     n_draws = kw["n_draws"]
     planes = mirror_vertex(vertex)
-    ti, tf, b, acc = tri.mirror_tri_setup(table.numpy(), *planes, **kw)
+    recs, bbox, b, acc = tri.mirror_tri_setup(table.numpy(), *planes, **kw)
     face_off, faces = np.asarray(table.numpy(), np.int64).reshape(4, n_draws)[:2]
     write = b.copy()
     write[(face_off + faces - 1)[faces > 0]] = True
@@ -371,7 +372,7 @@ def mirror_vertex_launch(table, clip, ctx, vertex, **kw):
             d = np.searchsorted(face_off, i, side="right") - 1
             idx = 3 * face_off[d] + (i - face_off[d]) + np.arange(3) * faces[d]
             out[:, idx] = full[:, idx]
-    return torch.from_numpy(ti), torch.from_numpy(tf), torch.from_numpy(b), torch.from_numpy(acc)
+    return torch.from_numpy(recs), torch.from_numpy(bbox), torch.from_numpy(b), torch.from_numpy(acc)
 
 
 def scene_of(kind, color=False, seed=3):
@@ -587,6 +588,6 @@ def test_vertex_kernel_matches_plain_on_card():
             got = build_packed(draws, scene.vertex_shader, u, cfg)
             assert kernels.tri_setup.launches == before + 1
             want = build_packed_plain(draws, scene.vertex_shader, u, cfg)
-            assert tri.same_bits(got[0].cpu().numpy(), want[0].cpu().numpy()), kind
+            assert tri.same_records(got[0].cpu().numpy(), want[0].cpu().numpy(), want[3]), kind
             assert tri.same_bits(got[1].cpu().numpy(), want[1].cpu().numpy()), kind
             assert got[2:4] == want[2:4] and int(got[4]["num_clipped"]) == int(want[4]["num_clipped"])
