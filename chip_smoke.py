@@ -54,7 +54,9 @@ Phases, each reported on its own lines:
      inside the cube, on a face, on an edge and on its corner, and a view
      at length 3.0: the eight planes bit for bit (NaN equal to NaN, zeros
      with their signs), then the frames K5 marches from each; its
-     ``ptxas`` line must show no stack frame and no spills;
+     ``ptxas`` line must show no stack frame and no spills; its occupancy,
+     and per view the rays and warps its eight-slot path takes
+     (``raycast.eight_slot_rays``);
    - the triangle set-up kernels (csrc/tri_setup.cu, XLA's fusions of the
      chain from the vertex shader's outputs to the packed rows, written as
      slot records and a bbox array) and the binning kernels
@@ -107,7 +109,8 @@ Phases, each reported on its own lines:
    path's), phong1080_tex2048 ``Scene.render()`` (K4 and K3 once a frame,
    K1 never), the custom 12-varying shader's ``Scene.render()`` (K4 once a
    frame) and ``render_voxel_frame`` for voxel540 and voxel540dda (the
-   set-up kernel and K5 once a frame, each graph under 100 nodes), with
+   set-up kernel and K5 once a frame, each graph of 10 nodes: 11 less the
+   alive plane's cast, now that K5 reads its bytes), with
    frame times (CUDA events), checksums and per-stage times
    (eager). On the card each of these entry points but the portable one
    and ``render_prepared`` (eager: one K1 launch) replays one captured CUDA
@@ -115,9 +118,10 @@ Phases, each reported on its own lines:
    its launches are the kernels the device ran in them, read from CUPTI's
    kernel records in phase 4b, after every timing (no wrapper may count
    one). ``[split]`` lines, in 4b too: one replay each of phong1080
-   ``render()`` and ``prepare()``, stress4k ``render()`` and the captured
-   sharded frame under a trace of its kernels, memsets and memcpys with
-   their durations (the names with the most device time, their sum and
+   ``render()`` and ``prepare()``, stress4k ``render()``, the captured
+   sharded frame, voxel540 and voxel540dda under a trace of its kernels,
+   memsets and memcpys with their durations (the names with the most
+   device time, their sum and
    union against the replay's time, the faces clipped at the bench camera;
    the first three run no record pass, the sharded frame one). ``[graph]``
    lines: the first call captures; the graph's K1/K3/K4/K5 nodes (from its
@@ -194,6 +198,10 @@ KERNEL_FUNCTIONS = {"fused_raster": "fused_raster_kernel", "raster_planes": "ras
                     "voxel_setup": "voxel_setup_kernel", "tri_setup": "tri_setup_kernel",
                     "bin_pairs": "bin_pairs_kernel", "slot_records": "bin_records_kernel"}
 VOXEL_GRAPH_NODES = 100  # a voxel frame's graph holds fewer nodes than this
+# A voxel frame's graph nodes: 11 before K5 read the set-up's alive bytes,
+# one fewer without the cast to int32 between the set-up and the march.
+VOXEL_FRAME_NODES = 11 - 1
+VOXEL_SETUP_THREADS = 32 * 4  # voxel_setup_kernel's block (csrc/voxel_setup.cu: kCols x kRows)
 PHONG_GRAPH_NODES = 126  # phong1080's render() graph: half the 252 nodes it held with the PyTorch vertex shader
 
 failures = []
@@ -2207,15 +2215,28 @@ def main() -> int:
         log(f"  ptxas {line}")
     check(any("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in line for line in setup_lines),
           f"voxel_setup_kernel: a stack frame or spills ({setup_lines})")
+    import re
+
+    used = [line for line in setup_lines if "registers" in line]
+    if check(len(used) == 1, f"voxel_setup_kernel: no ptxas register line ({setup_lines})"):
+        regs = int(re.search(r"Used (\d+) registers", used[0]).group(1))
+        smem = int(re.search(r"(\d+) bytes smem", used[0]).group(1)) if "smem" in used[0] else 0
+        blocks, share = occupancy(regs, smem, VOXEL_SETUP_THREADS)
+        log(f"  occupancy voxel_setup_kernel: {regs} registers, {smem} B shared memory, "
+            f"{VOXEL_SETUP_THREADS} threads: {blocks} blocks an SM, {share:.2f} of its warps ({smi})")
     base_cfg = raycast.VoxelRenderConfig(width=VOXEL_W, height=VOXEL_H, level=VOXEL_LEVEL, length=VOXEL_LENGTH)
     cases = [(f"orbit {i}", *voxel_view(i), base_cfg) for i in range(FRAMES)]
     cases += [(view, eye, inv, base_cfg) for view, eye, inv in setup_views()]
     cases.append(("orbit 0 at length 3.0", *voxel_view(0, 3.0), dataclasses.replace(base_cfg, length=3.0)))
     worst_setup = 0.0
+    eight_slot = {}  # view → (rays, warps of 32 pixels of a row) the eight-slot path takes
     for view, eye, inv_mvp, cfg in cases:
         eye, inv_mvp = torch.from_numpy(eye).to(dev), torch.from_numpy(inv_mvp).to(dev)
         got = raycast.prepare_rays(eye, inv_mvp, cfg)
         want = plain(raycast.prepare_rays_plain, eye, inv_mvp, cfg)
+        eight = plain(raycast.eight_slot_rays, eye, inv_mvp, cfg)
+        w32 = cfg.width - cfg.width % 32
+        eight_slot[view] = (int(eight.sum()), int(eight[:, :w32].reshape(cfg.height, -1, 32).any(-1).sum()))
         ok, err = planes_equal(got, want)
         worst_setup = max(worst_setup, err)
         k = raycast.march_constants(cfg, grid_hit.shape[0])
@@ -2225,16 +2246,17 @@ def main() -> int:
               f"{int((frame_k != frame_p).sum())} rays")
         log(f"  voxel_setup {view} (length {cfg.length}): eight planes bit-equal={ok}, alive share "
             f"{float(got[3].float().mean()):.4f}, NaN t_max {int(torch.isnan(got[2]).sum())}, frames marched "
-            f"from them equal={torch.equal(frame_k, frame_p)}")
+            f"from them equal={torch.equal(frame_k, frame_p)}; the eight-slot path: {eight_slot[view][0]} of "
+            f"{cfg.width * cfg.height} rays, {eight_slot[view][1]} of {cfg.height * (cfg.width // 32)} warps")
     eye0, inv0 = (torch.from_numpy(a).to(dev) for a in voxel_view(0))
     launch = kernel_call("voxel_setup", lambda: raycast.prepare_rays(eye0, inv0, base_cfg))
     k_ms, p_ms, w_ms, each = timed(lambda: raycast.prepare_rays(eye0, inv0, base_cfg), launch,
                                    lambda: raycast.prepare_rays_plain(eye0, inv0, base_cfg), 20)
     n = VOXEL_W * VOXEL_H
     # inputs read once (eye, inv_mvp), seven f32 planes and one bool plane
-    # written; ~340 float32 operations a ray on the cnt <= 2 shortcut that
-    # every ray needs at least (the kernel's note counts them)
-    nbytes, ops = 12 + 64 + 29 * n, 340 * n
+    # written; ~340 float32 operations a ray on the two-slot pass, ~1,000
+    # more a ray on the eight-slot path (the kernel's note counts them)
+    nbytes, ops = 12 + 64 + 29 * n, 340 * n + 1000 * eight_slot["orbit 0"][0]
     b_ms, b_by = bound_ms(nbytes, ops)
     rows["setup"] = {
         "name": "voxel_setup (the voxel ray set-up, XLA's fusion)", "route": "cuda",
@@ -2243,6 +2265,7 @@ def main() -> int:
                     "fenced at raycast_pallas.py:310)",
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "wrapper_ms": w_ms, "max_abs_err": worst_setup, "bytes": nbytes, "ops": ops, "ptxas": setup_lines,
+        "kernels": ["voxel_setup_kernel"], "eight_slot_rays_warps": eight_slot,
     }
     log(f"  voxel540 voxel_setup time: kernel {each[0]:.4f} / {each[1]:.4f} ms (device), wrapper "
         f"{each[4]:.4f} / {each[5]:.4f} ms, plain {each[2]:.2f} / {each[3]:.2f} ms, bound {b_ms:.4f} ms by {b_by} "
@@ -2290,12 +2313,13 @@ def main() -> int:
         k_ms, p_ms, w_ms, each = timed(lambda: raycast.march(*rays0, table, k), launch,
                                        lambda: raycast.march_plain(*rays0, table, k), 10)
         # the same launch with every ray dead: the hit-bit pass, the launch and the output
-        dead = torch.zeros_like(rays0[3], dtype=torch.int32)
+        dead = torch.zeros_like(rays0[3])
         row["ms_no_rays"] = device_ms(lambda: launch(*rays0[:3], dead), 10)
         log(f"  voxel540 {traversal} K5 with every ray dead: {row['ms_no_rays']:.4f} ms (device)")
         n = rays0[2].numel()
-        # per ray: 8 input planes, 1 output; the table, times and hit bits; ~25 operations a query
-        nbytes = 36 * n + 4 * table.numel() + 4 * k.n_times + table.numel() // 8
+        # per ray: 7 f32 input planes, the alive byte, 1 output; the table, times and hit bits;
+        # ~25 operations a query
+        nbytes = 33 * n + 4 * table.numel() + 4 * k.n_times + table.numel() // 8
         ops = 25 * queries0 + 5 * n
         b_ms, b_by = bound_ms(nbytes, ops)
         rows[f"K5 {traversal}"] = dict(row, **{
@@ -2310,7 +2334,7 @@ def main() -> int:
             f"by {b_by} ({queries0} queries) (CUDA events; {smi})")
         if not k.dda:
             # the serial chain's queries over the same bytes
-            b2_ms, b2_by = bound_ms(36 * n + 4 * table.numel(), 25 * row["queries_serial"] + 5 * n)
+            b2_ms, b2_by = bound_ms(33 * n + 4 * table.numel(), 25 * row["queries_serial"] + 5 * n)
             rows["K5 fixed"].update(bound_ms_serial=b2_ms, bound_by_serial=b2_by)
 
     # 3f. K5 at level 6, where the hit bitmap (256 KiB) leaves shared memory for L2
@@ -2420,7 +2444,7 @@ def main() -> int:
     counted = []  # the graph paths' main-path runs, made after every timing (4b)
     split_frames = {}  # path → (its GraphFrame, its replay ms, a call that loads the bench camera's frame)
 
-    def graph_path(path, entry, eager, frames, expect, shape, keys, geometries=0, max_nodes=None):
+    def graph_path(path, entry, eager, frames, expect, shape, keys, geometries=0, max_nodes=None, own_nodes=None):
         """A main path through its entry point, whose frames replay one
         captured graph (``entry(i)``: frame i), beside its first
         ``EAGER_FRAMES`` frames run eagerly (``eager(i)``): the first call
@@ -2430,7 +2454,8 @@ def main() -> int:
         them; then the input copy, the replay and the output clone are timed
         alone. The graph must hold one conditional node (the clip path) for
         each of its ``geometries`` (draws, times face shards), and fewer than
-        ``max_nodes`` nodes where that is given. The counted run of its first frames as replays (launches from
+        ``max_nodes`` nodes where that is given, and ``own_nodes`` where
+        that is given. The counted run of its first frames as replays (launches from
         the device's trace) comes in 4b, after every timing, so that no time
         is taken after tracing: ``keys`` maps the JSON line's launch keys to
         wrapper names."""
@@ -2451,6 +2476,9 @@ def main() -> int:
         if max_nodes is not None:
             check(own < max_nodes, f"{path}: the graph holds {own} nodes, not fewer than {max_nodes}")
             log(f"[graph] {path}: {own} nodes (fewer than {max_nodes}: {own < max_nodes})")
+        if own_nodes is not None:
+            check(own == own_nodes, f"{path}: the graph holds {own} nodes, not {own_nodes}")
+            log(f"[graph] {path}: {own} nodes, {own_nodes} expected")
 
         def timed(run, n):
             torch.cuda.synchronize()
@@ -2741,7 +2769,8 @@ def main() -> int:
         path = "voxel540" if traversal == "fixed" else "voxel540dda"
         outs = graph_path(f"{path} render_voxel_frame", voxel_frame, voxel_eager, FRAMES,
                           dict(zero, voxel_march=FRAMES, voxel_setup=FRAMES), (VOXEL_H, VOXEL_W, 4),
-                          {key: "voxel_march", setup_key: "voxel_setup"}, max_nodes=VOXEL_GRAPH_NODES)
+                          {key: "voxel_march", setup_key: "voxel_setup"}, max_nodes=VOXEL_GRAPH_NODES,
+                          own_nodes=VOXEL_FRAME_NODES)
         hit = float((outs[0][..., :3] != 0).any(-1).float().mean())
         check(0.05 < hit < 0.9, f"{path}: implausible hit share {hit}")
         eye, inv_mvp = (torch.from_numpy(a).to(dev) for a in views[0])
@@ -2796,12 +2825,14 @@ def main() -> int:
 
     def split_replays():
         """4b. one replay of each split path (phong1080 ``render()`` and
-        ``prepare()``, stress4k ``render()``) at the bench camera, under a
-        device trace of its kernels, memsets and memcpys with their
-        durations: where the replay's time goes."""
+        ``prepare()``, stress4k ``render()``, the captured sharded frame,
+        voxel540 and voxel540dda) at the bench camera, under a device trace
+        of its kernels, memsets and memcpys with their durations: where the
+        replay's time goes."""
         sharded = "phong1080 compiled.sharded_frame (NCCL, world size 1)"
-        paths = [p for p in ("phong1080 Scene.render()", "phong1080 prepare()", "stress4k Scene.render()", sharded)
-                 if p in split_frames]
+        voxel = ("voxel540 render_voxel_frame", "voxel540dda render_voxel_frame")
+        paths = [p for p in ("phong1080 Scene.render()", "phong1080 prepare()", "stress4k Scene.render()", sharded,
+                             *voxel) if p in split_frames]
         for p in paths:
             split_frames[p][2]()  # the bench camera's inputs in the graph's buffers
         torch.cuda.synchronize()
@@ -2819,32 +2850,40 @@ def main() -> int:
         for p, part in zip(paths, parts):
             sp = split(part)
             ran = kernel_launches(name for *_, name in part)
-            # the set-up kernels write the records: no record pass, but in the sharded frame (PyTorch's rows)
-            want = (0, 1, 1) if p == sharded else (1, 1, 0)
-            check((ran["tri_setup"], ran["bin_pairs"], ran["slot_records"]) == want,
-                  f"{p}: the traced replay ran the set-up, binning and record pass kernels {ran['tri_setup']}, "
-                  f"{ran['bin_pairs']} and {ran['slot_records']} times, not {want}")
-            log(f"[split] {p}: set-up, binning and record pass (bin_records_kernel) kernels {ran['tri_setup']}, "
-                f"{ran['bin_pairs']}, {ran['slot_records']}")
-            leads = programmatic_leads(part)
-            log(f"[split] {p}: the binning's kernels start before the one ahead of them ends (programmatic edges "
-                f"kept in the graph) by {leads} us")
-            if p == "stress4k Scene.render()":
-                check(len(leads) == 3 and all(v > 0 for v in leads),
-                      f"{p}: the replay's binning kernels ran one after another ({leads} us): the graph lost its "
-                      f"programmatic edges")
-            # phong's vertex stage runs in launch 1 (tri_setup_kernel<kPhong>): no PyTorch kernel of it is left
-            phong = VERTEX_KINDS["phong"].code
-            check(p == sharded or any(f"tri_setup_kernelILi{phong}E" in name for *_, name in part),
-                  f"{p}: the traced replay's set-up kernel is not the phong vertex mode")
+            if p in voxel:
+                check((ran["voxel_setup"], ran["voxel_march"]) == (1, 1),
+                      f"{p}: the traced replay ran the set-up and march kernels {ran['voxel_setup']} and "
+                      f"{ran['voxel_march']} times, not once each")
+                log(f"[split] {p}: set-up and march kernels {ran['voxel_setup']}, {ran['voxel_march']}")
+                scene = "frame 0's view"
+            else:
+                # the set-up kernels write the records: no record pass, but in the sharded frame (PyTorch's rows)
+                want = (0, 1, 1) if p == sharded else (1, 1, 0)
+                check((ran["tri_setup"], ran["bin_pairs"], ran["slot_records"]) == want,
+                      f"{p}: the traced replay ran the set-up, binning and record pass kernels {ran['tri_setup']}, "
+                      f"{ran['bin_pairs']} and {ran['slot_records']} times, not {want}")
+                log(f"[split] {p}: set-up, binning and record pass (bin_records_kernel) kernels {ran['tri_setup']}, "
+                    f"{ran['bin_pairs']}, {ran['slot_records']}")
+                leads = programmatic_leads(part)
+                log(f"[split] {p}: the binning's kernels start before the one ahead of them ends (programmatic "
+                    f"edges kept in the graph) by {leads} us")
+                if p == "stress4k Scene.render()":
+                    check(len(leads) == 3 and all(v > 0 for v in leads),
+                          f"{p}: the replay's binning kernels ran one after another ({leads} us): the graph lost its "
+                          f"programmatic edges")
+                # phong's vertex stage runs in launch 1 (tri_setup_kernel<kPhong>): no PyTorch kernel of it is left
+                phong = VERTEX_KINDS["phong"].code
+                check(p == sharded or any(f"tri_setup_kernelILi{phong}E" in name for *_, name in part),
+                      f"{p}: the traced replay's set-up kernel is not the phong vertex mode")
+                scene = (f"the bench camera ({ANGLES[0]}), faces clipped per draw "
+                         f"{clipped_at_bench.get(p, clipped_at_bench['phong1080 Scene.render()'])}")
             others = foreign_kernels(part, port_names)
             log(f"[split] {p}: {sum(others.values())} kernels not of csrc/ in the replay (PyTorch's, CUDA's memset "
                 f"kernels), {sorted(others.items())}")
-            log(f"[split] {p}: one replay at the bench camera ({ANGLES[0]}), faces clipped per draw "
-                f"{clipped_at_bench.get(p, clipped_at_bench['phong1080 Scene.render()'])}; {sp['records']} records; device time summed {sp['sum_us']:.1f} us, busy "
-                f"(their union) {sp['busy_us']:.1f} us over a span of {sp['span_us']:.1f} us (idle gap "
-                f"{sp['gap_us']:.1f} us); the replay {split_frames[p][1] * 1e3:.1f} us (CUDA events, untraced; "
-                f"{smi})")
+            log(f"[split] {p}: one replay at {scene}; {sp['records']} records; device time summed "
+                f"{sp['sum_us']:.1f} us, busy (their union) {sp['busy_us']:.1f} us over a span of "
+                f"{sp['span_us']:.1f} us (idle gap {sp['gap_us']:.1f} us); the replay "
+                f"{split_frames[p][1] * 1e3:.1f} us (CUDA events, untraced; {smi})")
             for name, n, us in sp["top"]:
                 log(f"[split]   {us:9.2f} us  x{n:<5d} {name}")
         split_frames.clear()

@@ -82,7 +82,7 @@ typedef struct FrVoxelParams {
 // ((r^3 + 31) / 32,) int32 is scratch for the hit bitmap.
 int fr_voxel_march(FrVoxelParams p, const float* sx, const float* sy, const float* sz,
                    const float* dx, const float* dy, const float* dz, const float* tmax,
-                   const int32_t* alive, const int32_t* table, const float* times,
+                   const uint8_t* alive, const int32_t* table, const float* times,
                    int32_t* bits, int32_t* out, void* stream);
 
 // Voxel ray set-up: the width x height rays from eye (3,) f32 through

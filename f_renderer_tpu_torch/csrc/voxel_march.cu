@@ -151,7 +151,7 @@ voxel_march_kernel(const FrVoxelParams p, const float* __restrict__ sx,
                    const float* __restrict__ sy, const float* __restrict__ sz,
                    const float* __restrict__ dx, const float* __restrict__ dy,
                    const float* __restrict__ dz, const float* __restrict__ tmax,
-                   const int32_t* __restrict__ alive, const int32_t* __restrict__ table,
+                   const uint8_t* __restrict__ alive, const int32_t* __restrict__ table,
                    const float* __restrict__ times, const uint32_t* __restrict__ bits_g,
                    int32_t* __restrict__ out) {
   extern __shared__ uint32_t s_bits[];
@@ -234,7 +234,7 @@ voxel_march_kernel(const FrVoxelParams p, const float* __restrict__ sx,
 
 extern "C" int fr_voxel_march(FrVoxelParams p, const float* sx, const float* sy,
                               const float* sz, const float* dx, const float* dy,
-                              const float* dz, const float* tmax, const int32_t* alive,
+                              const float* dz, const float* tmax, const uint8_t* alive,
                               const int32_t* table, const float* times, int32_t* bits,
                               int32_t* out, void* stream) {
   if (p.n <= 0) return (int)cudaSuccess;

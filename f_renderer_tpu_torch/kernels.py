@@ -472,7 +472,8 @@ sample_bilinear.launches = 0
 def voxel_march(start, dirs, t_max, alive, table, times, k):
     """Launch the voxel march kernel (csrc/voxel_march.cu) on PyTorch's
     current stream. ``start`` and ``dirs`` are three f32 planes each, of
-    ``t_max``'s shape; ``alive`` int32 of that shape; ``table`` (r³,)
+    ``t_max``'s shape; ``alive`` bool of that shape (the set-up's plane,
+    read as bytes); ``table`` (r³,)
     int32; ``times`` the (k.n_times,) f32 sample-time table; ``k`` the
     march's constants (``voxel.raycast.MarchConstants``) → packed BGRA int32
     of that shape."""
@@ -482,7 +483,7 @@ def voxel_march(start, dirs, t_max, alive, table, times, k):
         for a, t in enumerate(planes):
             _need(t, f"{name}[{a}]", torch.float32, dev, shape)
     _need(t_max, "t_max", torch.float32, dev, shape)
-    _need(alive, "alive", torch.int32, dev, shape)
+    _need(alive, "alive", torch.bool, dev, shape)
     _need(table, "table", torch.int32, dev, (k.r ** 3,))
     _need(times, "times", torch.float32, dev, (k.n_times,))
     out = torch.empty(shape, dtype=torch.int32, device=dev)

@@ -54,13 +54,10 @@ def _unproject_dir_planes(width: int, height: int, inv_mvp):
     return [c / norm for c in d3]
 
 
-def _cube_intersect_planes(pos, dp, length):
-    """VoxelCube::intersect (voxel.rs:239-334) over per-axis ray planes.
-
-    pos: (3,) f32 ray origin (shared); dp: 3 (...) direction planes; length:
-    the cube side. Returns (start [3 planes], end [3 planes], valid (...)).
-    Element for element the JAX package's arithmetic.
-    """
+def _cube_points(pos, dp, length):
+    """The points VoxelCube::intersect (voxel.rs:239-314) collects, in the
+    order it pushes them: (pts, cnt), pts the MAX_POINTS slots of 3 planes
+    each (zeros where empty), cnt the points pushed (...) int32."""
     dev = dp[0].device
     zero = torch.zeros_like(dp[0])
     pts = [[zero, zero, zero] for _ in range(MAX_POINTS)]
@@ -123,17 +120,31 @@ def _cube_intersect_planes(pos, dp, length):
             )
             cond_b = (~is_parallel) & (~perp) & (~on_ray_line) & (t >= 0.0) & in_bounds
             pts, cnt = push(pts, cnt, b, cond_b)
+    return pts, cnt
 
+
+def _distance(p, pos):
+    """|p − pos| over 3 planes, summed as the JAX package sums it."""
+    dxp, dyp, dzp = p[0] - pos[0], p[1] - pos[1], p[2] - pos[2]
+    return true_sqrt(dxp * dxp + dyp * dyp + dzp * dzp)
+
+
+def _cube_intersect_planes(pos, dp, length):
+    """VoxelCube::intersect (voxel.rs:239-334) over per-axis ray planes.
+
+    pos: (3,) f32 ray origin (shared); dp: 3 (...) direction planes; length:
+    the cube side. Returns (start [3 planes], end [3 planes], valid (...)).
+    Element for element the JAX package's arithmetic.
+    """
+    pos = pos.to(torch.float32)
+    pts, cnt = _cube_points(pos, dp, length)
+    zero = torch.zeros_like(dp[0])
     valid = cnt > 0
     single = cnt == 1  # <2 points → (p0, p0) (voxel.rs:317-319)
 
     # Stable sort by distance to the ray origin (voxel.rs:321) as static
     # rank-selects over the 8 slots.
-    dk = []
-    for k in range(MAX_POINTS):
-        dxp, dyp, dzp = pts[k][0] - pos[0], pts[k][1] - pos[1], pts[k][2] - pos[2]
-        dist = true_sqrt(dxp * dxp + dyp * dyp + dzp * dzp)
-        dk.append(torch.where(k < cnt, dist, FAR))
+    dk = [torch.where(k < cnt, _distance(pts[k], pos), FAR) for k in range(MAX_POINTS)]
     rank = []
     for j in range(MAX_POINTS):
         r = torch.zeros_like(cnt)
@@ -415,7 +426,7 @@ def march(start, dirs, t_max, alive, table, k: MarchConstants):
 
     return kernels.voxel_march(
         [s.contiguous() for s in start], [d.contiguous() for d in dirs],
-        t_max.contiguous(), alive.to(torch.int32).contiguous(), table,
+        t_max.contiguous(), alive.contiguous(), table,
         sample_times(k, t_max.device), k,
     )
 
@@ -448,6 +459,19 @@ def prepare_rays_plain(eye, inv_mvp, config: VoxelRenderConfig):
     dp = _unproject_dir_planes(config.width, config.height, inv_mvp)
     start, t_max, alive = _rays_from_dirs(eye, dp, config.length)
     return start, dp, t_max, alive
+
+
+def eight_slot_rays(eye, inv_mvp, config: VoxelRenderConfig):
+    """The rays the set-up kernel's two-slot pass hands to its eight-slot
+    path → bool (H, W), in plain PyTorch on the tensors' device: more than
+    two points, or a kept point (the first, and the second where there are
+    two) whose distance to the eye is not below FAR. Elsewhere the sort of
+    the eight slots is one compare-and-swap of the first two."""
+    dp = _unproject_dir_planes(config.width, config.height, inv_mvp)
+    eye = eye.to(torch.float32)
+    pts, cnt = _cube_points(eye, dp, config.length)
+    d0, d1 = _distance(pts[0], eye), _distance(pts[1], eye)
+    return (cnt > 2) | ((cnt >= 1) & ~(d0 < FAR)) | ((cnt == 2) & ~(d1 < FAR))
 
 
 def prepare_rays(eye, inv_mvp, config: VoxelRenderConfig):
