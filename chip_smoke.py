@@ -44,10 +44,21 @@ Phases, each reported on its own lines:
      sliver640 (K4's device time at phong1080_tex2048 and custom12_360).
      Winner ids, texture ids and varyings bit-equal, depth
      within rtol 2.4e-7; the frames shaded from the kernels' planes
-     (K4 + K3) against the frames shaded from the plain planes with the
-     plain sampler, under the colour bar above;
-   - K3, the batched sampler, on the phong1080_tex2048 planes: within
-     1e-6 of the plain version;
+     (K4 + the shading kernel) against the frames shaded from the plain
+     planes with the plain sampler, under the colour bar above;
+   - K3, the batched sampler, on the phong1080_tex2048 planes and on
+     custom_tex1080's (its main path: phong1080's planes sampled by a
+     user's pixel shader): within 1e-6 of the plain version;
+   - the builtin shading of K4's planes (csrc/shade_planes.cu, XLA's
+     fusion of the JAX package's non-fused shading): against
+     ``shade_planes_plain`` byte for byte on phong1080_tex2048's K4 planes
+     at the bench angles, the K4 planes of gouraud800, textured_wide and
+     cube1080_flat (all four kinds), and crafted planes (NaN and ±inf uv
+     and normals, a zero normal, texture ids -1 and past the stack, every
+     pixel background, more varyings ahead of phong's, the textured shader
+     on phong's planes); its ``ptxas`` line with no stack frame or spills,
+     its occupancy, its time and bound at phong1080_tex2048, beside the same
+     shader run untagged (PyTorch's ops and K3);
    - the voxel ray set-up kernel (csrc/voxel_setup.cu, XLA's fusion of the
      JAX package's set-up): voxel540's 10 orbit views, the tests' crafted
      view (a zero direction, rays on a grid plane and along ±x), eyes
@@ -106,8 +117,13 @@ Phases, each reported on its own lines:
    ``Scene.render()`` at 0.10 / 0.15 / 0.20 (K1 once a frame, no face past
    the clip cap, frame 0 equal to the checked K1 frame), cube1080_flat
    through the portable backend (no kernel; winner equal to the kernel
-   path's), phong1080_tex2048 ``Scene.render()`` (K4 and K3 once a frame,
-   K1 never), the custom 12-varying shader's ``Scene.render()`` (K4 once a
+   path's), phong1080_tex2048 ``Scene.render()`` (K4 and the shading
+   kernel once a frame, K1 and K3 never, the checksum of the PyTorch
+   shading, a graph of fewer than half its 137 nodes), custom_tex1080
+   ``Scene.render()`` (a user's pixel shader that samples: K4 and K3 once a
+   frame; its frames equal the builtin textured shader's, which reads uv at
+   channel 6 of phong's varyings), the custom 12-varying shader's
+   ``Scene.render()`` (K4 once a
    frame) and ``render_voxel_frame`` for voxel540 and voxel540dda (the
    set-up kernel and K5 once a frame, each graph of 10 nodes: 11 less the
    alive plane's cast, now that K5 reads its bytes), with
@@ -118,13 +134,14 @@ Phases, each reported on its own lines:
    its launches are the kernels the device ran in them, read from CUPTI's
    kernel records in phase 4b, after every timing (no wrapper may count
    one). ``[split]`` lines, in 4b too: one replay each of phong1080
-   ``render()`` and ``prepare()``, stress4k ``render()``, the captured
+   ``render()`` and ``prepare()``, stress4k ``render()``, phong1080_tex2048
+   ``render()``, the captured
    sharded frame, voxel540 and voxel540dda under a trace of its kernels,
    memsets and memcpys with their durations (the names with the most
    device time, their sum and
    union against the replay's time, the faces clipped at the bench camera;
    the first three run no record pass, the sharded frame one). ``[graph]``
-   lines: the first call captures; the graph's K1/K3/K4/K5 nodes (from its
+   lines: the first call captures; the graph's kernel nodes (from its
    DOT) equal one eager frame's launches; the graph frames, timed in a
    second run, and the first three of them run eagerly (``render_frame``,
    ``voxel.voxel_frame``) are bit-equal, the prep of ``prepare()`` to
@@ -146,10 +163,11 @@ Phases, each reported on its own lines:
    origin against their plain versions with that origin, bit for bit (slab
    3 of 8 of phong1080, and sliver640 cut on and off its corners), with
    their device times beside those at origin (0, 0); the eight row slabs
-   of phong1080 (K1), phong1080_tex2048 (K4 + K3) and stress4k (K1)
-   stitched and held to the whole frame bit for bit, timed against it;
-   phong1080 through ``render_frame_grid`` on a 2 x 4 grid in one process
-   (8 K1 launches all-gathered; 16 K4 and 8 K3 streamed) and through
+   of phong1080 (K1), phong1080_tex2048 (K4 + the shading kernel) and
+   stress4k (K1) stitched and held to the whole frame bit for bit, timed
+   against it; phong1080 through ``render_frame_grid`` on a 2 x 4 grid in
+   one process (8 K1 launches all-gathered; 16 K4 and 8 of the shading
+   kernel streamed, no K3) and through
    ``render_frame_sharded`` with NCCL at world size 1 (one K1 a frame),
    each equal to the single-device frame; then the same captured:
    ``compiled.sharded_frame`` at world size 1 (its collectives recorded
@@ -189,12 +207,13 @@ SIZES = {"phong1080": (1920, 1080), "custom12_360": (640, 360), "phong_bin_k1": 
          "textured_wide": (800, 600), "gouraud800": (800, 600), "gouraud800_color": (800, 600),
          "cube1080_flat": (1920, 1080),
          "sliver640": (640, 360), "stress4k": (3840, 2160)}
-SIZES["phong1080_tex2048"] = SIZES["phong1080"]
+SIZES["phong1080_tex2048"] = SIZES["custom_tex1080"] = SIZES["phong1080"]
 TEX_SIDE = 2048
 EAGER_FRAMES = 3  # the eager frames run beside a graph path's, its first ones
 # Each wrapper's kernel function (csrc/), as the device's trace names it.
 KERNEL_FUNCTIONS = {"fused_raster": "fused_raster_kernel", "raster_planes": "raster_planes_kernel",
-                    "sample_bilinear": "sample_bilinear_kernel", "voxel_march": "voxel_march_kernel",
+                    "sample_bilinear": "sample_bilinear_kernel", "shade_planes": "shade_planes_kernel",
+                    "voxel_march": "voxel_march_kernel",
                     "voxel_setup": "voxel_setup_kernel", "tri_setup": "tri_setup_kernel",
                     "bin_pairs": "bin_pairs_kernel", "slot_records": "bin_records_kernel"}
 VOXEL_GRAPH_NODES = 100  # a voxel frame's graph holds fewer nodes than this
@@ -203,6 +222,12 @@ VOXEL_GRAPH_NODES = 100  # a voxel frame's graph holds fewer nodes than this
 VOXEL_FRAME_NODES = 11 - 1
 VOXEL_SETUP_THREADS = 32 * 4  # voxel_setup_kernel's block (csrc/voxel_setup.cu: kCols x kRows)
 PHONG_GRAPH_NODES = 126  # phong1080's render() graph: half the 252 nodes it held with the PyTorch vertex shader
+# phong1080_tex2048's render() graph: fewer than half the 137 nodes it held
+# with the builtin shading in PyTorch and K3; its frames 0-2 gave checksum
+# 95260 there, which the shading kernel must give too
+TEX2048_GRAPH_NODES = 137 // 2 + 1
+TEX2048_CHECKSUM = 95260
+SHADE_THREADS = 128  # shade_planes_kernel's block (csrc/shade_planes.cu: kThreads)
 
 failures = []
 
@@ -258,6 +283,12 @@ def custom12_shaders():
     return vertex, pixel
 
 
+def sample_uv_shader(u, ctx, ps_index):
+    """A user's pixel shader (no ``fused_kind``): the texture at uv, through
+    ``TextureStack.sample`` (K3 on the card)."""
+    return u["textures"].sample(ps_index, ctx["uv"][0], ctx["uv"][1])
+
+
 def build_scene(name, device):
     """The scenes the port runs, built with the port's own builders: the
     bench scenes of ``bench_scenes`` (``bench.py:60-154``) and variants."""
@@ -266,6 +297,10 @@ def build_scene(name, device):
 
     if name in ("phong1080", "gouraud800", "stress4k"):
         return bench_scenes.build_scene(name, device)
+    if name == "custom_tex1080":  # phong1080's scene and vertex stage, a user's pixel shader that samples (K3)
+        scene = bench_scenes.build_scene("phong1080", device)
+        scene.pixel_shader = sample_uv_shader
+        return scene
     if name == "cube1080_flat":
         return bench_scenes.build_scene("cube1080", device)
     if name == "gouraud800_color":  # draws with a colour: the vertex stage's base · light
@@ -1418,7 +1453,7 @@ def setup_launch(entry):
 
 def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
     """K1 and K4 with an origin against their plain versions; every row slab
-    of phong1080 (K1), phong1080_tex2048 (K4 + K3) and stress4k (K1)
+    of phong1080 (K1), phong1080_tex2048 (K4 + shade_planes) and stress4k (K1)
     stitched and held to the whole frame; a 2 x 4 grid's stages in this
     process, eagerly and captured (``compiled.grid_frame``);
     ``render_frame_sharded`` through NCCL at world size 1 (the process group
@@ -1510,8 +1545,13 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
                                         background=tex.config.background)
         return frame, depth, winner
 
-    timing["phong1080_tex2048 K4 + K3"] = slabs_timed("phong1080_tex2048 K4 + K3", lambda: tex_slab(0, h),
-                                                      tex_slab, h)
+    before = counts()
+    tex_slab(3 * slab)
+    ran = {k: n - before[k] for k, n in counts().items() if n != before[k]}
+    check(ran == {"raster_planes": 1, "shade_planes": 1, "bin_pairs": 1, "slot_records": 1},
+          f"phong1080_tex2048: a slab launched {ran}, not K4, shade_planes, the binning and the record pass once each")
+    timing["phong1080_tex2048 K4 + shade_planes"] = slabs_timed("phong1080_tex2048 K4 + shade_planes",
+                                                                lambda: tex_slab(0, h), tex_slab, h)
     check(torch.equal(tex_slab(0, h)[0], tex.render()[0]), "phong1080_tex2048: rasterize_interp + shade differs "
           "from Scene.render()")
     del tex, ttri
@@ -1555,8 +1595,9 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
     stream_cfg = dataclasses.replace(cfg, comm_mode="stream")
     outs, got = drive("phong1080 render_frame_grid 2 x 4 (stream, in one process)",
                       lambda i: render_frame_grid(*grid_args, stream_cfg, 2, 4), 1,
-                      dict(zero, raster_planes=16, sample_bilinear=8, bin_pairs=16, slot_records=16), (h, w, 4))
+                      dict(zero, raster_planes=16, shade_planes=8, bin_pairs=16, slot_records=16), (h, w, 4))
     launches["K4 grid 2x4 stream"] = got["raster_planes"]
+    launches["shade_planes grid 2x4 stream"] = got["shade_planes"]
     check(torch.equal(outs[0][0], whole_planes[0]) and torch.equal(outs[0][1], whole_planes[1]),
           "phong1080: the 2 x 4 grid's stream frame differs from the single-device fused_shade=False frame")
 
@@ -1605,8 +1646,8 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
             ("all_gather", cfg, cfg, {"fused_raster": 8, "bin_pairs": 8, "slot_records": 8},
              {"K1 grid 2x4 graph": "fused_raster"}),
             ("stream", stream_cfg, dataclasses.replace(cfg, fused_shade=False),
-             {"raster_planes": 16, "sample_bilinear": 8, "bin_pairs": 16, "slot_records": 16},
-             {"K4 grid 2x4 stream graph": "raster_planes", "K3 grid 2x4 stream graph": "sample_bilinear"})):
+             {"raster_planes": 16, "shade_planes": 8, "bin_pairs": 16, "slot_records": 16},
+             {"K4 grid 2x4 stream graph": "raster_planes", "shade_planes grid 2x4 stream graph": "shade_planes"})):
         def grid_now(c=c):
             return compiled.grid_frame(*sharded_args(), c, 2, 4)
 
@@ -1633,6 +1674,7 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
     rows["K1"]["launches_grid_2x4"] = launches.pop("K1 grid 2x4")
     rows["K1"]["launches_sharded_world1"] = launches.pop("K1 sharded world 1")
     rows["K4"]["launches_grid_2x4_stream"] = launches.pop("K4 grid 2x4 stream")
+    rows["shade_planes"]["launches_grid_2x4_stream"] = launches.pop("shade_planes grid 2x4 stream")
 
 
 def setup_phase(dev, smi, rows):
@@ -1883,6 +1925,186 @@ def setup_phase(dev, smi, rows):
     rows["bin_pairs"]["ptxas"] = [line for line in lines if line.startswith("bin_")]
 
 
+def shade_phase(dev, smi, rows):
+    """3c. the builtin shading of K4's planes (csrc/shade_planes.cu: XLA's
+    fusion of ``shade_from_planes`` over the builtin pixel shaders) against
+    its plain version ``shade_planes_plain`` on the card, byte for byte, each
+    frame one launch of the entry point ``shade.shade_from_planes``:
+    phong1080_tex2048's K4 planes at the bench angles; the K4 planes of
+    gouraud800, textured_wide and cube1080_flat (flat), so all four kinds;
+    crafted planes: NaN and ±inf uv and normals, a zero normal, texture ids
+    -1 and past the stack, every pixel background, three more varyings ahead
+    of the builtin's, contiguous planes, and the textured shader on phong's
+    planes (uv at channel 6). Its ``ptxas`` line (no stack frame or spills),
+    occupancy, device time, entry point and plain times and bound at
+    phong1080_tex2048's shapes; beside them the same shader untagged (the
+    PyTorch ops and K3, as the path ran before the kernel). Then K3 at its
+    main path's shapes: custom_tex1080's samples (phong1080's planes and
+    512^2 stack), against its plain version, timed."""
+    import re
+
+    import torch
+
+    from f_renderer_tpu_torch import kernels
+    from f_renderer_tpu_torch.pipeline import raster, shade
+    from f_renderer_tpu_torch.pipeline.render import build_triangles, context_codec
+    from f_renderer_tpu_torch.shaders.api import ContextCodec
+    from f_renderer_tpu_torch.shaders.builtin import LIGHT_COLOR, LIGHT_POS, make_textured_shaders, varying_offsets
+
+    log("[kernel-vs-plain] shade_planes (the non-fused path's builtin shading, XLA's fusion)")
+    lines = [line for line in kernels.ptxas_report() if line.startswith("shade_planes_kernel:")]
+    for line in lines:
+        log(f"  ptxas {line}")
+    check(any("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in line for line in lines),
+          f"shade_planes_kernel: a stack frame or spills ({lines})")
+    used = [line for line in lines if "registers" in line]
+    occ = None
+    if check(len(used) == 1, f"shade_planes_kernel: no ptxas register line ({lines})"):
+        regs = int(re.search(r"Used (\d+) registers", used[0]).group(1))
+        smem = int(re.search(r"(\d+) bytes smem", used[0]).group(1)) if "smem" in used[0] else 0
+        occ = occupancy(regs, smem, SHADE_THREADS)
+        log(f"  occupancy shade_planes_kernel: {regs} registers, {smem} B shared memory, {SHADE_THREADS} threads: "
+            f"{occ[0]} blocks an SM, {occ[1]:.2f} of its warps ({smi})")
+
+    def planes(scene, angle):
+        """K4's planes of ``scene`` at ``angle``, cropped to the frame (the
+        views the non-fused path shades)."""
+        set_angle(scene, angle)
+        tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+        prep = plain_prep(tri, scene.config, bin_k=scene.config.bin_k)
+        _, winner, ps, ctx = raster.raster_planes(prep, True)
+        h, w = prep.height, prep.width
+        return ctx[:, :h, :w], ps[:h, :w], winner[:h, :w]
+
+    worst = 0
+
+    def compare(tag, ctx, ps, winner, pixel, uniform, codec, bg):
+        nonlocal worst
+        kind = pixel.fused_kind
+        before = kernels.shade_planes.launches
+        got = shade.shade_from_planes(ctx, ps, winner, pixel, uniform, codec, background=bg)
+        launched = kernels.shade_planes.launches - before
+        want = plain(shade.shade_planes_plain, ctx, ps, winner, kind, uniform, codec, background=bg,
+                     light_pos=getattr(pixel, "light_pos", LIGHT_POS),
+                     light_color=getattr(pixel, "light_color", LIGHT_COLOR))
+        err = int((got.int() - want.int()).abs().max())
+        worst = max(worst, err)
+        equal = torch.equal(got, want)
+        check(launched == 1 and equal, f"shade_planes {tag}: {launched} launches, frame equal to the plain "
+                                       f"version's {equal} (max diff {err} u8)")
+        log(f"  {tag}: {kind}, C={ctx.shape[0]} (varyings at {varying_offsets(kind, codec)}), strides "
+            f"{ctx.stride()}: {launched} launch, frame byte-equal to the plain version's={equal} (max diff {err} u8), "
+            f"covered px {int((winner >= 0).sum())}")
+
+    tex = build_scene("phong1080_tex2048", dev)
+    codec = context_codec(tex.vertex_shader, tex.vs_uniform, tex.draws[0])
+    bg = tex.config.background
+    for angle in ANGLES:
+        ctx, ps, winner = planes(tex, angle)
+        compare(f"phong1080_tex2048@{angle}", ctx, ps, winner, tex.pixel_shader, tex.ps_uniform, codec, bg)
+    for name, angle in (("gouraud800", 0.1), ("textured_wide", 0.2), ("cube1080_flat", 0.1)):
+        scene = build_scene(name, dev)
+        s_ctx, s_ps, s_winner = planes(scene, angle)
+        compare(f"{name}@{angle}", s_ctx, s_ps, s_winner, scene.pixel_shader, scene.ps_uniform,
+                context_codec(scene.vertex_shader, scene.vs_uniform, scene.draws[0]), scene.config.background)
+        del scene, s_ctx, s_ps, s_winner
+
+    # crafted planes on phong1080_tex2048's at 0.10: rows of NaN, +inf and
+    # -inf uv, then of normals, a band of zero normals; ids -1 and past the stack
+    ctx, ps, winner = planes(tex, ANGLES[0])
+    h, w = winner.shape
+    special = torch.tensor([float("nan"), float("inf"), -float("inf")], device=dev)
+    odd = ctx.clone()
+    band = torch.arange(h, device=dev)
+    odd[6:8, band < 120] = special[band[band < 120] % 3][None, :, None]
+    odd[0:3, (band >= 120) & (band < 240)] = special[band[(band >= 120) & (band < 240)] % 3][None, :, None]
+    odd[0:3, (band >= 240) & (band < 300)] = 0.0
+    odd_ps = ps.clone()
+    odd_ps[:, ::7] = -1
+    odd_ps[:, 3::7] = tex.ps_uniform["textures"].t_count + 3
+    crafted = [("NaN / inf uv and normals, zero normals (contiguous planes)", odd, ps, winner, codec),
+               ("texture ids -1 and past the stack", ctx, odd_ps, winner, codec),
+               ("every pixel background", ctx, ps, torch.full_like(winner, -1), codec)]
+    aux = torch.rand((3, h, w), device=dev) * 10 - 5
+    crafted.append(("three more varyings ahead of phong's (aux)", torch.cat([aux, ctx]), ps, winner,
+                    ContextCodec((("aux", 3),) + codec.layout)))
+    for tag, c_ctx, c_ps, c_winner, c_codec in crafted:
+        compare(f"phong1080_tex2048@{ANGLES[0]} {tag}", c_ctx, c_ps, c_winner, tex.pixel_shader, tex.ps_uniform,
+                c_codec, bg)
+    textured = make_textured_shaders()[1]
+    for tag, c_ctx, c_ps in (("", ctx, ps), (" on the crafted planes and ids", odd, odd_ps)):
+        compare(f"phong1080_tex2048@{ANGLES[0]} the textured shader on phong's planes{tag}", c_ctx, c_ps, winner,
+                textured, tex.ps_uniform, codec, bg)
+    del odd, odd_ps, aux, crafted
+
+    # the time at the main path's shapes: phong1080_tex2048 at 0.10
+    pixel, uniform, stack = tex.pixel_shader, tex.ps_uniform, tex.ps_uniform["textures"]
+
+    def entry():
+        return shade.shade_from_planes(ctx, ps, winner, pixel, uniform, codec, background=bg)
+
+    launch = kernel_call("shade_planes", entry)
+    k_ms, p_ms, w_ms, each = timed(entry, launch, lambda: shade.shade_planes_plain(
+        ctx, ps, winner, "phong", uniform, codec, background=bg), 50, 3)
+
+    def untagged(u, c, p):
+        return pixel(u, c, p)
+
+    torch_ms = [cuda_ms(lambda: shade.shade_from_planes(ctx, ps, winner, untagged, uniform, codec, background=bg), 5)
+                for _ in range(2)]
+    n = winner.numel()
+    covered = winner >= 0
+    n_cov = int(covered.sum())
+    psm = torch.where(covered, ps, -1)
+    texels = texel_bytes(stack, psm, ctx[6], ctx[7])
+    # winner and output on every pixel; ps and the 8 channels phong reads on
+    # covered pixels; the texels they sample once. ~90 operations of
+    # lighting, ~60 of sampling and ~12 of packing a covered pixel, 2 a pixel
+    nbytes = 8 * n + (4 + 4 * 8) * n_cov + texels
+    ops = 162 * n_cov + 2 * n
+    b_ms, b_by = bound_ms(nbytes, ops)
+    rows["shade_planes"] = {
+        "name": "shade_planes (the non-fused path's builtin shading, XLA's fusion)", "route": "cuda",
+        "source": "f_renderer_tpu_torch/csrc/shade_planes.cu",
+        "replaces": "f_renderer_tpu/pipeline/shade.py:80 (no pallas_call: XLA's fusion of shade_from_planes over the "
+                    "builtin pixel shaders, shaders/builtin.py:67-163, with the sampler, shaders/texture.py:155)",
+        "ms": k_ms, "ms_each": each[:2], "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "wrapper_ms": w_ms, "max_abs_err": worst, "bytes": nbytes, "texel_bytes": texels, "ops": ops,
+        "covered": n_cov, "pixels": n, "torch_and_k3_ms": torch_ms, "ptxas": lines,
+        "occupancy": None if occ is None else {"blocks": occ[0], "warps": occ[1]},
+    }
+    log(f"  phong1080_tex2048@{ANGLES[0]} shade_planes time ({n} pixels, {n_cov} covered): kernel {each[0]:.4f} / "
+        f"{each[1]:.4f} ms (device), entry point {each[4]:.4f} / {each[5]:.4f} ms, plain {each[2]:.3f} / "
+        f"{each[3]:.3f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} B, {texels} of them texels; {ops} ops), share "
+        f"{b_ms / k_ms:.3f}; the same shader untagged (PyTorch's ops and K3, as the path ran before the kernel) "
+        f"{torch_ms[0]:.3f} / {torch_ms[1]:.3f} ms (CUDA events; {smi})")
+    del tex, ctx, ps, winner
+
+    # K3 where its main path now samples: custom_tex1080, a user's shader
+    # on phong1080's planes (three 512^2 maps)
+    scene = build_scene("custom_tex1080", dev)
+    ctx, ps, winner = planes(scene, ANGLES[0])
+    stack = scene.ps_uniform["textures"]
+    psm = torch.where(winner >= 0, ps, -1).contiguous()
+    u, v = ctx[6].contiguous(), ctx[7].contiguous()  # what TextureStack.sample hands the kernel
+    s_k, s_p = stack.sample(psm, u, v), plain(stack.sample_plain, psm, u, v)
+    s_err = float((s_k - s_p).abs().max())
+    check(s_err <= SAMPLE_ATOL, f"custom_tex1080: K3 samples differ by {s_err}")
+    launch = kernel_call("sample_bilinear", lambda: stack.sample(psm, u, v))
+    k_ms, p_ms, w_ms, each = timed(lambda: stack.sample(psm, u, v), launch,
+                                   lambda: stack.sample_plain(psm, u, v), 50, 3)
+    n, n_tex = psm.numel(), int((psm >= 0).sum())
+    nbytes = 28 * n + texel_bytes(stack, psm, u, v)
+    b_ms, b_by = bound_ms(nbytes, 60 * n_tex + 2 * n)
+    earlier = {f"tex2048_{k}": rows["K3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "wrapper_ms", "bytes",
+                                                         "ops", "max_abs_err")}
+    rows["K3"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, wrapper_ms=w_ms, bytes=nbytes,
+                      ops=60 * n_tex + 2 * n, max_abs_err=max(s_err, rows["K3"]["max_abs_err"]), **earlier)
+    log(f"  custom_tex1080@{ANGLES[0]} K3 ({n} samples, {n_tex} textured): max abs err {s_err:.3g}; kernel "
+        f"{each[0]:.4f} / {each[1]:.4f} ms (device), wrapper {each[4]:.4f} / {each[5]:.4f} ms, plain {each[2]:.2f} / "
+        f"{each[3]:.2f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} B) (CUDA events; {smi})")
+
+
 def main() -> int:
     import torch
 
@@ -1897,7 +2119,7 @@ def main() -> int:
         from f_renderer_tpu_torch.pipeline import fused, raster, shade
         from f_renderer_tpu_torch.pipeline.render import (
             build_packed, build_packed_plain, build_triangles, context_codec, rasterize, render_frame)
-        from f_renderer_tpu_torch.shaders.builtin import VERTEX_KINDS, shade_plain
+        from f_renderer_tpu_torch.shaders.builtin import VERTEX_KINDS, make_textured_shaders, shade_plain
         from f_renderer_tpu_torch.voxel import octree, raycast
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
@@ -2081,7 +2303,7 @@ def main() -> int:
     stress_frame = stress_got[0].clone()
     del prep32, args32, got32, want32, prep, args, stress_got, tri
 
-    # 3b. K4 against plain, both entry points; 3c. K3 on the same planes
+    # 3b. K4 against plain, both entry points; K3 on the same planes
     log(f"[time] {time.time() - t_start:.1f} s")
     log("[kernel-vs-plain] K4 raster_planes, K3 sample_bilinear")
     worst_ctx, worst_d4, worst_sample, worst_frame4 = 0.0, 0.0, 0.0, 0
@@ -2109,7 +2331,7 @@ def main() -> int:
             depth_k, winner_k, ps_k, ctx_k = (t[..., :h, :w] for t in got)
             depth_p, winner_p, ps_p, ctx_p = (t[..., :h, :w] for t in want)
             bg = scene.config.background
-            if scene_name in ("sliver640", "phong_bin_k1"):  # planes only: their phong shader samples through K3
+            if scene_name in ("sliver640", "phong_bin_k1"):  # planes only: 3c holds the shading to its plain version
                 continue
             if scene_name != "phong1080_tex2048":
                 frame_k = shade.shade_from_planes(ctx_k, ps_k, winner_k, scene.pixel_shader,
@@ -2131,7 +2353,8 @@ def main() -> int:
                     f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {ops} ops), share "
                     f"{b_ms / min(rows['K4']['custom12_360_ms']):.3f} ({smi})")
                 continue
-            # K3 on the main path's samples: the texture id where a pair won, uv.
+            # K3 on phong1080_tex2048's samples (its main path until the shading
+            # kernel; 3c times it on custom_tex1080's): the texture id where a pair won, uv.
             psm = torch.where(winner_k >= 0, ps_k, -1).contiguous()
             u, v = ctx_k[6].contiguous(), ctx_k[7].contiguous()
             s_k = stack.sample(psm, u, v)
@@ -2146,7 +2369,7 @@ def main() -> int:
                             scene.ps_uniform, codec, background=bg)
             f_err = frame_bar(f"{tag} frame", frame_k, frame_p)[0]
             worst_frame4 = max(worst_frame4, f_err)
-            log(f"  {tag}: K3 max abs err {s_err:.3g}, frame (K4 + K3) max diff {f_err} u8")
+            log(f"  {tag}: K3 max abs err {s_err:.3g}, frame (K4 + shade_planes) max diff {f_err} u8")
             if "K4" in rows:
                 continue
             tex2048_frame = frame_k.clone()
@@ -2203,6 +2426,10 @@ def main() -> int:
     rows["K4"]["max_abs_err_depth"] = worst_d4
     rows["K4"]["max_abs_err_frame_u8"] = worst_frame4
     rows["K3"]["max_abs_err"] = worst_sample
+
+    # 3c. the builtin shading of K4's planes against plain; K3 at custom_tex1080
+    log(f"[time] {time.time() - t_start:.1f} s")
+    shade_phase(dev, smi, rows)
 
     # 3d. the voxel ray set-up kernel against plain: the eight planes, then
     # the frames K5 marches from them
@@ -2427,14 +2654,19 @@ def main() -> int:
                  ("bin (the bin_pairs kernels: bin_packed)", lambda: raster.bin_packed(*bins, **kw)),
                  ("its plain version (bin_packed_plain)", lambda: raster.bin_packed_plain(*bins, **kw))]
         prep = raster.bin_packed(*bins, **kw)
-        if fused_ok:
+        kind = getattr(scene.pixel_shader, "fused_kind", None)
+        if kind is not None and fused_ok:
             parts += [("K1", lambda: fused.render_fused_prepared(prep, scene.pixel_shader, scene.ps_uniform, cfg))]
         else:
             codec = context_codec(scene.vertex_shader, scene.vs_uniform, scene.draws[0])
             depth, winner, ps, ctx = (t[..., :cfg.height, :cfg.width] for t in raster.raster_planes(prep, True))
             parts += [("K4", lambda: raster.raster_planes(prep, True)),
-                      ("shade (with K3)", lambda: shade.shade_from_planes(
-                          ctx, ps, winner, scene.pixel_shader, scene.ps_uniform, codec, background=cfg.background))]
+                      ("shade (the shade_planes kernel)" if kind else "shade (the user's shader: PyTorch, K3)",
+                       lambda: shade.shade_from_planes(ctx, ps, winner, scene.pixel_shader, scene.ps_uniform, codec,
+                                                       background=cfg.background))]
+            if kind:
+                parts += [("its plain version (shade_planes_plain)", lambda: shade.shade_planes_plain(
+                    ctx, ps, winner, kind, scene.ps_uniform, codec, background=cfg.background))]
         stages(path, parts)
 
     zero = dict.fromkeys(counts(), 0)
@@ -2727,13 +2959,48 @@ def main() -> int:
         return render_eager(s)[0]
 
     outs = graph_path("phong1080_tex2048 Scene.render()", tex_frame, tex_eager, FRAMES,
-                      dict(zero, raster_planes=FRAMES, sample_bilinear=FRAMES, tri_setup=FRAMES, bin_pairs=FRAMES),
-                      (h, w, 4), {"K4": "raster_planes", "K3": "sample_bilinear", "tri_setup tex2048": "tri_setup",
-                                  "bin_pairs tex2048": "bin_pairs"}, geometries=3)
-    check(torch.equal(outs[0], tex2048_frame), "phong1080_tex2048: Scene.render() at 0.10 differs from the checked K4 + K3 frame")
+                      dict(zero, raster_planes=FRAMES, shade_planes=FRAMES, tri_setup=FRAMES, bin_pairs=FRAMES),
+                      (h, w, 4), {"K4": "raster_planes", "shade_planes": "shade_planes", "tri_setup tex2048": "tri_setup",
+                                  "bin_pairs tex2048": "bin_pairs"}, geometries=3, max_nodes=TEX2048_GRAPH_NODES)
+    check(torch.equal(outs[0], tex2048_frame), "phong1080_tex2048: Scene.render() at 0.10 differs from the checked "
+          "K4 + shade_planes frame")
+    clipped_at_bench["phong1080_tex2048 Scene.render()"] = clipped_per_draw(scene, ANGLES[0])
     raster_stages("phong1080_tex2048", scene)
     set_angle(scene, ANGLES[0])
     clip_flip("phong1080_tex2048 Scene.render()", scene, scene.render, lambda: render_eager(scene))
+
+    # custom_tex1080: a user's pixel shader that samples, so K3 once a frame;
+    # its frames equal the builtin textured shader's on the same planes
+    # (shade_planes reading uv at channel 6 of phong's varyings)
+    scene = build_scene("custom_tex1080", dev)
+
+    def custom_tex_frame(i, s=scene):
+        set_angle(s, 0.10 + 0.05 * i)
+        return s.render()[0]
+
+    def custom_tex_eager(i, s=scene):
+        set_angle(s, 0.10 + 0.05 * i)
+        return render_eager(s)[0]
+
+    outs = graph_path("custom_tex1080 Scene.render()", custom_tex_frame, custom_tex_eager, FRAMES,
+                      dict(zero, raster_planes=FRAMES, sample_bilinear=FRAMES, tri_setup=FRAMES, bin_pairs=FRAMES),
+                      (h, w, 4), {"K3": "sample_bilinear", "K4 custom_tex1080": "raster_planes",
+                                  "tri_setup custom_tex1080": "tri_setup", "bin_pairs custom_tex1080": "bin_pairs"},
+                      geometries=3)
+    builtin_tex = dataclasses.replace(scene, pixel_shader=make_textured_shaders()[1],
+                                      config=dataclasses.replace(scene.config, fused_shade=False))
+    before = kernels.shade_planes.launches
+    equal = []
+    for i in range(EAGER_FRAMES):
+        set_angle(builtin_tex, 0.10 + 0.05 * i)
+        equal.append(torch.equal(outs[i], render_eager(builtin_tex)[0]))
+    check(all(equal) and kernels.shade_planes.launches == before + EAGER_FRAMES,
+          f"custom_tex1080: frames equal to the builtin textured shader's (fused_shade=False) {equal}, "
+          f"{kernels.shade_planes.launches - before} shade_planes launches")
+    log(f"[main-path] custom_tex1080: frames 0-{EAGER_FRAMES - 1} (K4 + K3) equal the builtin textured shader's on "
+        f"phong's planes (K4 + shade_planes, uv at channel 6)={equal}")
+    raster_stages("custom_tex1080", scene)
+    del builtin_tex, outs
 
     scene = build_scene("custom12_360", dev)
 
@@ -2816,23 +3083,27 @@ def main() -> int:
             check(host == zero, f"{path}: a graph frame called a wrapper ({host}), so it was no replay")
             check(got == want, f"{path}: the device ran {got} in {n} replays, expected {want}")
             check(all(same(a, b) for a, b in zip(outs, again)), f"{path}: the counted replays differ from the timed ones")
+            total = checksum(path, again, shape)
+            if path == "phong1080_tex2048 Scene.render()":
+                check(total == TEX2048_CHECKSUM, f"{path}: checksum {total}, the PyTorch shading's {TEX2048_CHECKSUM}")
             log(f"[main-path] {path} x{n}: launches {got} (the kernels the device ran in {n} replays, from "
                 f"CUPTI's records; the wrappers' counts {host}), host {host_ms:.3f} ms/frame under the trace, "
-                f"checksum {checksum(path, again, shape)} ({smi})")
+                f"checksum {total} ({smi})")
             launches.update({key: got[wrapper] for key, wrapper in keys.items()})
         counted.clear()
         split_replays()
 
     def split_replays():
         """4b. one replay of each split path (phong1080 ``render()`` and
-        ``prepare()``, stress4k ``render()``, the captured sharded frame,
-        voxel540 and voxel540dda) at the bench camera, under a device trace
-        of its kernels, memsets and memcpys with their durations: where the
-        replay's time goes."""
+        ``prepare()``, stress4k ``render()``, phong1080_tex2048 ``render()``,
+        the captured sharded frame, voxel540 and voxel540dda) at the bench
+        camera, under a device trace of its kernels, memsets and memcpys with
+        their durations: where the replay's time goes."""
         sharded = "phong1080 compiled.sharded_frame (NCCL, world size 1)"
         voxel = ("voxel540 render_voxel_frame", "voxel540dda render_voxel_frame")
-        paths = [p for p in ("phong1080 Scene.render()", "phong1080 prepare()", "stress4k Scene.render()", sharded,
-                             *voxel) if p in split_frames]
+        tex2048 = "phong1080_tex2048 Scene.render()"
+        paths = [p for p in ("phong1080 Scene.render()", "phong1080 prepare()", "stress4k Scene.render()", tex2048,
+                             sharded, *voxel) if p in split_frames]
         for p in paths:
             split_frames[p][2]()  # the bench camera's inputs in the graph's buffers
         torch.cuda.synchronize()
@@ -2875,6 +3146,11 @@ def main() -> int:
                 phong = VERTEX_KINDS["phong"].code
                 check(p == sharded or any(f"tri_setup_kernelILi{phong}E" in name for *_, name in part),
                       f"{p}: the traced replay's set-up kernel is not the phong vertex mode")
+                if p == tex2048:  # K4, then the shading kernel; no K3, no K1
+                    got = {k: ran[k] for k in ("raster_planes", "shade_planes", "sample_bilinear", "fused_raster")}
+                    check(got == {"raster_planes": 1, "shade_planes": 1, "sample_bilinear": 0, "fused_raster": 0},
+                          f"{p}: the traced replay ran {got}")
+                    log(f"[split] {p}: K4, shade_planes, K3 and K1 kernels {list(got.values())}")
                 scene = (f"the bench camera ({ANGLES[0]}), faces clipped per draw "
                          f"{clipped_at_bench.get(p, clipped_at_bench['phong1080 Scene.render()'])}")
             others = foreign_kernels(part, port_names)
@@ -2911,14 +3187,15 @@ def main() -> int:
     rows["setup"]["launches_voxel540dda"] = launches["setup dda"]
     rows["K1"]["launches_stress4k"] = launches["K1 stress4k"]
     for key in ("tri_setup", "bin_pairs"):
-        for path in ("stress4k", "tex2048", "custom12_360"):
+        for path in ("stress4k", "tex2048", "custom12_360", "custom_tex1080"):
             rows[key][f"launches_{path}"] = launches[f"{key} {path}"]
     rows["bin_pairs"]["launches_sharded_graph_world1"] = launches["bin_pairs sharded graph"]
     rows["K1"]["launches_render_prepared"] = launches["K1 render_prepared"]
     rows["K1"]["launches_sharded_graph_world1"] = launches["K1 sharded graph"]
     rows["K1"]["launches_grid_2x4_graph"] = launches["K1 grid 2x4 graph"]
     rows["K4"]["launches_grid_2x4_stream_graph"] = launches["K4 grid 2x4 stream graph"]
-    rows["K3"]["launches_grid_2x4_stream_graph"] = launches["K3 grid 2x4 stream graph"]
+    rows["shade_planes"]["launches_grid_2x4_stream_graph"] = launches["shade_planes grid 2x4 stream graph"]
+    rows["K4"]["launches_custom_tex1080"] = launches["K4 custom_tex1080"]
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed:")
         for f in failures:

@@ -14,7 +14,8 @@
 //  - once, for the winner: perspective-correct interpolation of the C
 //    varyings with the final depth (the GPU form of _deferred_update);
 //  - flat / gouraud / textured / phong shading, clip-and-truncate RGBA8
-//    pack, background fill.
+//    pack (shade.cuh, shared with the kernel that shades K4's planes,
+//    shade_planes.cu), background fill.
 // The arithmetic follows the JAX kernel expression by expression; with
 // --fmad=false and IEEE division/sqrt the results match the plain version
 // to the bit.
@@ -29,73 +30,12 @@
 
 #include "kernels.h"
 #include "raster_loop.cuh"
-#include "sampler.cuh"
+#include "shade.cuh"
 
 namespace {
 
 using namespace fr;
 constexpr int MAX_CTX = 8;
-
-__device__ __forceinline__ float nanmax0(float x) {
-  // jnp.maximum(x, 0): NaN propagates
-  return isnan(x) ? x : fmaxf(x, 0.0f);
-}
-
-__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
-  // 1/sqrtf (two correctly rounded steps), not rsqrtf: the plain version
-  // computes the same, bit for bit, on any device.
-  const float inv = 1.0f / sqrtf((x * x + y * y) + z * z);
-  x = x * inv;
-  y = y * inv;
-  z = z * inv;
-}
-
-__device__ __forceinline__ float pow32(float x) {
-  // lax.integer_pow(x, 32): five squarings, not powf
-#pragma unroll
-  for (int i = 0; i < 5; ++i) x = x * x;
-  return x;
-}
-
-__device__ __forceinline__ int u8_of(float p) {
-  // clip(p * 255, 0, 255) truncated; NaN gives 0
-  return (int)fminf(fmaxf(p * 255.0f, 0.0f), 255.0f);
-}
-
-__device__ void shade(const FrFusedParams& p, const float* __restrict__ view_pos,
-                      const int32_t* __restrict__ dims, const int32_t* __restrict__ texels,
-                      int ps, const float* ctx, float col[4]) {
-  if (p.kind == 0) {  // flat
-    col[0] = ctx[0]; col[1] = ctx[1]; col[2] = ctx[2]; col[3] = ctx[3];
-  } else if (p.kind == 1) {  // gouraud
-    col[0] = ctx[0]; col[1] = ctx[1]; col[2] = ctx[2]; col[3] = 1.0f;
-  } else if (p.kind == 2) {  // textured
-    fr_sample(dims, texels, p.t_count, p.hmax, p.wmax, p.opaque != 0, true, ps, ctx[0], ctx[1], col);
-  } else {  // phong: normal ctx[0..2], world pos ctx[3..5], uv ctx[6..7]
-    float nx = ctx[0], ny = ctx[1], nz = ctx[2];
-    const float px = ctx[3], py = ctx[4], pz = ctx[5];
-    normalize3(nx, ny, nz);
-    float ldx = p.light_pos[0] - px, ldy = p.light_pos[1] - py, ldz = p.light_pos[2] - pz;
-    normalize3(ldx, ldy, ldz);
-    const float diff = nanmax0((nx * ldx + ny * ldy) + nz * ldz);
-    float vdx = view_pos[0] - px, vdy = view_pos[1] - py, vdz = view_pos[2] - pz;
-    normalize3(vdx, vdy, vdz);
-    // reflect(-light_dir, n) = normalize(2 (L.N) N - L), L = -light_dir
-    const float d = -((ldx * nx + ldy * ny) + ldz * nz);
-    float rx = (2.0f * d) * nx + ldx, ry = (2.0f * d) * ny + ldy, rz = (2.0f * d) * nz + ldz;
-    normalize3(rx, ry, rz);
-    const float spec = pow32(nanmax0((vdx * rx + vdy * ry) + vdz * rz));
-    float tex[4];
-    fr_sample(dims, texels, p.t_count, p.hmax, p.wmax, p.opaque != 0, true, ps, ctx[6], ctx[7], tex);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float lc = p.light_color[c];
-      const float light = (p.ambient[c] + diff * lc) + (0.5f * spec) * lc;
-      col[c] = tex[c] * light;
-    }
-    col[3] = tex[3];
-  }
-}
 
 template <int R, bool kOrigin>
 __global__ void __launch_bounds__(TW * TY, 2)
@@ -139,11 +79,20 @@ fused_raster_kernel(const FrFusedParams p, const int32_t* __restrict__ tri_i32,
     }
     const int ps = tri_i32[PS * np + pair] & PS_MASK;
     winner_out[o] = tri_i32[SLOT * np + pair];
+    // A varying by its channel, chosen among the registers by compare and
+    // select: ctx indexed by a channel known only at run time (uv: 0 for
+    // textured, 6 for phong) would put the array in local memory.
+    const auto varying = [&](int ch) {
+      float v = ctx[0];
+#pragma unroll
+      for (int i = 1; i < MAX_CTX; ++i) v = ch == i ? ctx[i] : v;
+      return v;
+    };
     float col[4];
-    shade(p, view_pos, dims, texels, ps, ctx, col);
-    const uint32_t packed = (uint32_t)u8_of(col[0]) | ((uint32_t)u8_of(col[1]) << 8) |
-                            ((uint32_t)u8_of(col[2]) << 16) | ((uint32_t)u8_of(col[3]) << 24);
-    rgba[o] = (int32_t)packed;
+    // the kinds' own layouts (shaders/builtin.py PIXEL_KINDS): phong's
+    // normal, pos, uv at 0, 3, 6; every other kind's varying at 0
+    shade(p, view_pos, dims, texels, ps, varying, Varyings{0, 0, 3, p.kind == 2 ? 0 : 6}, col);
+    rgba[o] = pack_rgba8(col);
   }
 }
 

@@ -60,6 +60,29 @@ int fr_sample_bilinear(const int32_t* dims, const int32_t* texels, int t_count, 
                        const float* u, const float* v, float* out, int64_t n,
                        void* stream);
 
+// Mirrors kernels.ShadeParams: int32 and float fields only (no padding).
+typedef struct FrShadeParams {
+  int32_t h, w;         // the frame's rows and columns
+  int32_t ctx_channel;  // element stride between ctx's channel planes
+  int32_t ctx_row, ps_row, winner_row;  // row strides (the column stride is 1)
+  int32_t kind;         // 0 flat, 1 gouraud, 2 textured, 3 phong
+  int32_t color, normal, pos, uv;  // the first channel of each varying the kind reads
+  int32_t t_count;      // textures in the stack
+  int32_t hmax, wmax;   // stack extent
+  int32_t opaque;       // every real texel has alpha 255
+  int32_t bg_packed;    // background RGBA8
+  float light_pos[3];
+  float light_color[3];
+  float ambient[3];     // 0.1 * light_color, rounded once to float
+} FrShadeParams;
+
+// Builtin shading of K4's planes: ctx (C, h, w) f32, ps and winner (h, w)
+// int32, each through its strides → out (h, w) int32 RGBA8, contiguous;
+// view_pos (3), dims (t_count, 2), texels (t_count, hmax, wmax).
+int fr_shade_planes(FrShadeParams p, const float* ctx, const int32_t* ps, const int32_t* winner,
+                    const float* view_pos, const int32_t* dims, const int32_t* texels,
+                    int32_t* out, void* stream);
+
 // Mirrors kernels.VoxelParams: int32 and float fields only (no padding).
 typedef struct FrVoxelParams {
   int32_t n;          // rays

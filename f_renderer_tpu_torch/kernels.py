@@ -15,6 +15,9 @@ The kernels (the TPU kernel each replaces in brackets):
 - ``fused_raster`` — K1 with the K2 sampler inlined (pipeline/fused.py:525);
 - ``raster_planes`` — K4 (pipeline/raster_pallas.py:1562);
 - ``sample_bilinear`` — K3 (shaders/texture_pallas.py:497);
+- ``shade_planes`` — no Pallas kernel: XLA's fusion of the non-fused
+  path's builtin shading (pipeline/shade.py:80 shade_from_planes over
+  shaders/builtin.py:67-163, the sampler shaders/texture.py:155);
 - ``voxel_march`` — K5 (voxel/raycast_pallas.py:393);
 - ``voxel_setup`` — no Pallas kernel: XLA's fusion of the voxel ray set-up
   (voxel/raycast.py:34-264, fenced at raycast_pallas.py:310);
@@ -86,6 +89,15 @@ class FusedParams(ctypes.Structure):
         ("oy", ctypes.c_int32),
         ("ox", ctypes.c_int32),
     ]
+
+
+class ShadeParams(ctypes.Structure):
+    """Mirror of ``FrShadeParams`` in csrc/kernels.h."""
+
+    _fields_ = [(name, ctypes.c_int32) for name in (
+        "h", "w", "ctx_channel", "ctx_row", "ps_row", "winner_row", "kind", "color", "normal", "pos", "uv",
+        "t_count", "hmax", "wmax", "opaque", "bg_packed")] + [
+        ("light_pos", ctypes.c_float * 3), ("light_color", ctypes.c_float * 3), ("ambient", ctypes.c_float * 3)]
 
 
 class VoxelParams(ctypes.Structure):
@@ -210,6 +222,7 @@ def load_library() -> ctypes.CDLL:
     lib.fr_fused_raster.argtypes = [FusedParams] + [ptr] * 10 + [i32, ptr]
     lib.fr_raster_planes.argtypes = [i32] * 7 + [ptr] * 8 + [i32, ptr]
     lib.fr_sample_bilinear.argtypes = [ptr, ptr] + [i32] * 5 + [ptr] * 4 + [ctypes.c_int64, ptr]
+    lib.fr_shade_planes.argtypes = [ShadeParams] + [ptr] * 8
     lib.fr_voxel_march.argtypes = [VoxelParams] + [ptr] * 13
     lib.fr_voxel_setup.argtypes = [i32, i32, ctypes.c_float] + [ptr] * 5
     lib.fr_tri_setup.argtypes = [TriSetupParams] + [ptr] * 7 + [i32, ptr]
@@ -220,7 +233,8 @@ def load_library() -> ctypes.CDLL:
     lib.fr_if_node_begin.argtypes = [ptr] * 3
     lib.fr_if_node_end.argtypes = [ptr]
     lib.fr_stream_create.argtypes = [ctypes.POINTER(ptr)]
-    for fn in (lib.fr_fused_raster, lib.fr_raster_planes, lib.fr_sample_bilinear, lib.fr_voxel_march,
+    for fn in (lib.fr_fused_raster, lib.fr_raster_planes, lib.fr_sample_bilinear, lib.fr_shade_planes,
+               lib.fr_voxel_march,
                lib.fr_voxel_setup, lib.fr_tri_setup, lib.fr_tri_setup_vertex, lib.fr_tri_setup_slots,
                lib.fr_bin_pairs, lib.fr_bin_records,
                lib.fr_if_node_begin, lib.fr_if_node_end, lib.fr_stream_create):
@@ -467,6 +481,79 @@ def sample_bilinear(texels, dims, ps, u, v, *, opaque, replicate_clamp_bug):
 
 
 sample_bilinear.launches = 0
+
+
+def _need_plane(t: torch.Tensor, name: str, dtype, device, shape) -> None:
+    """A plane read through its strides: the column stride 1, every stride
+    below 2**31."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: need a {dtype} tensor of shape {tuple(shape)} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    if t.numel() and (t.stride(-1) != 1 or max(t.stride()) >= 2**31):
+        raise ValueError(f"{name}: need a column stride of 1 and strides below 2**31, got {t.stride()}")
+
+
+def shade_params(ctx, ps, winner, dims, texels, *, kind, varyings, opaque, bg_packed, light_pos,
+                 light_color) -> ShadeParams:
+    """:func:`shade_planes`'s launch parameters, every argument checked
+    (ValueError) on ``winner``'s device: the planes' shapes, dtypes and
+    strides, and the channels the kind reads inside ``ctx``."""
+    from f_renderer_tpu_torch.shaders.builtin import PIXEL_KINDS  # each kind's code and varyings
+
+    dev = winner.device
+    if winner.dim() != 2 or ctx.dim() != 3:
+        raise ValueError(f"shade_planes: need (C, H, W) planes and an (H, W) winner, got {tuple(ctx.shape)} "
+                         f"and {tuple(winner.shape)}")
+    (h, w), n_ctx = winner.shape, ctx.shape[0]
+    _need_plane(ctx, "ctx", torch.float32, dev, (n_ctx, h, w))
+    _need_plane(ps, "ps", torch.int32, dev, (h, w))
+    _need_plane(winner, "winner", torch.int32, dev, (h, w))
+    _need(texels, "texels", torch.int32, dev)
+    if texels.dim() != 3:
+        raise ValueError(f"texels: need (T, Hmax, Wmax), got {tuple(texels.shape)}")
+    _need(dims, "dims", torch.int32, dev, (texels.shape[0], 2))
+    if kind not in PIXEL_KINDS or h > 65535:
+        raise ValueError(f"shade_planes: kind {kind!r}, {h} rows (at most 65535)")
+    for name, width in PIXEL_KINDS[kind].varyings:
+        if not 0 <= varyings.get(name, -1) <= n_ctx - width:
+            raise ValueError(f"shade_planes: the {kind} shader reads {name!r} ({width} channels) at "
+                             f"{varyings.get(name)}, of {n_ctx} channels")
+    return ShadeParams(
+        h=h, w=w, ctx_channel=ctx.stride(0), ctx_row=ctx.stride(1), ps_row=ps.stride(0), winner_row=winner.stride(0),
+        kind=PIXEL_KINDS[kind].code, **{name: varyings.get(name, 0) for name in ("color", "normal", "pos", "uv")},
+        t_count=texels.shape[0], hmax=texels.shape[1], wmax=texels.shape[2], opaque=int(bool(opaque)),
+        bg_packed=bg_packed, light_pos=(ctypes.c_float * 3)(*light_pos),
+        light_color=(ctypes.c_float * 3)(*light_color),
+        # 0.1·lc rounds once, from the double product to float32, as the
+        # plain version's Python-float ambient term does
+        ambient=(ctypes.c_float * 3)(*(0.1 * c for c in light_color)),
+    )
+
+
+def shade_planes(ctx, ps, winner, view_pos, dims, texels, *, kind, varyings, opaque, bg_packed, light_pos,
+                 light_color):
+    """Launch the builtin shading of K4's planes (csrc/shade_planes.cu) on
+    PyTorch's current stream: ``ctx`` (C, H, W) f32 and ``ps`` / ``winner``
+    (H, W) int32, any strides with a column stride of 1 (K4's padded planes
+    cropped); the builtin pixel shader of ``fused_kind`` ``kind``, which
+    reads each of its varyings from the channel ``varyings`` gives for its
+    name; the stack's ``dims`` / ``texels`` and ``view_pos`` (3,) f32 →
+    (H, W) int32 RGBA8, ``bg_packed`` where winner < 0."""
+    dev = _on_cuda(winner, "shade_planes")
+    params = shade_params(ctx, ps, winner, dims, texels, kind=kind, varyings=varyings, opaque=opaque,
+                          bg_packed=bg_packed, light_pos=light_pos, light_color=light_color)
+    _need(view_pos, "view_pos", torch.float32, dev, (3,))
+    out = torch.empty(tuple(winner.shape), dtype=torch.int32, device=dev)
+    if out.numel():
+        lib = load_library()
+        err = lib.fr_shade_planes(params, ctx.data_ptr(), ps.data_ptr(), winner.data_ptr(), view_pos.data_ptr(),
+                                  dims.data_ptr(), texels.data_ptr(), out.data_ptr(), _stream(dev))
+        _check(lib, err, "fr_shade_planes")
+        _count(shade_planes)
+    return out
+
+
+shade_planes.launches = 0
 
 
 def voxel_march(start, dirs, t_max, alive, table, times, k):

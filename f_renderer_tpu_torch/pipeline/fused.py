@@ -32,17 +32,8 @@ from f_renderer_tpu_torch.pipeline import raster as R
 from f_renderer_tpu_torch.pipeline.raster import BinnedPrep
 from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
 from f_renderer_tpu_torch.shaders.api import ContextCodec
-from f_renderer_tpu_torch.shaders.builtin import LIGHT_COLOR, LIGHT_POS, shade_plain
-from f_renderer_tpu_torch.shaders.texture import PACKED_VMEM_BUDGET, TextureStack
-
-# Varying layout each fused kind's epilogue reads (key, width), key-sorted.
-LAYOUTS = {
-    "flat": (("color", 4),),
-    "gouraud": (("color", 3),),
-    "textured": (("uv", 2),),
-    "phong": (("normal", 3), ("pos", 3), ("uv", 2)),
-}
-KIND_IDS = {"flat": 0, "gouraud": 1, "textured": 2, "phong": 3}
+from f_renderer_tpu_torch.shaders.builtin import LIGHT_COLOR, LIGHT_POS, PIXEL_KINDS, shade_plain, shading_inputs
+from f_renderer_tpu_torch.shaders.texture import PACKED_VMEM_BUDGET
 
 
 def fused_path_ok(pixel_shader, ps_uniform) -> bool:
@@ -110,12 +101,7 @@ def render_fused_prepared(prep: BinnedPrep, pixel_shader, ps_uniform, config):
     from f_renderer_tpu_torch import kernels
 
     kind = pixel_shader.fused_kind
-    stack = ps_uniform.get("textures") if kind in ("textured", "phong") else None
-    if stack is None:
-        stack = TextureStack.dummy(dev)
-    view_pos = ps_uniform.get("view_pos")
-    if view_pos is None:
-        view_pos = torch.zeros(3, device=dev)
+    stack, view_pos = shading_inputs(kind, ps_uniform, dev)
     rgba, depth, winner = kernels.fused_raster(
         prep.off,
         prep.tri_i32,
@@ -127,7 +113,7 @@ def render_fused_prepared(prep: BinnedPrep, pixel_shader, ps_uniform, config):
         n_ctx=prep.n_ctx,
         h_pad=prep.h_pad,
         w_pad=prep.w_pad,
-        kind=KIND_IDS[kind],
+        kind=PIXEL_KINDS[kind].code,
         opaque=stack.opaque,
         bg_packed=background_packed(config.background),
         light_pos=getattr(pixel_shader, "light_pos", LIGHT_POS),
@@ -153,12 +139,11 @@ def render_fused_plain(prep: BinnedPrep, pixel_shader, ps_uniform, config, tiles
 
     # Shading epilogue: the builtin pixel shader on the planes, then RGBA8.
     kind = pixel_shader.fused_kind
-    layout = LAYOUTS[kind]
+    layout = PIXEL_KINDS[kind].varyings
     if ContextCodec(layout).num_channels != prep.n_ctx:
         raise ValueError(f"{kind} shading reads {layout}, the buffer has {prep.n_ctx} channels")
-    u = dict(ps_uniform)
-    if u.get("view_pos") is None:
-        u["view_pos"] = torch.zeros(3, device=dev)
+    stack, view_pos = shading_inputs(kind, ps_uniform, dev)
+    u = dict(ps_uniform, textures=stack, view_pos=view_pos)
     psm = torch.where(winner >= 0, ps, -1)
     color = shade_plain(
         kind, u, ContextCodec(layout).unflatten(ctx), psm,

@@ -14,6 +14,13 @@ The port's shader contract is planar: the pixel shader gets
 shader is called once per pixel instead (``{key: (k,)}``, a 0-d texture id,
 returning (4,)), the JAX package's ``vmap(vmap(shade_one))`` form, for
 scalar-style custom shaders that cannot broadcast.
+
+A builtin pixel shader (tagged ``fused_kind``) is not called: on the card
+one kernel shades the planes (``kernels.shade_planes``, csrc/shade_planes.cu:
+the pixel shader, the sampler, the pack and the background, where XLA
+fused them in the JAX package); on the CPU its plain version
+:func:`shade_planes_plain` does. The builtins broadcast, so
+``vectorized`` changes none of their frames.
 """
 
 from __future__ import annotations
@@ -24,8 +31,10 @@ import torch
 
 from f_renderer_tpu_torch.device import constant
 from f_renderer_tpu_torch.math.transforms import true_div
+from f_renderer_tpu_torch.pipeline.fused import background_packed
 from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
 from f_renderer_tpu_torch.shaders.api import ContextCodec
+from f_renderer_tpu_torch.shaders.builtin import LIGHT_COLOR, LIGHT_POS, shade_plain, shading_inputs, varying_offsets
 
 
 def interpolate_context(tri: TriangleBuffer, winner, width: int, height: int, *, origin=(0, 0)):
@@ -81,12 +90,17 @@ def shade_from_planes(
     ``ctx`` (C, H, W) f32, ``ps_idx``/``winner`` (H, W) int32. The pixel
     shader runs once on the whole frame (``vectorized``) or once per pixel
     (``torch.func.vmap`` over the flattened pixels); the background fills
-    pixels where winner < 0. Returns (H, W, 4) uint8.
-
-    The pack is ``clip(color · 255, 0, 255)`` truncated to u8, with NaN to 0:
-    what XLA's saturating float-to-u8 conversion gives the JAX package (a
-    NaN to u8 cast has no fixed value in PyTorch).
+    pixels where winner < 0. Returns (H, W, 4) uint8. A builtin pixel
+    shader (``fused_kind``) runs as :func:`shade_planes` on CUDA tensors
+    and as :func:`shade_planes_plain` on CPU tensors, whatever
+    ``vectorized`` says.
     """
+    kind = getattr(pixel_shader, "fused_kind", None)
+    if kind is not None:
+        light = dict(light_pos=getattr(pixel_shader, "light_pos", LIGHT_POS),
+                     light_color=getattr(pixel_shader, "light_color", LIGHT_COLOR))
+        entry = shade_planes_plain if winner.device.type == "cpu" else shade_planes
+        return entry(ctx, ps_idx, winner, kind, ps_uniform, codec, background=background, **light)
     # Background pixels carry garbage ctx; ps_index = -1 marks them so
     # samplers can exclude them (their color is replaced below anyway).
     ps_idx = torch.where(winner >= 0, ps_idx, -1)
@@ -102,10 +116,54 @@ def shade_from_planes(
             ctx.reshape(ctx.shape[0], h * w), ps_idx.reshape(h * w)
         )
         color = flat.reshape(4, h, w)
+    return _pack(color, winner, background)
+
+
+def _pack(color, winner, background):
+    """(4, H, W) colour → (H, W, 4) uint8: ``clip(color · 255, 0, 255)``
+    truncated, with NaN to 0 (what XLA's saturating float-to-u8 conversion
+    gives the JAX package; a NaN to u8 cast has no fixed value in PyTorch),
+    the background where winner < 0."""
     q = torch.clamp(color * 255.0, 0.0, 255.0)
     u8 = torch.where(torch.isnan(q), 0.0, q).to(torch.uint8).permute(1, 2, 0)
     bg = constant(tuple(background), u8.device, torch.uint8)
     return torch.where((winner >= 0)[..., None], u8, bg)
+
+
+def shade_planes_plain(ctx, ps_idx, winner, kind, ps_uniform, codec: ContextCodec, *, background=(0, 0, 0, 255),
+                       light_pos=LIGHT_POS, light_color=LIGHT_COLOR):
+    """The plain version of :func:`shade_planes`, on the tensors' device:
+    the builtin pixel shader of ``fused_kind`` ``kind`` (``builtin.shade_plain``,
+    the plain sampler) on the planes as :func:`shade_from_planes` runs a
+    pixel shader, and its pack. It launches no kernel on any device.
+    ValueError where ``codec`` lacks a varying the builtin reads or gives it
+    another width (``builtin.varying_offsets``)."""
+    varying_offsets(kind, codec)
+    stack, view_pos = shading_inputs(kind, ps_uniform, winner.device)
+    u = dict(ps_uniform, textures=stack, view_pos=view_pos)
+    ps_idx = torch.where(winner >= 0, ps_idx, -1)
+    color = shade_plain(kind, u, codec.unflatten(ctx), ps_idx, light_pos=light_pos, light_color=light_color)
+    return _pack(color, winner, background)
+
+
+def shade_planes(ctx, ps_idx, winner, kind, ps_uniform, codec: ContextCodec, *, background=(0, 0, 0, 255),
+                 light_pos=LIGHT_POS, light_color=LIGHT_COLOR):
+    """The builtin pixel shader of ``fused_kind`` ``kind`` on the planes,
+    packed, with the background where winner < 0, in one launch of
+    ``kernels.shade_planes`` (csrc/shade_planes.cu) → (H, W, 4) uint8. The
+    planes are read through their strides (K4's cropped planes need no
+    copy), each varying at the channel ``codec`` gives its name. CUDA
+    tensors only (it launches or raises); :func:`shade_planes_plain` is its
+    plain version."""
+    from f_renderer_tpu_torch import kernels
+
+    stack, view_pos = shading_inputs(kind, ps_uniform, winner.device)
+    rgba = kernels.shade_planes(
+        ctx, ps_idx, winner, view_pos.to(torch.float32).contiguous(), stack.dims, stack.texels, kind=kind,
+        varyings=varying_offsets(kind, codec), opaque=stack.opaque, bg_packed=background_packed(background),
+        light_pos=light_pos, light_color=light_color)
+    h, w = winner.shape
+    return rgba.view(torch.uint8).reshape(h, w, 4)
 
 
 def shade_deferred(

@@ -13,14 +13,16 @@ Vertex shaders carry ``fused_kind`` (and Gouraud's light constants) so the
 triangle set-up kernel runs them in its first launch (csrc/tri_setup.cu),
 from the draws' attributes; their bodies are that stage's plain version,
 and :func:`vertex_layout` gives their varyings without running them. Pixel
-shaders carry ``fused_kind`` (and the light constants) so the fused path
-knows them. Their bodies are the plain version of the fused kernel's
-shading epilogue (``csrc/fused_raster.cu``), written with the same
-expression shapes: the JAX package's planar epilogue (fused.py:46-117),
-not its norm-based ``_phong_lighting``. The shaders sample with
-``TextureStack.sample`` (the K3 kernel on the card); ``shade_plain`` runs
-the same bodies with the plain sampler, for the fused kernel's plain
-version.
+shaders carry ``fused_kind`` (and the light constants), so the pipeline
+never calls them: the fused kernel shades in its epilogue, and the
+non-fused path launches ``kernels.shade_planes`` on K4's planes, both
+through ``csrc/shade.cuh`` (:data:`PIXEL_KINDS`: each kind's code and
+varyings). Their bodies are the plain version of that shading, written
+with the same expression shapes: the JAX package's planar epilogue
+(fused.py:46-117), not its norm-based ``_phong_lighting``. Called directly
+they sample with ``TextureStack.sample`` (the K3 kernel on the card);
+``shade_plain`` runs the same bodies with the plain sampler, for the
+kernels' plain versions.
 
 Phong constants match phong.rs:128-132: white light at (1.2, 1.0, 2.0),
 ambient 0.1, specular 0.5 · (V·R)^32.
@@ -65,6 +67,44 @@ VERTEX_KINDS = {
                         (("normal", "normal"), ("pos", 3), ("uv", "uv"))),
     "gouraud": VertexKind(4, (("pos", 3, False), ("normal", 3, False), ("color", 3, True)), (("color", 3),)),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class PixelKind:
+    """A builtin pixel shader as the shading kernels run it (csrc/shade.cuh):
+    ``code``, its kind there; ``varyings``, what it reads, (name, width) in
+    codec order."""
+
+    code: int
+    varyings: tuple
+
+
+PIXEL_KINDS = {
+    "flat": PixelKind(0, (("color", 4),)),
+    "gouraud": PixelKind(1, (("color", 3),)),
+    "textured": PixelKind(2, (("uv", 2),)),
+    "phong": PixelKind(3, (("normal", 3), ("pos", 3), ("uv", 2))),
+}
+
+
+def varying_offsets(kind, codec) -> dict:
+    """The first channel of each varying the builtin pixel shader of
+    ``fused_kind`` ``kind`` reads, {name: channel}, in the layout of
+    ``codec`` (a ``ContextCodec``), which may hold other varyings too.
+    ValueError where the layout lacks one or gives it another width."""
+    if kind not in PIXEL_KINDS:
+        raise ValueError(f"no builtin pixel shader of kind {kind!r}")
+    starts, at = {}, 0
+    for name, width in codec.layout:
+        starts[name] = (at, width)
+        at += width
+    out = {}
+    for name, width in PIXEL_KINDS[kind].varyings:
+        if name not in starts or starts[name][1] != width:
+            raise ValueError(f"the {kind} pixel shader reads {name!r} of width {width}; the varyings are "
+                             f"{codec.layout}")
+        out[name] = starts[name][0]
+    return out
 
 
 def vertex_layout(vertex_shader, draw):
@@ -140,6 +180,20 @@ def phong_light_planar(n, p, view_pos, light_pos, light_color):
 def _textures(u, device) -> TextureStack:
     stack = u.get("textures")
     return stack if stack is not None else TextureStack.dummy(device)
+
+
+def shading_inputs(kind, u, device):
+    """The texture stack and eye the shading kernels read for the builtin
+    pixel shader of ``fused_kind`` ``kind`` from its uniforms ``u``: their
+    stack for textured and phong, else (or where they carry none) the dummy
+    stack; their ``view_pos``, else zeros. What is made here comes from
+    device constants, so a captured frame records no op for it."""
+    stack = u.get("textures") if kind in ("textured", "phong") else None
+    if stack is None:
+        stack = TextureStack(texels=constant(((0,),), device, torch.int32).view(1, 1, 1),
+                             dims=constant(((1, 1),), device, torch.int32))
+    view_pos = u.get("view_pos")
+    return stack, constant((0.0, 0.0, 0.0), device) if view_pos is None else view_pos
 
 
 def _flat_pixel(ctx):
