@@ -56,7 +56,9 @@ Phases, each reported on its own lines:
      cube1080_flat (all four kinds), and crafted planes (NaN and ±inf uv
      and normals, a zero normal, texture ids -1 and past the stack, every
      pixel background, more varyings ahead of phong's, the textured shader
-     on phong's planes); its ``ptxas`` line with no stack frame or spills,
+     on phong's planes), and phong and textured on an opaque non-square
+     stack past the routing limit (alpha from the taps); its ``ptxas`` line
+     with no stack frame or spills,
      its occupancy, its time and bound at phong1080_tex2048, beside the same
      shader run untagged (PyTorch's ops and K3);
    - the voxel ray set-up kernel (csrc/voxel_setup.cu, XLA's fusion of the
@@ -140,7 +142,11 @@ Phases, each reported on its own lines:
    memsets and memcpys with their durations (the names with the most
    device time, their sum and
    union against the replay's time, the faces clipped at the bench camera;
-   the first three run no record pass, the sharded frame one). ``[graph]``
+   the first three run no record pass, the sharded frame one; the set-up of
+   phong1080's ``render()`` and ``prepare()`` is launch 1 and at most a
+   fill, no conditional node's or clip path's kernel), then one phong1080
+   ``render()`` replay with a face clipped (the conditional node's body
+   runs; the frame equals the eager frame and the plain chain's). ``[graph]``
    lines: the first call captures; the graph's kernel nodes (from its
    DOT) equal one eager frame's launches; the graph frames, timed in a
    second run, and the first three of them run eagerly (``render_frame``,
@@ -149,8 +155,10 @@ Phases, each reported on its own lines:
    outputs; a changed draw shape and a stack of another ``opaque`` capture
    anew and stay equal; capture ms, pool bytes, graph and eager frame ms,
    the input copy, replay and output clone alone; the graph's conditional
-   nodes from its DOT, one a draw's geometry (``lax.cond``'s clip path in
-   its body); what path B costs a replay where nothing clips (phong1080,
+   nodes from its DOT, one a frame (``lax.cond``'s clip path in its body,
+   the condition set by the set-up's launch 1), one a draw of each face
+   shard in the sharded frame and the grids (PyTorch's geometry); what
+   path B costs a replay where nothing clips (phong1080,
    stress4k): the conditional node with its predicate false, the skip
    path alone, and the clip path with a select on every frame (the
    graph's form before the node); and every geometry graph path
@@ -752,6 +760,8 @@ def split(records, top=15):
 
 
 BIN_CHAIN = ("bin_count_kernel", "bin_scan_kernel", "bin_pairs_kernel", "bin_gather_kernel")
+# The triangle set-up's kernels (csrc/tri_setup.cu) and the conditional node's own (csrc/graph_cond.cu)
+SETUP_OPS = ("tri_setup_kernel", "tri_slots_kernel", "tri_quirk_kernel", "set_condition_kernel")
 
 
 def programmatic_leads(records):
@@ -1421,8 +1431,8 @@ def setup_launch(entry):
     """Run ``entry()`` (a ``build_packed`` call) once with the set-up
     kernels' wrappers recorded → a function that launches those kernels
     alone with the same arguments: launch 1 (a fresh zeroed accumulator
-    and outputs), then launches 2 and 3 on its outputs and the recorded
-    clip path's fan words."""
+    and outputs), then, where the recorded run clipped a face, the clip
+    path's launches on its outputs and the recorded fan words."""
     from f_renderer_tpu_torch import kernels
 
     seen, first, rest = {}, kernels.tri_setup, kernels.tri_setup_slots
@@ -1444,9 +1454,11 @@ def setup_launch(entry):
         first.launches, rest.launches = spy_first.launches, spy_rest.launches
 
     def launch():
-        (a1, kw1), (a2, kw2) = seen["first"], seen["rest"]
+        a1, kw1 = seen["first"]
         recs, bbox, _, acc = first(*a1, **kw1)
-        rest(a2[0], a2[1], recs, bbox, acc, **kw2)
+        if "rest" in seen:
+            a2, kw2 = seen["rest"]
+            rest(a2[0], a2[1], recs, bbox, acc, **kw2)
 
     return launch
 
@@ -1934,8 +1946,10 @@ def shade_phase(dev, smi, rows):
     gouraud800, textured_wide and cube1080_flat (flat), so all four kinds;
     crafted planes: NaN and ±inf uv and normals, a zero normal, texture ids
     -1 and past the stack, every pixel background, three more varyings ahead
-    of the builtin's, contiguous planes, and the textured shader on phong's
-    planes (uv at channel 6). Its ``ptxas`` line (no stack frame or spills),
+    of the builtin's, contiguous planes, the textured shader on phong's
+    planes (uv at channel 6), and phong and textured on an opaque non-square
+    stack past the routing limit (alpha from the taps, as the JAX package's
+    XLA sampler takes it there). Its ``ptxas`` line (no stack frame or spills),
     occupancy, device time, entry point and plain times and bound at
     phong1080_tex2048's shapes; beside them the same shader untagged (the
     PyTorch ops and K3, as the path ran before the kernel). Then K3 at its
@@ -1943,6 +1957,7 @@ def shade_phase(dev, smi, rows):
     512^2 stack), against its plain version, timed."""
     import re
 
+    import numpy as np
     import torch
 
     from f_renderer_tpu_torch import kernels
@@ -1950,6 +1965,7 @@ def shade_phase(dev, smi, rows):
     from f_renderer_tpu_torch.pipeline.render import build_triangles, context_codec
     from f_renderer_tpu_torch.shaders.api import ContextCodec
     from f_renderer_tpu_torch.shaders.builtin import LIGHT_COLOR, LIGHT_POS, make_textured_shaders, varying_offsets
+    from f_renderer_tpu_torch.shaders.texture import TextureStack
 
     log("[kernel-vs-plain] shade_planes (the non-fused path's builtin shading, XLA's fusion)")
     lines = [line for line in kernels.ptxas_report() if line.startswith("shade_planes_kernel:")]
@@ -2035,7 +2051,21 @@ def shade_phase(dev, smi, rows):
     for tag, c_ctx, c_ps in (("", ctx, ps), (" on the crafted planes and ids", odd, odd_ps)):
         compare(f"phong1080_tex2048@{ANGLES[0]} the textured shader on phong's planes{tag}", c_ctx, c_ps, winner,
                 textured, tex.ps_uniform, codec, bg)
-    del odd, odd_ps, aux, crafted
+    # an opaque non-square stack past the routing limit: the JAX package's
+    # XLA sampler's route, alpha from the taps (TextureStack.sampler_opaque)
+    rng = np.random.default_rng(5)
+    wide = [rng.integers(0, 256, (h_t, w_t, 4), dtype=np.uint8)
+            for h_t, w_t in ((2048, 1024), (512, 2048), (1024, 300))]
+    for t in wide:
+        t[..., 3] = 255
+    wide_u = dict(tex.ps_uniform, textures=TextureStack.create(wide, device=dev))
+    stack_w = wide_u["textures"]
+    check(stack_w.opaque and not stack_w.sampler_opaque(ps),
+          f"shade_planes: the opaque {stack_w.packed_nbytes}-byte stack takes the opaque shortcut past the limit")
+    for pixel_w in (tex.pixel_shader, textured):
+        compare(f"phong1080_tex2048@{ANGLES[0]} {pixel_w.fused_kind} on an opaque non-square stack past the limit "
+                f"({stack_w.packed_nbytes} B)", ctx, ps, winner, pixel_w, wide_u, codec, bg)
+    del odd, odd_ps, aux, crafted, wide, wide_u, stack_w
 
     # the time at the main path's shapes: phong1080_tex2048 at 0.10
     pixel, uniform, stack = tex.pixel_shader, tex.ps_uniform, tex.ps_uniform["textures"]
@@ -2675,6 +2705,7 @@ def main() -> int:
 
     counted = []  # the graph paths' main-path runs, made after every timing (4b)
     split_frames = {}  # path → (its GraphFrame, its replay ms, a call that loads the bench camera's frame)
+    split_flip = {}  # phong1080's scene, whose graph 4b replays once with a face clipped
 
     def graph_path(path, entry, eager, frames, expect, shape, keys, geometries=0, max_nodes=None, own_nodes=None):
         """A main path through its entry point, whose frames replay one
@@ -2685,7 +2716,8 @@ def main() -> int:
         graph's; a replay into sentinel-filled static outputs overwrites
         them; then the input copy, the replay and the output clone are timed
         alone. The graph must hold one conditional node (the clip path) for
-        each of its ``geometries`` (draws, times face shards), and fewer than
+        each of its ``geometries`` (a frame's set-up kernels, or each draw
+        of each face shard of the sharded frame's PyTorch geometry), and fewer than
         ``max_nodes`` nodes where that is given, and ``own_nodes`` where
         that is given. The counted run of its first frames as replays (launches from
         the device's trace) comes in 4b, after every timing, so that no time
@@ -2704,7 +2736,7 @@ def main() -> int:
         per_frame = {k: n // frames for k, n in expect.items()}
         check(nodes == per_frame, f"{path}: the graph holds kernel nodes {nodes}, one frame launches {per_frame}")
         check(conds == geometries, f"{path}: the graph holds {conds} conditional nodes, not one for each of its "
-                                   f"{geometries} draws' geometries")
+                                   f"{geometries} geometries")
         if max_nodes is not None:
             check(own < max_nodes, f"{path}: the graph holds {own} nodes, not fewer than {max_nodes}")
             log(f"[graph] {path}: {own} nodes (fewer than {max_nodes}: {own < max_nodes})")
@@ -2751,7 +2783,7 @@ def main() -> int:
             f"{graph_host_ms:.3f} ms) over {frames} frames, eager frame {eager_ms:.3f} ms (host {eager_host_ms:.3f} "
             f"ms) over the first {n_eager}, each bit-equal to its graph frame; alone: input copy {copy_ms:.4f} ms "
             f"({in_bytes} B), replay {replay_ms:.3f} ms, output clone {clone_ms:.4f} ms ({out_bytes} B); "
-            f"kernel nodes {nodes}; {own} nodes, {conds} of them conditional (a draw's clip path each), "
+            f"kernel nodes {nodes}; {own} nodes, {conds} of them conditional (a geometry's clip path each), "
             f"{in_bodies} nodes in their bodies (CUDA events; {smi})")
         counted.append((path, entry, frames, expect, shape, outs, keys))
         split_frames[path] = (frame, replay_ms, lambda: entry(0))
@@ -2815,9 +2847,10 @@ def main() -> int:
 
     outs = graph_path("phong1080 Scene.render()", phong_frame, phong_eager, FRAMES,
                       dict(zero, fused_raster=FRAMES, tri_setup=FRAMES, bin_pairs=FRAMES), (h, w, 4),
-                      {"K1": "fused_raster", "tri_setup": "tri_setup", "bin_pairs": "bin_pairs"}, geometries=3,
+                      {"K1": "fused_raster", "tri_setup": "tri_setup", "bin_pairs": "bin_pairs"}, geometries=1,
                       max_nodes=PHONG_GRAPH_NODES)
     clipped_at_bench = {"phong1080 Scene.render()": clipped_per_draw(scene, ANGLES[0])}
+    split_flip["phong1080 Scene.render()"] = scene
     clipped_at_bench["phong1080 prepare()"] = clipped_at_bench["phong1080 Scene.render()"]
     for frame, depth, stats in outs:
         check(bool(torch.isfinite(depth).all()), "phong1080: non-finite depth")
@@ -2861,7 +2894,7 @@ def main() -> int:
     prep_nodes, prep_conds, prep_own, prep_in_bodies = graph_summary(prep_graph)
     ok = (compiled.CACHE.captures == before + 1 and same(prepared, want_prep) and same(replayed, want_prep)
           and all(torch.equal(a, b) for a, b in zip(prep_graph.outputs, compiled.flatten(want_prep)[0])))
-    check(ok and prep_nodes == dict(zero, tri_setup=1, bin_pairs=1) and prep_conds == 3,
+    check(ok and prep_nodes == dict(zero, tri_setup=1, bin_pairs=1) and prep_conds == 1,
           f"phong1080 prepare: graph prep equal to eager {ok}, kernel nodes {prep_nodes}, conditional nodes {prep_conds}")
 
     def prepare_eager():
@@ -2961,7 +2994,7 @@ def main() -> int:
     outs = graph_path("phong1080_tex2048 Scene.render()", tex_frame, tex_eager, FRAMES,
                       dict(zero, raster_planes=FRAMES, shade_planes=FRAMES, tri_setup=FRAMES, bin_pairs=FRAMES),
                       (h, w, 4), {"K4": "raster_planes", "shade_planes": "shade_planes", "tri_setup tex2048": "tri_setup",
-                                  "bin_pairs tex2048": "bin_pairs"}, geometries=3, max_nodes=TEX2048_GRAPH_NODES)
+                                  "bin_pairs tex2048": "bin_pairs"}, geometries=1, max_nodes=TEX2048_GRAPH_NODES)
     check(torch.equal(outs[0], tex2048_frame), "phong1080_tex2048: Scene.render() at 0.10 differs from the checked "
           "K4 + shade_planes frame")
     clipped_at_bench["phong1080_tex2048 Scene.render()"] = clipped_per_draw(scene, ANGLES[0])
@@ -2986,7 +3019,7 @@ def main() -> int:
                       dict(zero, raster_planes=FRAMES, sample_bilinear=FRAMES, tri_setup=FRAMES, bin_pairs=FRAMES),
                       (h, w, 4), {"K3": "sample_bilinear", "K4 custom_tex1080": "raster_planes",
                                   "tri_setup custom_tex1080": "tri_setup", "bin_pairs custom_tex1080": "bin_pairs"},
-                      geometries=3)
+                      geometries=1)
     builtin_tex = dataclasses.replace(scene, pixel_shader=make_textured_shaders()[1],
                                       config=dataclasses.replace(scene.config, fused_shade=False))
     before = kernels.shade_planes.launches
@@ -3016,7 +3049,7 @@ def main() -> int:
     graph_path("custom12_360 Scene.render()", custom_frame, custom_eager, 3,
                dict(zero, raster_planes=3, tri_setup=3, bin_pairs=3), (h, w, 4),
                {"K4 custom12_360": "raster_planes", "tri_setup custom12_360": "tri_setup",
-                "bin_pairs custom12_360": "bin_pairs"}, geometries=3)
+                "bin_pairs custom12_360": "bin_pairs"}, geometries=1)
     set_angle(scene, 0.3)
     clip_flip("custom12_360 Scene.render()", scene, scene.render, lambda: render_eager(scene))
 
@@ -3146,6 +3179,16 @@ def main() -> int:
                 phong = VERTEX_KINDS["phong"].code
                 check(p == sharded or any(f"tri_setup_kernelILi{phong}E" in name for *_, name in part),
                       f"{p}: the traced replay's set-up kernel is not the phong vertex mode")
+                # the set-up at the bench camera (nothing clipped): launch 1 and the accumulator's fill, no
+                # conditional node's kernel, no clip path's kernels
+                setup_ops = {k: sum(k in name for *_, name in part) for k in SETUP_OPS}
+                if p in ("phong1080 Scene.render()", "phong1080 prepare()"):
+                    fills = sum("FillFunctor<int>" in demangle(name) for *_, name in part)
+                    check(setup_ops == dict(dict.fromkeys(SETUP_OPS, 0), tri_setup_kernel=1) and fills <= 1,
+                          f"{p}: the set-up ran {setup_ops} and {fills} fills at the bench camera, not launch 1 and "
+                          f"at most a fill")
+                    log(f"[split] {p}: the set-up's device operations at the bench camera {1 + fills} (launch 1, "
+                        f"{fills} fill): {setup_ops}")
                 if p == tex2048:  # K4, then the shading kernel; no K3, no K1
                     got = {k: ran[k] for k in ("raster_planes", "shade_planes", "sample_bilinear", "fused_raster")}
                     check(got == {"raster_planes": 1, "shade_planes": 1, "sample_bilinear": 0, "fused_raster": 0},
@@ -3163,6 +3206,50 @@ def main() -> int:
             for name, n, us in sp["top"]:
                 log(f"[split]   {us:9.2f} us  x{n:<5d} {name}")
         split_frames.clear()
+        for p, s in split_flip.items():
+            flip_replay(p, s)
+        split_flip.clear()
+
+    def flip_replay(p, s):
+        """4b. one replay of ``p``'s graph (scene ``s``) at the bench camera
+        with 1 face of draw 0 clipped, under a device trace: the frame's
+        conditional node runs its body (the clip path, tri_slots_kernel,
+        tri_quirk_kernel), and the frame equals the eager frame bit for bit
+        and the plain chain's (build_triangles, the plain binning,
+        render_fused_plain) as K1 is held to it."""
+        base = s.draws
+        s.draws = clipped_draws(base, s.vs_uniform, 1)
+        set_angle(s, ANGLES[0])
+        try:
+            want = render_eager(s)
+            tri, _ = build_triangles(s.draws, s.vertex_shader, s.vs_uniform, s.config)
+            prep = plain_prep(tri, s.config, **bin_settings(s.config, True))
+            plain_frame = plain(fused.render_fused_plain, prep, s.pixel_shader, s.ps_uniform, s.config)
+            s.render()  # the clipped draws in the graph's buffers
+            torch.cuda.synchronize()
+            with DeviceTrace() as trace:
+                torch.cuda._sleep(1)
+                torch.cuda.synchronize()
+                got = s.render()
+                torch.cuda.synchronize()
+                torch.cuda._sleep(1)
+                torch.cuda.synchronize()
+        finally:
+            s.draws = base
+        part = records_between_markers(trace.records)
+        names = [name for *_, name in part[0]] if part else []
+        ran = {k: sum(k in name for name in names) for k in SETUP_OPS}
+        body = dict(tri_setup_kernel=1, tri_slots_kernel=1, tri_quirk_kernel=1, set_condition_kernel=0)
+        check(ran == body, f"{p} with 1 face clipped: the replay ran {ran}, not the conditional node's body {body}")
+        equal = same(got, want)
+        check(equal, f"{p} with 1 face clipped: the replay differs from the eager frame")
+        derr = (got[1] - plain_frame[1]).abs()
+        check(bool((derr <= DEPTH_RTOL * plain_frame[1].abs()).all()),
+              f"{p} with 1 face clipped: depth beyond rtol of the plain chain's, max {float(derr.max())}")
+        f_err, at2 = frame_bar(f"{p} with 1 face clipped, against the plain chain", got[0], plain_frame[0])
+        log(f"[split] {p} with 1 face of draw 0 clipped ({int(got[2]['num_clipped'])} faces): one replay ran "
+            f"{ran}; the frame bit-equal to the eager frame={equal}, against the plain chain's {f_err} u8 "
+            f"({at2:.4%} at 2), depth max abs err {float(derr.max()):.3g}")
 
     # 5. row slabs and the sharded frame, on an NCCL group of one rank that
     # lives until 4b has replayed the captured sharded frame

@@ -115,6 +115,8 @@ int fr_voxel_march(FrVoxelParams p, const float* sx, const float* sy, const floa
 int fr_voxel_setup(int width, int height, float length, const float* eye, const float* inv_mvp,
                    float* planes, uint8_t* alive, void* stream);
 
+#define FR_MAX_DRAWS 256
+
 // Mirrors kernels.TriSetupParams: int32 fields only (no padding).
 typedef struct FrTriSetupParams {
   int32_t n_draws;    // D (1..256)
@@ -125,25 +127,29 @@ typedef struct FrTriSetupParams {
   int32_t m_pad;      // columns of the packed arrays, > m
   int32_t width, height;
   int32_t cull;       // drop back faces instead of repairing their winding
-  int32_t quirk;      // reduce the ps boundary quirk's per-draw partials
+  int32_t quirk;      // the ps boundary quirk
+  int32_t cond;       // launch 1 sets the condition it is given (it was captured with one)
+  // the draw table, per draw d < D: its first face, faces, first slot, first order
+  int32_t draws[FR_MAX_DRAWS][4];
 } FrTriSetupParams;
 
 // Triangle set-up (csrc/tri_setup.cu), launch 1 of a frame: per face, its
 // masks and its path-A slot, from the vertex shader's clip (4, 3 n_faces)
 // and ctx (C, 3 n_faces) planes (draw d's corners at 3 face_off[d] + v F_d +
-// i). A slot is written as a record and its bbox words:
+// i); every path-B slot with the skip path's values and every padding slot
+// zeros. A slot is written as a record and its bbox words:
 //   recs    (m_pad, rec) int32, rec = ceil((21 + 3C) / 8) * 8: the 12 int32
 //           rows, then the 9 + 3C float32 rows as bits, then zeros
 //   bbox    (2, m_pad) int32: MINXY, MAXXY (what the binning counts)
-//   table   (4 D) int32: face_off, faces, slot_base, order_base per draw
 //   b_mask  (n_faces) bytes: 1 where a face is clipped (w != 0, not inside)
 //   acc     int32 words the caller zeroed: faces clipped per draw [D], in
-//           the frame [1], valid slots per draw [D], a byte a draw (1 where
-//           it clipped), and at word keys_word (even) D uint64 keys
-int fr_tri_setup(FrTriSetupParams p, const int32_t* table, const float* clip, const float* ctx,
-                 int32_t* recs, int32_t* bbox, uint8_t* b_mask, int32_t* acc, int keys_word,
-                 void* stream);
-#define FR_MAX_DRAWS 256
+//           the frame [1], a ticket [1], valid slots per draw [D], and at
+//           word keys_word (even) D uint64 keys
+// The last block to finish sets cond (a cudaGraphConditionalHandle, where
+// p.cond) to 1 where a face clipped, else 0, and where none clipped applies
+// the ps boundary quirk (p.quirk).
+int fr_tri_setup(FrTriSetupParams p, const float* clip, const float* ctx, int32_t* recs, int32_t* bbox,
+                 uint8_t* b_mask, int32_t* acc, int keys_word, unsigned long long cond, void* stream);
 
 // Mirrors kernels.VertexArgs: a builtin's vertex stage for launch 1. Every
 // pointer is a device pointer the kernel reads (or, clip and ctx, writes)
@@ -169,14 +175,15 @@ typedef struct FrVertexArgs {
 // and the uniforms (p.n_ctx varyings, 1..8), then as fr_tri_setup; the
 // clip and ctx planes written at the corners of every clipped face and of
 // each draw's last face, the entries the clip path reads, and nowhere else.
-int fr_tri_setup_vertex(FrTriSetupParams p, const int32_t* table, const FrVertexArgs* args, int32_t* recs,
-                        int32_t* bbox, uint8_t* b_mask, int32_t* acc, int keys_word, void* stream);
-// Launches 2 and 3: the path-B and padding slots' records and bboxes from
-// fan (D, nb (23 + 3C)) int32 words, the clip path's arrays (read where the
-// draw clipped a face), then, with p.quirk, the ps boundary quirk's rewrite
-// of the PS word of each draw's least valid slot.
-int fr_tri_setup_slots(FrTriSetupParams p, const int32_t* table, const int32_t* fan, int32_t* recs,
-                       int32_t* bbox, int32_t* acc, int keys_word, void* stream);
+int fr_tri_setup_vertex(FrTriSetupParams p, const FrVertexArgs* args, int32_t* recs, int32_t* bbox, uint8_t* b_mask,
+                        int32_t* acc, int keys_word, unsigned long long cond, void* stream);
+// The clip path's launches (a frame where a face clipped): the path-B
+// slots' records and bboxes of each draw that clipped a face, from fan
+// (D, nb (23 + 3C)) int32 words, the clip path's arrays, then, with
+// p.quirk, the ps boundary quirk's rewrite of the PS word of each draw's
+// least valid slot.
+int fr_tri_setup_slots(FrTriSetupParams p, const int32_t* fan, int32_t* recs, int32_t* bbox, int32_t* acc,
+                       int keys_word, void* stream);
 
 // Mirrors kernels.BinParams: int32 fields only (no padding).
 typedef struct FrBinParams {
@@ -217,6 +224,12 @@ int fr_bin_records(FrBinParams p, const int32_t* tri_i32, const float* tri_f32, 
 // then an `if` node that later captured work on `parent` depends on; `body`
 // (not capturing) captures into the node's body until fr_if_node_end(body).
 int fr_if_node_begin(const void* pred, void* parent, void* body);
+// A condition of the graph `parent` is capturing → *out: 0 at the start of
+// every launch of the graph, until a kernel sets it (cudaGraphSetConditional).
+int fr_condition_create(void* parent, unsigned long long* out);
+// As fr_if_node_begin, the node's condition `handle` (fr_condition_create),
+// set by a kernel captured before it: no kernel of its own.
+int fr_if_node_begin_handle(unsigned long long handle, void* parent, void* body);
 int fr_if_node_end(void* body);
 // A new non-blocking stream on the current device → *out.
 int fr_stream_create(void** out);

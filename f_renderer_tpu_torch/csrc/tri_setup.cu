@@ -35,30 +35,39 @@
 // straight to the (2, m_pad) array, coalesced. A bulk copy
 // (cp.async.bulk) would need the shared image to be the records' own
 // layout, rec words a thread, and 48 words a slot put a warp's stores on
-// two banks. Three launches a frame:
+// two banks. One launch a frame where no face clips (the bench camera),
+// three where one does:
 //
-//   tri_setup_kernel (before the clip path): per face, its three corners'
-//     clip positions and varyings, read from the vertex shader's planes
+//   tri_setup_kernel (a thread a slot): per face, its three corners' clip
+//     positions and varyings, read from the vertex shader's planes
 //     (kPlanes: a custom shader, run by PyTorch) or computed here by a
 //     builtin's vertex stage from the draw's (F, 3, k) attributes and the
 //     uniforms (kFlat, kTextured, kPhong, kGouraud: a template argument,
 //     so the planes mode keeps its registers); then the masks (w != 0,
 //     inside all six planes), the clip flag b (b_mask, and per draw the
-//     number clipped and a flag: the predicate of the conditional node that
-//     runs the clip path), and the face's path-A column. A vertex mode also
+//     number clipped), and the face's path-A slot. A vertex mode also
 //     writes the planes the clip path gathers, at the corners of every
 //     clipped face and of each draw's last face (its padding entries read
-//     that face), and nowhere else;
-//   tri_slots_kernel (after it): the path-B columns, from the fan arrays the
-//     clip path wrote where the draw clipped a face, else from the skip
-//     path's values (zeros, invalid, order order_base), and the padding
-//     slots as zeros;
-//   tri_quirk_kernel (one block): the ps boundary quirk. Both kernels above
-//     reduce each draw's valid slots to a count and the least (order, slot)
-//     (an atomic maximum of its complement packed in 64 bits; orders are
-//     distinct among valid slots); the quirk's targets are the left
-//     searchsorted of each draw's start in the counts' cumulative sum, and
-//     PS word of each draw's least slot takes its target.
+//     that face), and nowhere else. Every path-B slot gets the skip path's
+//     values (zeros, invalid, order order_base), and every padding slot
+//     zeros. The last block to finish (a ticket in the accumulator) reads
+//     the frame's totals: it sets the condition of the frame's conditional
+//     node (cudaGraphSetConditional, where the launch was captured with
+//     one: some face clipped) and, where no face clipped, applies the ps
+//     boundary quirk, whose per-draw partials are then whole;
+//   tri_slots_kernel (the clip path's, after it: in the conditional node's
+//     body): the path-B slots of each draw that clipped a face, from the fan
+//     arrays the clip path wrote; a draw that clipped none keeps launch 1's;
+//   tri_quirk_kernel (one block, after it): the ps boundary quirk from the
+//     totals of both launches.
+//
+// Launch 1 and tri_slots_kernel reduce each draw's valid slots to a count
+// and the least (order, slot) (an atomic maximum of its complement packed
+// in 64 bits; orders are distinct among valid slots); the quirk's targets
+// are the left searchsorted of each draw's start in the counts' cumulative
+// sum, and the PS word of each draw's least slot takes its target. Where a
+// face clipped, a fan slot may hold a draw's least slot, so the quirk waits
+// for path B.
 //
 // The vertex stages take the plain shaders' float32 operations in their
 // order: mvp = proj · (view · model), each entry summed left to right
@@ -84,7 +93,18 @@
 // bytes of pos) beside its neighbours', the rest of each 128-byte line from
 // L1. The per-draw sums are kept in registers across a thread's faces and reduced
 // over the warp before their atomics, so a million faces of one draw make a
-// few thousand atomics, not a million.
+// few thousand atomics, not a million. At phong1080's size (6,424 faces,
+// 10,112 slots, 1.9 MB) the launch is latency, not bytes: one launch where
+// nothing clips (the clip path's kernels, and their nodes, run only on a
+// frame that clips), the draw table in its parameters, a draw's four words
+// side by side (no dependent loads to find a face's draw), and a tail of
+// one acquire-release ticket a block and, in the last, one round of loads
+// (a ticket that also summed the faces clipped, to spare the load of the
+// total, left the phong mode an 8-byte stack frame). 128-thread blocks, because 32 and 64 were no faster at
+// phong1080 and slower at stress4k; each corner's attributes loaded where
+// they are used: loading a face's ahead of the uniforms' barrier took the
+// phong mode from 90 to 128 registers and gouraud's to spills, and gained
+// nothing (tools/setup_split.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <type_traits>
@@ -97,7 +117,9 @@ namespace {
 // a block gets without asking, and more blocks fit an SM (5 of launch 1's
 // phong mode at 90 registers, where 256-thread blocks of 50 KB fit 2)
 constexpr int kThreads = 128;
-constexpr int kMaxBlocks = 132 * 16;  // grid-stride: 16 blocks an SM of an H100
+// grid-stride: 16 blocks an SM of an H100 (a grid of only the blocks the card
+// holds at once, 6 an SM at stress4k, was slower there: tools/setup_split.py)
+constexpr int kMaxBlocks = 132 * 16;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxFan = 19;          // MAX_FAN: fan triangles of a clipped face
 // tri_i32 rows (pipeline/raster.py); tri_f32: S0X..S2Y, RHW0..RHW2, then 3C varyings
@@ -107,6 +129,8 @@ constexpr int kCtx0 = 9;
 // launch 1's inputs (shaders/builtin.py: VERTEX_KINDS): the vertex shader's planes, or a builtin's vertex stage
 constexpr int kPlanes = 0, kFlat = 1, kTextured = 2, kPhong = 3, kGouraud = 4;
 constexpr int kMaxCtx = 8;  // varyings a vertex stage carries in registers (a flat colour's width)
+// a draw's words in FrTriSetupParams::draws
+constexpr int kFaceOff = 0, kFaces = 1, kSlotBase = 2, kOrderBase = 3;
 
 // Words of a slot's record (csrc/bin_pairs.cu: rec_words).
 __host__ __device__ __forceinline__ int rec_words(int n_ctx) { return (NF_I + kCtx0 + 3 * n_ctx + 7) / 8 * 8; }
@@ -173,16 +197,15 @@ struct Partial {
   unsigned long long key;
 };
 
-struct Acc {  // views of the caller's zeroed accumulator (kernels.py: tri_setup)
+struct Acc {  // views of the caller's zeroed accumulator (kernels.py: acc_layout)
   int32_t* nclip;              // [D]: faces clipped per draw
   int32_t* total;              // [1]: faces clipped in the frame
+  uint32_t* ticket;            // [1]: blocks of launch 1 done
   int32_t* count;              // [D]: valid slots per draw
-  uint8_t* clipped;            // [D]: 1 where the draw clipped a face
   unsigned long long* keys;    // [D]: max of ~((order ^ 2^31) << 32 | slot)
   __device__ Acc(int32_t* acc, int n_draws, int keys_word)
-      : nclip(acc), total(acc + n_draws), count(acc + n_draws + 1),
-        clipped(reinterpret_cast<uint8_t*>(acc + 2 * n_draws + 1)),
-        keys(reinterpret_cast<unsigned long long*>(acc + keys_word)) {}
+      : nclip(acc), total(acc + n_draws), ticket(reinterpret_cast<uint32_t*>(acc + n_draws + 1)),
+        count(acc + n_draws + 2), keys(reinterpret_cast<unsigned long long*>(acc + keys_word)) {}
 };
 
 __device__ __forceinline__ void flush(const Partial& a, const Acc& acc) {
@@ -311,12 +334,14 @@ __device__ __forceinline__ bool store_slot(const FrTriSetupParams& p, const Tri&
   return valid;
 }
 
-// The draw that face i belongs to: the last d with face_off[d] <= i.
-__device__ __forceinline__ int draw_of(const int32_t* __restrict__ face_off, int n_draws, int i) {
+// The draw that face i belongs to: the last d with its first face
+// draws[d][kFaceOff] <= i (the table is in the launch's parameters, a
+// draw's four words side by side: no load waits on another).
+__device__ __forceinline__ int draw_of(const int32_t (*draws)[4], int n_draws, int i) {
   int lo = 0, hi = n_draws - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
-    if (__ldg(face_off + mid) <= i) lo = mid; else hi = mid - 1;
+    if (draws[mid][kFaceOff] <= i) lo = mid; else hi = mid - 1;
   }
   return lo;
 }
@@ -431,37 +456,96 @@ __device__ __forceinline__ void vertex_corner(const FrVertexArgs& a, const Unifo
   }
 }
 
-// table: face_off[D], faces[D], slot_base[D], order_base[D] (int32).
+// Every thread of the block calls this after its last atomic → whether its
+// block is the last of the grid to finish (a ticket in the accumulator),
+// where every block's sums are in. One thread's acquire-release add, after
+// the block's barrier (as cooperative groups' grid sync fences after its
+// barrier), orders the block's atomics and records before its arrival, and
+// the last block's loads after every block's.
+__device__ __forceinline__ bool last_block(const Acc& acc) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t arrived;
+    asm volatile("atom.acq_rel.gpu.add.u32 %0, [%1], 1;" : "=r"(arrived) : "l"(acc.ticket) : "memory");
+    last = arrived == gridDim.x - 1;
+  }
+  __syncthreads();
+  return last;
+}
+
+// Shared memory of the quirk's totals: each draw's count (cumulated in
+// place) and its least slot's key.
+constexpr int kTotalsWords = 3 * FR_MAX_DRAWS;
+
+// The accumulator's totals in one round of loads by every thread of one
+// block, into smem (kTotalsWords words, 8-byte aligned): with p.quirk, each
+// draw's count and key; with total, the frame's faces clipped beside them.
+__device__ __forceinline__ void load_totals(const FrTriSetupParams& p, const Acc& acc, int32_t* smem,
+                                            int32_t* total) {
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + FR_MAX_DRAWS);
+  if (total != nullptr && threadIdx.x == 0) *total = __ldcg(acc.total);
+  if (p.quirk) {
+    for (int d = threadIdx.x; d < p.n_draws; d += blockDim.x) {
+      smem[d] = __ldcg(acc.count + d);
+      keys[d] = __ldcg(acc.keys + d);
+    }
+  }
+  __syncthreads();
+}
+
+// The ps boundary quirk (render.apply_ps_quirk_totals) from the totals
+// load_totals put in smem, by every thread of the block: the counts'
+// cumulative sum, then the PS word of each draw's least valid slot takes
+// the left searchsorted of the draw's start in it.
+__device__ void apply_quirk(const FrTriSetupParams& p, int32_t* __restrict__ recs, int32_t* smem) {
+  const int n_draws = p.n_draws;
+  int32_t* offsets = smem;
+  const unsigned long long* keys = reinterpret_cast<const unsigned long long*>(smem + FR_MAX_DRAWS);
+  if (threadIdx.x == 0) {
+    for (int e = 1; e < n_draws; ++e) offsets[e] += offsets[e - 1];  // cumsum, as int32
+  }
+  __syncthreads();
+  const int rec = rec_words(p.n_ctx);
+  for (int d = threadIdx.x; d < n_draws; d += blockDim.x) {
+    const int32_t start = d ? offsets[d - 1] : 0;
+    if (offsets[d] == start) continue;  // no valid slot (counts are >= 0, their sum < 2^31)
+    int target = 0;  // searchsorted(offsets, start, side="left")
+    while (target < n_draws && offsets[target] < start) ++target;
+    recs[(size_t)(uint32_t)(~keys[d]) * rec + PS] = target;
+  }
+}
+
+// A frame's slots, a thread each: the faces (path A), each draw's path-B
+// slots (the skip path's values), the padding slots; the draw table in p.
 template <int Kind>
 __global__ void __launch_bounds__(kThreads)
-tri_setup_kernel(FrTriSetupParams p, const int32_t* __restrict__ table, const __grid_constant__ InputOf<Kind> in,
+tri_setup_kernel(const __grid_constant__ FrTriSetupParams p, const __grid_constant__ InputOf<Kind> in,
                  int32_t* __restrict__ recs, int32_t* __restrict__ bb, uint8_t* __restrict__ b_mask, int32_t* acc_words,
-                 int keys_word) {
+                 int keys_word, cudaGraphConditionalHandle cond) {
   constexpr int NC = Kind == kPlanes ? 0 : kStageCtx<Kind>;
   extern __shared__ int32_t stage[];
-  const int n_draws = p.n_draws, n_ctx = p.n_ctx;
-  const int32_t* face_off = table;
-  const int32_t* faces = table + n_draws;
-  const int32_t* slot_base = table + 2 * n_draws;
-  const int32_t* order_base = table + 3 * n_draws;
+  const int n_draws = p.n_draws, n_ctx = p.n_ctx, n_faces = p.n_faces, n_b = n_draws * p.nb;
+  const int n_slots = n_faces + n_b + (p.m_pad - p.m);
   const Acc acc(acc_words, n_draws, keys_word);
-  const size_t nc = 3 * (size_t)p.n_faces;  // corners: a plane's length
+  const size_t nc = 3 * (size_t)n_faces;  // corners: a plane's length
   const float wf = (float)p.width, hf = (float)p.height;
   __shared__ Uniforms u;
   __shared__ float vm[16];
-  if constexpr (Kind != kPlanes) load_uniforms(in, u, vm);
   const int rec = rec_words(n_ctx);
   const unsigned magic = 0xFFFFFFFFu / (unsigned)rec + 1u;
   int32_t* row = staging_row(stage, rec);
   Partial part = {-1, 0, 0, 0ull};
-  // a warp's 32 faces at a time (the loop is warp-uniform: write_records syncs the warp)
-  for (int i0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31); i0 < p.n_faces; i0 += gridDim.x * blockDim.x) {
+  if constexpr (Kind != kPlanes) load_uniforms(in, u, vm);
+  // a warp's 32 slots at a time (the loop is warp-uniform: write_records syncs the warp)
+  for (int i0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31); i0 < n_slots; i0 += gridDim.x * blockDim.x) {
     const int i = i0 + (threadIdx.x & 31);
     int col = -1;
-    if (i < p.n_faces) {  // else a lane past the last face: it writes no record
-      const int d = draw_of(face_off, n_draws, i);
-      const int f = __ldg(faces + d), fl = i - __ldg(face_off + d);
-      const size_t base = 3 * (size_t)__ldg(face_off + d) + fl;  // corner v is base + v * f
+    if (i < n_faces) {
+      const int d = draw_of(p.draws, n_draws, i);
+      const int32_t* draw = p.draws[d];
+      const int f = draw[kFaces], fl = i - draw[kFaceOff];
+      const size_t base = 3 * (size_t)draw[kFaceOff] + fl;  // corner v is base + v * f
       float cl[3][4];  // a vertex mode's clip positions, kept for the planes it writes
       float vary[3][NC > 0 ? NC : 1];
       Tri t;
@@ -494,7 +578,6 @@ tri_setup_kernel(FrTriSetupParams p, const int32_t* __restrict__ table, const __
           part = {d, 0, 0, 0ull};
         }
         part.nclip += 1;
-        acc.clipped[d] = 1;
       }
       if constexpr (Kind != kPlanes) {
         if (clipped || fl == f - 1) {  // the planes the clip path gathers (geometry._clip_path)
@@ -510,8 +593,8 @@ tri_setup_kernel(FrTriSetupParams p, const int32_t* __restrict__ table, const __
           }
         }
       }
-      col = __ldg(slot_base + d) + fl;
-      const int32_t order = (int32_t)((uint32_t)__ldg(order_base + d) + (uint32_t)fl * (uint32_t)kMaxFan);
+      col = draw[kSlotBase] + fl;
+      const int32_t order = (int32_t)((uint32_t)draw[kOrderBase] + (uint32_t)fl * (uint32_t)kMaxFan);
       bool valid;
       if constexpr (Kind == kPlanes) {
         valid = store_slot<0>(p, t, w_ok && all_in, order, d, col,
@@ -520,60 +603,68 @@ tri_setup_kernel(FrTriSetupParams p, const int32_t* __restrict__ table, const __
         valid = store_slot<NC>(p, t, w_ok && all_in, order, d, col, [&](int v, int c) { return vary[v][c]; }, row, bb);
       }
       if (p.quirk && valid) add_valid(part, d, acc, order, col);
+    } else if (i < n_faces + n_b) {  // a path-B slot: the skip path's values (geometry._skip_clip_path)
+      const int j = i - n_faces, d = j / p.nb;
+      col = p.draws[d][kSlotBase] + p.draws[d][kFaces] + (j - d * p.nb);
+      store_slot<0>(p, Tri{}, false, p.draws[d][kOrderBase], d, col, [](int, int) { return 0.0f; }, row, bb);
+    } else if (i < n_slots) {  // a padding slot: zeros
+      col = p.m + (i - n_faces - n_b);
+      for (int r = 0; r < rec; ++r) row[r] = 0;
+      bb[col] = 0;
+      bb[(size_t)p.m_pad + col] = 0;
     }
     write_records(stage, rec, magic, col, recs);
   }
   flush_warp(part, acc);
+  if (!last_block(acc)) return;
+  __shared__ int32_t total;
+  load_totals(p, acc, stage, &total);  // the staging rows hold at least 32 (24 + 1) >= kTotalsWords words
+  if (threadIdx.x == 0 && p.cond) cudaGraphSetConditional(cond, total > 0 ? 1u : 0u);
+  if (p.quirk && total == 0) apply_quirk(p, recs, stage);  // else after path B (the conditional node's body)
 }
 
-// fan: per draw, fan_words = nb (23 + 3C) int32 words, the clip path's
-// arrays slot-major: ndc (nb, 3, 2) f32, spf (nb, 3, 2) f32, spi (nb, 3, 2)
-// i32, rhw (nb, 3) f32, ctx (nb, 3, C) f32, valid (nb) i32, order (nb) i32.
+// The clip path's path-B slots (in the conditional node's body, after the
+// clip path): fan holds per draw fan_words = nb (23 + 3C) int32 words, the
+// clip path's arrays slot-major: ndc (nb, 3, 2) f32, spf (nb, 3, 2) f32, spi
+// (nb, 3, 2) i32, rhw (nb, 3) f32, ctx (nb, 3, C) f32, valid (nb) i32, order
+// (nb) i32, read only where the draw clipped a face (launch 1's skip-path
+// slots stay elsewhere).
 __global__ void __launch_bounds__(kThreads)
-tri_slots_kernel(FrTriSetupParams p, const int32_t* __restrict__ table, const int32_t* __restrict__ fan,
+tri_slots_kernel(const __grid_constant__ FrTriSetupParams p, const int32_t* __restrict__ fan,
                  int32_t* __restrict__ recs, int32_t* __restrict__ bb, int32_t* acc_words, int keys_word) {
   extern __shared__ int32_t stage[];
   const int n_draws = p.n_draws, nb = p.nb, n_ctx = p.n_ctx;
-  const int32_t* faces = table + n_draws;
-  const int32_t* slot_base = table + 2 * n_draws;
-  const int32_t* order_base = table + 3 * n_draws;
   const Acc acc(acc_words, n_draws, keys_word);
   const size_t fan_words = (size_t)nb * (23 + 3 * n_ctx);
-  const int n_b = n_draws * nb, n = n_b + (p.m_pad - p.m), rec = rec_words(n_ctx);
+  const int n_b = n_draws * nb, rec = rec_words(n_ctx);
   const unsigned magic = 0xFFFFFFFFu / (unsigned)rec + 1u;
   int32_t* row = staging_row(stage, rec);
   Partial part = {-1, 0, 0, 0ull};
-  for (int j0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31); j0 < n; j0 += gridDim.x * blockDim.x) {
+  for (int j0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31); j0 < n_b; j0 += gridDim.x * blockDim.x) {
     const int j = j0 + (threadIdx.x & 31);
+    const int d = j < n_b ? j / nb : 0;
     int col = -1;
-    if (j >= n_b && j < n) {  // a padding slot: zeros
-      col = p.m + (j - n_b);
-      for (int r = 0; r < rec; ++r) row[r] = 0;
-      bb[col] = 0;
-      bb[(size_t)p.m_pad + col] = 0;
-    } else if (j < n_b) {
-      const int d = j / nb, s = j - d * nb;
-      col = __ldg(slot_base + d) + __ldg(faces + d) + s;
+    if (j < n_b && acc.nclip[d] > 0) {
+      const int s = j - d * nb;
+      col = p.draws[d][kSlotBase] + p.draws[d][kFaces] + s;
       const int32_t* fd = fan + (size_t)d * fan_words;
-      const bool ran = acc.nclip[d] > 0;  // the clip path wrote fd; else the skip path's values
       Tri t;
 #pragma unroll
       for (int v = 0; v < 3; ++v) {
         const size_t e = ((size_t)s * 3 + v) * 2;
-        t.nx[v] = ran ? __int_as_float(fd[e]) : 0.0f;
-        t.ny[v] = ran ? __int_as_float(fd[e + 1]) : 0.0f;
-        t.sx[v] = ran ? __int_as_float(fd[6 * (size_t)nb + e]) : 0.0f;
-        t.sy[v] = ran ? __int_as_float(fd[6 * (size_t)nb + e + 1]) : 0.0f;
-        t.ix[v] = ran ? fd[12 * (size_t)nb + e] : 0;
-        t.iy[v] = ran ? fd[12 * (size_t)nb + e + 1] : 0;
-        t.rhw[v] = ran ? __int_as_float(fd[18 * (size_t)nb + (size_t)s * 3 + v]) : 0.0f;
+        t.nx[v] = __int_as_float(fd[e]);
+        t.ny[v] = __int_as_float(fd[e + 1]);
+        t.sx[v] = __int_as_float(fd[6 * (size_t)nb + e]);
+        t.sy[v] = __int_as_float(fd[6 * (size_t)nb + e + 1]);
+        t.ix[v] = fd[12 * (size_t)nb + e];
+        t.iy[v] = fd[12 * (size_t)nb + e + 1];
+        t.rhw[v] = __int_as_float(fd[18 * (size_t)nb + (size_t)s * 3 + v]);
       }
       const int32_t* fctx = fd + 21 * (size_t)nb + (size_t)s * 3 * n_ctx;
-      const bool valid_in = ran && fd[(size_t)(21 + 3 * n_ctx) * nb + s] != 0;
-      const int32_t order = ran ? fd[(size_t)(22 + 3 * n_ctx) * nb + s] : __ldg(order_base + d);
+      const bool valid_in = fd[(size_t)(21 + 3 * n_ctx) * nb + s] != 0;
+      const int32_t order = fd[(size_t)(22 + 3 * n_ctx) * nb + s];
       const bool valid = store_slot<0>(p, t, valid_in, order, d, col,
-                                    [&](int v, int c) { return ran ? __int_as_float(fctx[v * n_ctx + c]) : 0.0f; },
-                                    row, bb);
+                                       [&](int v, int c) { return __int_as_float(fctx[v * n_ctx + c]); }, row, bb);
       if (p.quirk && valid) add_valid(part, d, acc, order, col);
     }
     write_records(stage, rec, magic, col, recs);
@@ -581,26 +672,14 @@ tri_slots_kernel(FrTriSetupParams p, const int32_t* __restrict__ table, const in
   flush_warp(part, acc);
 }
 
-// The ps boundary quirk (render.apply_ps_quirk_totals) from the per-draw
-// counts and least slots; one block, a thread a draw (D <= 256).
+// The ps boundary quirk after the clip path's slots; one block.
 __global__ void __launch_bounds__(256)
-tri_quirk_kernel(FrTriSetupParams p, int32_t* __restrict__ recs, int32_t* acc_words, int keys_word) {
-  __shared__ int32_t offsets[256];
-  const int n_draws = p.n_draws, d = threadIdx.x;
-  const Acc acc(acc_words, n_draws, keys_word);
-  const int32_t count = d < n_draws ? acc.count[d] : 0;
-  offsets[d] = count;
-  __syncthreads();
-  if (d == 0) {
-    for (int e = 1; e < n_draws; ++e) offsets[e] += offsets[e - 1];  // cumsum, as int32
-  }
-  __syncthreads();
-  if (d >= n_draws || count <= 0) return;
-  const int32_t start = d ? offsets[d - 1] : 0;
-  int target = 0;  // searchsorted(offsets, start, side="left")
-  while (target < n_draws && offsets[target] < start) ++target;
-  const uint32_t slot = (uint32_t)(~acc.keys[d]);
-  recs[(size_t)slot * rec_words(p.n_ctx) + PS] = target;
+tri_quirk_kernel(const __grid_constant__ FrTriSetupParams p, int32_t* __restrict__ recs, int32_t* acc_words,
+                 int keys_word) {
+  __shared__ unsigned long long smem[kTotalsWords / 2];
+  int32_t* totals = reinterpret_cast<int32_t*>(smem);
+  load_totals(p, Acc(acc_words, p.n_draws, keys_word), totals, nullptr);
+  apply_quirk(p, recs, totals);
 }
 
 // The launch shape of a staging kernel over n slots: kThreads a block
@@ -625,62 +704,68 @@ cudaError_t staged_shape(K kernel, long long n, int rec, Shape* sh) {
   sh->threads = 32 * (int)(warps < kThreads / 32 ? warps : kThreads / 32);
   sh->smem = per_warp * (size_t)(sh->threads / 32);
   const long long b = (n + sh->threads - 1) / sh->threads;
-  sh->blocks = (int)(b < kMaxBlocks ? b : kMaxBlocks);
+  sh->blocks = (int)(b < kMaxBlocks ? (b > 0 ? b : 1) : kMaxBlocks);
   if (sh->smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh->smem);
 }
 
 template <int Kind, typename In>
-cudaError_t launch_setup(const FrTriSetupParams& p, const int32_t* table, const In& in, int32_t* recs, int32_t* bbox,
-                         uint8_t* b_mask, int32_t* acc, int keys_word, cudaStream_t s) {
+cudaError_t launch_setup(const FrTriSetupParams& p, const In& in, int32_t* recs, int32_t* bbox, uint8_t* b_mask,
+                         int32_t* acc, int keys_word, unsigned long long cond, cudaStream_t s) {
   Shape sh;
-  cudaError_t err = staged_shape(tri_setup_kernel<Kind>, p.n_faces, rec_words(p.n_ctx), &sh);
+  const long long n = (long long)p.n_faces + (long long)p.n_draws * p.nb + (p.m_pad - p.m);
+  cudaError_t err = staged_shape(tri_setup_kernel<Kind>, n, rec_words(p.n_ctx), &sh);
   if (err != cudaSuccess) return err;
-  tri_setup_kernel<Kind><<<sh.blocks, sh.threads, sh.smem, s>>>(p, table, in, recs, bbox, b_mask, acc, keys_word);
+  tri_setup_kernel<Kind><<<sh.blocks, sh.threads, sh.smem, s>>>(p, in, recs, bbox, b_mask, acc, keys_word,
+                                                                  (cudaGraphConditionalHandle)cond);
   return cudaGetLastError();
+}
+
+bool bad_shape(const FrTriSetupParams& p) {
+  return p.n_draws < 1 || p.n_draws > FR_MAX_DRAWS || p.m_pad <= p.m || p.n_faces < 0 || p.nb < 0;
 }
 
 }  // namespace
 
-extern "C" int fr_tri_setup(FrTriSetupParams p, const int32_t* table, const float* clip, const float* ctx,
-                            int32_t* recs, int32_t* bbox, uint8_t* b_mask, int32_t* acc, int keys_word,
-                            void* stream) {
-  if (p.n_faces <= 0) return (int)cudaSuccess;
-  return (int)launch_setup<kPlanes>(p, table, PlanesIn{clip, ctx}, recs, bbox, b_mask, acc, keys_word,
+extern "C" int fr_tri_setup(FrTriSetupParams p, const float* clip, const float* ctx, int32_t* recs, int32_t* bbox,
+                            uint8_t* b_mask, int32_t* acc, int keys_word, unsigned long long cond, void* stream) {
+  if (bad_shape(p)) return (int)cudaErrorInvalidValue;
+  return (int)launch_setup<kPlanes>(p, PlanesIn{clip, ctx}, recs, bbox, b_mask, acc, keys_word, cond,
                                     (cudaStream_t)stream);
 }
 
-extern "C" int fr_tri_setup_vertex(FrTriSetupParams p, const int32_t* table, const FrVertexArgs* args,
-                                   int32_t* recs, int32_t* bbox, uint8_t* b_mask, int32_t* acc, int keys_word,
+extern "C" int fr_tri_setup_vertex(FrTriSetupParams p, const FrVertexArgs* args, int32_t* recs, int32_t* bbox,
+                                   uint8_t* b_mask, int32_t* acc, int keys_word, unsigned long long cond,
                                    void* stream) {
-  if (p.n_faces <= 0) return (int)cudaSuccess;
-  if (p.n_draws > FR_MAX_DRAWS || p.n_ctx < 1 || p.n_ctx > kMaxCtx) return (int)cudaErrorInvalidValue;
+  if (bad_shape(p) || p.n_ctx < 1 || p.n_ctx > kMaxCtx) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (args->kind) {
     case kFlat:
-      return (int)launch_setup<kFlat>(p, table, *args, recs, bbox, b_mask, acc, keys_word, s);
+      return (int)launch_setup<kFlat>(p, *args, recs, bbox, b_mask, acc, keys_word, cond, s);
     case kTextured:
-      return (int)launch_setup<kTextured>(p, table, *args, recs, bbox, b_mask, acc, keys_word, s);
+      return (int)launch_setup<kTextured>(p, *args, recs, bbox, b_mask, acc, keys_word, cond, s);
     case kPhong:
-      return (int)launch_setup<kPhong>(p, table, *args, recs, bbox, b_mask, acc, keys_word, s);
+      return (int)launch_setup<kPhong>(p, *args, recs, bbox, b_mask, acc, keys_word, cond, s);
     case kGouraud:
-      return (int)launch_setup<kGouraud>(p, table, *args, recs, bbox, b_mask, acc, keys_word, s);
+      return (int)launch_setup<kGouraud>(p, *args, recs, bbox, b_mask, acc, keys_word, cond, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-extern "C" int fr_tri_setup_slots(FrTriSetupParams p, const int32_t* table, const int32_t* fan, int32_t* recs,
-                                  int32_t* bbox, int32_t* acc, int keys_word, void* stream) {
-  if (p.n_draws > 256) return (int)cudaErrorInvalidValue;
+extern "C" int fr_tri_setup_slots(FrTriSetupParams p, const int32_t* fan, int32_t* recs, int32_t* bbox, int32_t* acc,
+                                  int keys_word, void* stream) {
+  if (bad_shape(p)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  Shape sh;
-  cudaError_t err = staged_shape(tri_slots_kernel, (long long)p.n_draws * p.nb + (p.m_pad - p.m),
-                                 rec_words(p.n_ctx), &sh);
-  if (err != cudaSuccess) return (int)err;
-  tri_slots_kernel<<<sh.blocks, sh.threads, sh.smem, s>>>(p, table, fan, recs, bbox, acc, keys_word);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !p.quirk) return (int)err;
+  if (p.n_draws * p.nb > 0) {
+    Shape sh;
+    cudaError_t err = staged_shape(tri_slots_kernel, (long long)p.n_draws * p.nb, rec_words(p.n_ctx), &sh);
+    if (err != cudaSuccess) return (int)err;
+    tri_slots_kernel<<<sh.blocks, sh.threads, sh.smem, s>>>(p, fan, recs, bbox, acc, keys_word);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (!p.quirk) return (int)cudaSuccess;
   tri_quirk_kernel<<<1, 256, 0, s>>>(p, recs, acc, keys_word);
   return (int)cudaGetLastError();
 }

@@ -80,11 +80,12 @@ def node_memory():
         _frame.pools = before
 
 
-def if_node(pred: torch.Tensor, fn, *args) -> None:
+def if_node(pred, fn, *args) -> None:
     """``fn(*args)`` captured as a conditional node of the CUDA graph being
     captured (``lax.cond`` inside a compiled program): each replay runs it
-    only where the 0-d bool tensor ``pred`` holds on the card, and skips it
-    otherwise. ``fn`` writes its results into tensors made before the node
+    only where ``pred`` holds on the card, and skips it otherwise: a 0-d
+    bool tensor, or a ``kernels.Condition`` that a kernel captured before
+    the node sets (the triangle set-up's launch 1). ``fn`` writes its results into tensors made before the node
     (what it returns is dropped); its memory is kept by the enclosing
     :func:`node_memory`. A capture that cannot hold the node raises."""
     from f_renderer_tpu_torch import kernels

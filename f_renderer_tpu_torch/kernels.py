@@ -31,7 +31,8 @@ The kernels (the TPU kernel each replaces in brackets):
   slot records; ``slot_records`` turns packed rows into those records;
 - ``if_node`` — no TPU kernel: a conditional node of a CUDA graph under
   capture, the counterpart of ``lax.cond`` in a compiled program
-  (torch 2.11 has no Python API for one).
+  (torch 2.11 has no Python API for one), its condition set by a kernel of
+  its own or, made by ``condition``, by a kernel captured before it.
 
 Each wrapper counts its launches (``fused_raster.launches`` …), so a run can
 show that its main path went through the kernel. A stream capture records a
@@ -120,14 +121,16 @@ class VoxelParams(ctypes.Structure):
     ]
 
 
+MAX_DRAWS = 256  # FR_MAX_DRAWS: the draws of a frame (render.build_triangles' cap)
+
+
 class TriSetupParams(ctypes.Structure):
-    """Mirror of ``FrTriSetupParams`` in csrc/kernels.h."""
+    """Mirror of ``FrTriSetupParams`` in csrc/kernels.h: the shape, and the
+    draw table (the launch's parameters)."""
 
     _fields_ = [(name, ctypes.c_int32) for name in (
-        "n_draws", "n_faces", "n_ctx", "nb", "m", "m_pad", "width", "height", "cull", "quirk")]
-
-
-MAX_DRAWS = 256  # FR_MAX_DRAWS: the draws of a frame (render.build_triangles' cap)
+        "n_draws", "n_faces", "n_ctx", "nb", "m", "m_pad", "width", "height", "cull", "quirk", "cond")] + [
+        ("draws", (ctypes.c_int32 * 4) * MAX_DRAWS)]
 
 
 class VertexArgs(ctypes.Structure):
@@ -225,19 +228,23 @@ def load_library() -> ctypes.CDLL:
     lib.fr_shade_planes.argtypes = [ShadeParams] + [ptr] * 8
     lib.fr_voxel_march.argtypes = [VoxelParams] + [ptr] * 13
     lib.fr_voxel_setup.argtypes = [i32, i32, ctypes.c_float] + [ptr] * 5
-    lib.fr_tri_setup.argtypes = [TriSetupParams] + [ptr] * 7 + [i32, ptr]
-    lib.fr_tri_setup_vertex.argtypes = [TriSetupParams, ptr, ctypes.POINTER(VertexArgs)] + [ptr] * 4 + [i32, ptr]
-    lib.fr_tri_setup_slots.argtypes = [TriSetupParams] + [ptr] * 5 + [i32, ptr]
+    u64 = ctypes.c_uint64
+    lib.fr_tri_setup.argtypes = [TriSetupParams] + [ptr] * 6 + [i32, u64, ptr]
+    lib.fr_tri_setup_vertex.argtypes = [TriSetupParams, ctypes.POINTER(VertexArgs)] + [ptr] * 4 + [i32, u64, ptr]
+    lib.fr_tri_setup_slots.argtypes = [TriSetupParams] + [ptr] * 4 + [i32, ptr]
     lib.fr_bin_pairs.argtypes = [BinParams] + [ptr] * 9
     lib.fr_bin_records.argtypes = [BinParams] + [ptr] * 4
     lib.fr_if_node_begin.argtypes = [ptr] * 3
+    lib.fr_condition_create.argtypes = [ptr, ctypes.POINTER(u64)]
+    lib.fr_if_node_begin_handle.argtypes = [u64, ptr, ptr]
     lib.fr_if_node_end.argtypes = [ptr]
     lib.fr_stream_create.argtypes = [ctypes.POINTER(ptr)]
     for fn in (lib.fr_fused_raster, lib.fr_raster_planes, lib.fr_sample_bilinear, lib.fr_shade_planes,
                lib.fr_voxel_march,
                lib.fr_voxel_setup, lib.fr_tri_setup, lib.fr_tri_setup_vertex, lib.fr_tri_setup_slots,
                lib.fr_bin_pairs, lib.fr_bin_records,
-               lib.fr_if_node_begin, lib.fr_if_node_end, lib.fr_stream_create):
+               lib.fr_if_node_begin, lib.fr_condition_create, lib.fr_if_node_begin_handle, lib.fr_if_node_end,
+               lib.fr_stream_create):
         fn.restype = ctypes.c_int
     lib.fr_error_string.argtypes = [ctypes.c_int]
     lib.fr_error_string.restype = ctypes.c_char_p
@@ -342,19 +349,44 @@ def body_stream(device: torch.device) -> torch.cuda.ExternalStream:
     return torch.cuda.ExternalStream(out.value, device=device)
 
 
-def if_node(pred: torch.Tensor, fn, *args) -> torch.cuda.MemPool:
+@dataclasses.dataclass(frozen=True)
+class Condition:
+    """The condition of a conditional node that a kernel sets itself
+    (``cudaGraphSetConditional``): its handle in the graph being captured
+    on ``device``, 0 at the start of every replay until the kernel sets it."""
+
+    handle: int
+    device: torch.device
+
+
+def condition(device: torch.device) -> Condition:
+    """A new :class:`Condition` of the graph that the current stream on
+    ``device`` is capturing (csrc/graph_cond.cu); raises outside a capture."""
+    lib, out = load_library(), ctypes.c_uint64()
+    _check(lib, lib.fr_condition_create(_stream(device), ctypes.byref(out)), "fr_condition_create")
+    return Condition(out.value, device)
+
+
+def if_node(pred, fn, *args) -> torch.cuda.MemPool:
     """``fn(*args)`` captured as an ``if`` node of the CUDA graph that the
     current stream is capturing (csrc/graph_cond.cu): a replay runs it only
-    where the 0-d bool ``pred`` is true on the card. ``fn`` runs on
+    where ``pred`` holds on the card, a 0-d bool tensor (a kernel of the
+    node's own sets the condition from it) or a :class:`Condition` that a
+    kernel captured before the node sets. ``fn`` runs on
     :func:`body_stream`, which captures into the node's body, its
     allocations routed to a memory pool of its own (the capture's pool
     serves only the capturing stream) → that pool, which must live as long
     as the graph."""
-    dev = _on_cuda(pred, "if_node")
-    _need(pred, "pred", torch.bool, dev, ())
     lib = load_library()
+    if isinstance(pred, Condition):
+        dev = pred.device
+        begin = functools.partial(lib.fr_if_node_begin_handle, pred.handle)
+    else:
+        dev = _on_cuda(pred, "if_node")
+        _need(pred, "pred", torch.bool, dev, ())
+        begin = functools.partial(lib.fr_if_node_begin, pred.data_ptr())
     body, pool = body_stream(dev), torch.cuda.MemPool()
-    _check(lib, lib.fr_if_node_begin(pred.data_ptr(), _stream(dev), body.cuda_stream), "if_node")
+    _check(lib, begin(_stream(dev), body.cuda_stream), "if_node")
     try:
         with torch.cuda.stream(body), torch.cuda.use_mem_pool(pool, dev):
             fn(*args)
@@ -625,51 +657,71 @@ voxel_setup.launches = 0
 def acc_layout(n_draws: int):
     """int32 words of the set-up kernels' accumulator (csrc/tri_setup.cu) →
     (words, the word its uint64 keys start at): faces clipped per draw and
-    in the frame, valid slots per draw, a byte a draw (clipped), the keys."""
-    keys = 2 * n_draws + 1 + -(-n_draws // 4)
-    keys += keys % 2
+    in the frame, launch 1's ticket (its blocks done), valid slots per draw,
+    the keys."""
+    keys = 2 * n_draws + 2
     return keys + 2 * n_draws, keys
 
 
-def tri_setup(table, clip, ctx, *, n_draws, nb, m, m_pad, width, height, cull, quirk, vertex=None):
+def tri_setup_params(table, *, n_draws, n_faces, n_ctx, nb, m, m_pad, width, height, cull, quirk,
+                     cond=False) -> TriSetupParams:
+    """The set-up launches' :class:`TriSetupParams`; ``table`` the draw
+    table (face_off, faces, slot_base, order_base: 4 D ints, one list after
+    the other), or ValueError."""
+    if not (0 < n_draws <= MAX_DRAWS and len(table) == 4 * n_draws and 0 <= m < m_pad < 2**31
+            and 0 < width < 32768 and 0 < height < 32768):
+        raise ValueError(f"tri_setup: {n_draws} draws ({len(table)} table entries), {m} slots in {m_pad} columns, "
+                         f"{width}x{height}")
+    params = TriSetupParams(n_draws=n_draws, n_faces=n_faces, n_ctx=n_ctx, nb=nb, m=m, m_pad=m_pad, width=width,
+                            height=height, cull=int(bool(cull)), quirk=int(bool(quirk)), cond=int(bool(cond)))
+    for d in range(n_draws):  # a draw's four words side by side
+        params.draws[d][:] = [int(table[k * n_draws + d]) for k in range(4)]
+    return params
+
+
+def tri_setup(table, clip, ctx, *, n_draws, nb, m, m_pad, width, height, cull, quirk, vertex=None, cond=None):
     """Launch 1 of the triangle set-up (csrc/tri_setup.cu: tri_setup_kernel)
-    on PyTorch's current stream, over every face of the frame; ``table`` is
-    the (4 D,) int32 draw table (face_off, faces, slot_base, order_base).
-    ``clip`` (4, 3F) and ``ctx`` (C, 3F) f32 hold the draws' corners one
-    after the other (draw d's corner v of face i at 3 face_off[d] + v F_d +
-    i): the vertex shader's outputs, which the kernel reads, or, with
-    ``vertex`` (a :class:`VertexStage`: a builtin's vertex stage, run in the
-    launch), planes the kernel writes at the corners of every clipped face
-    and of each draw's last face, the entries the clip path reads, leaving
-    the rest unwritten. → (recs (m_pad, :func:`rec_words`) int32, the slot
-    records, and bbox (2, m_pad) int32, their MINXY and MAXXY words, with
-    every path-A slot written; b_mask (F,) bool; acc: the zeroed
-    accumulator the kernel filled (:func:`acc_layout`; :func:`acc_views`
-    reads it))."""
+    on PyTorch's current stream, over every slot of the frame; ``table`` is
+    the draw table (face_off, faces, slot_base, order_base: 4 D ints, the
+    launch's parameters). ``clip`` (4, 3F) and ``ctx`` (C, 3F) f32 hold the
+    draws' corners one after the other (draw d's corner v of face i at 3
+    face_off[d] + v F_d + i): the vertex shader's outputs, which the kernel
+    reads, or, with ``vertex`` (a :class:`VertexStage`: a builtin's vertex
+    stage, run in the launch), planes the kernel writes at the corners of
+    every clipped face and of each draw's last face, the entries the clip
+    path reads, leaving the rest unwritten. ``cond``: a :class:`Condition`
+    that the launch's last block sets to whether a face clipped (the frame's
+    conditional node, captured after it). → (recs (m_pad, :func:`rec_words`)
+    int32, the slot records, and bbox (2, m_pad) int32, their MINXY and
+    MAXXY words, with every slot written: the path-A slots, each draw's
+    path-B slots as the skip path leaves them, the padding slots; b_mask
+    (F,) bool; acc: the zeroed accumulator the kernel filled
+    (:func:`acc_layout`; :func:`acc_views` reads it)). Where no face clipped
+    the records are whole, the ps boundary quirk applied; else
+    :func:`tri_setup_slots` finishes them after the clip path."""
     dev = _on_cuda(clip, "tri_setup")
     n_faces, n_ctx = clip.shape[1] // 3, ctx.shape[0]
     _need(clip, "clip", torch.float32, dev, (4, 3 * n_faces))
     _need(ctx, "ctx", torch.float32, dev, (n_ctx, 3 * n_faces))
-    _need(table, "table", torch.int32, dev, (4 * n_draws,))
-    if not (0 < n_draws <= MAX_DRAWS and 0 <= m < m_pad < 2**31 and 0 < width < 32768 and 0 < height < 32768):
-        raise ValueError(f"tri_setup: {n_draws} draws, {m} slots in {m_pad} columns, {width}x{height}")
+    params = tri_setup_params(table, n_draws=n_draws, n_faces=n_faces, n_ctx=n_ctx, nb=nb, m=m, m_pad=m_pad,
+                              width=width, height=height, cull=cull, quirk=quirk, cond=cond is not None)
+    if cond is not None and cond.device != dev:
+        raise ValueError(f"tri_setup: a condition of {cond.device}, tensors on {dev}")
     args = None if vertex is None else vertex_args(vertex, clip, ctx, dev)
     words, keys = acc_layout(n_draws)
     acc = torch.zeros((words,), dtype=torch.int32, device=dev)
     recs = torch.empty((m_pad, rec_words(9 + 3 * n_ctx)), dtype=torch.int32, device=dev)
     bbox = torch.empty((2, m_pad), dtype=torch.int32, device=dev)
     b_mask = torch.empty((n_faces,), dtype=torch.bool, device=dev)
-    params = TriSetupParams(n_draws=n_draws, n_faces=n_faces, n_ctx=n_ctx, nb=nb, m=m, m_pad=m_pad, width=width,
-                            height=height, cull=int(bool(cull)), quirk=int(bool(quirk)))
-    if n_faces:
-        lib = load_library()
-        outs = (recs.data_ptr(), bbox.data_ptr(), b_mask.data_ptr(), acc.data_ptr(), keys, _stream(dev))
-        if args is None:
-            err = lib.fr_tri_setup(params, table.data_ptr(), clip.data_ptr(), ctx.data_ptr(), *outs)
-        else:
-            err = lib.fr_tri_setup_vertex(params, table.data_ptr(), ctypes.byref(args), *outs)
-        _check(lib, err, "fr_tri_setup" if args is None else "fr_tri_setup_vertex")
-        _count(tri_setup)
+    lib = load_library()
+    outs = (recs.data_ptr(), bbox.data_ptr(), b_mask.data_ptr(), acc.data_ptr(), keys,
+            0 if cond is None else cond.handle, _stream(dev))
+    if args is None:
+        err = lib.fr_tri_setup(params, clip.data_ptr(), ctx.data_ptr(), *outs)
+    else:
+        err = lib.fr_tri_setup_vertex(params, ctypes.byref(args), *outs)
+    _check(lib, err, "fr_tri_setup" if args is None else "fr_tri_setup_vertex")
+    _count(tri_setup)
     return recs, bbox, b_mask, acc
 
 
@@ -726,29 +778,27 @@ tri_setup.launches = 0
 
 def acc_views(acc, n_draws: int):
     """The set-up accumulator's (faces clipped per draw (D,) int32, in the
-    frame (0-d int32), whether each draw clipped a face (D,) bool)."""
-    clipped = acc[2 * n_draws + 1:2 * n_draws + 1 + -(-n_draws // 4)].view(torch.uint8)[:n_draws]
-    return acc[:n_draws], acc[n_draws], clipped.view(torch.bool)
+    frame (0-d int32))."""
+    return acc[:n_draws], acc[n_draws]
 
 
 def tri_setup_slots(table, fan, recs, bbox, acc, *, n_draws, nb, m, n_ctx, width, height, cull, quirk):
-    """Launches 2 and 3 of the triangle set-up (csrc/tri_setup.cu:
+    """The clip path's launches of the triangle set-up (csrc/tri_setup.cu:
     tri_slots_kernel, then with ``quirk`` tri_quirk_kernel) on PyTorch's
     current stream, into :func:`tri_setup`'s records and bboxes: the path-B
-    slots from ``fan`` (D, nb (23 + 3C)) int32, the clip path's arrays where
-    the draw clipped a face, the padding slots, and the ps boundary quirk."""
+    slots of each draw that clipped a face, from ``fan`` (D, nb (23 + 3C))
+    int32, the clip path's arrays, and the ps boundary quirk."""
     dev = _on_cuda(recs, "tri_setup_slots")
     m_pad = recs.shape[0]
-    _need(table, "table", torch.int32, dev, (4 * n_draws,))
     _need(fan, "fan", torch.int32, dev, (n_draws, nb * (23 + 3 * n_ctx)))
     _need(recs, "recs", torch.int32, dev, (m_pad, rec_words(9 + 3 * n_ctx)))
     _need(bbox, "bbox", torch.int32, dev, (2, m_pad))
     _need(acc, "acc", torch.int32, dev, (acc_layout(n_draws)[0],))
-    params = TriSetupParams(n_draws=n_draws, n_faces=0, n_ctx=n_ctx, nb=nb, m=m, m_pad=m_pad, width=width,
-                            height=height, cull=int(bool(cull)), quirk=int(bool(quirk)))
+    params = tri_setup_params(table, n_draws=n_draws, n_faces=0, n_ctx=n_ctx, nb=nb, m=m, m_pad=m_pad, width=width,
+                              height=height, cull=cull, quirk=quirk)
     lib = load_library()
-    err = lib.fr_tri_setup_slots(params, table.data_ptr(), fan.data_ptr(), recs.data_ptr(), bbox.data_ptr(),
-                                 acc.data_ptr(), acc_layout(n_draws)[1], _stream(dev))
+    err = lib.fr_tri_setup_slots(params, fan.data_ptr(), recs.data_ptr(), bbox.data_ptr(), acc.data_ptr(),
+                                 acc_layout(n_draws)[1], _stream(dev))
     _check(lib, err, "fr_tri_setup_slots")
     _count(tri_setup_slots)
 

@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from f_renderer_tpu_torch.device import capturing, constant, if_node, in_graph_frame
+from f_renderer_tpu_torch.device import capturing, if_node, in_graph_frame
 from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
 from f_renderer_tpu_torch.shaders.api import ContextCodec
 
@@ -378,37 +378,31 @@ def fan_views(words, clip_cap: int, c: int):
     return out
 
 
-def clip_into(outs, clip, ctx_a, b_mask, num_clipped, clipped, clip_cap, order_base, width, height):
-    """Path B of a draw for the set-up kernels: the clip path written into
-    ``outs`` (:func:`fan_views`) where a face clipped. The kernel reads them
-    only where ``num_clipped`` > 0 and takes the skip path's values
-    elsewhere, so nothing is written where no face clipped:
-
-    - captured on the card: a conditional node on the 0-d bool ``clipped``
-      (``device.if_node``), as :func:`clip_or_skip`;
-    - a captured frame outside a capture (the graph's warm-up frame): the
-      clip path runs (no host sync);
-    - eagerly: the host asks, and skips the clip path where nothing clips.
-    """
-    args = (outs, clip, ctx_a, b_mask, clip_cap, order_base, width, height)
-    if capturing(clip.device):
-        if_node(clipped, clip_path_into, *args)
-    elif in_graph_frame() or int(num_clipped) > 0:  # a host sync, eagerly
-        clip_path_into(*args)
-
-
 def packed_geometry(draws, vertex_shader, vs_uniform, width: int, height: int, *, clip_cap: int, cull: bool,
                     quirk: bool):
     """Every draw's geometry and pack on the card, through the triangle
-    set-up kernels (csrc/tri_setup.cu; ``kernels.tri_setup``): launch 1 over
-    every face (a builtin's vertex stage where the vertex shader is tagged
-    ``fused_kind``, else the vertex shader per draw in PyTorch first; masks,
-    path-A columns), each draw's clip path (:func:`clip_into`), launches 2
-    and 3 (path-B and padding slots; the ps boundary quirk where
-    ``quirk``) → (recs (m_pad, rec) int32, bbox (2, m_pad) int32, slots m,
-    C, faces clipped 0-d int32): the records (``raster.slot_records``) and
-    bbox rows of what ``raster.pack_binned`` makes of
-    ``render.build_triangles``' buffer, bit for bit."""
+    set-up kernels (csrc/tri_setup.cu; ``kernels.tri_setup``) → (recs (m_pad,
+    rec) int32, bbox (2, m_pad) int32, slots m, C, faces clipped 0-d int32):
+    the records (``raster.slot_records``) and bbox rows of what
+    ``raster.pack_binned`` makes of ``render.build_triangles``' buffer, bit
+    for bit. Launch 1 runs over every slot (a builtin's vertex stage where
+    the vertex shader is tagged ``fused_kind``, else the vertex shader per
+    draw in PyTorch first): the masks, the path-A slots, the skip path's
+    path-B slots, the padding, and, where no face clipped, the ps boundary
+    quirk (where ``quirk``). Where a face clipped, the clip path runs
+    (:func:`clip_path_into` for each draw, then ``kernels.tri_setup_slots``:
+    the path-B slots of the draws that clipped, the quirk) — the JAX
+    package's ``lax.cond``, one for the frame, three ways:
+
+    - captured on the card: a conditional node whose condition launch 1's
+      last block sets (``kernels.condition``, ``device.if_node``), so a
+      replay that clips nothing runs launch 1 alone;
+    - a captured frame outside a capture (the graph's warm-up frame): the
+      clip path runs (no host sync); it leaves a frame that clipped nothing
+      as launch 1 wrote it;
+    - eagerly: the host asks, and runs the clip path of the draws that
+      clipped where one did.
+    """
     from f_renderer_tpu_torch import kernels
     from f_renderer_tpu_torch.shaders.builtin import vertex_layout
 
@@ -429,7 +423,7 @@ def packed_geometry(draws, vertex_shader, vs_uniform, width: int, height: int, *
     order_base = [f0 * MAX_FAN for f0 in face_off]
     m = sum(faces) + n_draws * nb
     m_pad = -(-(m + 1) // 128) * 128  # raster.pack_binned's columns
-    table = constant(tuple(face_off + faces + slot_base + order_base), dev, torch.int32)
+    table = tuple(face_off + faces + slot_base + order_base)  # the launches' parameters
     shape = dict(n_draws=n_draws, nb=nb, m=m, width=width, height=height, cull=cull, quirk=quirk)
     if kind is None:
         clip = torch.cat([s[1] for s in stages], 1) if n_draws > 1 else stages[0][1]
@@ -440,13 +434,27 @@ def packed_geometry(draws, vertex_shader, vs_uniform, width: int, height: int, *
         ctx = torch.empty((c, 3 * sum(faces)), device=dev)
         vertex = kernels.VertexStage(kind, vs_uniform, list(draws), getattr(vertex_shader, "light_pos", (0.0,) * 3),
                                      getattr(vertex_shader, "light_color", (0.0,) * 3))
-    recs, bbox, b_mask, acc = kernels.tri_setup(table, clip, ctx, m_pad=m_pad, vertex=vertex, **shape)
-    num_clipped, total, clipped = kernels.acc_views(acc, n_draws)
+    cond = kernels.condition(dev) if capturing(dev) else None
+    recs, bbox, b_mask, acc = kernels.tri_setup(table, clip, ctx, m_pad=m_pad, vertex=vertex, cond=cond, **shape)
+    num_clipped, total = kernels.acc_views(acc, n_draws)
     fan = torch.empty((n_draws, nb * (23 + 3 * c)), dtype=torch.int32, device=dev)
-    for d, (f, o) in enumerate(zip(faces, face_off)):
-        if f > 0:
-            planes = clip[:, 3 * o:3 * (o + f)], ctx[:, 3 * o:3 * (o + f)]
-            clip_into(fan_views(fan[d], clip_cap, c), *planes, b_mask[o:o + f], num_clipped[d], clipped[d], clip_cap,
-                      order_base[d], width, height)
-    kernels.tri_setup_slots(table, fan, recs, bbox, acc, n_ctx=c, **shape)
+
+    def clip_path(which):
+        """The clip path of the draws ``which``, into their fan words, then
+        the path-B slots of those that clipped a face and the quirk."""
+        for d in which:
+            o, f = face_off[d], faces[d]
+            clip_path_into(fan_views(fan[d], clip_cap, c), clip[:, 3 * o:3 * (o + f)], ctx[:, 3 * o:3 * (o + f)],
+                           b_mask[o:o + f], clip_cap, order_base[d], width, height)
+        kernels.tri_setup_slots(table, fan, recs, bbox, acc, n_ctx=c, **shape)
+
+    with_faces = [d for d in range(n_draws) if faces[d] > 0]
+    if cond is not None:
+        if_node(cond, clip_path, with_faces)
+    elif in_graph_frame():
+        clip_path(with_faces)
+    else:
+        clipped = [d for d, n in enumerate(num_clipped.tolist()) if n > 0]  # a host sync
+        if clipped:
+            clip_path(clipped)
     return recs, bbox, m, c, total

@@ -152,16 +152,17 @@ def shade_planes(ctx, ps_idx, winner, kind, ps_uniform, codec: ContextCodec, *, 
     packed, with the background where winner < 0, in one launch of
     ``kernels.shade_planes`` (csrc/shade_planes.cu) → (H, W, 4) uint8. The
     planes are read through their strides (K4's cropped planes need no
-    copy), each varying at the channel ``codec`` gives its name. CUDA
-    tensors only (it launches or raises); :func:`shade_planes_plain` is its
-    plain version."""
+    copy), each varying at the channel ``codec`` gives its name; the
+    sampler's opaque shortcut only where ``TextureStack.sampler_opaque``
+    allows it, as the plain sampler takes it. CUDA tensors only (it launches
+    or raises); :func:`shade_planes_plain` is its plain version."""
     from f_renderer_tpu_torch import kernels
 
     stack, view_pos = shading_inputs(kind, ps_uniform, winner.device)
     rgba = kernels.shade_planes(
         ctx, ps_idx, winner, view_pos.to(torch.float32).contiguous(), stack.dims, stack.texels, kind=kind,
-        varyings=varying_offsets(kind, codec), opaque=stack.opaque, bg_packed=background_packed(background),
-        light_pos=light_pos, light_color=light_color)
+        varyings=varying_offsets(kind, codec), opaque=stack.sampler_opaque(ps_idx),
+        bg_packed=background_packed(background), light_pos=light_pos, light_color=light_color)
     h, w = winner.shape
     return rgba.view(torch.uint8).reshape(h, w, 4)
 

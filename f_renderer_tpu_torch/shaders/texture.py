@@ -56,8 +56,9 @@ def _pack(q: np.ndarray) -> np.ndarray:
 class TextureStack:
     texels: torch.Tensor  # (T, Hmax, Wmax) int32 RGBA8
     dims: torch.Tensor  # (T, 2) int32 — (height, width) per texture
-    # Every real texel's alpha is 255: the sampler then takes alpha as the
-    # weight sum instead of unpacking the byte (as the JAX package does).
+    # Every real texel's alpha is 255: the in-kernel sampler then takes
+    # alpha as the weight sum instead of unpacking the byte (as the JAX
+    # package's Pallas sampler does; :meth:`sampler_opaque` says where).
     opaque: bool = False
 
     @property
@@ -78,6 +79,16 @@ class TextureStack:
         quantity its fused-path routing compares with PACKED_VMEM_BUDGET."""
         pages = -(-max(self.wmax, 1) // LANES)
         return self.t_count * pages * _hmax_padded(self.hmax) * LANES * 4
+
+    def sampler_opaque(self, index) -> bool:
+        """Whether a sample of this stack at ``index`` takes the opaque
+        shortcut (alpha as the weight sum): only where the JAX package's
+        ``TextureStack.sample`` takes its Pallas sampler, whose shortcut it
+        is (``_pallas_sampler_ok`` there: a batched index, the packed stack
+        within ``PACKED_VMEM_BUDGET``). Past the limit the JAX package
+        samples with its XLA sampler, which takes alpha from the taps: 0
+        where the width-clamp quirk reads past a shorter texture's rows."""
+        return self.opaque and index.ndim >= 1 and self.packed_nbytes <= PACKED_VMEM_BUDGET
 
     @staticmethod
     def create(textures, *, device="cuda") -> "TextureStack":
@@ -138,7 +149,7 @@ class TextureStack:
             index.to(torch.int32).contiguous(),
             u.to(torch.float32).contiguous(),
             v.to(torch.float32).contiguous(),
-            opaque=self.opaque,
+            opaque=self.sampler_opaque(index),
             replicate_clamp_bug=replicate_clamp_bug,
         )
 
@@ -147,5 +158,5 @@ class TextureStack:
         device; it launches no kernel."""
         return sample_packed_plain(
             self.texels, self.dims, index, u, v,
-            opaque=self.opaque, replicate_clamp_bug=replicate_clamp_bug,
+            opaque=self.sampler_opaque(index), replicate_clamp_bug=replicate_clamp_bug,
         )

@@ -15,6 +15,10 @@ for each builtin kind (flat, gouraud, textured, phong):
   are, byte for byte. The JAX side runs in a subprocess with
   ``--xla_cpu_max_isa=AVX`` (no fused multiply-adds, see
   test_torch_fused.py); this file is that subprocess's script too;
+- past the routing limit (``PACKED_VMEM_BUDGET`` patched in both packages),
+  textured and phong on an opaque non-square stack against the JAX
+  package's route there, its XLA sampler (alpha from the taps, not the
+  Pallas sampler's opaque shortcut), under the same colour bar;
 - ``shade_from_planes`` on a builtin takes the plain version on CPU
   tensors whatever ``vectorized`` says, and the builtin run as a user
   shader (untagged) per pixel or vectorized gives the same frame;
@@ -30,6 +34,7 @@ for each builtin kind (flat, gouraud, textured, phong):
   --noconftest -m cuda tests/test_torch_shade_kernel.py``.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -40,7 +45,7 @@ import torch
 
 from f_renderer_tpu_torch import kernels
 from f_renderer_tpu_torch.pipeline import shade
-from f_renderer_tpu_torch.shaders import builtin
+from f_renderer_tpu_torch.shaders import builtin, texture
 from f_renderer_tpu_torch.shaders.api import ContextCodec
 from f_renderer_tpu_torch.shaders.texture import TextureStack
 
@@ -52,22 +57,23 @@ BACKGROUND = (30, 40, 50, 255)
 TEX_SIZES = ((16, 16), (12, 8), (10, 20))  # (h, w): square, tall, and wide (the width-clamp quirk reads rows past h)
 RANGES = {"color": (-0.1, 1.1), "uv": (-0.25, 1.25), "normal": (-1.0, 1.0), "pos": (-2.0, 2.0)}
 VIEW_POS = (0.3, 0.8, 3.5)
+PAST_LIMIT = 1024  # a routing limit in bytes below every test stack's packed size
 
 
 def layout(kind):
     return builtin.PIXEL_KINDS[kind].varyings
 
 
-def inputs(kind, seed=0):
+def inputs(kind, seed=0, opaque=False):
     """The planes of ``kind`` from a numpy seed → (ctx (C, H, W) f32, ps
     (H, W) int32 in [0, T), winner (H, W) int32 with a third -1, textures:
-    RGBA8 arrays, opaque for phong)."""
+    RGBA8 arrays, opaque for phong and where ``opaque``)."""
     rng = np.random.default_rng([seed, KINDS.index(kind)])
     ctx = np.concatenate([rng.uniform(*RANGES[name], (width, H, W)) for name, width in layout(kind)])
     winner = np.where(rng.random((H, W)) < 0.3, -1, rng.integers(0, 5000, (H, W)))
     ps = rng.integers(0, len(TEX_SIZES), (H, W))
     textures = [rng.integers(0, 256, (h, w, 4), dtype=np.uint8) for h, w in TEX_SIZES]
-    if kind == "phong":
+    if kind == "phong" or opaque:
         for t in textures:
             t[..., 3] = 255
     return ctx.astype(np.float32), ps.astype(np.int32), winner.astype(np.int32), textures
@@ -80,9 +86,9 @@ def port_pixel_shader(kind):
             "phong": builtin.make_phong_shaders}[kind]()[1]
 
 
-def port_case(kind, device="cpu"):
+def port_case(kind, device="cpu", opaque=False):
     """The port's tensors of ``kind``'s planes → (ctx, ps, winner, ps_uniform, codec)."""
-    ctx, ps, winner, textures = inputs(kind)
+    ctx, ps, winner, textures = inputs(kind, opaque=opaque)
     uniform = {"textures": TextureStack.create(textures, device=device),
                "view_pos": torch.tensor(VIEW_POS, dtype=torch.float32, device=device)}
     as_t = [torch.from_numpy(a).to(device) for a in (ctx, ps, winner)]
@@ -93,7 +99,10 @@ def write_reference(path):
     """Each kind's planes through the JAX package's ``shade_from_planes``,
     its sampler routed as on the TPU: the stacks fit the routing limit, so
     ``TextureStack.sample`` takes the Pallas sampler (K3), here in interpret
-    mode."""
+    mode. Then textured and phong on opaque stacks past the limit
+    (``PACKED_VMEM_BUDGET`` set to ``PAST_LIMIT``), where the TPU takes the
+    XLA sampler (``USE_PALLAS_SAMPLER = False``): keys ``<kind> past the
+    limit``."""
     import functools
 
     import jax
@@ -112,15 +121,21 @@ def write_reference(path):
     shaders = {"flat": jb.FlatShader.pixel, "gouraud": jb.make_gouraud_shaders()[1],
                "textured": jb.make_textured_shaders()[1], "phong": jb.make_phong_shaders()[1]}
     out = {}
-    for kind in KINDS:
-        ctx, ps, winner, textures = inputs(kind)
+    cases = [(kind, kind, False) for kind in KINDS] + [(f"{kind} past the limit", kind, True)
+                                                        for kind in ("textured", "phong")]
+    for key, kind, past in cases:
+        if past:
+            jtex.USE_PALLAS_SAMPLER, jtex.PACKED_VMEM_BUDGET = False, PAST_LIMIT
+        ctx, ps, winner, textures = inputs(kind, opaque=past)
         tree = {name: jnp.zeros((width,)) for name, width in layout(kind)}
         leaves, treedef = jax.tree.flatten(tree)
         codec = JaxCodec(treedef=treedef, shapes=tuple(tuple(l.shape) for l in leaves), num_channels=ctx.shape[0])
         uniform = {"textures": JaxStack.create(textures), "view_pos": jnp.asarray(VIEW_POS, jnp.float32)}
+        assert uniform["textures"].opaque == (kind == "phong" or past)
+        assert (uniform["textures"].packed_nbytes > jtex.PACKED_VMEM_BUDGET) == past
         frame = shade_from_planes(jnp.asarray(np.moveaxis(ctx, 0, -1)), jnp.asarray(ps), jnp.asarray(winner),
                                   shaders[kind], uniform, codec, background=BACKGROUND)
-        out[kind] = np.asarray(frame)
+        out[key] = np.asarray(frame)
     np.savez(path, **out)
 
 
@@ -160,15 +175,41 @@ def test_plain_matches_jax(kind, ref):
     assert (won == 0).any() and (won == 255).any()
 
 
+@pytest.mark.parametrize("kind", ("textured", "phong"))
+def test_plain_past_the_limit_matches_jax_xla_sampler(kind, ref, monkeypatch):
+    """On an opaque non-square stack past the routing limit the JAX package
+    samples with its XLA sampler, which takes alpha from the taps (0 where
+    the width-clamp quirk reads past the wide texture's 10 rows), not with
+    the Pallas sampler's opaque shortcut: the plain version takes that route
+    too (``TextureStack.sampler_opaque``), within the colour bar."""
+    monkeypatch.setattr(texture, "PACKED_VMEM_BUDGET", PAST_LIMIT)
+    ctx, ps, winner, uniform, codec = port_case(kind, opaque=True)
+    stack = uniform["textures"]
+    got = shade.shade_planes_plain(ctx, ps, winner, kind, uniform, codec, background=BACKGROUND).numpy()
+    frame_bar(got, ref[f"{kind} past the limit"])
+    assert stack.opaque and stack.packed_nbytes > PAST_LIMIT and not stack.sampler_opaque(ps)
+    # under the limit the same stack takes the shortcut, as the Pallas sampler does, and alpha differs
+    monkeypatch.setattr(texture, "PACKED_VMEM_BUDGET", stack.packed_nbytes)
+    assert stack.sampler_opaque(ps)
+    under = shade.shade_planes_plain(ctx, ps, winner, kind, uniform, codec, background=BACKGROUND).numpy()
+    assert (under[..., 3] != got[..., 3]).any()
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_builtin_frame_ignores_vectorized(kind):
     """``shade_from_planes`` on a builtin: the plain version on CPU tensors
     (no kernel launched) with either flag; the same shader untagged, run as
-    a user's shader per pixel (``torch.func.vmap``) and vectorized, gives
-    the same frame."""
+    a user's shader vectorized, gives the same frame, and per pixel
+    (``torch.func.vmap``) too, but that its samples are not batched: as the
+    JAX package's would take its XLA sampler there, they take alpha from
+    the taps (``TextureStack.sampler_opaque``), which is the frame of the
+    same stack marked not opaque (phong's is opaque)."""
     ctx, ps, winner, uniform, codec = port_case(kind)
     pixel = port_pixel_shader(kind)
     want = shade.shade_planes_plain(ctx, ps, winner, kind, uniform, codec, background=BACKGROUND)
+    taps = dict(uniform, textures=dataclasses.replace(uniform["textures"], opaque=False))
+    want_per_pixel = shade.shade_planes_plain(ctx, ps, winner, kind, taps, codec, background=BACKGROUND)
+    assert torch.equal(want_per_pixel, want) == (kind != "phong")
     before = {name: getattr(kernels, name).launches for name in ("shade_planes", "sample_bilinear")}
     for vectorized in (True, False):
         got = shade.shade_from_planes(ctx, ps, winner, pixel, uniform, codec, background=BACKGROUND,
@@ -180,7 +221,7 @@ def test_builtin_frame_ignores_vectorized(kind):
 
         got = shade.shade_from_planes(ctx, ps, winner, untagged, uniform, codec, background=BACKGROUND,
                                       vectorized=vectorized)
-        assert torch.equal(got, want), f"vectorized={vectorized}"
+        assert torch.equal(got, want if vectorized else want_per_pixel), f"vectorized={vectorized}"
     assert before == {name: getattr(kernels, name).launches for name in before}
 
 

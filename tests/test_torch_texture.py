@@ -128,6 +128,40 @@ def test_k3_plain_matches_pallas_sampler(rng, replicate_clamp_bug, opaque):
     assert not np.array_equal(got[idx == 1], other[idx == 1])
 
 
+def test_opaque_stack_past_the_limit_samples_as_xla(rng, monkeypatch):
+    """Past the routing limit (``PACKED_VMEM_BUDGET`` patched in both
+    packages) the JAX package's ``TextureStack.sample`` takes its XLA
+    sampler on the TPU (``USE_PALLAS_SAMPLER = False`` here), so an opaque
+    stack's alpha comes from the taps: ``sample`` and ``sample_plain`` give
+    all four channels of it, the zero padding's alpha where the width-clamp
+    quirk reads past the 13-row texture; under the limit, alpha is the
+    weight sum again (``sampler_opaque``)."""
+    from f_renderer_tpu.shaders import texture as jtex
+
+    from f_renderer_tpu_torch.shaders import texture as ptex
+
+    texs = [rng.random((h, w, 4)).astype(np.float32) for h, w in ((13, 200), (48, 96), (40, 16))]
+    for t in texs:
+        t[..., 3] = 1.0
+    jstack, pstack = stacks(texs)
+    limit = pstack.packed_nbytes - 1
+    monkeypatch.setattr(jtex, "USE_PALLAS_SAMPLER", False)
+    monkeypatch.setattr(jtex, "PACKED_VMEM_BUDGET", limit)
+    monkeypatch.setattr(ptex, "PACKED_VMEM_BUDGET", limit)
+    idx = rng.integers(-1, 3, (11, 64)).astype(np.int32)
+    uv = rng.uniform(-0.3, 1.3, (11, 64, 2)).astype(np.float32)
+    want = xla_sample(jstack, idx, uv)
+    got = port_sample(pstack, idx, uv)
+    plain = pstack.sample_plain(torch.from_numpy(idx), torch.from_numpy(uv[..., 0]), torch.from_numpy(uv[..., 1]))
+    close(got, want, idx >= 0)
+    close(np.moveaxis(plain.numpy(), 0, -1), want, idx >= 0)
+    assert pstack.opaque and not pstack.sampler_opaque(torch.from_numpy(idx))
+    assert (want[idx >= 0][:, 3] < 1.0 - 1e-3).any()  # the quirk reached the zero padding
+    monkeypatch.setattr(ptex, "PACKED_VMEM_BUDGET", limit + 1)
+    assert pstack.sampler_opaque(torch.from_numpy(idx))
+    close(port_sample(pstack, idx, uv), pallas_sample(jstack, idx, uv), idx >= 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("replicate_clamp_bug", [True, False])
 def test_k3_kernel_matches_plain_on_card(replicate_clamp_bug):

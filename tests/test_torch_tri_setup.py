@@ -19,12 +19,23 @@ custom shader's route): the builtin shaders run untagged
 (:func:`untagged`). Its vertex modes, which run a tagged builtin's vertex
 stage in the launch, have their mirror and tests in
 tests/test_torch_vertex_setup.py, and both modes run in the ``cuda`` test.
-The cases:
+Launch 1's mirror writes every slot (path A, the skip path's path-B slots,
+the padding) and mirrors its last block: the frame's condition (a
+:class:`FakeCondition`) and, where no face clipped, the quirk; the clip
+path's launches rewrite path B of the draws that clipped, then apply the
+quirk. The cases:
 
 - a three-draw phong scene at a small size;
 - frames with 0, 1, clip_cap and clip_cap + 7 faces of draw 0 moved through
   the near plane (``chip_smoke.clipped_draws``), eagerly and as a captured
-  frame's warm-up runs it (``device.graph_frame``: the clip path always);
+  frame's warm-up runs it (``device.graph_frame``: the clip path always),
+  and as a capture records it (:func:`check_modes`: the frame's one
+  conditional node emulated on the host, entered where launch 1's last
+  block set its condition);
+- a frame where nothing clips (the node's body does not run), one where
+  three faces of the middle draw of three clip, and one where face 0 of
+  the middle draw clips, so its least valid slot, which the quirk rewrites,
+  lies in path B;
 - ``cull_backfaces`` on; the ps quirk on and off, with one draw, with an
   empty draw, and with a draw whose faces are all clipped;
 - corners with w = 0 and NaN, and off-screen garbage whose screen
@@ -41,7 +52,7 @@ import numpy as np
 import pytest
 import torch
 
-from f_renderer_tpu_torch import kernels, make_checker_texture, make_cube, make_phong_scene, make_uv_sphere
+from f_renderer_tpu_torch import Camera, kernels, make_checker_texture, make_cube, make_phong_scene, make_uv_sphere
 from f_renderer_tpu_torch.device import graph_frame
 from f_renderer_tpu_torch.pipeline import geometry, raster
 from f_renderer_tpu_torch.pipeline.render import build_packed, build_triangles
@@ -125,19 +136,43 @@ def accumulate(acc, n_draws, keys_word, d, valid, order, col):
     key = ((order.astype(np.uint32) ^ np.uint32(0x80000000)).astype(np.uint64) << np.uint64(32)) | col.astype(np.uint64)
     for dd in np.unique(d[valid]):
         on = valid & (d == dd)
-        acc[n_draws + 1 + dd] += on.sum()
+        acc[n_draws + 2 + dd] += on.sum()
         keys[dd] = max(keys[dd], (~key[on]).max())
 
 
-def mirror_tri_setup(table, clip, ctx, *, n_draws, nb, m, m_pad, width, height, cull, quirk):
+def apply_quirk(recs, acc, n_draws):
+    """The ps boundary quirk from the accumulator's per-draw counts and
+    least slots (the kernels' apply_quirk)."""
+    keys_word = kernels.acc_layout(n_draws)[1]
+    counts = acc[n_draws + 2:2 * n_draws + 2]
+    offsets = np.cumsum(counts).astype(np.int32)
+    keys = acc[keys_word:keys_word + 2 * n_draws].view(np.uint64)
+    for dd in range(n_draws):
+        if counts[dd] > 0:
+            start = offsets[dd - 1] if dd else 0
+            recs[int(~keys[dd] & np.uint64(0xFFFFFFFF)), PS] = np.searchsorted(offsets, start, side="left")
+
+
+class FakeCondition:
+    """A conditional node's condition (``kernels.Condition``) whose value
+    the mirror of launch 1's last block sets, as ``cudaGraphSetConditional``
+    does on the card; 0 until then, as at the start of every replay."""
+
+    def __init__(self, device=None):
+        self.device, self.value = device, 0
+
+
+def mirror_tri_setup(table, clip, ctx, *, n_draws, nb, m, m_pad, width, height, cull, quirk, cond=None):
     """Launch 1 (tri_setup_kernel): every face's masks, path-A record and
-    bbox words."""
+    bbox words; every path-B slot with the skip path's values and every
+    padding slot zeros; then its last block: ``cond`` set to whether a face
+    clipped, and where none did, the quirk."""
     face_off, faces, slot_base, order_base = np.asarray(table, np.int64).reshape(4, n_draws)
     clip, ctx = np.asarray(clip, F32), np.asarray(ctx, F32)
-    n_faces = clip.shape[1] // 3
+    n_faces, c = clip.shape[1] // 3, ctx.shape[0]
     words, keys_word = kernels.acc_layout(n_draws)
     acc = np.zeros(words, np.int32)
-    recs = np.full((m_pad, kernels.rec_words(9 + 3 * ctx.shape[0])), GARBAGE, np.int32)
+    recs = np.full((m_pad, kernels.rec_words(9 + 3 * c)), GARBAGE, np.int32)
     bbox = np.full((2, m_pad), GARBAGE, np.int32)
     i = np.arange(n_faces)
     d = np.searchsorted(face_off, i, side="right") - 1
@@ -157,54 +192,55 @@ def mirror_tri_setup(table, clip, ctx, *, n_draws, nb, m, m_pad, width, height, 
         order = (order_base[d] + fl * geometry.MAX_FAN).astype(np.int32)
         valid = store_slots(recs, bbox, col, t, np.stack([ctx[:, j] for j in idx]), w_ok & all_in, order,
                             d.astype(np.int32), cull, width, height)
+    j = np.arange(n_draws * nb)  # path B: the skip path's values
+    d_b = j // nb
+    zf, zi = np.zeros((3, j.size), F32), np.zeros((3, j.size), np.int32)
+    skip = dict(nx=zf, ny=zf, sx=zf, sy=zf, rhw=zf, ix=zi, iy=zi)
+    store_slots(recs, bbox, slot_base[d_b] + faces[d_b] + j % nb, skip, np.zeros((3, c, j.size), F32),
+                np.zeros(j.size, bool), order_base[d_b].astype(np.int32), d_b.astype(np.int32), cull, width, height)
+    recs[m:] = 0
+    bbox[:, m:] = 0
     for dd in range(n_draws):
         acc[dd] = (b & (d == dd)).sum()
-        acc.view(np.uint8)[4 * (2 * n_draws + 1) + dd] = acc[dd] > 0
     acc[n_draws] = b.sum()
     if quirk:
         accumulate(acc, n_draws, keys_word, d, valid, order, col)
+    # the last block: every block's sums are in
+    if cond is not None:
+        cond.value = int(acc[n_draws] > 0)
+    if quirk and acc[n_draws] == 0:
+        apply_quirk(recs, acc, n_draws)
     return recs, bbox, b, acc
 
 
 def mirror_tri_setup_slots(table, fan, recs, bbox, acc, *, n_draws, nb, m, n_ctx, width, height, cull, quirk):
-    """Launches 2 and 3 (tri_slots_kernel, tri_quirk_kernel), in place."""
+    """The clip path's launches (tri_slots_kernel, tri_quirk_kernel), in
+    place: the path-B slots of each draw that clipped a face, then the
+    quirk."""
     _, faces, slot_base, order_base = np.asarray(table, np.int64).reshape(4, n_draws)
     c = n_ctx
     fan = np.asarray(fan, np.int32)
     j = np.arange(n_draws * nb)
+    j = j[acc[j // nb] > 0]  # the draws that clipped a face: launch 1's slots stay elsewhere
     d, s = j // nb, j % nb
-    ran = acc[d] > 0
     fields = {}
     at = 0
     for name, per in (("ndc", 6), ("spf", 6), ("spi", 6), ("rhw", 3), ("ctx", 3 * c), ("valid", 1), ("order", 1)):
         fields[name] = fan[:, at * nb:(at + per) * nb].reshape(n_draws, nb, per)[d, s]  # (N, per)
         at += per
-
-    def f32(a):
-        return np.where(ran[:, None], a, 0).astype(np.int32).view(F32)
-
-    ndc, spf = f32(fields["ndc"]).reshape(-1, 3, 2), f32(fields["spf"]).reshape(-1, 3, 2)
-    spi = np.where(ran[:, None], fields["spi"], 0).reshape(-1, 3, 2)
+    ndc, spf = fields["ndc"].view(F32).reshape(-1, 3, 2), fields["spf"].view(F32).reshape(-1, 3, 2)
+    spi = fields["spi"].reshape(-1, 3, 2)
     t = dict(nx=ndc[..., 0].T, ny=ndc[..., 1].T, sx=spf[..., 0].T, sy=spf[..., 1].T,
-             rhw=f32(fields["rhw"]).T, ix=spi[..., 0].T, iy=spi[..., 1].T)
-    ctx = f32(fields["ctx"]).reshape(-1, 3, c).transpose(1, 2, 0)
-    valid_in = ran & (fields["valid"][:, 0] != 0)
-    order = np.where(ran, fields["order"][:, 0], order_base[d]).astype(np.int32)
+             rhw=fields["rhw"].view(F32).T, ix=spi[..., 0].T, iy=spi[..., 1].T)
+    ctx = fields["ctx"].view(F32).reshape(-1, 3, c).transpose(1, 2, 0)
+    order = fields["order"][:, 0].astype(np.int32)
     col = slot_base[d] + faces[d] + s
     with np.errstate(all="ignore"):
-        valid = store_slots(recs, bbox, col, t, ctx, valid_in, order, d.astype(np.int32), cull, width, height)
-    recs[m:] = 0
-    bbox[:, m:] = 0
+        valid = store_slots(recs, bbox, col, t, ctx, fields["valid"][:, 0] != 0, order, d.astype(np.int32), cull,
+                            width, height)
     if quirk:
-        words, keys_word = kernels.acc_layout(n_draws)
-        accumulate(acc, n_draws, keys_word, d, valid, order, col)
-        counts = acc[n_draws + 1:2 * n_draws + 1]
-        offsets = np.cumsum(counts).astype(np.int32)
-        keys = acc[keys_word:keys_word + 2 * n_draws].view(np.uint64)
-        for dd in range(n_draws):
-            if counts[dd] > 0:
-                start = offsets[dd - 1] if dd else 0
-                recs[int(~keys[dd] & np.uint64(0xFFFFFFFF)), PS] = np.searchsorted(offsets, start, side="left")
+        accumulate(acc, n_draws, kernels.acc_layout(n_draws)[1], d, valid, order, col)
+        apply_quirk(recs, acc, n_draws)
 
 
 def fake_tri_setup(table, clip, ctx, vertex=None, **kw):
@@ -212,12 +248,12 @@ def fake_tri_setup(table, clip, ctx, vertex=None, **kw):
         from test_torch_vertex_setup import mirror_vertex_launch
 
         return mirror_vertex_launch(table, clip, ctx, vertex, **kw)
-    recs, bbox, b, acc = mirror_tri_setup(table.numpy(), clip.numpy(), ctx.numpy(), **kw)
+    recs, bbox, b, acc = mirror_tri_setup(table, clip.numpy(), ctx.numpy(), **kw)
     return torch.from_numpy(recs), torch.from_numpy(bbox), torch.from_numpy(b), torch.from_numpy(acc)
 
 
 def fake_tri_setup_slots(table, fan, recs, bbox, acc, **kw):
-    mirror_tri_setup_slots(table.numpy(), fan.numpy(), recs.numpy(), bbox.numpy(), acc.numpy(), **kw)
+    mirror_tri_setup_slots(table, fan.numpy(), recs.numpy(), bbox.numpy(), acc.numpy(), **kw)
 
 
 # ------------------------------------------------------------ scenes
@@ -245,18 +281,41 @@ def scene3(shader="phong", planes=True, **config):
     return scene
 
 
-def clip_all(draws, vs_uniform, d):
-    """Corner 0 of every face of draw ``d`` moved through the near plane
-    (to clip z = -w / 2, as ``chip_smoke.clipped_draws`` moves a few)."""
+def clip_all(draws, vs_uniform, d, faces=None):
+    """Corner 0 of every face of draw ``d`` (or of its ``faces``) moved
+    through the near plane (to clip z = -w / 2, as
+    ``chip_smoke.clipped_draws`` moves a few)."""
     pos = draws[d]["pos"]
+    faces = torch.arange(pos.shape[0]) if faces is None else torch.as_tensor(faces)
     u = {k: vs_uniform[k].double() for k in ("proj", "view", "model")}
     mvp = u["proj"] @ u["view"] @ u["model"]
-    corner = torch.cat([pos[:, 0].double(), torch.ones_like(pos[:, 0, :1].double())], 1) @ mvp.T
+    corner = torch.cat([pos[faces, 0].double(), torch.ones_like(pos[faces, 0, :1].double())], 1) @ mvp.T
     corner[:, 2] = -0.5 * corner[:, 3]
     back = corner @ torch.linalg.inv(mvp).T
     moved = pos.clone()
-    moved[:, 0] = (back[:, :3] / back[:, 3:]).to(pos.dtype)
+    moved[faces, 0] = (back[:, :3] / back[:, 3:]).to(pos.dtype)
     return list(draws[:d]) + [dict(draws[d], pos=moved)] + list(draws[d + 1:])
+
+
+def quiet3(planes=True):
+    """Three draws of which no face clips: a sphere and two cubes before a
+    camera at (0, 0.5, 4); with ``planes``, the vertex shader untagged."""
+    cube = make_cube(0.8)
+    cube["pos"] = cube["pos"] + np.array([1.2, 0.0, 0.0], np.float32)
+    cube2 = make_cube(0.5)
+    cube2["pos"] = cube2["pos"] + np.array([-1.2, 0.3, 0.5], np.float32)
+    camera = Camera.create([0.0, 0.5, 4.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], "cpu")
+    scene = make_phong_scene(W, H, meshes=[make_uv_sphere(8, 16), cube, cube2], camera=camera, clip_cap=CAP,
+                             textures=[make_checker_texture(16, 4)] * 3, device="cpu")
+    if planes:
+        scene.vertex_shader = untagged(scene.vertex_shader)
+    return scene
+
+
+def clipped_per_draw(draws, vs, vs_uniform, config):
+    """Each draw's faces clipped (the plain geometry's count)."""
+    return [int(geometry.geometry_process(d, vs, vs_uniform, config.width, config.height,
+                                          clip_cap=config.clip_cap)[1]["num_clipped"]) for d in draws]
 
 
 def passthrough_shaders():
@@ -315,33 +374,57 @@ def same_records(a, b, n_ctx):
             and same_bits(record_views(a, rf)[1], record_views(b, rf)[1]))
 
 
-def mirrored(monkeypatch, draws, vs, vs_uniform, config, in_graph=False):
+def mirrored(monkeypatch, draws, vs, vs_uniform, config, in_graph=False, capture=False, trace=None):
     """``geometry.packed_geometry`` on CPU tensors with the mirror in the
     kernels' place → (recs, bbox, m, C, faces clipped). Launch 1 must
     run once, in the vertex mode of ``vs``'s tag, or reading planes if it
-    has none."""
-    modes = []
+    has none. ``in_graph``: as a captured frame's warm-up runs it (the clip
+    path always); ``capture``: as a capture on the card records it, launch
+    1 given a condition (:class:`FakeCondition`) that its mirror's last
+    block sets, the clip path the body of the frame's conditional node, run
+    here where that condition holds. ``trace`` (a dict) gets the condition
+    at each conditional node entered (``entered``) and the clip path's
+    launches (``slots``)."""
+    modes, entered, slots = [], [], []
 
     def setup(table, clip, ctx, vertex=None, **kw):
         modes.append(None if vertex is None else vertex.kind)
         return fake_tri_setup(table, clip, ctx, vertex, **kw)
 
+    def setup_slots(*a, **kw):
+        slots.append(1)
+        fake_tri_setup_slots(*a, **kw)
+
+    def host_if_node(cond, fn, *args):
+        assert isinstance(cond, FakeCondition)
+        entered.append(cond.value)
+        if cond.value:
+            fn(*args)
+
     monkeypatch.setattr(kernels, "tri_setup", setup)
-    monkeypatch.setattr(kernels, "tri_setup_slots", fake_tri_setup_slots)
+    monkeypatch.setattr(kernels, "tri_setup_slots", setup_slots)
     args = (draws, vs, vs_uniform, config.width, config.height)
     kw = dict(clip_cap=config.clip_cap, cull=config.cull_backfaces,
               quirk=config.replicate_ps_boundary_quirk and len(draws) > 1)
-    if in_graph:
-        with graph_frame():
+    with monkeypatch.context() as mp:
+        if capture:
+            mp.setattr(geometry, "capturing", lambda device: True)
+            mp.setattr(kernels, "condition", FakeCondition)
+            mp.setattr(geometry, "if_node", host_if_node)
+        if in_graph:
+            with graph_frame():
+                out = geometry.packed_geometry(*args, **kw)
+        else:
             out = geometry.packed_geometry(*args, **kw)
-    else:
-        out = geometry.packed_geometry(*args, **kw)
     assert modes == [getattr(vs, "fused_kind", None)]
+    assert len(entered) == int(capture)  # one conditional node a frame
+    if trace is not None:
+        trace.update(entered=entered, slots=len(slots))
     return out
 
 
-def check_against_plain(monkeypatch, draws, vs, vs_uniform, config, in_graph=False):
-    recs, bbox, m, c, clipped = mirrored(monkeypatch, draws, vs, vs_uniform, config, in_graph)
+def check_against_plain(monkeypatch, draws, vs, vs_uniform, config, in_graph=False, capture=False, trace=None):
+    recs, bbox, m, c, clipped = mirrored(monkeypatch, draws, vs, vs_uniform, config, in_graph, capture, trace)
     tri, stats = build_triangles(draws, vs, vs_uniform, config)
     pi, pf = raster.pack_binned(tri, config.width, config.height)
     want = raster.slot_records(pi, pf).numpy()
@@ -353,6 +436,25 @@ def check_against_plain(monkeypatch, draws, vs, vs_uniform, config, in_graph=Fal
     assert same_records(br.numpy(), want, c) and same_bits(bb.numpy(), bbox.numpy()) and (bm, bc) == (m, c)
     assert int(bstats["num_clipped"]) == int(clipped)
     return tri, int(clipped)
+
+
+MODES = ["eager", "graph_frame", "capture"]
+
+
+def check_modes(monkeypatch, draws, vs, vs_uniform, config):
+    """:func:`check_against_plain` eagerly, as a warm-up frame runs it and
+    as a capture records it → (the TriangleBuffer, faces clipped, {mode:
+    (the conditions entered, the clip path's launches)})."""
+    seen = {}
+    for mode in MODES:
+        trace = {}
+        tri, clipped = check_against_plain(monkeypatch, draws, vs, vs_uniform, config, in_graph=mode == "graph_frame",
+                                           capture=mode == "capture", trace=trace)
+        seen[mode] = (trace["entered"], trace["slots"])
+    # the clip path: eagerly and on a replay only where a face clipped; in the warm-up frame always
+    assert seen == {"eager": ([], int(clipped > 0)), "graph_frame": ([], 1),
+                    "capture": ([int(clipped > 0)], int(clipped > 0))}, seen
+    return tri, clipped, seen
 
 
 @pytest.mark.parametrize("shader", ["phong", "gouraud", "textured"])
@@ -398,6 +500,56 @@ def test_mirror_equals_plain_draw_all_clipped(monkeypatch):
     f1 = draws[1]["pos"].shape[0]
     lo = draws[0]["pos"].shape[0] + CAP * geometry.MAX_FAN
     assert not tri.valid[lo:lo + f1].any() and tri.valid[lo + f1:lo + f1 + CAP * geometry.MAX_FAN].any()
+
+
+@pytest.mark.parametrize("n", [0, 1, CAP, CAP + 7])
+def test_mirror_equals_plain_clip_flips_captured(monkeypatch, n):
+    """The clip flips as a capture records the frame: one conditional node,
+    whose condition the mirror of launch 1's last block sets; its body (the
+    clip path, then the clip path's launches) runs where a face clipped."""
+    import chip_smoke
+
+    scene = scene3()
+    draws = chip_smoke.clipped_draws(scene.draws, scene.vs_uniform, n) if n else scene.draws
+    tri, clipped, seen = check_modes(monkeypatch, draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+    assert clipped >= n and seen["capture"] == ([1], 1)
+
+
+def test_mirror_body_skipped_where_nothing_clips(monkeypatch):
+    """A frame whose faces clip nowhere: launch 1 writes every slot and
+    applies the quirk; the conditional node's condition stays 0 and its
+    body does not run (nor, eagerly, the clip path); the warm-up frame runs
+    the clip path, which leaves the records as they were."""
+    scene = quiet3()
+    assert clipped_per_draw(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config) == [0, 0, 0]
+    tri, clipped, seen = check_modes(monkeypatch, scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+    assert clipped == 0 and seen["capture"] == ([0], 0) and seen["eager"] == ([], 0)
+    assert int(tri.valid.sum()) > 100
+
+
+def test_mirror_one_draw_of_three_clips(monkeypatch):
+    """Three faces of the middle draw clipped, none of the others: the body
+    runs every draw's clip path, and the slots kernel rewrites path B of
+    the middle draw alone (the others keep launch 1's skip-path slots)."""
+    scene = quiet3()
+    draws = clip_all(scene.draws, scene.vs_uniform, 1, faces=[2, 5, 7])
+    assert clipped_per_draw(draws, scene.vertex_shader, scene.vs_uniform, scene.config) == [0, 3, 0]
+    tri, clipped, seen = check_modes(monkeypatch, draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+    assert clipped == 3 and seen["capture"] == ([1], 1)
+
+
+def test_mirror_quirk_least_slot_in_path_b(monkeypatch):
+    """Face 0 of the middle draw clipped: its fan triangles' orders come
+    before every path-A face's of that draw, so the draw's least valid slot,
+    whose PS word the quirk rewrites, lies in path B, after the clip path."""
+    scene = quiet3()
+    draws = clip_all(scene.draws, scene.vs_uniform, 1, faces=[0])
+    tri, clipped, _ = check_modes(monkeypatch, draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+    f0, f1, nb = draws[0]["pos"].shape[0], draws[1]["pos"].shape[0], CAP * geometry.MAX_FAN
+    lo = f0 + nb  # draw 1's slots: path A [lo, lo + f1), path B [lo + f1, lo + f1 + nb)
+    valid, order = tri.valid[lo:lo + f1 + nb], tri.order[lo:lo + f1 + nb]
+    least = int(torch.where(valid, order, torch.iinfo(torch.int32).max).argmin())
+    assert clipped == 1 and valid[:f1].any() and least >= f1
 
 
 @pytest.mark.parametrize("cull", [False, True])

@@ -362,8 +362,8 @@ def mirror_vertex_launch(table, clip, ctx, vertex, **kw):
     corners of clipped faces and of each draw's last face."""
     n_draws = kw["n_draws"]
     planes = mirror_vertex(vertex)
-    recs, bbox, b, acc = tri.mirror_tri_setup(table.numpy(), *planes, **kw)
-    face_off, faces = np.asarray(table.numpy(), np.int64).reshape(4, n_draws)[:2]
+    recs, bbox, b, acc = tri.mirror_tri_setup(table, *planes, **kw)
+    face_off, faces = np.asarray(table, np.int64).reshape(4, n_draws)[:2]
     write = b.copy()
     write[(face_off + faces - 1)[faces > 0]] = True
     for out, full in zip((clip.numpy(), ctx.numpy()), planes):
@@ -450,6 +450,25 @@ def test_vertex_mirror_equals_plain_clip_flips(monkeypatch, kind, color, n, in_g
     draws = chip_smoke.clipped_draws(scene.draws, scene.vs_uniform, n) if n else scene.draws
     _, clipped = check(monkeypatch, draws, scene.vertex_shader, scene.vs_uniform, scene.config, in_graph)
     assert clipped >= n
+
+
+@pytest.mark.parametrize("clip", ["none", "one draw", "face 0 of the middle draw"])
+@pytest.mark.parametrize("kind, color", SCENES, ids=CASE_IDS)
+def test_vertex_mirror_conditional_body(monkeypatch, kind, color, clip):
+    """Eagerly, as the warm-up frame runs it and as a capture records it
+    (one conditional node, its condition set by the mirror of launch 1's
+    last block): draws 0 and 1 of the scene with draw 0 again last, so that
+    no face clips (the body does not run, launch 1 applies the quirk); three
+    faces of the middle draw clipped; face 0 of it clipped, its least slot
+    in path B (the quirk after the body)."""
+    scene = scene_of(kind, color)
+    draws = [scene.draws[0], scene.draws[1], scene.draws[0]]
+    if clip != "none":
+        draws = tri.clip_all(draws, scene.vs_uniform, 1, faces=[2, 5, 7] if clip == "one draw" else [0])
+    per_draw = tri.clipped_per_draw(draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+    assert per_draw == [0, {"none": 0, "one draw": 3}.get(clip, 1), 0]
+    _, clipped, seen = tri.check_modes(monkeypatch, draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+    assert seen["capture"] == ([int(clip != "none")], int(clip != "none"))
 
 
 @pytest.mark.parametrize("kind, color", SCENES, ids=CASE_IDS)
