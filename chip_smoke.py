@@ -104,6 +104,17 @@ Phases, each reported on its own lines:
      (gathered records), and against K4's own interpolation where a pixel
      is covered; its ``ptxas`` line with no stack frame or spills, its
      device time, plain time and bound at the grid's shapes;
+   - the stream mode's per-round merge (csrc/stream_merge.cu, XLA's fusion
+     of the JAX package's merge of a round): ``stream_merge_kernel``
+     against ``sharding.stream_merge_plain`` byte for byte on all five
+     accumulator planes, on each of the 16 rounds of phong1080's 2 x 4
+     stream grid (round 0 of a slab writes the accumulator whole, and also
+     equals the merge into ``stream_start``'s fills) and on crafted rounds
+     (equal depths with a higher, an equal and a lower order, -0.0 against
+     0.0, no winner on either side, owners 0, 1 and 3), merging and writing
+     whole; its ``ptxas`` line with no stack frame or spills, its device
+     time a round (a fresh accumulator a launch) against the bound from
+     this run's data, and its plain time;
    - K5, the voxel march: voxel540 and voxel540dda on all 10 main-path
      views, BGRA frames equal; for fixed steps each frame also against
      the plain serial chain without the jump (the query count of view 0
@@ -187,7 +198,8 @@ Phases, each reported on its own lines:
    stress4k (K1) stitched and held to the whole frame bit for bit, timed
    against it; phong1080 through ``render_frame_grid`` on a 2 x 4 grid in
    one process (a launch 1 and a tri_quirk_kernel a shard; 8 K1 launches
-   all-gathered; 16 K4 and 8 of the shading kernel streamed, no K3),
+   all-gathered; 16 K4, 16 ``stream_merge_kernel`` and 8 of the shading
+   kernel streamed, no K3),
    phong1080_tex2048 on the same grid (the gather path: 8 K4 without
    varyings, 8 interp_records, 8 of the shading kernel) and phong1080
    through ``render_frame_sharded`` with NCCL at world size 1 (one launch
@@ -196,8 +208,10 @@ Phases, each reported on its own lines:
    then the same captured: ``compiled.sharded_frame`` at world size 1 (its
    collectives recorded into the graph) and ``compiled.grid_frame`` at 2 x
    4 (all-gathered, the gather path and streamed), each a graph path as in
-   4 and equal to the single-device frame. The NCCL group lives until 4b
-   has replayed the sharded graph;
+   4 and equal to the single-device frame; in 4b ``stream_merge_kernel``
+   runs 16 times a stream grid frame and on no other path, and the stream
+   grid's traced replay runs none of the PyTorch merge's kernels. The NCCL
+   group lives until 4b has replayed the sharded graph;
 6. one JSON line describing the kernels, the card's identity line, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -240,7 +254,7 @@ KERNEL_FUNCTIONS = {"fused_raster": "fused_raster_kernel", "raster_planes": "ras
                     "voxel_march": "voxel_march_kernel",
                     "voxel_setup": "voxel_setup_kernel", "tri_setup": "tri_setup_kernel",
                     "bin_pairs": "bin_pairs_kernel", "slot_records": "bin_records_kernel",
-                    "interp_records": "interp_records_kernel"}
+                    "interp_records": "interp_records_kernel", "stream_merge": "stream_merge_kernel"}
 VOXEL_GRAPH_NODES = 100  # a voxel frame's graph holds fewer nodes than this
 # A voxel frame's graph nodes: 11 before K5 read the set-up's alive bytes,
 # one fewer without the cast to int32 between the set-up and the march.
@@ -1639,8 +1653,10 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
     stream_cfg = dataclasses.replace(cfg, comm_mode="stream")
     outs, got = drive("phong1080 render_frame_grid 2 x 4 (stream, in one process)",
                       lambda i: render_frame_grid(*grid_args, stream_cfg, 2, 4), 1,
-                      dict(zero, raster_planes=16, shade_planes=8, bin_pairs=16, tri_setup=2), (h, w, 4))
+                      dict(zero, raster_planes=16, shade_planes=8, bin_pairs=16, tri_setup=2, stream_merge=16),
+                      (h, w, 4))
     launches["K4 grid 2x4 stream"] = got["raster_planes"]
+    launches["stream_merge grid 2x4 stream"] = got["stream_merge"]
     launches["shade_planes grid 2x4 stream"] = got["shade_planes"]
     check(torch.equal(outs[0][0], whole_planes[0]) and torch.equal(outs[0][1], whole_planes[1]),
           "phong1080: the 2 x 4 grid's stream frame differs from the single-device fused_shade=False frame")
@@ -1714,8 +1730,9 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
             ("all_gather", scene, cfg, cfg, {"fused_raster": 8, "tri_setup": 2, "bin_pairs": 8},
              {"K1 grid 2x4 graph": "fused_raster", "tri_setup grid 2x4 graph": "tri_setup"}),
             ("stream", scene, stream_cfg, dataclasses.replace(cfg, fused_shade=False),
-             {"raster_planes": 16, "shade_planes": 8, "bin_pairs": 16, "tri_setup": 2},
-             {"K4 grid 2x4 stream graph": "raster_planes", "shade_planes grid 2x4 stream graph": "shade_planes"}),
+             {"raster_planes": 16, "shade_planes": 8, "bin_pairs": 16, "tri_setup": 2, "stream_merge": 16},
+             {"K4 grid 2x4 stream graph": "raster_planes", "shade_planes grid 2x4 stream graph": "shade_planes",
+              "stream_merge": "stream_merge"}),
             ("all_gather, the gather path on phong1080_tex2048", tex, tex.config, tex.config, gather_expect,
              {"interp_records": "interp_records", "K4 grid 2x4 gather graph": "raster_planes"})):
         def grid_now(sc=sc, c=c):
@@ -1749,6 +1766,7 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
     rows["K1"]["launches_sharded_world1"] = launches.pop("K1 sharded world 1")
     rows["K4"]["launches_grid_2x4_stream"] = launches.pop("K4 grid 2x4 stream")
     rows["shade_planes"]["launches_grid_2x4_stream"] = launches.pop("shade_planes grid 2x4 stream")
+    rows["stream_merge"]["launches_grid_2x4_stream_eager"] = launches.pop("stream_merge grid 2x4 stream")
     rows["tri_setup"]["launches_grid_2x4"] = launches.pop("tri_setup grid 2x4")
     rows["interp_records"]["launches_grid_2x4_eager"] = launches.pop("interp_records grid 2x4")
 
@@ -2133,6 +2151,220 @@ def shard_phase(dev, smi, rows):
         f"{each[1]:.4f} ms (device), entry point {each[4]:.4f} / {each[5]:.4f} ms, plain {each[2]:.3f} / "
         f"{each[3]:.3f} ms, bound {b_ms:.5f} ms by {b_by} ({nbytes} B, {ops} ops), share {b_ms / k_ms:.3f} "
         f"(CUDA events; {smi})")
+
+
+def bytes_equal(a, b):
+    """Two tensors equal byte for byte (NaNs by their bits, -0.0 apart from 0.0)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+    return torch.equal(a, b)
+
+
+MERGE_PLANES = ("depth", "order", "winner", "ps", "ctx")
+# The PyTorch kernels of the stream merge that stream_merge_kernel replaced
+# (mangled names): the wheres, the compares and their |, the orders' index
+# gather and clamp; none may run in the stream grid's replay.
+MERGE_OPS = ("where_kernel", "Compare", "BitwiseOrFunctor", "index_elementwise", "index_kernel", "clamp")
+
+
+def crafted_merge_round(seed, h, w, n_ctx, m, owner, dev, rec=36, pad=(25, 128)):
+    """A crafted round at a slab's shape: the accumulator (depth, order,
+    winner, ps, ctx) and K4-like padded planes (depth, global winner, ps,
+    ctx) whose depths and orders tie the accumulator's (equal depths with a
+    higher, an equal and a lower order; -0.0 against 0.0; NaN), with -1
+    winners on both sides, the held shard's records (ORDER words 0..3) and
+    its slot0 = owner · m → (acc, planes, recs, slot0, the ties counted)."""
+    import numpy as np
+    import torch
+
+    from f_renderer_tpu_torch.pipeline.raster import ORDER, ORDER_NONE
+
+    rng = np.random.default_rng(seed)
+    shape = (h, w)
+    acc_depth = rng.choice(np.array([0.0, -0.0, 0.25, 0.5], np.float32), shape)
+    acc_order = rng.choice(np.array([ORDER_NONE, 0, 1, 2, 3], np.int32), shape)
+    acc_winner = np.where(acc_order == ORDER_NONE, -1, rng.integers(0, 4 * m, shape)).astype(np.int32)
+    acc = [acc_depth, acc_order, acc_winner, rng.integers(0, 9, shape).astype(np.int32),
+           rng.standard_normal((n_ctx,) + shape).astype(np.float32)]
+    recs = rng.integers(-(2 ** 31), 2 ** 31 - 1, (m, rec), dtype=np.int64).astype(np.int32)
+    recs[:, ORDER] = rng.integers(0, 4, m)
+    win = np.where(rng.random(shape) < 0.3, -1, rng.integers(0, m, shape)).astype(np.int32)
+    d = rng.choice(np.array([0.0, -0.0, 0.25, 0.5, 1.0, np.nan], np.float32), shape)
+    none = win < 0
+    d[none] = rng.choice(np.array([0.0, -0.0], np.float32), int(none.sum()))
+    o = np.where(none, ORDER_NONE, recs[:, ORDER][np.maximum(win, 0)])
+    eq = d == acc_depth
+    ties = {"equal depth, higher order": int((eq & (o > acc_order)).sum()),
+            "equal depth, equal order": int((eq & (o == acc_order)).sum()),
+            "equal depth, lower order": int((eq & (o < acc_order)).sum()),
+            "-0.0 against 0.0": int((eq & (np.signbit(d) != np.signbit(acc_depth))).sum()),
+            "no winner on either side": int((none & (acc_winner < 0)).sum()), "NaN depth": int(np.isnan(d).sum())}
+    ps = np.where(none, 0, rng.integers(0, 9, shape)).astype(np.int32)
+    ctx = np.where(none[None], 0, rng.standard_normal((n_ctx,) + shape)).astype(np.float32)
+    win_g = np.where(none, -1, win + owner * m).astype(np.int32)
+
+    def pad_plane(a, fill):
+        out = np.full(a.shape[:-2] + (h + pad[0], w + pad[1]), fill, a.dtype)
+        out[..., :h, :w] = a
+        return torch.from_numpy(out).to(dev)
+
+    planes = (pad_plane(d, np.nan), pad_plane(win_g, 12345), pad_plane(ps, 77), pad_plane(ctx, np.inf))
+    return ([torch.from_numpy(a).to(dev) for a in acc], planes, torch.from_numpy(recs).to(dev), owner * m, ties)
+
+
+def stream_phase(dev, smi, rows):
+    """3j. ``stream_merge_kernel`` (csrc/stream_merge.cu: XLA's fusion of
+    the JAX package's per-round merge of the stream mode,
+    parallel/sharding.py:224-245) against ``sharding.stream_merge_plain``
+    on the same inputs, the five accumulator planes byte for byte: on each
+    of the 16 rounds of phong1080's 2 x 4 stream grid (the inputs recorded
+    from one eager frame: K4's padded planes, the held shard's records, the
+    accumulator before the round; round 0 writes it whole, and also equals
+    the merge into ``stream_start``'s fills) and on crafted rounds at the
+    slab's shape (ties of depth with a higher, an equal and a lower order,
+    -0.0 against 0.0, no winner on either side, owners 0, 1 and 3), merging
+    and writing whole. Its ``ptxas`` line with no stack frame or spills; its
+    device time on each round of the frame (a fresh copy of the accumulator
+    a launch) against the bound from this run's data, and its plain time."""
+    import torch
+
+    from f_renderer_tpu_torch import kernels
+    from f_renderer_tpu_torch.parallel import render_frame_grid, sharding
+    from f_renderer_tpu_torch.pipeline.raster import ORDER, ORDER_NONE
+
+    log("[kernel-vs-plain] stream_merge (the stream mode's per-round merge, XLA's fusion)")
+    lines = [line for line in kernels.ptxas_report() if line.startswith("stream_merge_kernel")]
+    for line in lines:
+        log(f"  ptxas {line}")
+    check(any("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in line for line in lines),
+          f"stream_merge_kernel: a stack frame or spills ({lines})")
+
+    def run(planes, recs, acc, slot0, first, kernel):
+        """The kernel or its plain version on a copy of ``acc`` → the merged planes."""
+        out = sharding.StreamPlanes(*(t.clone() for t in acc))
+        if kernel:
+            kernels.stream_merge(*planes, recs, out.planes(), slot0=slot0, first=first)
+        else:
+            plain(sharding.stream_merge_plain, out, *planes, recs[:, ORDER], slot0, first)
+        torch.cuda.synchronize()
+        return out
+
+    worst = [0.0]
+
+    def compare(tag, planes, recs, acc, slot0, first):
+        got = run(planes, recs, acc, slot0, first, True)
+        want = run(planes, recs, acc, slot0, first, False)
+        eq = [bytes_equal(a, b) for a, b in zip(got.planes(), want.planes())]
+        check(all(eq), f"stream_merge {tag}: differs from stream_merge_plain on "
+                       f"{[n for n, e in zip(MERGE_PLANES, eq) if not e]}")
+        worst[0] = max(worst[0], float_err(got.depth, want.depth), float_err(got.ctx, want.ctx))
+        return got, all(eq)
+
+    # the 16 rounds of phong1080's 2 x 4 stream grid, recorded from one eager frame
+    scene = build_scene("phong1080", dev)
+    set_angle(scene, ANGLES[0])
+    cfg = dataclasses.replace(scene.config, comm_mode="stream")
+    rounds, wrapper = [], kernels.stream_merge
+
+    def spy(depth, winner, ps, ctx, recs, acc, *, slot0, first=False):
+        rounds.append(((depth, winner, ps, ctx), recs, tuple(t.clone() for t in acc), slot0, first))
+        return wrapper(depth, winner, ps, ctx, recs, acc, slot0=slot0, first=first)
+
+    spy.launches = wrapper.launches  # the wrapper counts on its module's name
+    kernels.stream_merge = spy
+    try:
+        render_frame_grid(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.pixel_shader, scene.ps_uniform,
+                          cfg, 2, 4)
+        torch.cuda.synchronize()
+    finally:
+        kernels.stream_merge = wrapper
+        wrapper.launches = spy.launches
+    check(len(rounds) == 16 and [r[4] for r in rounds] == [True, False] * 8,
+          f"phong1080 2 x 4 stream grid: {len(rounds)} merges recorded (first: {[r[4] for r in rounds]}), not 16, "
+          f"round 0 of each slab writing whole")
+    h, w = rounds[0][2][0].shape
+    n_ctx = rounds[0][0][3].shape[0]
+    oks, work = [], []
+    for i, (planes, recs, acc, slot0, first) in enumerate(rounds):
+        got, ok = compare(f"grid round {i}", planes, recs, acc, slot0, first)
+        oks.append(ok)
+        depth, winner = planes[0][:h, :w], planes[1][:h, :w]
+        covered = winner >= 0
+        distinct = int(torch.unique(winner[covered]).numel())
+        n = h * w
+        if first:
+            fills = (torch.zeros_like(acc[0]), torch.full_like(acc[1], ORDER_NONE), torch.full_like(acc[2], -1),
+                     torch.zeros_like(acc[3]), torch.zeros_like(acc[4]))
+            merged = run(planes, recs, fills, slot0, False, True)
+            eq = all(bytes_equal(a, b) for a, b in zip(got.planes(), merged.planes()))
+            check(eq, f"stream_merge grid round {i}: the first round's write differs from the merge into the fills")
+            better = n
+        else:
+            local = torch.clamp(winner - slot0, 0, recs.shape[0] - 1).long()
+            o = torch.where(covered, recs[:, ORDER][local], ORDER_NONE)
+            better = int(((depth > acc[0]) | ((depth >= acc[0]) & (o > acc[1]))).sum())
+        # depth and winner read a pixel, the accumulator's depth and order where it merges, each distinct
+        # winner's order word; ps and the C varyings read and the five planes written where the round is
+        # better (everywhere in round 0); ~12 operations a pixel
+        nbytes = 8 * n + (0 if first else 8 * n) + 4 * distinct + better * ((4 + 4 * n_ctx) + (16 + 4 * n_ctx))
+        work.append((nbytes, 12 * n, better, int(covered.sum()), distinct))
+        log(f"  stream_merge grid round {i} (slab {i // 2}, owner {slot0 // recs.shape[0]}, first={first}): "
+            f"byte-equal to stream_merge_plain on all five planes={ok}; {int(covered.sum())} covered, {better} "
+            f"better, {distinct} winners" + (", equal to the merge into stream_start's fills" if first else ""))
+
+    # crafted rounds at the slab's shape, merging and writing whole
+    for seed, owner in enumerate((0, 1, 3)):
+        acc, planes, recs, slot0, ties = crafted_merge_round(seed, h, w, n_ctx, 2048, owner, dev)
+        for first in (False, True):
+            _, ok = compare(f"crafted owner {owner} first={first}", planes, recs, acc, slot0, first)
+            oks.append(ok)
+        check(all(v > 100 for v in ties.values()), f"stream_merge crafted owner {owner}: too few ties {ties}")
+        log(f"  stream_merge crafted round, owner {owner} (slot0 {slot0}), {h} x {w}, C = {n_ctx}: byte-equal to "
+            f"stream_merge_plain merging and writing whole={oks[-2:]}; pixels {ties}")
+
+    # device time a round: each launch on a fresh copy of the round's accumulator (a launch merges in place)
+    def kernel_ms(i, reps=10):
+        planes, recs, acc, slot0, first = rounds[i]
+        pool = iter([tuple(t.clone() for t in acc) for _ in range(reps + 4)])  # device_ms calls reps + 4 times
+        return device_ms(lambda: kernels.stream_merge(*planes, recs, next(pool), slot0=slot0, first=first), reps)
+
+    def plain_ms(i):
+        planes, recs, acc, slot0, first = rounds[i]
+        out = sharding.StreamPlanes(*(t.clone() for t in acc))  # in place: the same work on every call
+        return cuda_ms(lambda: plain(sharding.stream_merge_plain, out, *planes, recs[:, ORDER], slot0, first), 3)
+
+    p_a = [plain_ms(i) for i in range(16)]
+    k_a = [kernel_ms(i) for i in range(16)]
+    k_b = [kernel_ms(i) for i in range(16)]
+    p_b = [plain_ms(i) for i in range(16)]
+    bounds = [bound_ms(nb, ops) for nb, ops, *_ in work]
+    mean = lambda v: sum(v) / len(v)  # noqa: E731
+    k_ms, p_ms, b_ms = (mean(k_a) + mean(k_b)) / 2, (mean(p_a) + mean(p_b)) / 2, mean([b for b, _ in bounds])
+    b_by = "bytes" if all(by == "bytes" for _, by in bounds) else "operations"
+    nbytes = sum(nb for nb, *_ in work)
+    rows["stream_merge"] = {
+        "name": "stream_merge (the stream mode's per-round merge, XLA's fusion)", "route": "cuda",
+        "source": "f_renderer_tpu_torch/csrc/stream_merge.cu",
+        "replaces": "f_renderer_tpu/parallel/sharding.py:224-245 (no pallas_call: XLA's fusion of the stream "
+                    "mode's per-round (rhw, order) merge)",
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "max_abs_err": worst[0], "ms_each": [mean(k_a), mean(k_b), mean(p_a), mean(p_b)],
+        "ms_rounds": [(a + b) / 2 for a, b in zip(k_a, k_b)], "bound_ms_rounds": [b for b, _ in bounds],
+        "frame_ms": sum(k_a) / 2 + sum(k_b) / 2, "frame_bound_ms": sum(b for b, _ in bounds),
+        "frame_plain_ms": sum(p_a) / 2 + sum(p_b) / 2, "bytes_frame": nbytes,
+        "better_rounds": [b for _, _, b, _, _ in work], "slab": [h, w], "n_ctx": n_ctx, "ptxas": lines,
+        "library": "none: no one call merges five planes by (rhw, order)"}
+    log(f"  phong1080 2 x 4 stream grid, 16 rounds of {h} x {w}, C = {n_ctx}: stream_merge_kernel {mean(k_a):.4f} / "
+        f"{mean(k_b):.4f} ms a round (device, a round's mean), {k_ms * 16:.4f} ms a frame; plain {mean(p_a):.4f} / "
+        f"{mean(p_b):.4f} ms a round; bound {b_ms:.5f} ms a round by {b_by} ({nbytes} B over the frame), share "
+        f"{b_ms / k_ms:.3f}; round 0 {rows['stream_merge']['ms_rounds'][0]:.4f} ms (writes whole) against "
+        f"{bounds[0][0]:.5f}, round 1 {rows['stream_merge']['ms_rounds'][1]:.4f} against {bounds[1][0]:.5f}; "
+        f"library call: none (CUDA events; {smi})")
+    del rounds
 
 
 def shade_phase(dev, smi, rows):
@@ -2828,6 +3060,7 @@ def main() -> int:
 
     setup_phase(dev, smi, rows)
     shard_phase(dev, smi, rows)
+    stream_phase(dev, smi, rows)
 
     log(f"[time] {time.time() - t_start:.1f} s")
     # 4. the main paths, each with the counters set to 0 just before it
@@ -3284,6 +3517,8 @@ def main() -> int:
         ])
     set_up_before = cuda_ms(lambda: raycast.prepare_rays(eye, inv_mvp, cfg), 5)
 
+    stream_grid = "phong1080 compiled.grid_frame 2 x 4 (stream, in one process)"
+
     def count_replays():
         """4b. each graph path's main-path run: the first EAGER_FRAMES of its
         frames again, as replays, with the counts set to 0 just before and
@@ -3293,7 +3528,7 @@ def main() -> int:
         because tracing may slow the host's later launches (the voxel ray
         set-up is timed again after it)."""
         log(f"[time] {time.time() - t_start:.1f} s")
-        runs = []
+        runs, merges = [], {}
         with DeviceTrace() as trace:
             for path, entry, frames, expect, shape, outs, keys in counted:
                 n = min(EAGER_FRAMES, frames)
@@ -3322,6 +3557,11 @@ def main() -> int:
                 f"CUPTI's records; the wrappers' counts {host}), host {host_ms:.3f} ms/frame under the trace, "
                 f"checksum {total} ({smi})")
             launches.update({key: got[wrapper] for key, wrapper in keys.items()})
+            merges[path] = got["stream_merge"] // n
+        log("[main-path] stream_merge_kernel launches a frame (CUPTI's records, replays): "
+            + ", ".join(f"{p} {v}" for p, v in merges.items()))
+        check(merges.get(stream_grid) == 16 and not any(v for p, v in merges.items() if p != stream_grid),
+              f"stream_merge_kernel ran {merges} times a frame, not 16 in the stream grid and 0 elsewhere")
         counted.clear()
         split_replays()
 
@@ -3336,7 +3576,7 @@ def main() -> int:
         tex2048 = "phong1080_tex2048 Scene.render()"
         # the grids' (shards, binnings): each shard's launch 1 and tri_quirk_kernel, a binning a slab or round
         grids = {"phong1080 compiled.grid_frame 2 x 4 (all_gather, in one process)": (2, 8),
-                 "phong1080 compiled.grid_frame 2 x 4 (stream, in one process)": (2, 16),
+                 stream_grid: (2, 16),
                  "phong1080_tex2048 compiled.grid_frame 2 x 4 (all_gather, the gather path on phong1080_tex2048, "
                  "in one process)": (2, 8)}
         paths = [p for p in ("phong1080 Scene.render()", "phong1080 prepare()", "stress4k Scene.render()", tex2048,
@@ -3398,6 +3638,13 @@ def main() -> int:
                     want_ops = dict(dict.fromkeys(SETUP_OPS, 0), tri_setup_kernel=shards, tri_quirk_kernel=shards)
                     check(setup_ops == want_ops, f"{p}: the set-up ran {setup_ops} at the bench camera, not {want_ops}")
                     log(f"[split] {p}: the shard's set-up at the bench camera: {setup_ops}")
+                if p == stream_grid:  # one merge kernel a round, none of the PyTorch merge's kernels
+                    merge_ops = {k: sum(k in name for *_, name in part) for k in MERGE_OPS}
+                    check(ran["stream_merge"] == 16 and not any(merge_ops.values()),
+                          f"{p}: the traced replay ran {ran['stream_merge']} stream_merge_kernel (not 16) and the "
+                          f"PyTorch merge's kernels {merge_ops}")
+                    log(f"[split] {p}: stream_merge_kernel {ran['stream_merge']}, the PyTorch merge's kernels "
+                        f"{merge_ops}")
                 if p == tex2048:  # K4, then the shading kernel; no K3, no K1
                     got = {k: ran[k] for k in ("raster_planes", "shade_planes", "sample_bilinear", "fused_raster")}
                     check(got == {"raster_planes": 1, "shade_planes": 1, "sample_bilinear": 0, "fused_raster": 0},
@@ -3495,6 +3742,7 @@ def main() -> int:
     rows["K4"]["launches_grid_2x4_stream_graph"] = launches["K4 grid 2x4 stream graph"]
     rows["shade_planes"]["launches_grid_2x4_stream_graph"] = launches["shade_planes grid 2x4 stream graph"]
     rows["K4"]["launches_custom_tex1080"] = launches["K4 custom_tex1080"]
+    rows["stream_merge"]["launches_per_frame"] = rows["stream_merge"]["launches"] // EAGER_FRAMES
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed:")
         for f in failures:

@@ -213,6 +213,30 @@ typedef struct FrInterpParams {
 int fr_interp_records(FrInterpParams p, const int32_t* recs, const int32_t* winner, float* ctx, int32_t* ps,
                       void* stream);
 
+// Mirrors kernels.MergeParams: int32 fields only (no padding).
+typedef struct FrMergeParams {
+  int32_t h, w;       // the accumulator's rows and columns (a slab)
+  int32_t pitch;      // row stride of the round's planes (K4's w_pad)
+  int32_t plane;      // channel stride of the round's ctx (K4's h_pad * w_pad)
+  int32_t n_ctx;      // varying channels C
+  int32_t rec;        // words of a record
+  int32_t m;          // records of the held shard
+  int32_t slot0;      // the held shard's first global slot id (owner * m)
+  int32_t first;      // 1: write every pixel, read no accumulator (round 0)
+} FrMergeParams;
+
+// The stream mode's merge of one round (csrc/stream_merge.cu): per pixel of
+// the (h, w) slab, the round's (depth, winner, ps, ctx) read at the pitch
+// of K4's padded planes, its order the ORDER word of record winner - slot0
+// of recs ((m, rec) int32; ORDER_NONE where winner < 0); where (depth,
+// order) is above the accumulator's by (rhw, order), or everywhere with
+// p.first, the five planes are written into the accumulator in place:
+// acc_depth f32, acc_order / acc_winner / acc_ps int32 (h, w), acc_ctx (C,
+// h, w) f32, all contiguous.
+int fr_stream_merge(FrMergeParams p, const float* depth, const int32_t* winner, const int32_t* ps,
+                    const float* ctx, const int32_t* recs, float* acc_depth, int32_t* acc_order,
+                    int32_t* acc_winner, int32_t* acc_ps, float* acc_ctx, void* stream);
+
 // Mirrors kernels.BinParams: int32 fields only (no padding).
 typedef struct FrBinParams {
   int32_t m;          // slots: records

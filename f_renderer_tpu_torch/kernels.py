@@ -32,6 +32,9 @@ The kernels (the TPU kernel each replaces in brackets):
 - ``interp_records`` — no Pallas kernel: XLA's fusion of
   ``interpolate_context`` (pipeline/shade.py:23), the sharded frame's
   gather path, from the winners' slot records;
+- ``stream_merge`` — no Pallas kernel: XLA's fusion of the stream mode's
+  per-round merge (parallel/sharding.py:224-245), K4's planes merged into
+  the slab's accumulator in place by (rhw, order);
 - ``bin_pairs`` — no Pallas kernel: XLA's fusions of the binning and the
   pair-order gather (raster_pallas.py:319 bin_pairs, fused.py:160-183), from
   slot records; ``slot_records`` turns packed rows into those records;
@@ -151,6 +154,12 @@ class InterpParams(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int32) for name in ("h", "w", "oy", "ox", "n_ctx", "rec", "winner_row")]
 
 
+class MergeParams(ctypes.Structure):
+    """Mirror of ``FrMergeParams`` in csrc/kernels.h."""
+
+    _fields_ = [(name, ctypes.c_int32) for name in ("h", "w", "pitch", "plane", "n_ctx", "rec", "m", "slot0", "first")]
+
+
 class VertexArgs(ctypes.Structure):
     """Mirror of ``FrVertexArgs`` in csrc/kernels.h (ctypes pads it as the C
     compiler does)."""
@@ -252,6 +261,7 @@ def load_library() -> ctypes.CDLL:
     lib.fr_tri_setup_slots.argtypes = [TriSetupParams] + [ptr] * 4 + [i32, ptr]
     lib.fr_tri_quirk.argtypes = [TriSetupParams, ptr, ptr, i32, ptr]
     lib.fr_interp_records.argtypes = [InterpParams] + [ptr] * 5
+    lib.fr_stream_merge.argtypes = [MergeParams] + [ptr] * 11
     lib.fr_bin_pairs.argtypes = [BinParams] + [ptr] * 9
     lib.fr_bin_records.argtypes = [BinParams] + [ptr] * 4
     lib.fr_if_node_begin.argtypes = [ptr] * 3
@@ -262,7 +272,7 @@ def load_library() -> ctypes.CDLL:
     for fn in (lib.fr_fused_raster, lib.fr_raster_planes, lib.fr_sample_bilinear, lib.fr_shade_planes,
                lib.fr_voxel_march,
                lib.fr_voxel_setup, lib.fr_tri_setup, lib.fr_tri_setup_vertex, lib.fr_tri_setup_slots,
-               lib.fr_tri_quirk, lib.fr_interp_records,
+               lib.fr_tri_quirk, lib.fr_interp_records, lib.fr_stream_merge,
                lib.fr_bin_pairs, lib.fr_bin_records,
                lib.fr_if_node_begin, lib.fr_condition_create, lib.fr_if_node_begin_handle, lib.fr_if_node_end,
                lib.fr_stream_create):
@@ -900,6 +910,50 @@ def interp_records(recs, winner, *, n_ctx, origin=(0, 0)):
 
 
 interp_records.launches = 0
+
+ORDER_WORD = 7  # raster.ORDER: a record's order word (csrc/stream_merge.cu reads it)
+
+
+def stream_merge(depth, winner, ps, ctx, recs, acc, *, slot0, first=False):
+    """Launch the stream mode's merge of one round (csrc/stream_merge.cu) on
+    PyTorch's current stream: K4's padded planes as :func:`raster_planes`
+    returns them with ``interp`` (depth f32, winner int32, ps int32 (h_pad,
+    w_pad), ctx (C, h_pad, w_pad) f32) merged by (rhw, order) into ``acc``,
+    the slab's (depth f32, order int32, winner int32, ps int32 (h, w), ctx
+    (C, h, w) f32), in place. A winner's order is the ORDER word of record
+    ``winner - slot0`` of ``recs`` ((m, rec) int32, the held shard's
+    records); ``first``: write every pixel and read no accumulator (round
+    0, the accumulator made with ``torch.empty``)."""
+    dev = _on_cuda(depth, "stream_merge")
+    if len(acc) != 5 or acc[0].dim() != 2 or depth.dim() != 2 or ctx.dim() != 3:
+        raise ValueError("stream_merge: need (h_pad, w_pad) planes, (C, h_pad, w_pad) ctx and five accumulator planes")
+    a_depth, a_order, a_winner, a_ps, a_ctx = acc
+    (h_pad, w_pad), (h, w), n_ctx = depth.shape, a_depth.shape, ctx.shape[0]
+    for t, name, dtype in ((depth, "depth", torch.float32), (winner, "winner", torch.int32),
+                           (ps, "ps", torch.int32)):
+        _need(t, name, dtype, dev, (h_pad, w_pad))
+    _need(ctx, "ctx", torch.float32, dev, (n_ctx, h_pad, w_pad))
+    for t, name, dtype in ((a_depth, "acc depth", torch.float32), (a_order, "acc order", torch.int32),
+                           (a_winner, "acc winner", torch.int32), (a_ps, "acc ps", torch.int32)):
+        _need(t, name, dtype, dev, (h, w))
+    _need(a_ctx, "acc ctx", torch.float32, dev, (n_ctx, h, w))
+    _need(recs, "recs", torch.int32, dev)
+    if recs.dim() != 2 or recs.shape[0] < 1 or recs.shape[1] <= ORDER_WORD:
+        raise ValueError(f"stream_merge: need (m, rec) records with an order word, got {tuple(recs.shape)}")
+    if h > h_pad or w > w_pad or h > 65535:
+        raise ValueError(f"stream_merge: a ({h}, {w}) slab from ({h_pad}, {w_pad}) planes (at most 65535 rows)")
+    if h * w:
+        lib = load_library()
+        params = MergeParams(h=h, w=w, pitch=w_pad, plane=h_pad * w_pad, n_ctx=n_ctx, rec=recs.shape[1],
+                             m=recs.shape[0], slot0=int(slot0), first=int(bool(first)))
+        err = lib.fr_stream_merge(params, depth.data_ptr(), winner.data_ptr(), ps.data_ptr(), ctx.data_ptr(),
+                                  recs.data_ptr(), a_depth.data_ptr(), a_order.data_ptr(), a_winner.data_ptr(),
+                                  a_ps.data_ptr(), a_ctx.data_ptr(), _stream(dev))
+        _check(lib, err, "fr_stream_merge")
+        _count(stream_merge)
+
+
+stream_merge.launches = 0
 
 
 def rec_words(rows_f: int) -> int:

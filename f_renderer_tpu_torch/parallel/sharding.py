@@ -38,10 +38,14 @@ How the triangles reach a slab (``RenderConfig.comm_mode``):
   TriangleBuffer, then ``rasterize_portable`` and ``shade_deferred``;
 - ``"stream"`` with dp > 1: the shards' records travel round a dp ring of
   send / receive pairs, n_dp rounds; each round bins the shard it holds and
-  rasterizes and interpolates it (K4 with varyings; the portable backend:
-  its raster and ``interpolate_context`` on the TriangleBuffer), the rounds
-  merge by (rhw, order), and the pixel shader runs once on the merged
-  planes.
+  rasterizes and interpolates it (K4 with varyings), and
+  ``stream_merge_kernel`` (csrc/stream_merge.cu; plain
+  :func:`stream_merge_plain`, which the CPU runs) merges K4's padded planes
+  into the slab's accumulator (:class:`StreamPlanes`, its order plane
+  int32) in place by (rhw, order), the first round writing it whole; the
+  portable backend rasterizes and runs ``interpolate_context`` on the
+  TriangleBuffer and merges by :func:`stream_merge_plain`. The pixel shader
+  runs once on the merged planes.
 
 The step is written as stage functions of (rank coordinates, inputs), with
 each collective one small function between them, so that
@@ -361,61 +365,91 @@ def gather_slab_portable(tri: TriangleBuffer, codec, pixel_shader, ps_uniform, c
 
 @dataclasses.dataclass(frozen=True)
 class StreamPlanes:
-    """A slab's merged raster in the stream mode."""
+    """A slab's merged raster in the stream mode: the accumulator every
+    round merges into in place (the JAX package's ``depth``, ``worder``,
+    ``winner``, ``psx``, ``ctxp``; the order plane int32, as ``worder`` and
+    the records' ORDER words)."""
 
     depth: torch.Tensor  # (slab, W) f32
-    order: torch.Tensor  # (slab, W) int64, ORDER_NONE where none won
+    order: torch.Tensor  # (slab, W) int32, ORDER_NONE where none won
     winner: torch.Tensor  # (slab, W) int32 global slot id, -1 where none won
     ps: torch.Tensor  # (slab, W) int32
     ctx: torch.Tensor  # (C, slab, W) f32
 
+    def planes(self):
+        return self.depth, self.order, self.winner, self.ps, self.ctx
 
-def stream_start(n_ctx: int, config: RenderConfig, plan: ShardPlan, device) -> StreamPlanes:
+
+def stream_start(n_ctx: int, config: RenderConfig, plan: ShardPlan, device, fill: bool = True) -> StreamPlanes:
+    """A slab's accumulator: the JAX package's start (depth 0, ORDER_NONE,
+    winner -1, ps 0, ctx 0), or with ``fill=False`` unwritten planes for a
+    first round that writes them all (:func:`stream_merge_plain`'s
+    ``first``)."""
     shape = (plan.slab, config.width)
-    return StreamPlanes(
-        depth=torch.zeros(shape, device=device),
-        order=torch.full(shape, ORDER_NONE, dtype=torch.int64, device=device),
-        winner=torch.full(shape, -1, dtype=torch.int32, device=device),
-        ps=torch.zeros(shape, dtype=torch.int32, device=device),
-        ctx=torch.zeros((n_ctx,) + shape, device=device),
-    )
+    planes = ((shape, torch.float32, 0.0), (shape, torch.int32, ORDER_NONE), (shape, torch.int32, -1),
+              (shape, torch.int32, 0), ((n_ctx,) + shape, torch.float32, 0.0))
+    return StreamPlanes(*(torch.full(s, v, dtype=dt, device=device) if fill else
+                          torch.empty(s, dtype=dt, device=device) for s, dt, v in planes))
 
 
-def stream_merge(acc: StreamPlanes, d, o, win, ps, ctx) -> StreamPlanes:
-    """A round's planes merged in by (rhw, order)."""
-    better = (d > acc.depth) | ((d >= acc.depth) & (o > acc.order))
-    return StreamPlanes(
-        depth=torch.where(better, d, acc.depth),
-        order=torch.where(better, o, acc.order),
-        winner=torch.where(better, win, acc.winner),
-        ps=torch.where(better, ps, acc.ps),
-        ctx=torch.where(better, ctx, acc.ctx),
-    )
+def stream_merge_plain(acc: StreamPlanes, depth, winner, ps, ctx, orders, slot0: int, first: bool = False) -> None:
+    """Plain version of ``stream_merge_kernel`` (csrc/stream_merge.cu): a
+    round's planes merged into ``acc`` in place by (rhw, order), as the JAX
+    package merges a round (sharding.py:224-245). The planes may be K4's
+    padded ones (cropped here to the accumulator's shape); ``winner`` holds
+    global slot ids, and a winner's order is ``orders[winner - slot0]`` (the
+    held shard's ORDER words), ORDER_NONE where winner < 0. ``first``: every
+    pixel written, as the merge against :func:`stream_start`'s fills gives
+    for K4's planes (0.0, -1, 0 and 0 where no pair won)."""
+    h, w = acc.depth.shape
+    depth, winner, ps, ctx = depth[:h, :w], winner[:h, :w], ps[:h, :w], ctx[:, :h, :w]
+    local = torch.clamp(winner - slot0, 0, orders.shape[0] - 1).long()
+    order = torch.where(winner >= 0, orders[local], ORDER_NONE)
+    if first:
+        for dst, src in zip(acc.planes(), (depth, order, winner, ps, ctx)):
+            dst.copy_(src)
+        return
+    better = (depth > acc.depth) | ((depth >= acc.depth) & (order > acc.order))
+    for dst, src in zip(acc.planes(), (depth, order, winner, ps, ctx)):
+        torch.where(better, src, dst, out=dst)
 
 
-def stream_round(acc: StreamPlanes, recs, bbox, m: int, n_ctx: int, owner: int, config: RenderConfig,
+def stream_round(acc: StreamPlanes | None, recs, bbox, m: int, n_ctx: int, owner: int, config: RenderConfig,
                  plan: ShardPlan, lin: int) -> StreamPlanes:
     """Bin, rasterize and interpolate shard ``owner``'s records (the shard
-    this rank holds in this round) on slab ``lin`` (K4 with varyings), and
-    merge it in by (rhw, order). The winners are the records' SLOT words,
-    already global; their orders are the ORDER words."""
+    this rank holds in this round) on slab ``lin`` (K4 with varyings, its
+    padded planes), and merge them into ``acc`` in place (None: the first
+    round, which writes a new accumulator whole) → the accumulator. The
+    winners are the records' SLOT words, already global; their orders are
+    the ORDER words. CUDA tensors launch ``kernels.stream_merge``, CPU
+    tensors run :func:`stream_merge_plain`."""
     prep = bin_slab(recs, bbox, m, n_ctx, config, plan, lin)
-    ctx, ps, win, d = raster.interp_planes(prep)
-    local = torch.clamp(win - owner * recs.shape[0], min=0).long()
-    o = torch.where(win >= 0, recs[:, ORDER][local].long(), ORDER_NONE)
-    return stream_merge(acc, d, o, win, ps, ctx)
+    depth, winner, ps, ctx = raster.raster_planes(prep, interp=True)
+    first = acc is None
+    if first:
+        acc = stream_start(n_ctx, config, plan, recs.device, fill=False)
+    slot0 = owner * recs.shape[0]
+    if recs.device.type == "cpu":
+        stream_merge_plain(acc, depth, winner, ps, ctx, recs[:, ORDER], slot0, first)
+    else:
+        from f_renderer_tpu_torch import kernels
+
+        kernels.stream_merge(depth, winner, ps, ctx, recs, acc.planes(), slot0=slot0, first=first)
+    return acc
 
 
 def stream_round_portable(acc: StreamPlanes, tri: TriangleBuffer, owner: int, config: RenderConfig,
                           plan: ShardPlan, lin: int) -> StreamPlanes:
     """:func:`stream_round` on the portable backend, from shard ``owner``'s
-    TriangleBuffer: its winners become global slot ids, ``owner · m`` on."""
+    TriangleBuffer (its winners become global slot ids, ``owner · m`` on),
+    merged by :func:`stream_merge_plain` into ``acc`` (:func:`stream_start`'s)."""
     w, h, slab = config.width, config.height, plan.slab
     origin = (lin * slab, 0)
     win, d = rasterize_portable(tri, w, slab, origin=origin, full_size=(h, w))
     ctx, ps = interpolate_context(tri, win, w, slab, origin=origin)
-    o = torch.where(win >= 0, tri.order[torch.clamp(win, min=0).long()].long(), ORDER_NONE)
-    return stream_merge(acc, d, o, torch.where(win >= 0, win + owner * tri.num_slots, -1), ps, ctx)
+    slot0 = owner * tri.num_slots
+    stream_merge_plain(acc, d, torch.where(win >= 0, win + slot0, -1), ps, ctx, tri.order, slot0)
+    return acc
 
 
 def stream_shade(acc: StreamPlanes, codec, pixel_shader, ps_uniform, config: RenderConfig):
@@ -557,7 +591,7 @@ def render_frame_sharded(
         slab = fused_slab if path == "fused" else functools.partial(gather_slab, codec=codec)
         return slab(all_gather_records(recs, group), all_gather_slots(bbox, group), n_dp * s.m, s.n_ctx,
                     pixel_shader=pixel_shader, ps_uniform=ps_uniform, config=config, plan=plan, lin=lin)
-    acc = stream_start(s.n_ctx, config, plan, recs.device)
+    acc = None
     for r in range(n_dp):
         acc = stream_round(acc, recs, bbox, s.m, s.n_ctx, (dp - r) % n_dp, config, plan, lin)
         if r + 1 < n_dp:
@@ -612,7 +646,7 @@ def render_frame_grid(
         else:
             slabs = []
             for dp, lin in lins:
-                acc = stream_start(n_ctx, config, plan, shards[0][0].device)
+                acc = None
                 for r in range(n_dp):
                     owner = (dp - r) % n_dp
                     acc = stream_round(acc, *shards[owner], m, n_ctx, owner, config, plan, lin)

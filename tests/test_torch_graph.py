@@ -667,13 +667,15 @@ def test_launches_under_replay_are_read_by_kernel_name():
              "(anonymous namespace)::bin_pairs_kernel(FrBinParams, int const*, int*)", "bin_count_kernel",
              "bin_gather_kernel", "(anonymous namespace)::bin_records_kernel(FrBinParams, int const*, float const*)",
              "_ZN12_GLOBAL__N_119shade_planes_kernelE13FrShadeParamsPKfPKiS4_S2_S4_S4_Pi",
-             "(anonymous namespace)::interp_records_kernel(FrInterpParams, int const*, int const*, float*, int*)"]
+             "(anonymous namespace)::interp_records_kernel(FrInterpParams, int const*, int const*, float*, int*)",
+             "_ZN12_GLOBAL__N_119stream_merge_kernelE13FrMergeParamsPKfPKiS4_S2_S4_PfPiS6_S6_S5_"]
     assert chip_smoke.kernel_launches(names) == {"fused_raster": 2, "raster_planes": 0, "sample_bilinear": 1,
                                                  "shade_planes": 1, "voxel_march": 1, "voxel_setup": 1, "tri_setup": 1,
-                                                 "bin_pairs": 1, "slot_records": 1, "interp_records": 1}
+                                                 "bin_pairs": 1, "slot_records": 1, "interp_records": 1,
+                                                 "stream_merge": 1}
     assert set(chip_smoke.KERNEL_FUNCTIONS) == {"fused_raster", "raster_planes", "sample_bilinear", "shade_planes",
                                                 "voxel_march", "voxel_setup", "tri_setup", "bin_pairs", "slot_records",
-                                                "interp_records"}
+                                                "interp_records", "stream_merge"}
     spin = "at::cuda::(anonymous namespace)::spin_kernel(long)"
     trace = [(5, spin), (9, names[0]), (7, names[1]), (12, spin), (29, names[7]), (30, names[4]), (31, spin),
              (2, names[2]), (40, names[8]), (41, names[11]), (42, names[12]), (43, spin)]
