@@ -150,7 +150,14 @@ Phases, each reported on its own lines:
    ``Scene.render()`` (K4 once a
    frame) and ``render_voxel_frame`` for voxel540 and voxel540dda (the
    set-up kernel and K5 once a frame, each graph of 10 nodes: 11 less the
-   alive plane's cast, now that K5 reads its bytes), with
+   alive plane's cast, now that K5 reads its bytes), and the same frames
+   through ``voxel.VoxelRenderer`` (the grids bound once, as the JAX
+   package's callers jit a closure over them: the table made outside the
+   graph, whose inputs are eye and inv_mvp alone; its frames byte-equal to
+   ``render_voxel_frame``'s on every view; its graph's three nodes named:
+   the set-up kernel, K5's hit-bit pass and K5; in 4b one replay runs those
+   three kernels and no other device operation; its replay, graph frame and
+   input copy beside ``render_voxel_frame``'s), with
    frame times (CUDA events), checksums and per-stage times
    (eager). On the card each of these entry points but the portable one
    and ``render_prepared`` (eager: one K1 launch) replays one captured CUDA
@@ -190,6 +197,13 @@ Phases, each reported on its own lines:
    across frames that flip between clipped and unclipped faces (1, 0, cap,
    0, cap + 7 and 1 faces of draw 0 moved through the near plane), each
    replay bit-equal to the same frame run eagerly;
+   4c, ``[demo]`` lines: the three demos (``f_renderer_tpu_torch/demos``)
+   at their default sizes, each 24 frames into a NullDisplay (the
+   interactive demo from a 24-key script) with each frame's checksum equal
+   to the entry point's frame at the same camera, then once from its
+   command line into a PNG directory under a temporary path, the PNGs
+   byte-equal to those frames; the demo's avg frame ms and fps, its loop's
+   ms a frame after the first against render-only ms (the Present layer);
 5. ``[sharded]``, row slabs and the sharded frame: K1 and K4 with an
    origin against their plain versions with that origin, bit for bit (slab
    3 of 8 of phong1080, and sliver640 cut on and off its corners), with
@@ -259,6 +273,13 @@ VOXEL_GRAPH_NODES = 100  # a voxel frame's graph holds fewer nodes than this
 # A voxel frame's graph nodes: 11 before K5 read the set-up's alive bytes,
 # one fewer without the cast to int32 between the set-up and the march.
 VOXEL_FRAME_NODES = 11 - 1
+# A bound voxel frame's graph (voxel.VoxelRenderer, the table built once
+# outside it): render_voxel_frame's 10 nodes less the table's 7 PyTorch
+# nodes, which leaves the set-up kernel, K5's hit-bit pass (the K5 wrapper's
+# first launch, from the table) and K5.
+VOXEL_BOUND_NODES = ("voxel_setup_kernel", "hit_bits_kernel", "voxel_march_kernel")
+DEMO_FRAMES = 24  # frames of each demo's run into a NullDisplay
+DEMO_KEYS = "adwshljkqe" * 2 + "adws"  # the interactive demo's script: orbit, pan, zoom; a frame a key
 VOXEL_SETUP_THREADS = 32 * 4  # voxel_setup_kernel's block (csrc/voxel_setup.cu: kCols x kRows)
 PHONG_GRAPH_NODES = 126  # phong1080's render() graph: half the 252 nodes it held with the PyTorch vertex shader
 # phong1080_tex2048's render() graph: fewer than half the 137 nodes it held
@@ -823,7 +844,13 @@ def graph_summary(frame):
     conditional = sum(node_type(attrs) == "CONDITIONAL" for attrs in nodes.values())
     frame_graph = re.search(r'label="(graph_\d+)"', text).group(1) + "_"  # the first cluster is the frame's
     own = sum(node.startswith(frame_graph) for node in nodes)
-    return kernel_launches(nodes.values()), conditional, own, len(nodes) - own
+    port_names = port_kernel_names()
+    names = []  # the graph's own nodes, each by the port's kernel function it names, else by its type
+    for node, attrs in nodes.items():
+        if node.startswith(frame_graph):
+            found = [k for k in port_names if k in attrs]
+            names.append(max(found, key=len) if found else node_type(attrs))
+    return kernel_launches(nodes.values()), conditional, own, len(nodes) - own, sorted(names)
 
 
 def dot_nodes(text):
@@ -2565,6 +2592,160 @@ def shade_phase(dev, smi, rows):
         f"{each[3]:.2f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} B) (CUDA events; {smi})")
 
 
+def demos_phase(dev, smi):
+    """4c. the three demos (``f_renderer_tpu_torch/demos``) at their default
+    sizes on the card, as a user starts them. Each runs ``DEMO_FRAMES``
+    frames into a NullDisplay that keeps a checksum of each frame it is
+    shown (the interactive demo from the ``DEMO_KEYS`` script, a frame a
+    key), and the checksums must equal those of the entry point's frames at
+    the same cameras: ``render_voxel_frame`` (the grids as inputs) for the
+    voxel demo's ``VoxelRenderer``, the eager ``render_frame`` for the two
+    phong demos' ``Scene.render()``, whose graph frames must also equal it.
+    Then each runs once from its command line, in a process of its own, into
+    a PNG directory under a temporary path (the interactive demo: its
+    ``--out`` frame), and the PNGs must equal the entry point's frames byte
+    for byte. Printed: the demo's avg frame ms and fps (its first frame,
+    which captures, included, as the JAX demos count it), its loop's ms a
+    frame after the first, and the loop's parts alone, on the host's clock
+    with the card synchronized after each part's frames: the camera, the
+    entry point's frames on the same cameras (render-only, the graph warm)
+    and the Present layer's staging of each frame to pinned host memory
+    (``display._Staged``); the rest is the loop's own host work."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from f_renderer_tpu_torch.demos import frame_size, interactive, phong
+    from f_renderer_tpu_torch.demos import voxel as voxel_demo
+    from f_renderer_tpu_torch.display import FrameEvent, NullDisplay, _Staged
+    from f_renderer_tpu_torch.pipeline.render import render_frame
+    from f_renderer_tpu_torch.voxel import octree, raycast
+
+    class Checksums(NullDisplay):
+        """A NullDisplay that keeps a checksum of each frame it is shown."""
+
+        def __init__(self):
+            self.sums = []
+
+        def present(self, frame):
+            self.sums.append(int(np.asarray(frame)[::97, ::89, :3].astype(np.int64).sum()))
+
+    def sums(frames):
+        return [int(f[::97, ::89, :3].long().sum()) for f in frames]
+
+    def host_ms(fn, n):
+        """ms a frame of ``fn()``, which makes ``n`` frames' part, on the host's clock, the card synchronized."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    def eager(scene, camera, view_pos):
+        vs_u = dict(scene.vs_uniform, view=camera.look_at())
+        ps_u = dict(scene.ps_uniform, view_pos=camera.eye) if view_pos else scene.ps_uniform
+        return render_frame(list(scene.draws), scene.vertex_shader, vs_u, scene.pixel_shader, ps_u, scene.config)[0]
+
+    def command_line(name, argv, want, out):
+        """The demo from its command line → its PNGs equal to ``want``, and its closing line."""
+        root = os.path.dirname(os.path.abspath(__file__))
+        proc = subprocess.run([sys.executable, "-m", f"f_renderer_tpu_torch.demos.{name}", *argv], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"demo {name} from its command line exited {proc.returncode}: "
+                                    f"{proc.stderr[-2000:]}")
+        paths = sorted(os.path.join(out, f) for f in os.listdir(out)) if os.path.isdir(out) else [out]
+        pngs = [np.asarray(Image.open(p)) for p in paths if os.path.exists(p)]
+        equal = len(pngs) == len(want) and all(np.array_equal(p, w.cpu().numpy()) for p, w in zip(pngs, want))
+        check(equal, f"demo {name}: {len(pngs)} PNGs from its command line, not {len(want)} equal to the entry "
+                     f"point's frames")
+        closing = [line for line in proc.stderr.splitlines() if line.startswith(("avg frame", "saved"))]
+        return equal, closing
+
+    def report(name, times, shown, want, camera_ms, render_ms, png_equal, closing):
+        equal = shown.sums == sums(want)
+        check(equal and times.frames == len(want), f"demo {name}: {times.frames} frames, checksums {shown.sums} "
+                                                   f"against the entry point's {sums(want)}")
+        staging_ms = host_ms(lambda: [_Staged(f).result() for f in want], len(want))
+        rest = times.steady_ms - camera_ms - render_ms - staging_ms
+        log(f"[demo] {name}: {times.frames} frames into a NullDisplay, avg frame {times.frame_ms:.3f} ms "
+            f"({times.fps:.1f} fps; the first frame and its capture included), the loop {times.steady_ms:.3f} ms "
+            f"a frame after the first; alone, a frame: the camera {camera_ms:.3f} ms, render-only {render_ms:.3f} "
+            f"ms (the entry point on the same cameras), the Present layer's staging {staging_ms:.3f} ms, the rest "
+            f"{rest:.3f} ms (host clock); checksums equal the entry point's={equal}, the command line's PNGs "
+            f"byte-equal to its frames={png_equal}; its closing line {closing} ({smi})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # voxel: the orbit of a level-3 octree at 960x540, one VoxelRenderer
+        args = voxel_demo.parse_args(["--frames", str(DEMO_FRAMES)])
+        shown = Checksums()
+        times = voxel_demo.run(args, shown)
+        w, h = frame_size(args.size)
+        angles = [0.0]
+        while len(angles) < DEMO_FRAMES:
+            angles.append(angles[-1] + voxel_demo.ANGLE_STEP)
+        views = [voxel_demo.orbit_view(a, w, h) for a in angles]
+        camera_ms = host_ms(lambda: [voxel_demo.orbit_view(a, w, h) for a in angles], len(angles))
+        color, hit = octree.densify(octree.gen_randomly(args.level, np.random.default_rng(args.seed)), args.level)
+        cfg = raycast.VoxelRenderConfig(width=w, height=h, level=args.level, length=voxel_demo.LENGTH)
+        want = [raycast.render_voxel_frame(color, hit, *v, cfg, device=dev) for v in views]
+        renderer = voxel_demo.make_renderer(args)
+        renderer(*views[0])  # its capture
+        render_ms = host_ms(lambda: [renderer(*v) for v in views], len(views))
+        out = os.path.join(tmp, "voxel")
+        png_equal, closing = command_line("voxel", ["--frames", "3", "--out", out], want[:3], out)
+        report("voxel (python -m f_renderer_tpu_torch.demos.voxel)", times, shown, want, camera_ms, render_ms,
+               png_equal, closing)
+
+        # phong: three meshes at 960x540, Scene.render() a frame
+        args = phong.parse_args(["--frames", str(DEMO_FRAMES)])
+        shown = Checksums()
+        times = phong.run(args, shown)
+        scene = phong.build_scene(args)
+        def orbit():
+            cams, camera = [], phong.start_camera(dev)
+            for _ in range(DEMO_FRAMES):
+                camera = phong.next_camera(camera)
+                cams.append(camera)
+            return cams
+
+        cams = orbit()
+        camera_ms = host_ms(orbit, DEMO_FRAMES)
+        want = [eager(scene, c, view_pos=True) for c in cams]
+        graph = [phong.frame_at(scene, c) for c in cams]
+        check(all(torch.equal(g, e) for g, e in zip(graph, want)), "demo phong: Scene.render() differs from the "
+                                                                   "eager frames")
+        render_ms = host_ms(lambda: [phong.frame_at(scene, c) for c in cams], len(cams))
+        out = os.path.join(tmp, "phong")
+        png_equal, closing = command_line("phong", ["--frames", "3", "--out", out], want[:3], out)
+        report("phong (python -m f_renderer_tpu_torch.demos.phong)", times, shown, want, camera_ms, render_ms,
+               png_equal, closing)
+
+        # interactive: the phong scene at 480x270 from a key script
+        args = interactive.parse_args(["--keys", DEMO_KEYS])
+        shown = Checksums()
+        times = interactive.run(args, shown)
+        scene = interactive.build_scene(args)
+
+        def steer():
+            controls, cams, camera = interactive.Controls(), [], interactive.start_camera(dev)
+            for i, ch in enumerate(DEMO_KEYS):
+                camera, _ = controls(camera, FrameEvent(index=i, time=0.0, dt=0.0, keys=ch))
+                cams.append(camera)
+            return cams
+
+        cams = steer()
+        camera_ms = host_ms(steer, len(DEMO_KEYS))
+        want = [eager(scene, c, view_pos=False) for c in cams]
+        graph = [interactive.frame_at(scene, c) for c in cams]
+        check(all(torch.equal(g, e) for g, e in zip(graph, want)), "demo interactive: Scene.render() differs from "
+                                                                   "the eager frames")
+        render_ms = host_ms(lambda: [interactive.frame_at(scene, c) for c in cams], len(cams))
+        out = os.path.join(tmp, "interactive.png")
+        png_equal, closing = command_line("interactive", ["--keys", DEMO_KEYS[:4], "--out", out], want[3:4], out)
+        report("interactive (python -m f_renderer_tpu_torch.demos.interactive)", times, shown, want, camera_ms,
+               render_ms, png_equal, closing)
+
+
 def main() -> int:
     import torch
 
@@ -3139,7 +3320,10 @@ def main() -> int:
     split_frames = {}  # path → (its GraphFrame, its replay ms, a call that loads the bench camera's frame)
     split_flip = {}  # phong1080's scene, whose graph 4b replays once with a face clipped
 
-    def graph_path(path, entry, eager, frames, expect, shape, keys, geometries=0, max_nodes=None, own_nodes=None):
+    graph_times = {}  # path → its graph's times, input bytes and nodes, as graph_path logged them
+
+    def graph_path(path, entry, eager, frames, expect, shape, keys, geometries=0, max_nodes=None, own_nodes=None,
+                   own_names=None):
         """A main path through its entry point, whose frames replay one
         captured graph (``entry(i)``: frame i), beside its first
         ``EAGER_FRAMES`` frames run eagerly (``eager(i)``): the first call
@@ -3150,8 +3334,9 @@ def main() -> int:
         alone. The graph must hold one conditional node (the clip path) for
         each of its ``geometries`` (a frame's set-up kernels, or each face
         shard's in the sharded frame and the grids), and fewer than
-        ``max_nodes`` nodes where that is given, and ``own_nodes`` where
-        that is given. The counted run of its first frames as replays (launches from
+        ``max_nodes`` nodes where that is given, ``own_nodes`` where
+        that is given, and the nodes ``own_names`` names (each a port
+        kernel's function) where that is given. The counted run of its first frames as replays (launches from
         the device's trace) comes in 4b, after every timing, so that no time
         is taken after tracing: ``keys`` maps the JSON line's launch keys to
         wrapper names."""
@@ -3164,7 +3349,7 @@ def main() -> int:
         check(compiled.CACHE.captures == before + 1,
               f"{path}: the first frame captured {compiled.CACHE.captures - before} graphs, not 1")
         frame = compiled.CACHE.last
-        nodes, conds, own, in_bodies = graph_summary(frame)
+        nodes, conds, own, in_bodies, names = graph_summary(frame)
         per_frame = {k: n // frames for k, n in expect.items()}
         check(nodes == per_frame, f"{path}: the graph holds kernel nodes {nodes}, one frame launches {per_frame}")
         check(conds == geometries, f"{path}: the graph holds {conds} conditional nodes, not one for each of its "
@@ -3175,6 +3360,9 @@ def main() -> int:
         if own_nodes is not None:
             check(own == own_nodes, f"{path}: the graph holds {own} nodes, not {own_nodes}")
             log(f"[graph] {path}: {own} nodes, {own_nodes} expected")
+        if own_names is not None:
+            check(names == sorted(own_names), f"{path}: the graph's nodes are {names}, not {sorted(own_names)}")
+            log(f"[graph] {path}: its {own} nodes {names}, {len(own_names)} expected")
 
         def timed(run, n):
             torch.cuda.synchronize()
@@ -3219,6 +3407,8 @@ def main() -> int:
             f"{in_bodies} nodes in their bodies (CUDA events; {smi})")
         counted.append((path, entry, frames, expect, shape, outs, keys))
         split_frames[path] = (frame, replay_ms, lambda: entry(0))
+        graph_times[path] = dict(graph_ms=graph_ms, graph_host_ms=graph_host_ms, copy_ms=copy_ms, replay_ms=replay_ms,
+                                 clone_ms=clone_ms, in_bytes=in_bytes, in_leaves=len(frame.inputs), nodes=own)
         return outs
 
     def render_eager(s):
@@ -3323,7 +3513,7 @@ def main() -> int:
     for t in prep_graph.outputs:
         fill_sentinel(t)
     replayed = scene.prepare()
-    prep_nodes, prep_conds, prep_own, prep_in_bodies = graph_summary(prep_graph)
+    prep_nodes, prep_conds, prep_own, prep_in_bodies, _ = graph_summary(prep_graph)
     ok = (compiled.CACHE.captures == before + 1 and same(prepared, want_prep) and same(replayed, want_prep)
           and all(torch.equal(a, b) for a, b in zip(prep_graph.outputs, compiled.flatten(want_prep)[0])))
     check(ok and prep_nodes == dict(zero, tri_setup=1, bin_pairs=1) and prep_conds == 1,
@@ -3505,6 +3695,31 @@ def main() -> int:
                           own_nodes=VOXEL_FRAME_NODES)
         hit = float((outs[0][..., :3] != 0).any(-1).float().mean())
         check(0.05 < hit < 0.9, f"{path}: implausible hit share {hit}")
+        # the same frames with the grids bound once (voxel.VoxelRenderer, as the JAX package's bench and demo
+        # jit a closure over concrete grids): the table made here, outside the graph, whose inputs are eye
+        # and inv_mvp alone
+        renderer = raycast.VoxelRenderer(grid_color, grid_hit, cfg, device=dev)
+
+        def bound_frame(i, r=renderer):
+            return r(*views[i])
+
+        def bound_eager(i, r=renderer, cfg=cfg):
+            eye, inv_mvp = (torch.from_numpy(a).to(dev) for a in views[i])
+            return raycast.march_frame(r.table, r.constants, eye, inv_mvp, cfg)
+
+        bound = graph_path(f"{path} VoxelRenderer", bound_frame, bound_eager, FRAMES,
+                           dict(zero, voxel_march=FRAMES, voxel_setup=FRAMES), (VOXEL_H, VOXEL_W, 4), {},
+                           own_names=VOXEL_BOUND_NODES)
+        equal = [torch.equal(a, b) for a, b in zip(bound, outs)]
+        check(all(equal), f"{path}: VoxelRenderer's frames {[i for i, e in enumerate(equal) if not e]} differ from "
+                          f"render_voxel_frame's")
+        tb, tf = graph_times[f"{path} VoxelRenderer"], graph_times[f"{path} render_voxel_frame"]
+        log(f"[graph] {path} VoxelRenderer against render_voxel_frame: frames on the {FRAMES} views byte-equal="
+            f"{all(equal)}; replay {tb['replay_ms']:.4f} / {tf['replay_ms']:.4f} ms, graph frame "
+            f"{tb['graph_ms']:.4f} / {tf['graph_ms']:.4f} ms (host {tb['graph_host_ms']:.4f} / "
+            f"{tf['graph_host_ms']:.4f} ms), input copy {tb['copy_ms']:.4f} / {tf['copy_ms']:.4f} ms "
+            f"({tb['in_leaves']} leaves, {tb['in_bytes']} B / {tf['in_leaves']} leaves, {tf['in_bytes']} B), "
+            f"nodes {tb['nodes']} / {tf['nodes']} (CUDA events; {smi})")
         eye, inv_mvp = (torch.from_numpy(a).to(dev) for a in views[0])
         k = raycast.march_constants(cfg, grid_hit.shape[0])
         rays = raycast.prepare_rays(eye, inv_mvp, cfg)
@@ -3516,6 +3731,9 @@ def main() -> int:
             ("K5", lambda: raycast.march(*rays, table, k)),
         ])
     set_up_before = cuda_ms(lambda: raycast.prepare_rays(eye, inv_mvp, cfg), 5)
+
+    # 4c. the three demos, each at its default size, as a user starts them
+    demos_phase(dev, smi)
 
     stream_grid = "phong1080 compiled.grid_frame 2 x 4 (stream, in one process)"
 
@@ -3572,7 +3790,8 @@ def main() -> int:
         at the bench camera, under a device trace of its kernels, memsets and
         memcpys with their durations: where the replay's time goes."""
         sharded = "phong1080 compiled.sharded_frame (NCCL, world size 1)"
-        voxel = ("voxel540 render_voxel_frame", "voxel540dda render_voxel_frame")
+        voxel = ("voxel540 render_voxel_frame", "voxel540dda render_voxel_frame", "voxel540 VoxelRenderer",
+                 "voxel540dda VoxelRenderer")
         tex2048 = "phong1080_tex2048 Scene.render()"
         # the grids' (shards, binnings): each shard's launch 1 and tri_quirk_kernel, a binning a slab or round
         grids = {"phong1080 compiled.grid_frame 2 x 4 (all_gather, in one process)": (2, 8),
@@ -3603,6 +3822,11 @@ def main() -> int:
                       f"{p}: the traced replay ran the set-up and march kernels {ran['voxel_setup']} and "
                       f"{ran['voxel_march']} times, not once each")
                 log(f"[split] {p}: set-up and march kernels {ran['voxel_setup']}, {ran['voxel_march']}")
+                if p.endswith("VoxelRenderer"):  # no table operation: the port's three kernels and nothing else
+                    others = foreign_kernels(part, port_names)
+                    check(not others and len(part) == len(VOXEL_BOUND_NODES),
+                          f"{p}: the traced replay ran {len(part)} operations, {others} of them not the port's")
+                    log(f"[split] {p}: {len(part)} device operations, none but the port's kernels ({others})")
                 scene = "frame 0's view"
             else:
                 # the set-up kernels write the records (the sharded frame's in their shard mode): no record pass

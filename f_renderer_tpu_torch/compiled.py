@@ -3,10 +3,15 @@ CUDA graph.
 
 Counterpart of the JAX package's compiled frame (``f_renderer_tpu/scene.py``
 :83-142: ``_scene_prepare`` and ``_scene_step``, each one ``jax.jit``
-program cached per shaders, config and number of draws) and of
-``bench.py``'s jit of ``render_voxel_frame``, and of ``jax.jit`` over the
-sharded frame (``tests/test_parallel.py``). ``Scene.render``,
-``Scene.prepare`` and ``voxel.render_voxel_frame`` come here for tensors on
+program cached per shaders, config and number of draws), of ``jax.jit``
+over the voxel frame, and of ``jax.jit`` over the sharded frame
+(``tests/test_parallel.py``). The voxel frame has two: ``bench.py`` and
+``examples/voxel_demo.py`` jit a closure over concrete grids, whose table
+the JAX package builds once on the host as a constant
+(:func:`voxel_bound_frame`, for ``voxel.VoxelRenderer``); a jit that takes
+the grids as arguments traces them and builds the table every frame
+(:func:`voxel_frame`, for ``voxel.render_voxel_frame``). ``Scene.render``,
+``Scene.prepare`` and both voxel entry points come here for tensors on
 CUDA; on the CPU they run eagerly, because the caller asked for the CPU.
 :func:`sharded_frame` and :func:`grid_frame` are the captured counterparts
 of ``render_frame_sharded`` and ``render_frame_grid``, which stay eager.
@@ -38,7 +43,8 @@ the few ops it saves).
 - **Bound.** At most ``MAX_GRAPHS`` (64, JAX's ``maxsize``) graphs, and at
   most half the card's memory in their pools and buffers (a stress4k
   graph holds gigabytes); past either, the least recently used graph is
-  dropped, which frees its pool.
+  dropped, which frees its pool. A frame is dropped before its key, which
+  may hold what its graph reads by address (a ``VoxelRenderer``'s table).
 - **Launch counts.** The wrappers count the launches they make
   (``kernels.fused_raster.launches`` ...), not those a capture records; a
   replay runs no Python, so it counts nothing. Launches under replay are
@@ -214,6 +220,11 @@ class GraphFrame:
         self.replay()
         return self.result()
 
+    def release(self):
+        """Drop the graph, then the frame function and what it holds."""
+        self.graph = None
+        self._fn = None
+
 
 class FrameCache:
     """Captured frames by key, least recently used first.
@@ -252,7 +263,8 @@ class FrameCache:
         while len(self.frames) > 1 and (
             len(self.frames) > self.max_graphs or sum(f.nbytes for f in self.frames.values()) > limit
         ):
-            self.frames.popitem(last=False)
+            _, frame = self.frames.popitem(last=False)
+            frame.release()  # the graph goes here; the key, which may own what it reads, after it
 
     def clear(self):
         self.frames.clear()
@@ -303,6 +315,21 @@ def voxel_frame(grid_color, grid_hit, eye, inv_mvp, config):
         return raycast.voxel_frame(color, hit, e, inv, config)
 
     return CACHE.run(("voxel", config), frame, (grid_color, grid_hit, eye, inv_mvp), eye.device)
+
+
+def voxel_bound_frame(renderer, eye, inv_mvp):
+    """``VoxelRenderer.__call__`` on the card: keyed on the renderer itself
+    and its config, with ``eye`` (3,) and ``inv_mvp`` (4, 4) its only
+    inputs. The graph reads the renderer's table by its address, as it
+    reads ``raycast.sample_times``; the key holds the renderer, so the
+    table lives as long as the graph (a key of ``id(renderer)`` would be
+    reused once the renderer is collected)."""
+    from f_renderer_tpu_torch.voxel import raycast
+
+    def frame(e, inv):
+        return raycast.march_frame(renderer.table, renderer.constants, e, inv, renderer.config)
+
+    return CACHE.run(("voxel bound", renderer, renderer.config), frame, (eye, inv_mvp), eye.device)
 
 
 def _draws_device(draws) -> torch.device:

@@ -12,7 +12,10 @@ CUDA tensors (``csrc/voxel_setup.cu``, ``kernels.voxel_setup``) and
 :func:`prepare_rays_plain`, those ops in PyTorch, for CPU tensors. The
 march is the K5 kernel (``csrc/voxel_march.cu``, ``kernels.voxel_march``)
 for CUDA tensors and :func:`march_plain` for CPU tensors. The TPU knobs
-``backend`` and ``block`` are gone: the device decides.
+``backend`` and ``block`` are gone: the device decides. The packed table
+the march reads is built once for fixed grids (:class:`VoxelRenderer`, the
+JAX package's concrete-grid branch) or every frame from grids passed as
+inputs (:func:`render_voxel_frame`, its traced-grid branch).
 
 Reference quirks replicated (SURVEY.md §7.3.10):
 
@@ -490,15 +493,24 @@ def prepare_rays(eye, inv_mvp, config: VoxelRenderConfig):
     )
 
 
+def march_frame(table, k: MarchConstants, eye, inv_mvp, config: VoxelRenderConfig):
+    """One frame from a packed table (:func:`voxel_table`) and the march's
+    constants ``k`` (:func:`march_constants`), eagerly → (H, W, 4) uint8
+    BGRA: the ray set-up and the march (the set-up kernel and K5 on CUDA
+    tensors). The body that :func:`voxel_frame` and :class:`VoxelRenderer`
+    share; what a captured frame records."""
+    start, dirs, t_max, alive = prepare_rays(eye, inv_mvp, config)
+    packed = march(start, dirs, t_max, alive, table, k)
+    return packed.contiguous().view(torch.uint8).reshape(config.height, config.width, 4)
+
+
 def voxel_frame(grid_color, grid_hit, eye, inv_mvp, config: VoxelRenderConfig):
     """One frame from tensors on one device, eagerly → (H, W, 4) uint8 BGRA:
-    the ray set-up, the table and the march (K5 on CUDA tensors). What
-    :func:`render_voxel_frame` captures on the card; tools that time the
-    stages call it, or its parts, directly."""
+    the table, then :func:`march_frame`. What :func:`render_voxel_frame`
+    captures on the card; tools that time the stages call it, or its parts,
+    directly."""
     k = march_constants(config, grid_hit.shape[0])
-    start, dirs, t_max, alive = prepare_rays(eye, inv_mvp, config)
-    packed = march(start, dirs, t_max, alive, voxel_table(grid_color, grid_hit), k)
-    return packed.contiguous().view(torch.uint8).reshape(config.height, config.width, 4)
+    return march_frame(voxel_table(grid_color, grid_hit), k, eye, inv_mvp, config)
 
 
 def render_voxel_frame(grid_color, grid_hit, eye, inv_mvp, config: VoxelRenderConfig, device="cuda"):
@@ -508,9 +520,13 @@ def render_voxel_frame(grid_color, grid_hit, eye, inv_mvp, config: VoxelRenderCo
     densified SVO (``octree.densify``), indexed [ix, iy, iz]; ``eye`` (3,)
     and ``inv_mvp`` (4, 4) = (proj · view · model)⁻¹. Arrays or tensors.
 
-    On the card the frame is one captured CUDA graph, replayed with these
-    four as its inputs (``compiled.voxel_frame``), as the JAX package's
-    bench jits this function; on the CPU it runs :func:`voxel_frame`.
+    The grids are inputs of the frame, as traced grids are in the JAX
+    package (raycast.py:288-296 there): on the card the frame is one
+    captured CUDA graph, replayed with these four as its inputs
+    (``compiled.voxel_frame``), which builds the table inside every
+    replay; on the CPU it runs :func:`voxel_frame`. Grids that stay fixed
+    across frames, as every caller of the JAX package has them (its bench
+    and demo jit a closure over them), go to :class:`VoxelRenderer`.
     """
     device = resolve_device(device)
     args = (
@@ -524,3 +540,34 @@ def render_voxel_frame(grid_color, grid_hit, eye, inv_mvp, config: VoxelRenderCo
     from f_renderer_tpu_torch import compiled
 
     return compiled.voxel_frame(*args, config)
+
+
+class VoxelRenderer:
+    """Frames of fixed grids: the counterpart of ``jax.jit`` over a closure
+    of concrete grids, where the JAX package builds the table once on the
+    host and the march reads it as a constant (raycast.py:274-287 there).
+
+    The table (:func:`voxel_table`) and the march's constants are made once,
+    here, outside any graph; the grids are not kept. Writing later to the
+    caller's grids changes no frame, as with a JAX closure: a new grid
+    needs a new renderer. ``renderer(eye, inv_mvp)`` → (H, W, 4) uint8
+    BGRA; on the card one captured CUDA graph a frame whose only inputs are
+    ``eye`` and ``inv_mvp`` (``compiled.voxel_bound_frame``), on the CPU
+    :func:`march_frame` eagerly.
+    """
+
+    def __init__(self, grid_color, grid_hit, config: VoxelRenderConfig, device="cuda"):
+        self.device = resolve_device(device)
+        self.config = config
+        hit = torch.as_tensor(grid_hit, device=self.device)
+        self.constants = march_constants(config, hit.shape[0])
+        self.table = voxel_table(torch.as_tensor(grid_color, device=self.device), hit)
+
+    def __call__(self, eye, inv_mvp):
+        eye = torch.as_tensor(eye, dtype=torch.float32, device=self.device)
+        inv_mvp = torch.as_tensor(inv_mvp, dtype=torch.float32, device=self.device)
+        if self.device.type != "cuda":
+            return march_frame(self.table, self.constants, eye, inv_mvp, self.config)
+        from f_renderer_tpu_torch import compiled
+
+        return compiled.voxel_bound_frame(self, eye, inv_mvp)

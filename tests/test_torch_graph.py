@@ -298,6 +298,9 @@ def frame_paths():
     for traversal in ("fixed", "dda"):
         args, cfg = voxel_inputs(traversal)
         paths[f"voxel {traversal}"] = lambda a=args, c=cfg: raycast.voxel_frame(*a, c)
+        renderer = raycast.VoxelRenderer(args[0], args[1], cfg, device="cpu")  # the table, made once outside
+        paths[f"voxel bound {traversal}"] = lambda r=renderer, a=args: raycast.march_frame(
+            r.table, r.constants, a[2], a[3], r.config)
     return paths
 
 
