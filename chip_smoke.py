@@ -3398,8 +3398,8 @@ def main() -> int:
         in_bytes = sum(t.numel() * t.element_size() for t in frame.inputs)
         out_bytes = sum(t.numel() * t.element_size() for t in frame.outputs)
         log(f"[time] {time.time() - t_start:.1f} s")
-        log(f"[graph] {path}: capture {frame.capture_ms:.1f} ms (first call, warm-up frame included, "
-            f"{first_ms:.1f} ms), pool {frame.graph.pool_bytes} B, graph frame {graph_ms:.3f} ms (host "
+        log(f"[graph] {path}: warm-up and capture {frame.capture_ms:.1f} ms (first call {first_ms:.1f} ms), "
+            f"pool {frame.graph.pool_bytes} B, graph frame {graph_ms:.3f} ms (host "
             f"{graph_host_ms:.3f} ms) over {frames} frames, eager frame {eager_ms:.3f} ms (host {eager_host_ms:.3f} "
             f"ms) over the first {n_eager}, each bit-equal to its graph frame; alone: input copy {copy_ms:.4f} ms "
             f"({in_bytes} B), replay {replay_ms:.3f} ms, output clone {clone_ms:.4f} ms ({out_bytes} B); "
@@ -3526,7 +3526,8 @@ def main() -> int:
     prep_replay_ms = cuda_ms(prep_graph.replay, 5)
     split_frames["phong1080 prepare()"] = (prep_graph, prep_replay_ms,
                                            lambda s=scene: (set_angle(s, ANGLES[0]), s.prepare()))
-    log(f"[graph] phong1080 prepare: capture {prep_graph.capture_ms:.1f} ms, pool {prep_graph.graph.pool_bytes} B, "
+    log(f"[graph] phong1080 prepare: warm-up and capture {prep_graph.capture_ms:.1f} ms, "
+        f"pool {prep_graph.graph.pool_bytes} B, "
         f"replay {prep_replay_ms:.3f} ms, eager prep {cuda_ms(prepare_eager, 5):.3f} ms; the prep (and "
         f"a replay into sentinel-filled outputs) bit-equal to the eager prep={ok}, kernel nodes {prep_nodes}; "
         f"{prep_own} nodes, {prep_conds} of them conditional, {prep_in_bodies} nodes in their bodies ({smi})")

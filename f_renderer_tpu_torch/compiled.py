@@ -49,6 +49,14 @@ the few ops it saves).
   (``kernels.fused_raster.launches`` ...), not those a capture records; a
   replay runs no Python, so it counts nothing. Launches under replay are
   read from the device, as ``chip_smoke.py`` does with CUPTI.
+- **Spans.** While ``utils.metrics.tracing()`` is on, a call records the
+  root span ``graph.run`` and its children ``graph.key`` (``flatten``, the
+  key, the lookup), then ``graph.copy``, ``graph.replay`` and
+  ``graph.clone`` on a hit or ``graph.capture`` (warm-up and capture) on a
+  miss, and the counters ``graph.calls``, ``graph.captures``,
+  ``graph.evictions``, ``graph.copy_bytes``, ``graph.copy_unchanged_bytes``,
+  ``graph.clone_bytes``. Off, a call tests ``metrics.recorder`` where it
+  would record and records nothing.
 
 Tools that time stages call the pipeline functions (``render_frame``,
 ``build_packed``, ``prep_packed``, ``render_fused_prepared``,
@@ -61,7 +69,8 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
-import time
+import weakref
+from time import perf_counter_ns
 
 import torch
 
@@ -69,6 +78,7 @@ from f_renderer_tpu_torch import kernels
 from f_renderer_tpu_torch.device import graph_frame, node_memory
 from f_renderer_tpu_torch.pipeline.fused import prep_packed
 from f_renderer_tpu_torch.pipeline.render import build_packed, render_frame
+from f_renderer_tpu_torch.utils import metrics
 
 MAX_GRAPHS = 64
 
@@ -183,6 +193,11 @@ class GraphFrame:
         self._fn, self._spec = fn, spec
         self.outputs, self._out_spec = [], None
         self.capture_ms = 0.0
+        self._leaf_bytes = [t.nbytes for t in self.inputs]
+        self.input_bytes = sum(self._leaf_bytes)
+        self.output_bytes = 0
+        self._sources = [None] * len(self.inputs)  # weak references to the sources of the last traced load
+        self._versions = [None] * len(self.inputs)  # their ``_version`` then
 
     def _run(self):
         with graph_frame():
@@ -191,22 +206,41 @@ class GraphFrame:
     @property
     def nbytes(self) -> int:
         """Device bytes the frame holds: its pool and its input buffers."""
-        return self.graph.pool_bytes + sum(t.numel() * t.element_size() for t in self.inputs)
+        return self.graph.pool_bytes + self.input_bytes
 
     def first(self, leaves):
-        """Load ``leaves``, run the eager warm-up frame (returned), capture."""
+        """Load ``leaves``, run the eager warm-up frame (returned), capture;
+        ``capture_ms`` is the warm-up and the capture, the ``graph.capture``
+        span."""
         self.load(leaves)
-        out = self.graph.warm_up(self._run)
-        t0 = time.perf_counter()
-        static = self.graph.capture(self._run)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        with metrics.Span("graph.capture", metrics.recorder) as span:
+            out = self.graph.warm_up(self._run)
+            static = self.graph.capture(self._run)
+        self.capture_ms = span.ns / 1e6
         self.outputs, self._out_spec = flatten(static)
+        self.output_bytes = sum(t.nbytes for t in self.outputs)
         return out
 
     def load(self, leaves):
         """Copy the caller's tensors into the input buffers."""
         for dst, src in zip(self.inputs, leaves):
             dst.copy_(src)
+
+    def unchanged_bytes(self, leaves) -> int:
+        """The bytes of ``leaves`` that are the very tensor their buffer
+        loaded at the last call of this method, not changed in place since
+        (the same object, the same ``_version``): copies that moved no new
+        value. Remembers ``leaves`` for the next call, by weak reference."""
+        n, refs, versions = 0, self._sources, self._versions
+        for i, src in enumerate(leaves):
+            version = src._version
+            if refs[i] is not None and refs[i]() is src:
+                if versions[i] == version:
+                    n += self._leaf_bytes[i]
+            else:
+                refs[i] = weakref.ref(src)
+            versions[i] = version
+        return n
 
     def replay(self):
         self.graph.replay()
@@ -215,10 +249,29 @@ class GraphFrame:
         """Fresh clones of the static outputs, in the frame's structure."""
         return unflatten(self._out_spec, [t.clone() for t in self.outputs])
 
-    def __call__(self, leaves):
+    def __call__(self, leaves, rec=None):
+        """Load ``leaves``, replay, return fresh outputs; with a recorder
+        ``rec``, record the three as ``graph.copy``, ``graph.replay`` and
+        ``graph.clone`` (stamps taken back to back, recorded after them)
+        and count the bytes copied, copied unchanged and cloned."""
+        if rec is not None:
+            t0 = perf_counter_ns()
         self.load(leaves)
+        if rec is not None:
+            t1 = perf_counter_ns()
         self.replay()
-        return self.result()
+        if rec is not None:
+            t2 = perf_counter_ns()
+        out = self.result()
+        if rec is not None:
+            t3 = perf_counter_ns()
+            rec.add("graph.copy", t0, t1)
+            rec.add("graph.replay", t1, t2)
+            rec.add("graph.clone", t2, t3)
+            rec.count("graph.copy_bytes", self.input_bytes)
+            rec.count("graph.copy_unchanged_bytes", self.unchanged_bytes(leaves))
+            rec.count("graph.clone_bytes", self.output_bytes)
+        return out
 
     def release(self):
         """Drop the graph, then the frame function and what it holds."""
@@ -241,30 +294,50 @@ class FrameCache:
         self.last = None  # the GraphFrame of the latest call
 
     def run(self, key, fn, args, device):
-        """``fn(*args)`` through the graph of ``key`` and ``args``' spec."""
-        leaves, spec = flatten(tuple(args))
-        full = (key, spec)
-        frame = self.frames.get(full)
-        if frame is not None:
-            self.frames.move_to_end(full)
-            self.last = frame
-            return frame(leaves)
-        frame = GraphFrame(fn, leaves, spec, self.graph_type(device, self.debug))
-        out = frame.first(leaves)
-        self.captures += 1
-        self.frames[full] = self.last = frame
-        self._evict(device)
-        return out
+        """``fn(*args)`` through the graph of ``key`` and ``args``' spec.
+        With tracing on, the call is the span ``graph.run``: ``graph.key``,
+        then the frame's spans (:meth:`GraphFrame.__call__`) or
+        ``graph.capture``."""
+        rec = metrics.recorder
+        if rec is not None:
+            span = metrics.Span("graph.run", rec).start()
+        try:
+            leaves, spec = flatten(tuple(args))
+            full = (key, spec)
+            frame = self.frames.get(full)
+            if frame is not None:
+                self.frames.move_to_end(full)
+                self.last = frame
+            if rec is not None:
+                rec.add("graph.key", span.t0, perf_counter_ns())
+                rec.count("graph.calls", 1)
+            if frame is not None:
+                return frame(leaves, rec)
+            frame = GraphFrame(fn, leaves, spec, self.graph_type(device, self.debug))
+            out = frame.first(leaves)
+            self.captures += 1
+            self.frames[full] = self.last = frame
+            evicted = self._evict(device)
+            if rec is not None:
+                rec.count("graph.captures", 1)
+                rec.count("graph.evictions", evicted)
+            return out
+        finally:
+            if rec is not None:
+                span.stop()
 
-    def _evict(self, device):
+    def _evict(self, device) -> int:
         limit = self.max_bytes
         if limit is None:
             limit = torch.cuda.get_device_properties(device).total_memory // 2
+        evicted = 0
         while len(self.frames) > 1 and (
             len(self.frames) > self.max_graphs or sum(f.nbytes for f in self.frames.values()) > limit
         ):
             _, frame = self.frames.popitem(last=False)
             frame.release()  # the graph goes here; the key, which may own what it reads, after it
+            evicted += 1
+        return evicted
 
     def clear(self):
         self.frames.clear()

@@ -26,6 +26,8 @@ flat/gouraud → color; textured → uv; phong → normal(3), pos(3), uv(2).
 
 from __future__ import annotations
 
+from time import perf_counter_ns
+
 import torch
 
 from f_renderer_tpu_torch.pipeline import raster as R
@@ -34,6 +36,7 @@ from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
 from f_renderer_tpu_torch.shaders.api import ContextCodec
 from f_renderer_tpu_torch.shaders.builtin import LIGHT_COLOR, LIGHT_POS, PIXEL_KINDS, shade_plain, shading_inputs
 from f_renderer_tpu_torch.shaders.texture import PACKED_VMEM_BUDGET
+from f_renderer_tpu_torch.utils import metrics
 
 
 def fused_path_ok(pixel_shader, ps_uniform) -> bool:
@@ -92,6 +95,9 @@ def render_fused_prepared(prep: BinnedPrep, pixel_shader, ps_uniform, config):
 
     Returns ``(frame (H, W, 4) uint8, depth (H, W) f32, winner (H, W) int32)``.
     CUDA tensors launch the kernel; CPU tensors run the plain version.
+    While ``utils.metrics.tracing()`` is on, a launch records the span
+    ``prepared.run`` and its children ``prepared.inputs``,
+    ``prepared.launch`` and ``prepared.finish``.
     """
     dev = prep.tri_i32.device
     if dev.type == "cpu":
@@ -100,27 +106,45 @@ def render_fused_prepared(prep: BinnedPrep, pixel_shader, ps_uniform, config):
         raise ValueError(f"fused kernel runs on CUDA or (plain) CPU, not {dev}")
     from f_renderer_tpu_torch import kernels
 
-    kind = pixel_shader.fused_kind
-    stack, view_pos = shading_inputs(kind, ps_uniform, dev)
-    rgba, depth, winner = kernels.fused_raster(
-        prep.off,
-        prep.tri_i32,
-        prep.tri_f32,
-        view_pos.to(torch.float32).contiguous(),
-        stack.dims,
-        stack.texels,
-        th=prep.th,
-        n_ctx=prep.n_ctx,
-        h_pad=prep.h_pad,
-        w_pad=prep.w_pad,
-        kind=PIXEL_KINDS[kind].code,
-        opaque=stack.opaque,
-        bg_packed=background_packed(config.background),
-        light_pos=getattr(pixel_shader, "light_pos", LIGHT_POS),
-        light_color=getattr(pixel_shader, "light_color", LIGHT_COLOR),
-        origin=prep.origin,
-    )
-    return _finish(rgba, depth, winner, prep)
+    rec = metrics.recorder
+    if rec is not None:
+        span = metrics.Span("prepared.run", rec).start()
+    try:
+        kind = pixel_shader.fused_kind
+        stack, view_pos = shading_inputs(kind, ps_uniform, dev)
+        view_pos = view_pos.to(torch.float32).contiguous()
+        if rec is not None:
+            t1 = perf_counter_ns()
+        rgba, depth, winner = kernels.fused_raster(
+            prep.off,
+            prep.tri_i32,
+            prep.tri_f32,
+            view_pos,
+            stack.dims,
+            stack.texels,
+            th=prep.th,
+            n_ctx=prep.n_ctx,
+            h_pad=prep.h_pad,
+            w_pad=prep.w_pad,
+            kind=PIXEL_KINDS[kind].code,
+            opaque=stack.opaque,
+            bg_packed=background_packed(config.background),
+            light_pos=getattr(pixel_shader, "light_pos", LIGHT_POS),
+            light_color=getattr(pixel_shader, "light_color", LIGHT_COLOR),
+            origin=prep.origin,
+        )
+        if rec is not None:
+            t2 = perf_counter_ns()
+        out = _finish(rgba, depth, winner, prep)
+        if rec is not None:
+            t3 = perf_counter_ns()
+            rec.add("prepared.inputs", span.t0, t1)
+            rec.add("prepared.launch", t1, t2)
+            rec.add("prepared.finish", t2, t3)
+        return out
+    finally:
+        if rec is not None:
+            span.stop()
 
 
 def render_fused_plain(prep: BinnedPrep, pixel_shader, ps_uniform, config, tiles=None):

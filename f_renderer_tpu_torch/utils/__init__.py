@@ -1,1 +1,1 @@
-from f_renderer_tpu_torch.utils.metrics import FrameStats, StageTimer, profiler_trace  # noqa: F401
+from f_renderer_tpu_torch.utils.metrics import FrameStats, Recorder, Span, StageTimer, profiler_trace, tracing  # noqa: F401

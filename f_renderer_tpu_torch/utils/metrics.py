@@ -1,21 +1,171 @@
-"""Observability: per-frame counters, stage timing and device traces.
+"""Observability: per-frame counters, host spans, stage timing and device
+traces.
 
 Port of ``f_renderer_tpu/utils/metrics.py``. The reference's only
 instrumentation is a per-frame fps println (phong.rs:383-384). Here:
-per-frame counters computed on the frame's device (:class:`FrameStats`), a
-host stage timer that doubles as an fps / Mpix meter and can wait for the
-card (:class:`StageTimer`), and a ``torch.profiler`` trace of a span
-(:func:`profiler_trace`, the counterpart of ``xprof_trace``).
+per-frame counters computed on the frame's device (:class:`FrameStats`);
+the host's spans and counters inside the entry points, kept by a
+:class:`Recorder` while :func:`tracing` is on; a host stage timer that
+doubles as an fps / Mpix meter and can wait for the card
+(:class:`StageTimer`, whose stages are spans too); and a ``torch.profiler``
+trace of a span (:func:`profiler_trace`, the counterpart of
+``xprof_trace``).
+
+The spans' clock is ``time.perf_counter_ns``, the clock a CUPTI trace's
+host offset is read against, so spans and device records share one
+timeline.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
+from time import perf_counter_ns
 from typing import Optional
 
 import torch
+
+RECORD_CAP = 1 << 20  # the records a Recorder keeps: spans, and frames' counters
+
+recorder: Optional["Recorder"] = None
+"""The recorder :func:`tracing` turned on; None while tracing is off. An
+instrumented site tests this one attribute and, where it is None, does
+nothing more: no span object, no clock read."""
+
+
+class Span:
+    """A span of time on ``time.perf_counter_ns`` (``t0``, ``t1``, ``ns``),
+    timed as a context manager or from :meth:`start` to :meth:`stop`. With
+    a recorder ``rec`` it takes the innermost open span as its ``parent``
+    and the recorder's ``frame`` when started, and is recorded when
+    stopped."""
+
+    __slots__ = ("name", "parent", "frame", "t0", "t1", "_rec", "_slot")
+
+    def __init__(self, name: str, rec: Optional["Recorder"] = None):
+        self.name, self._rec = name, rec
+        self.parent = self.frame = None
+        self.t0 = self.t1 = 0
+
+    @property
+    def ns(self) -> int:
+        return self.t1 - self.t0
+
+    def start(self) -> "Span":
+        if self._rec is not None:
+            self._rec._open(self)
+        self.t0 = perf_counter_ns()
+        return self
+
+    def stop(self):
+        self.t1 = perf_counter_ns()
+        if self._rec is not None:
+            self._rec._close(self)
+
+    __enter__ = start
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False
+
+
+class Recorder:
+    """The spans and counters of the calls made while it is on, in memory.
+
+    ``spans``: one ``(name, parent, frame, t0, t1)`` tuple a span, in the
+    order the spans opened (times in ns on ``time.perf_counter_ns``; the
+    parent's name, None for an outermost span). Plain tuples of strings and
+    ints, which the garbage collector stops tracking, so a long window's
+    records do not slow its collections. An outermost span (an entry
+    point's whole call) starts a new ``frame`` id; every span opened inside
+    it, another entry point's included, and every count made until the
+    next outermost span, belongs to that frame. ``counters[frame][name]``:
+    named integers added per frame. At most ``cap`` records are kept (a
+    span, or a frame's counters); past it records are dropped and counted
+    in ``dropped``. One thread's calls: spans opened in another thread at
+    the same time would take the wrong parents."""
+
+    def __init__(self, cap: int = RECORD_CAP):
+        self.cap = cap
+        self.spans: list[tuple] = []
+        self.counters: dict[int, dict[str, int]] = {}
+        self.frame = 0  # the latest outermost span's frame id (0: none yet)
+        self.dropped = 0
+        self._stack: list[Span] = []  # the open spans, innermost last
+
+    def _open(self, span: Span):
+        stack = self._stack
+        if stack:
+            span.parent = stack[-1].name
+        else:
+            self.frame += 1
+        span.frame = self.frame
+        stack.append(span)
+        if len(self.spans) + len(self.counters) < self.cap:
+            span._slot = len(self.spans)
+            self.spans.append(None)  # filled when the span ends
+        else:
+            span._slot = None
+            self.dropped += 1
+
+    def _close(self, span: Span):
+        self._stack.pop()  # spans close innermost first
+        if span._slot is not None:
+            self.spans[span._slot] = (span.name, span.parent, span.frame, span.t0, span.t1)
+
+    def add(self, name: str, t0: int, t1: int):
+        """Record a span that ran from ``t0`` to ``t1`` (``perf_counter_ns``
+        stamps the caller took) inside the innermost open span: what a hot
+        site records in place of a :class:`Span`, a tuple and no object."""
+        if len(self.spans) + len(self.counters) < self.cap:
+            self.spans.append((name, self._stack[-1].name if self._stack else None, self.frame, t0, t1))
+        else:
+            self.dropped += 1
+
+    def count(self, name: str, n: int):
+        """Add ``n`` to counter ``name`` of the current frame."""
+        frame = self.counters.get(self.frame)
+        if frame is None:
+            if len(self.spans) + len(self.counters) >= self.cap:
+                self.dropped += 1
+                return
+            frame = self.counters[self.frame] = {}
+        frame[name] = frame.get(name, 0) + n
+
+    def mean_ms(self, name: str) -> Optional[float]:
+        """Mean duration of the spans named ``name``, ms; None where there
+        are none."""
+        ns = [t1 - t0 for n, _, _, t0, t1 in self.spans if n == name]
+        return sum(ns) / len(ns) / 1e6 if ns else None
+
+    def self_ms(self, name: str) -> Optional[float]:
+        """Mean self time of the spans named ``name``, ms: each one's
+        duration less that of its children in its frame."""
+        own, inner = [], {}
+        for n, parent, frame, t0, t1 in self.spans:
+            if n == name:
+                own.append((frame, t1 - t0))
+            if parent == name:
+                inner[frame] = inner.get(frame, 0) + t1 - t0
+        return sum(ns - inner.get(f, 0) for f, ns in own) / len(own) / 1e6 if own else None
+
+    def total(self, name: str) -> int:
+        """Counter ``name`` summed over the frames."""
+        return sum(c.get(name, 0) for c in self.counters.values())
+
+
+@contextlib.contextmanager
+def tracing(cap: int = RECORD_CAP):
+    """``with tracing() as rec:`` the entry points' spans and counters go to
+    ``rec`` (a new :class:`Recorder`) until the block ends; the recorder
+    that was on before, if any, is on again after it."""
+    global recorder
+    prev, rec = recorder, Recorder(cap)
+    recorder = rec
+    try:
+        yield rec
+    finally:
+        recorder = prev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +209,8 @@ class StageTimer:
     ``sync``: a device; where it is a CUDA device the span starts and ends
     with ``torch.cuda.synchronize``, so it covers the work the card queued
     in it and no earlier work. Without it the span is the host's time alone
-    (the card's launches return before they run).
+    (the card's launches return before they run). Each stage is a
+    :class:`Span`, recorded by the recorder that is on, if any.
     """
 
     def __init__(self):
@@ -75,13 +226,13 @@ class StageTimer:
             def __enter__(self):
                 if cuda:
                     torch.cuda.synchronize(dev)
-                self.t0 = time.perf_counter()
+                self.span = Span(name, recorder).start()
 
             def __exit__(self, *exc):
                 if cuda:
                     torch.cuda.synchronize(dev)
-                dt = time.perf_counter() - self.t0
-                timer.totals[name] = timer.totals.get(name, 0.0) + dt
+                self.span.stop()
+                timer.totals[name] = timer.totals.get(name, 0.0) + self.span.ns / 1e9
                 timer.counts[name] = timer.counts.get(name, 0) + 1
 
         return _Ctx()

@@ -1,0 +1,95 @@
+"""``tools/entry_split.py``'s reading of the entry point's spans: the
+``entry.*`` numbers from a hand-built recorder with hand counts, and the
+idle gaps of a device trace named by the innermost span. The tool and these
+tests stand alone: a stand-in host log and device trace, nothing of the
+benchmark's package."""
+
+import os
+import sys
+import types
+
+import pytest
+
+from f_renderer_tpu_torch.utils import Recorder
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
+
+import entry_split  # noqa: E402
+
+
+def span(rec, name, parent, frame, t0, t1):
+    rec.spans.append((name, parent, frame, t0, t1))
+
+
+def graph_frames(n=2):
+    """``n`` replayed frames, 100 us each: key 10, copy 20, replay 30, clone
+    15, so 25 us of self time; 4 MB copied, 3 MB of it unchanged, 500 B
+    cloned; a capture in the first frame, whose warm-up ran the fused
+    kernel's ``prepared.*`` spans."""
+    rec = Recorder()
+    for f in range(1, n + 1):
+        t = f * 1_000_000
+        span(rec, "graph.run", None, f, t, t + 100_000)
+        for name, a, b in (("graph.key", 2, 12), ("graph.copy", 12, 32), ("graph.replay", 35, 65),
+                           ("graph.clone", 65, 80)):
+            span(rec, name, "graph.run", f, t + a * 1000, t + b * 1000)
+        rec.counters[f] = {"graph.calls": 1, "graph.copy_bytes": 4_000_000, "graph.copy_unchanged_bytes": 3_000_000,
+                           "graph.clone_bytes": 500}
+    span(rec, "prepared.run", "graph.capture", 1, 1_050_000, 1_060_000)
+    span(rec, "prepared.launch", "prepared.run", 1, 1_051_000, 1_059_000)
+    rec.counters[1].update({"graph.captures": 1, "graph.evictions": 1})
+    rec.frame = n
+    return rec
+
+
+def test_the_graph_split_from_hand_counts():
+    """The orbit cells' numbers; the ``prepared.*`` spans of a capture's
+    warm-up are not read as the entry point's."""
+    got = entry_split.split(graph_frames(3), "graph.run")
+    want = {"entry.key_ms": 0.010, "entry.copy_ms": 0.020, "entry.replay_ms": 0.030, "entry.clone_ms": 0.015,
+            "entry.self_ms": 0.025, "entry.copy_mb": 4.0, "entry.clone_mb": 0.0005, "entry.copy_unchanged_pct": 75.0,
+            "graph.captures": 1, "graph.evictions": 1}
+    assert got.keys() == want.keys()
+    assert all(got[k] == pytest.approx(v) for k, v in want.items())
+    assert entry_split.split(graph_frames(3), "graph.run", captures=2)["graph.captures"] == 2
+
+
+def test_the_prepared_split_from_hand_counts():
+    """``render_prepared``: its three children and the self time; no graph
+    numbers."""
+    rec = Recorder()
+    for f in (1, 2):
+        t = f * 1_000_000
+        span(rec, "prepared.run", None, f, t, t + 50_000)
+        for name, a, b in (("prepared.inputs", 0, 5), ("prepared.launch", 5, 40), ("prepared.finish", 40, 48)):
+            span(rec, name, "prepared.run", f, t + a * 1000, t + b * 1000)
+    want = {"entry.inputs_ms": 0.005, "entry.launch_ms": 0.035, "entry.finish_ms": 0.008, "entry.self_ms": 0.002}
+    got = entry_split.split(rec, "prepared.run")
+    assert got.keys() == want.keys() and all(got[k] == pytest.approx(v) for k, v in want.items())
+    assert entry_split.split(Recorder(), "prepared.run") == {} and entry_split.split(Recorder(), "graph.run") == {}
+
+
+def test_innermost_segments():
+    ivs = [(0, 100, "entry"), (10, 90, "graph.run"), (12, 20, "graph.key"), (20, 40, "graph.copy"),
+           (100, 130, "sync"), (200, 300, "motion")]
+    assert entry_split.innermost(ivs) == [
+        (0, 10, "entry"), (10, 12, "graph.run"), (12, 20, "graph.key"), (20, 40, "graph.copy"),
+        (40, 90, "graph.run"), (90, 100, "entry"), (100, 130, "sync"), (200, 300, "motion")]
+
+
+def test_gaps_are_named_by_the_innermost_span():
+    """Gaps under the key, the copy and the root's own time take those
+    names, where an outermost label would name each ``entry``; a gap takes
+    the span that covers most of it; time in no span is the harness's."""
+    offset = 5_000  # the trace's clock less the host's
+    busy = [(100, 950), (960, 1004), (1010, 1014), (1030, 1033), (1036, 2000)]  # us
+    trace = types.SimpleNamespace(offset_ns=offset, open=offset, close=offset + 2_000_000,
+                                  busy=[[offset + a * 1000, offset + b * 1000] for a, b in busy])
+    log = types.SimpleNamespace(spans={"motion": [(0.0009, 0.001)], "entry": [(0.001, 0.0011)]})  # s
+    rec = graph_frames(1)  # graph.run 1.000-1.100 ms: key 1.002-1.012, copy -1.032, replay 1.035-1.065, ...
+    rec.spans[0] = ("graph.run", None, 1, 1_001_000, 1_099_000)
+    want = {"harness": 100e-6, "motion": 10e-6, "graph.key": 6e-6, "graph.copy": 16e-6, "graph.run": 3e-6}
+    rec.spans = [s for s in rec.spans if s[1] != "graph.capture" and s[1] != "prepared.run"]
+    assert dict(entry_split.label_gaps(trace, log, rec.spans)) == pytest.approx(want)
+    assert dict(entry_split.label_gaps(trace, log, [])) == pytest.approx(
+        {"harness": 100e-6, "motion": 10e-6, "entry": 25e-6})

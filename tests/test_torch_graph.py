@@ -18,8 +18,9 @@
   dispatch). The kernels' plain versions are exempt: on the card the
   kernel runs in their place.
 - The cache key, the input copies, the fresh outputs, the graph-frame
-  mode and the launch counters, with a stand-in for the CUDA graph that
-  replays by calling the frame again.
+  mode, the launch counters and the spans and counters a call records
+  while tracing is on, with a stand-in for the CUDA graph that replays by
+  calling the frame again.
 - The conditional node in the place of ``lax.cond``: its body
   (``clip_path_into``) against ``_clip_path``, and the geometry with the
   node emulated on the host (``run_mode("cond_node")``) against the JAX
@@ -30,7 +31,7 @@
   ``render_frame_sharded`` under the checker on every rank).
 - On the card (``cuda``): graph frames equal to eager ones, one graph
   across clipped and unclipped frames, the captured sharded frame (NCCL at
-  world size 1) and grid.
+  world size 1) and grid, and the spans of traced frames.
 """
 
 import contextlib
@@ -50,6 +51,7 @@ from f_renderer_tpu_torch.pipeline.geometry import geometry_process
 from f_renderer_tpu_torch.pipeline.render import build_triangles, render_frame
 from f_renderer_tpu_torch.scene import make_checker_texture, make_cube, make_phong_scene
 from f_renderer_tpu_torch.shaders import TextureStack
+from f_renderer_tpu_torch.utils import metrics
 from f_renderer_tpu_torch.voxel import octree, raycast
 
 from _torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread: see that file)
@@ -610,6 +612,110 @@ def test_every_call_copies_every_input(stub_cache):
     assert torch.equal(got[0], want[0])
 
 
+def scene_leaves(scene):
+    return compiled.flatten((scene.vs_uniform, scene.ps_uniform, tuple(scene.draws)))[0]
+
+
+def test_a_traced_replay_records_its_split(stub_cache):
+    """With tracing on, a replayed ``scene_render`` records ``graph.run`` and
+    its four children, in order, inside it and under one frame id, and
+    counts the bytes it copied and cloned."""
+    scene = cpu_scene()
+    compiled.scene_render(scene)
+    with metrics.tracing() as rec:
+        out = compiled.scene_render(scene)
+    assert [s[:3] for s in rec.spans] == [("graph.run", None, 1)] + [
+        (n, "graph.run", 1) for n in ("graph.key", "graph.copy", "graph.replay", "graph.clone")]
+    (*_, r0, r1), *children = rec.spans
+    assert rec.frame == 1 and r0 <= children[0][3] and children[-1][4] <= r1
+    assert all(a[4] <= b[3] for a, b in zip(children, children[1:]))
+    assert rec.self_ms("graph.run") == pytest.approx((r1 - r0 - sum(c[4] - c[3] for c in children)) / 1e6)
+    leaves = scene_leaves(scene)
+    assert rec.counters == {1: {
+        "graph.calls": 1,
+        "graph.copy_bytes": sum(t.nbytes for t in leaves),
+        "graph.copy_unchanged_bytes": 0,  # nothing loaded under tracing before
+        "graph.clone_bytes": sum(t.nbytes for t in compiled.flatten(out)[0]),
+    }}  # no device.allocated_bytes: the frame's device is the CPU
+    assert rec.dropped == 0
+
+
+@pytest.mark.parametrize("change", ["none", "in place", "replaced"])
+def test_unchanged_copy_bytes(stub_cache, change):
+    """``graph.copy_unchanged_bytes`` counts a leaf that is the tensor the
+    buffer loaded last, unchanged; not one changed in place or replaced by
+    another tensor."""
+    scene = cpu_scene()
+    compiled.scene_render(scene)
+    total = sum(t.nbytes for t in scene_leaves(scene))
+    model = scene.vs_uniform["model"]
+    with metrics.tracing() as rec:
+        compiled.scene_render(scene)
+        if change == "in place":
+            model.mul_(1.0)
+        elif change == "replaced":
+            scene.vs_uniform = dict(scene.vs_uniform, model=model.clone())
+        compiled.scene_render(scene)
+        compiled.scene_render(scene)
+    unchanged = [rec.counters[f]["graph.copy_unchanged_bytes"] for f in (1, 2, 3)]
+    assert unchanged == [0, total if change == "none" else total - model.nbytes, total]
+
+
+def test_a_traced_first_call_records_the_capture(stub_cache):
+    scene = cpu_scene()
+    with metrics.tracing() as rec:
+        compiled.scene_render(scene)
+    assert [s[:3] for s in rec.spans] == [
+        ("graph.run", None, 1), ("graph.key", "graph.run", 1), ("graph.capture", "graph.run", 1)]
+    assert rec.counters == {1: {"graph.calls": 1, "graph.captures": 1, "graph.evictions": 0}}
+    assert stub_cache.last.capture_ms == rec.mean_ms("graph.capture") > 0
+
+
+def test_an_entry_point_inside_a_traced_capture_is_its_child():
+    """A frame function that enters another entry point (``render_frame``
+    runs ``render_fused_prepared``) records that entry point's span as a
+    child of ``graph.capture`` in the call's one frame id, and its counts
+    go to that frame."""
+    cache = compiled.FrameCache(StubGraph, max_bytes=1 << 40)
+
+    def frame(t):
+        with metrics.Span("prepared.run", metrics.recorder):
+            metrics.recorder.count("inner", 1)
+            return t + 1
+
+    x = torch.ones(4)
+    with metrics.tracing() as rec:
+        cache.run("k", frame, (x,), x.device)
+    assert [s[:3] for s in rec.spans] == [
+        ("graph.run", None, 1), ("graph.key", "graph.run", 1), ("graph.capture", "graph.run", 1),
+        ("prepared.run", "graph.capture", 1), ("prepared.run", "graph.capture", 1)]  # warm-up, capture
+    assert rec.counters == {1: {"graph.calls": 1, "inner": 2, "graph.captures": 1, "graph.evictions": 0}}
+    assert rec.frame == 1 and rec.self_ms("graph.run") >= 0
+
+
+def test_evictions_are_counted():
+    cache = compiled.FrameCache(StubGraph, max_graphs=1, max_bytes=1 << 40)
+    x = torch.ones(4)
+    with metrics.tracing() as rec:
+        for key in ("a", "b", "b"):
+            cache.run(key, lambda t: t + 1, (x,), x.device)
+    assert rec.total("graph.evictions") == 1 and rec.total("graph.captures") == 2 and rec.total("graph.calls") == 3
+
+
+def test_nothing_is_recorded_with_tracing_off(stub_cache, monkeypatch):
+    """Off, a call tests ``metrics.recorder`` and records nothing: no span is
+    made and no counter moves, in a recorder that was on before either."""
+    scene = cpu_scene()
+    with metrics.tracing() as rec:
+        compiled.scene_render(scene)
+    assert metrics.recorder is None
+    made = []
+    monkeypatch.setattr(metrics.Recorder, "_open", lambda self, span: made.append(span))
+    compiled.scene_render(scene)
+    compiled.scene_render(scene)
+    assert len(rec.spans) == 3 and rec.frame == 1 and list(rec.counters) == [1] and made == []
+
+
 def test_captured_frames_run_as_graph_frames(stub_cache):
     """The warm-up, the capture and a replay run inside ``graph_frame`` (no
     host sync); the caller's code outside does not."""
@@ -811,6 +917,42 @@ def test_graph_frames_equal_eager_frames_on_card():
         want = render_frame(list(scene.draws), scene.vertex_shader, scene.vs_uniform, scene.pixel_shader,
                             scene.ps_uniform, scene.config)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_traced_frames_on_card():
+    """Traced replays and a traced ``render_prepared`` on the card: their
+    spans and the unchanged copies."""
+    scene = card_scene()
+    scene.render()
+    prepared = scene.prepare()
+    with metrics.tracing() as rec:
+        scene.render()
+        scene.render()
+        scene.render_prepared(prepared)
+    graph = ["graph.run", "graph.key", "graph.copy", "graph.replay", "graph.clone"]
+    prep = ["prepared.run", "prepared.inputs", "prepared.launch", "prepared.finish"]
+    assert [(f, n) for n, _, f, _, _ in rec.spans] == [(f, n) for f, names in ((1, graph), (2, graph), (3, prep))
+                                                      for n in names]
+    total = sum(t.nbytes for t in scene_leaves(scene))
+    assert [rec.counters[f]["graph.copy_unchanged_bytes"] for f in (1, 2)] == [0, total]
+    assert 3 not in rec.counters
+
+
+@pytest.mark.cuda
+def test_a_traced_capture_on_card_is_one_frame(monkeypatch):
+    """A first ``render()`` under tracing, the warm-up and the capture: the
+    fused kernel's ``prepared.run`` that the frame function enters, twice,
+    is a child of ``graph.capture``, and every span and count is frame 1."""
+    scene = card_scene()
+    monkeypatch.setattr(compiled, "CACHE", compiled.FrameCache())
+    with metrics.tracing() as rec:
+        scene.render()
+    assert rec.frame == 1 and {f for _, _, f, _, _ in rec.spans} == {1} and list(rec.counters) == [1]
+    assert [s[:2] for s in rec.spans[:3]] == [("graph.run", None), ("graph.key", "graph.run"),
+                                             ("graph.capture", "graph.run")]
+    assert [p for n, p, _, _, _ in rec.spans if n == "prepared.run"] == ["graph.capture"] * 2
+    assert rec.counters[1]["graph.captures"] == 1
 
 
 @pytest.mark.cuda

@@ -4,6 +4,7 @@ tests/test_fused.py:296-334 of the JAX package). On CPU tensors the fused
 kernel's plain version runs; the ``cuda`` case runs the kernel."""
 
 import dataclasses
+import types
 
 import pytest
 import torch
@@ -69,6 +70,33 @@ def test_prepare_raises_where_the_fused_kernel_cannot_run(monkeypatch):
     assert scene.ps_uniform["textures"].packed_nbytes > 1024
     with pytest.raises(ValueError, match="budget"):
         scene.prepare()
+
+
+def test_a_traced_launch_records_its_split(monkeypatch):
+    """With tracing on, the card's path of ``render_prepared`` records
+    ``prepared.run`` with ``prepared.inputs``, ``prepared.launch`` and
+    ``prepared.finish`` in order under one frame id, and counts nothing.
+    On the CPU the prep claims the card and the kernel's place is
+    taken by its plain version's planes (no CUDA tensor exists here)."""
+    from f_renderer_tpu_torch import kernels
+    from f_renderer_tpu_torch.utils import metrics
+
+    scene = cube_scene()
+    prepared = scene.prepare()
+    frame, depth, winner = scene.render_prepared(prepared)
+    real_inputs = fused.shading_inputs
+    monkeypatch.setattr(fused, "shading_inputs", lambda kind, u, dev: real_inputs(kind, u, torch.device("cpu")))
+    monkeypatch.setattr(kernels, "fused_raster", lambda *a, **k: (frame.view(torch.int32).reshape(H, W), depth, winner))
+    on_card = dataclasses.replace(prepared, tri_i32=types.SimpleNamespace(device=torch.device("cuda")))
+    with metrics.tracing() as rec:
+        got = scene.render_prepared(on_card)
+    assert torch.equal(got[0], frame) and torch.equal(got[1], depth)
+    assert [s[:3] for s in rec.spans] == [
+        ("prepared.run", None, 1), ("prepared.inputs", "prepared.run", 1), ("prepared.launch", "prepared.run", 1),
+        ("prepared.finish", "prepared.run", 1)]
+    assert all(a[4] <= b[3] for a, b in zip(rec.spans[1:], rec.spans[2:]))
+    assert rec.counters == {}
+    assert rec.mean_ms("prepared.launch") == (rec.spans[2][4] - rec.spans[2][3]) / 1e6
 
 
 @pytest.mark.cuda

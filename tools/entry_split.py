@@ -1,0 +1,274 @@
+#!/usr/bin/env python3
+"""Split the scene entry point's host time into the port's own spans, in the
+benchmark's cells, on the card.
+
+For each cell of ``BENCHMARK.json`` the benchmark's own set-up and driver
+(``benchmark.harness.start``: the seed's inputs, the scene, its first frame
+and a second of warm-up) run these windows in turn:
+
+1. a measured window, ``--seconds``, with tracing off: the frame time the
+   benchmark's ``frame_ms`` reads;
+2. a spans window, ``--trace-seconds``, with ``utils.metrics.tracing()`` on
+   and no CUPTI: the program's spans and counters, read into the
+   ``entry.*`` numbers below; a full collection before and after it
+   (``gc.collect``) gives the allocator's growth that no collection
+   frees (``torch.cuda.memory_allocated``), and ``gc.get_stats`` the
+   collections it ran;
+3. ``--pairs`` rounds of two 1 s windows, tracing off and on, the order
+   turned each round: the recorder's cost, the median frame time on
+   against off;
+4. a CUPTI window, ``--trace-seconds``, tracing on: each idle gap of the
+   device named by the innermost span, the harness's or the program's,
+   that covers most of it (:func:`label_gaps`), beside the benchmark's
+   labels (outermost span, ``cupti.Trace.label_gaps``).
+
+The numbers, from the spans window (:func:`split`), a frame, read from
+the spans of the cell's entry point (``render``: ``graph.run``;
+``render_prepared``: ``prepared.run``): ``entry.key_ms``,
+``entry.copy_ms``, ``entry.replay_ms``, ``entry.clone_ms``
+(``graph.key``, ``graph.copy``, ``graph.replay``, ``graph.clone``),
+``entry.inputs_ms``, ``entry.launch_ms``, ``entry.finish_ms``
+(``prepared.inputs``, ``prepared.launch``, ``prepared.finish``),
+``entry.self_ms`` (the entry point's span less its children),
+``entry.copy_mb`` and ``entry.clone_mb`` (``graph.copy_bytes``,
+``graph.clone_bytes``), ``entry.copy_unchanged_pct``
+(``graph.copy_unchanged_bytes`` over ``graph.copy_bytes``),
+``graph.captures`` (spans and CUPTI windows), ``graph.evictions``, and
+``entry.held_kb``: the allocator's growth between the full collections
+before and after the spans window, over its frames.
+
+    python3 tools/entry_split.py [--cells C ...] [--seed N] [--seconds S]
+
+Each cell runs in a process of its own, as a benchmark run does: a CUPTI
+window slows the host's later launches in its process. One JSON line a
+cell on standard output, also appended to ``--out`` (default
+``out/entry_split.jsonl``); a summary on standard error. Needs a
+CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import gc
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+ROOT = {"render": "graph.run", "render_prepared": "prepared.run"}  # a traffic's ``entry`` → its span
+SPLIT = {
+    "graph.run": (("entry.key_ms", "graph.key"), ("entry.copy_ms", "graph.copy"),
+                  ("entry.replay_ms", "graph.replay"), ("entry.clone_ms", "graph.clone")),
+    "prepared.run": (("entry.inputs_ms", "prepared.inputs"), ("entry.launch_ms", "prepared.launch"),
+                     ("entry.finish_ms", "prepared.finish")),
+}
+
+
+def split(rec, root: str, captures: int | None = None) -> dict:
+    """The ``entry.*`` numbers of a recorder's spans and counters under the
+    entry point's span ``root``, each left out where the recorder holds
+    nothing for it; spans of the other entry point (``prepared.*`` inside
+    a capture's warm-up) are not read. ``captures``: the captures to
+    report (default: the recorder's own)."""
+    out = {}
+    for metric, span in SPLIT[root]:
+        v = rec.mean_ms(span)
+        if v is not None:
+            out[metric] = v
+    v = rec.self_ms(root)
+    if v is not None:
+        out["entry.self_ms"] = v
+    calls = rec.total("graph.calls")
+    if root == "graph.run" and calls:
+        copied = rec.total("graph.copy_bytes")
+        out["entry.copy_mb"] = copied / calls / 1e6
+        out["entry.clone_mb"] = rec.total("graph.clone_bytes") / calls / 1e6
+        if copied:
+            out["entry.copy_unchanged_pct"] = 100.0 * rec.total("graph.copy_unchanged_bytes") / copied
+        out["graph.captures"] = rec.total("graph.captures") if captures is None else captures
+        out["graph.evictions"] = rec.total("graph.evictions")
+    return out
+
+
+def innermost(intervals):
+    """Properly nested ``(t0, t1, name)`` intervals → the non-overlapping
+    ``(t0, t1, name)`` segments that name, at each instant, the innermost
+    interval covering it."""
+    out, stack, cursor = [], [], None
+
+    def emit(upto):
+        if stack and upto > cursor:
+            out.append((cursor, upto, stack[-1][2]))
+
+    for iv in sorted(intervals, key=lambda iv: (iv[0], -iv[1])):
+        while stack and stack[-1][1] <= iv[0]:
+            emit(stack[-1][1])
+            cursor = max(cursor, stack.pop()[1])
+        emit(iv[0])
+        stack.append(iv)
+        cursor = iv[0]
+    while stack:
+        emit(stack[-1][1])
+        cursor = max(cursor, stack.pop()[1])
+    return out
+
+
+def label_gaps(trace, log, spans) -> list:
+    """Each idle gap of a CUPTI ``trace`` named by the innermost span that
+    covers most of it: the benchmark's host spans of ``log`` (seconds on
+    ``time.perf_counter``) and the program's ``spans`` (``Recorder.spans``,
+    ns on ``time.perf_counter_ns``), on the trace's clock; time in no span
+    is the harness's own → [(name, seconds)], most first."""
+    ivs = [(int(a * 1e9) + trace.offset_ns, int(b * 1e9) + trace.offset_ns, name)
+           for name, items in log.spans.items() for a, b in items]
+    ivs += [(t0 + trace.offset_ns, t1 + trace.offset_ns, name) for name, _, _, t0, t1 in spans]
+    segs = innermost(ivs)
+    edges = [trace.open] + [x for iv in trace.busy for x in iv] + [trace.close]
+    totals, i = {}, 0
+    for gs, ge in zip(edges[::2], edges[1::2]):
+        if ge <= gs:
+            continue
+        while i < len(segs) and segs[i][1] <= gs:
+            i += 1
+        cover, j = {"harness": ge - gs}, i
+        while j < len(segs) and segs[j][0] < ge:
+            ov = min(ge, segs[j][1]) - max(gs, segs[j][0])
+            cover[segs[j][2]] = cover.get(segs[j][2], 0) + ov
+            cover["harness"] -= ov
+            j += 1
+        label = max(cover, key=cover.get)
+        totals[label] = totals.get(label, 0) + (ge - gs)
+    return sorted(((k, v / 1e9) for k, v in totals.items()), key=lambda kv: -kv[1])
+
+
+def ms_a_frame(log) -> float:
+    return log.seconds() * 1e3 / log.frames
+
+
+def split_cell(manifest, name: str, seed: int, seconds: float, trace_seconds: float, pairs: int,
+               device: str = "cuda") -> tuple[dict, list[str]]:
+    """The windows above in cell ``name`` → (its JSON object, summary lines)."""
+    import torch
+
+    from benchmark import harness
+    from f_renderer_tpu_torch.utils import metrics
+
+    session = harness.start(manifest, Path(REPO), name, seed, device)
+    drive, root = session.driver.window, ROOT[session.driver.entry]
+    gc.collect()
+    gc.freeze()
+    measured = harness.Log()
+    drive(seconds, measured)
+    cuda = session.device.type == "cuda"
+    allocated = (lambda: torch.cuda.memory_allocated(session.device)) if cuda else (lambda: 0)
+    gc.collect()
+    held0, gc0 = allocated(), [g["collections"] for g in gc.get_stats()]
+    spans_log = harness.Log()
+    with metrics.tracing() as rec:
+        drive(trace_seconds, spans_log)
+    collections = [g["collections"] - c for g, c in zip(gc.get_stats(), gc0)]
+    gc.collect()
+    held_kb = (allocated() - held0) / spans_log.frames / 1e3
+    off, on = [], []
+    for r in range(pairs):  # off then on, on then off, ...
+        for side, tracing in ((off, False), (on, True))[::1 if r % 2 == 0 else -1]:
+            log = harness.Log()
+            with metrics.tracing() if tracing else contextlib.nullcontext():
+                drive(1.0, log)
+            side.append(ms_a_frame(log))
+    traced = gaps = old_gaps = None
+    captures = rec.total("graph.captures")
+    if cuda:
+        from benchmark import cupti
+
+        traced = harness.Log()
+        with metrics.tracing() as rec_t:
+            with cupti.Trace() as dtrace:
+                drive(trace_seconds, traced)
+        captures += rec_t.total("graph.captures")
+        gaps = label_gaps(dtrace, traced, rec_t.spans)
+        dtrace.label_gaps(traced)
+        old_gaps = dtrace.gaps
+    gc.unfreeze()
+    session.driver.release()
+    session.driver = None
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    got = split(rec, root, captures)
+    if cuda:
+        got["entry.held_kb"] = held_kb
+    entry = spans_log.span_ms("entry")
+    children = [m for m, _ in SPLIT[root] if m in got]
+    total = sum(got[m] for m in children) + got["entry.self_ms"] if "entry.self_ms" in got else None
+    cost = {"off_ms": statistics.median(off), "on_ms": statistics.median(on)} if pairs else {}
+    if cost:
+        cost["pct"] = 100.0 * (cost["on_ms"] / cost["off_ms"] - 1.0)
+    result = {
+        "cell": name, "seed": seed, "device": harness.device_info(torch, session.device)["kind"],
+        "frame_ms": ms_a_frame(measured), "spans_frame_ms": ms_a_frame(spans_log),
+        "entry_ms": entry, "split_sum_ms": total, "metrics": got, "cost": cost,
+        "pairs": {"off": off, "on": on}, "dropped": rec.dropped, "spans": len(rec.spans),
+        "frames": spans_log.frames, "idle_gaps": gaps, "idle_gaps_outermost": old_gaps,
+        "gc_collections": collections,
+    }
+    lines = [f"{name}: spans window {result['spans_frame_ms']:.4f} ms a frame (measured window "
+             f"{result['frame_ms']:.4f}); entry {entry} ms, the split's sum {total} ms"]
+    if cost:
+        lines.append(f"{name}: recorder off {cost['off_ms']:.4f}, on {cost['on_ms']:.4f} ms a frame "
+                     f"({cost['pct']:+.2f}%, medians of {pairs} pairs of 1 s windows)")
+    lines += [f"{name}: {k} {v!r}" for k, v in got.items()]
+    lines.append(f"{name}: spans window's collections by generation {collections}")
+    if gaps is not None:
+        lines.append(f"{name}: idle gaps innermost {gaps}; outermost {old_gaps}")
+    return result, lines
+
+
+def main() -> int:
+    from benchmark import harness
+
+    manifest = harness.load_json(os.path.join(REPO, "BENCHMARK.json"))
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cells", nargs="+", default=[w["name"] for w in manifest["workloads"]])
+    ap.add_argument("--seed", type=int, default=2**31 + 12345)
+    ap.add_argument("--seconds", type=float, default=10.0)
+    ap.add_argument("--trace-seconds", type=float, default=harness.TRACE_SECONDS)
+    ap.add_argument("--pairs", type=int, default=5)
+    ap.add_argument("--out", default=os.path.join(REPO, "out", "entry_split.jsonl"))
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("entry_split: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    smi = os.popen("nvidia-smi -i 0 --query-gpu=name,power.limit --format=csv,noheader").read().strip()
+    print(f"[entry_split] {smi}", file=sys.stderr, flush=True)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    if len(args.cells) > 1:  # a process a cell
+        rcs = [subprocess.run([sys.executable, __file__, "--cells", name, "--seed", str(args.seed + i),
+                               "--seconds", str(args.seconds), "--trace-seconds", str(args.trace_seconds),
+                               "--pairs", str(args.pairs), "--out", args.out]).returncode
+               for i, name in enumerate(args.cells)]
+        return max(rcs)
+    for name in args.cells:
+        t0 = time.perf_counter()
+        result, lines = split_cell(manifest, name, args.seed, args.seconds, args.trace_seconds, args.pairs)
+        result["power"] = smi
+        for line in lines + [f"{name}: {time.perf_counter() - t0:.1f} s"]:
+            print(line, file=sys.stderr, flush=True)
+        print(json.dumps(result), flush=True)
+        with open(args.out, "a") as f:
+            f.write(json.dumps(result) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
