@@ -36,10 +36,18 @@ the few ops it saves).
   clip path only on a replay where a face clipped (``device.if_node``);
   the warm-up frame runs the clip path and chooses on the device. A capture
   that fails raises: there is no eager fallback on the card.
-- **Replay.** A later call copies every caller tensor into the graph's
-  buffers, replays, and returns clones of the graph's outputs: fresh
-  tensors, as JAX returns fresh arrays. No caller tensor is aliased into
-  the graph, so the caller may change or free it.
+- **Replay.** A later call copies into the graph's buffers each caller
+  tensor whose values a buffer does not hold yet, replays, and returns
+  clones of the graph's outputs: fresh tensors, as JAX returns fresh
+  arrays. A buffer remembers the tensor it last loaded (a weak reference)
+  and that tensor's ``_version``; a leaf is copied where it is another
+  tensor or PyTorch has seen it written since (an in-place op on it, on a
+  view of it or through ``detach()``, or ``set_``, each of which bumps
+  ``_version``), and an inference tensor, which has no version counter,
+  on every call. A write that the version counter does not see is not
+  seen: one through ``.data``, ``untyped_storage()``, a raw pointer or
+  another framework's DLPack view. No caller tensor is aliased into the
+  graph, so the caller may change or free it.
 - **Bound.** At most ``MAX_GRAPHS`` (64, JAX's ``maxsize``) graphs, and at
   most half the card's memory in their pools and buffers (a stress4k
   graph holds gigabytes); past either, the least recently used graph is
@@ -54,7 +62,8 @@ the few ops it saves).
   key, the lookup), then ``graph.copy``, ``graph.replay`` and
   ``graph.clone`` on a hit or ``graph.capture`` (warm-up and capture) on a
   miss, and the counters ``graph.calls``, ``graph.captures``,
-  ``graph.evictions``, ``graph.copy_bytes``, ``graph.copy_unchanged_bytes``,
+  ``graph.evictions``, ``graph.copy_bytes`` (the buffers' bytes),
+  ``graph.copy_skipped_bytes`` (those of the leaves not copied) and
   ``graph.clone_bytes``. Off, a call tests ``metrics.recorder`` where it
   would record and records nothing.
 
@@ -196,7 +205,7 @@ class GraphFrame:
         self._leaf_bytes = [t.nbytes for t in self.inputs]
         self.input_bytes = sum(self._leaf_bytes)
         self.output_bytes = 0
-        self._sources = [None] * len(self.inputs)  # weak references to the sources of the last traced load
+        self._sources = [None] * len(self.inputs)  # weak references to the tensors each buffer last loaded
         self._versions = [None] * len(self.inputs)  # their ``_version`` then
 
     def _run(self):
@@ -221,26 +230,26 @@ class GraphFrame:
         self.output_bytes = sum(t.nbytes for t in self.outputs)
         return out
 
-    def load(self, leaves):
-        """Copy the caller's tensors into the input buffers."""
-        for dst, src in zip(self.inputs, leaves):
-            dst.copy_(src)
-
-    def unchanged_bytes(self, leaves) -> int:
-        """The bytes of ``leaves`` that are the very tensor their buffer
-        loaded at the last call of this method, not changed in place since
-        (the same object, the same ``_version``): copies that moved no new
-        value. Remembers ``leaves`` for the next call, by weak reference."""
-        n, refs, versions = 0, self._sources, self._versions
+    def load(self, leaves) -> int:
+        """Copy into each input buffer the caller's tensor unless the buffer
+        holds its values already: it is the very tensor the buffer last
+        loaded (a weak reference) at the same ``_version``. An inference
+        tensor has no version counter and is copied every call → the bytes
+        not copied."""
+        skipped, refs, versions = 0, self._sources, self._versions
         for i, src in enumerate(leaves):
-            version = src._version
-            if refs[i] is not None and refs[i]() is src:
-                if versions[i] == version:
-                    n += self._leaf_bytes[i]
+            ref = refs[i]
+            if ref is not None and ref() is src and versions[i] == src._version:
+                skipped += self._leaf_bytes[i]
+                continue
+            if src.is_inference():
+                self.inputs[i].copy_(src)
+                refs[i] = None
             else:
-                refs[i] = weakref.ref(src)
-            versions[i] = version
-        return n
+                version = src._version  # read before the copy: a write after it is seen next call
+                self.inputs[i].copy_(src)
+                refs[i], versions[i] = weakref.ref(src), version
+        return skipped
 
     def replay(self):
         self.graph.replay()
@@ -253,10 +262,11 @@ class GraphFrame:
         """Load ``leaves``, replay, return fresh outputs; with a recorder
         ``rec``, record the three as ``graph.copy``, ``graph.replay`` and
         ``graph.clone`` (stamps taken back to back, recorded after them)
-        and count the bytes copied, copied unchanged and cloned."""
+        and count the buffers' bytes, the bytes not copied and the bytes
+        cloned."""
         if rec is not None:
             t0 = perf_counter_ns()
-        self.load(leaves)
+        skipped = self.load(leaves)
         if rec is not None:
             t1 = perf_counter_ns()
         self.replay()
@@ -269,7 +279,7 @@ class GraphFrame:
             rec.add("graph.replay", t1, t2)
             rec.add("graph.clone", t2, t3)
             rec.count("graph.copy_bytes", self.input_bytes)
-            rec.count("graph.copy_unchanged_bytes", self.unchanged_bytes(leaves))
+            rec.count("graph.copy_skipped_bytes", skipped)
             rec.count("graph.clone_bytes", self.output_bytes)
         return out
 

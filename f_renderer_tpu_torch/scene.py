@@ -58,8 +58,13 @@ class Scene:
         On the card the frame is one captured CUDA graph (``compiled``): the
         first frame of each key runs eagerly and is captured, later ones
         replay it with the current uniforms, draws and textures and return
-        fresh tensors. The portable backend, which launches no kernel, and
-        the CPU run eagerly (``render_frame``)."""
+        fresh tensors. A replay copies a uniform, draw or texture tensor
+        into the graph only where it is a new tensor or PyTorch has seen it
+        written since the last frame (its ``_version``); a write the
+        version counter does not see (``.data``, ``untyped_storage()``, a
+        raw pointer, a DLPack view) is not seen. The portable backend,
+        which launches no kernel, and the CPU run eagerly
+        (``render_frame``)."""
         if self.device.type == "cuda" and self.config.backend == "kernels":
             return compiled.scene_render(self)
         return render_frame(

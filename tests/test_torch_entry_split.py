@@ -23,7 +23,7 @@ def span(rec, name, parent, frame, t0, t1):
 
 def graph_frames(n=2):
     """``n`` replayed frames, 100 us each: key 10, copy 20, replay 30, clone
-    15, so 25 us of self time; 4 MB copied, 3 MB of it unchanged, 500 B
+    15, so 25 us of self time; 4 MB of buffers, 3 MB of it not copied, 500 B
     cloned; a capture in the first frame, whose warm-up ran the fused
     kernel's ``prepared.*`` spans."""
     rec = Recorder()
@@ -33,7 +33,7 @@ def graph_frames(n=2):
         for name, a, b in (("graph.key", 2, 12), ("graph.copy", 12, 32), ("graph.replay", 35, 65),
                            ("graph.clone", 65, 80)):
             span(rec, name, "graph.run", f, t + a * 1000, t + b * 1000)
-        rec.counters[f] = {"graph.calls": 1, "graph.copy_bytes": 4_000_000, "graph.copy_unchanged_bytes": 3_000_000,
+        rec.counters[f] = {"graph.calls": 1, "graph.copy_bytes": 4_000_000, "graph.copy_skipped_bytes": 3_000_000,
                            "graph.clone_bytes": 500}
     span(rec, "prepared.run", "graph.capture", 1, 1_050_000, 1_060_000)
     span(rec, "prepared.launch", "prepared.run", 1, 1_051_000, 1_059_000)
@@ -47,7 +47,7 @@ def test_the_graph_split_from_hand_counts():
     warm-up are not read as the entry point's."""
     got = entry_split.split(graph_frames(3), "graph.run")
     want = {"entry.key_ms": 0.010, "entry.copy_ms": 0.020, "entry.replay_ms": 0.030, "entry.clone_ms": 0.015,
-            "entry.self_ms": 0.025, "entry.copy_mb": 4.0, "entry.clone_mb": 0.0005, "entry.copy_unchanged_pct": 75.0,
+            "entry.self_ms": 0.025, "entry.copy_mb": 4.0, "entry.clone_mb": 0.0005, "entry.copy_skipped_pct": 75.0,
             "graph.captures": 1, "graph.evictions": 1}
     assert got.keys() == want.keys()
     assert all(got[k] == pytest.approx(v) for k, v in want.items())

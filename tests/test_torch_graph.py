@@ -17,7 +17,8 @@
   ``torch.tensor``, ``torch.as_tensor`` and ``torch.from_numpy`` all
   dispatch). The kernels' plain versions are exempt: on the card the
   kernel runs in their place.
-- The cache key, the input copies, the fresh outputs, the graph-frame
+- The cache key, the input copies (only of the inputs that changed, and
+  no frame writing its own inputs), the fresh outputs, the graph-frame
   mode, the launch counters and the spans and counters a call records
   while tracing is on, with a stand-in for the CUDA graph that replays by
   calling the frame again.
@@ -29,8 +30,9 @@
   it: ``render_frame_grid`` under the checker, the cache key over the mesh
   (the 4-rank gloo spawn in ``tests/test_torch_parallel.py`` runs
   ``render_frame_sharded`` under the checker on every rank).
-- On the card (``cuda``): graph frames equal to eager ones, one graph
-  across clipped and unclipped frames, the captured sharded frame (NCCL at
+- On the card (``cuda``): graph frames equal to eager ones, writes to a
+  caller's tensor seen by the next replay, one graph across clipped and
+  unclipped frames, the captured sharded frame (NCCL at
   world size 1) and grid, and the spans of traced frames.
 """
 
@@ -585,35 +587,98 @@ def test_replays_equal_eager_frames_and_return_fresh_tensors(stub_cache):
             assert all(t.data_ptr() != s.data_ptr() for s in statics)
 
 
-def test_every_call_copies_every_input(stub_cache):
-    """No input is aliased and none is skipped: every call copies each caller
-    tensor into the graph's buffers, so an in-place change is seen."""
-    scene = cpu_scene()
-    compiled.scene_render(scene)
-    frame = stub_cache.last
-    assert all(all(b.data_ptr() != t.data_ptr() for t in compiled.flatten(
-        (scene.vs_uniform, scene.ps_uniform, tuple(scene.draws)))[0]) for b in frame.inputs)
-    copies = []
-    for dst in frame.inputs:
-        real = dst.copy_
+def scene_leaves(scene):
+    return compiled.flatten((scene.vs_uniform, scene.ps_uniform, tuple(scene.draws)))[0]
 
-        def counting(src, _real=real, _dst=dst):
-            copies.append(_dst)
+
+def count_copies(frame):
+    """Wrap each input buffer's ``copy_`` → the list of the buffers' indices
+    copied into, in order."""
+    copies = []
+    for i, dst in enumerate(frame.inputs):
+        def counting(src, _real=dst.copy_, _i=i):
+            copies.append(_i)
             return _real(src)
 
         dst.copy_ = counting
+    return copies
+
+
+def write_in_inference_mode(scene, model):
+    with torch.inference_mode():
+        model.mul_(1.5)
+
+
+CHANGES = {
+    "none": lambda scene, model: None,
+    "in place": lambda scene, model: model.mul_(1.5),
+    "through a view": lambda scene, model: model[:3, :3].mul_(0.8),
+    "through detach": lambda scene, model: model.detach().mul_(1.25),
+    "replaced by a clone": lambda scene, model: scene.vs_uniform.update(model=model.clone().mul_(1.5)),
+    "inference tensor": write_in_inference_mode,
+}
+
+
+@pytest.mark.parametrize("change", list(CHANGES))
+def test_only_changed_inputs_are_copied(stub_cache, change):
+    """A call copies a caller tensor into its buffer only where it is not the
+    tensor the buffer last loaded, or PyTorch has seen it written since (its
+    ``_version``: in place, through a view, through ``detach()``); an
+    inference tensor, which has no version counter, every call. No input is
+    aliased, and every frame equals the eager frame on the caller's current
+    values."""
+    scene = cpu_scene()
+    if change == "inference tensor":
+        with torch.inference_mode():
+            scene.vs_uniform["model"] = scene.vs_uniform["model"].clone()
     compiled.scene_render(scene)
-    assert len(copies) == len(frame.inputs)
-    scene.vs_uniform["model"].mul_(1.5)  # the caller changes its tensor in place
+    frame = stub_cache.last
+    assert all(b.data_ptr() != t.data_ptr() for b in frame.inputs for t in scene_leaves(scene))
+    m = next(i for i, t in enumerate(scene_leaves(scene)) if t is scene.vs_uniform["model"])
+    copies = count_copies(frame)
+    before = compiled.scene_render(scene)
+    copied = [list(copies)]
+    CHANGES[change](scene, scene.vs_uniform["model"])
     got = compiled.scene_render(scene)
-    assert len(copies) == 2 * len(frame.inputs)
+    copied.append(copies[len(copied[0]):])
     want = render_frame(list(scene.draws), scene.vertex_shader, scene.vs_uniform, scene.pixel_shader,
                         scene.ps_uniform, scene.config)
-    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(before[0], got[0]) == (change == "none")
+    assert copied == {"none": [[], []], "inference tensor": [[m], [m]]}.get(change, [[], [m]])
 
 
-def scene_leaves(scene):
-    return compiled.flatten((scene.vs_uniform, scene.ps_uniform, tuple(scene.draws)))[0]
+@pytest.mark.parametrize("entry", ["scene_render", "scene_prepare", "grid_frame", "voxel_frame",
+                                   "voxel_bound_frame"])
+def test_captured_frames_leave_their_inputs_unchanged(stub_cache, entry):
+    """After the capture and a replay every input buffer still equals the
+    caller's tensor it loaded: no frame writes its own inputs, which a
+    skipped copy relies on."""
+    if entry.startswith("voxel"):
+        from f_renderer_tpu_torch.voxel import VoxelRenderer
+
+        args, cfg = voxel_inputs("fixed")
+        renderer = VoxelRenderer(args[0], args[1], cfg, device="cpu")
+        leaves = list(args) if entry == "voxel_frame" else list(args[2:])
+        run = ((lambda: compiled.voxel_frame(*args, cfg)) if entry == "voxel_frame" else
+               (lambda: compiled.voxel_bound_frame(renderer, args[2], args[3])))
+    else:
+        scene = cpu_scene()
+        leaves = scene_leaves(scene)
+        run = {"scene_render": lambda: compiled.scene_render(scene),
+               "scene_prepare": lambda: compiled.scene_prepare(scene),
+               "grid_frame": lambda: compiled.grid_frame(scene.draws, scene.vertex_shader, scene.vs_uniform,
+                                                         scene.pixel_shader, scene.ps_uniform, scene.config,
+                                                         2, 2)}[entry]
+        if entry == "scene_prepare":
+            leaves = compiled.flatten((scene.vs_uniform, tuple(scene.draws)))[0]
+    kept = [t.clone() for t in leaves]
+    run()
+    run()
+    frame = stub_cache.last
+    assert stub_cache.captures == 1 and len(frame.inputs) == len(leaves)
+    assert all(torch.equal(b, t) for b, t in zip(frame.inputs, kept))
+    assert all(torch.equal(t, k) for t, k in zip(leaves, kept))
 
 
 def test_a_traced_replay_records_its_split(stub_cache):
@@ -630,11 +695,11 @@ def test_a_traced_replay_records_its_split(stub_cache):
     assert rec.frame == 1 and r0 <= children[0][3] and children[-1][4] <= r1
     assert all(a[4] <= b[3] for a, b in zip(children, children[1:]))
     assert rec.self_ms("graph.run") == pytest.approx((r1 - r0 - sum(c[4] - c[3] for c in children)) / 1e6)
-    leaves = scene_leaves(scene)
+    total = sum(t.nbytes for t in scene_leaves(scene))
     assert rec.counters == {1: {
         "graph.calls": 1,
-        "graph.copy_bytes": sum(t.nbytes for t in leaves),
-        "graph.copy_unchanged_bytes": 0,  # nothing loaded under tracing before
+        "graph.copy_bytes": total,
+        "graph.copy_skipped_bytes": total,  # each buffer holds its tensor since the untraced capture
         "graph.clone_bytes": sum(t.nbytes for t in compiled.flatten(out)[0]),
     }}  # no device.allocated_bytes: the frame's device is the CPU
     assert rec.dropped == 0
@@ -642,9 +707,10 @@ def test_a_traced_replay_records_its_split(stub_cache):
 
 @pytest.mark.parametrize("change", ["none", "in place", "replaced"])
 def test_unchanged_copy_bytes(stub_cache, change):
-    """``graph.copy_unchanged_bytes`` counts a leaf that is the tensor the
-    buffer loaded last, unchanged; not one changed in place or replaced by
-    another tensor."""
+    """``graph.copy_skipped_bytes`` counts a leaf that is the tensor the
+    buffer loaded last, unchanged, and so was not copied; not one changed
+    in place or replaced by another tensor. An untraced call's load counts
+    too: the first traced call skips every leaf."""
     scene = cpu_scene()
     compiled.scene_render(scene)
     total = sum(t.nbytes for t in scene_leaves(scene))
@@ -657,8 +723,8 @@ def test_unchanged_copy_bytes(stub_cache, change):
             scene.vs_uniform = dict(scene.vs_uniform, model=model.clone())
         compiled.scene_render(scene)
         compiled.scene_render(scene)
-    unchanged = [rec.counters[f]["graph.copy_unchanged_bytes"] for f in (1, 2, 3)]
-    assert unchanged == [0, total if change == "none" else total - model.nbytes, total]
+    skipped = [rec.counters[f]["graph.copy_skipped_bytes"] for f in (1, 2, 3)]
+    assert skipped == [total, total if change == "none" else total - model.nbytes, total]
 
 
 def test_a_traced_first_call_records_the_capture(stub_cache):
@@ -922,7 +988,7 @@ def test_graph_frames_equal_eager_frames_on_card():
 @pytest.mark.cuda
 def test_traced_frames_on_card():
     """Traced replays and a traced ``render_prepared`` on the card: their
-    spans and the unchanged copies."""
+    spans and the skipped copies."""
     scene = card_scene()
     scene.render()
     prepared = scene.prepare()
@@ -935,7 +1001,7 @@ def test_traced_frames_on_card():
     assert [(f, n) for n, _, f, _, _ in rec.spans] == [(f, n) for f, names in ((1, graph), (2, graph), (3, prep))
                                                       for n in names]
     total = sum(t.nbytes for t in scene_leaves(scene))
-    assert [rec.counters[f]["graph.copy_unchanged_bytes"] for f in (1, 2)] == [0, total]
+    assert [rec.counters[f]["graph.copy_skipped_bytes"] for f in (1, 2)] == [total, total]
     assert 3 not in rec.counters
 
 
@@ -973,14 +1039,21 @@ def test_graph_outputs_do_not_alias_on_card():
 
 @pytest.mark.cuda
 def test_graph_sees_a_mutated_caller_tensor_on_card():
+    """A write in place, one through a view and a replaced tensor are each
+    seen by the next replay; the unchanged leaves, not copied again, still
+    equal their buffers."""
     scene = card_scene()
-    first = scene.render()[0]
+    frames = [scene.render()[0]]
     scene.render()
-    scene.vs_uniform["model"].mul_(0.5)  # in place: same tensor, new version
-    got = scene.render()[0]
-    want = render_frame(list(scene.draws), scene.vertex_shader, scene.vs_uniform, scene.pixel_shader,
-                        scene.ps_uniform, scene.config)[0]
-    assert torch.equal(got, want) and not torch.equal(got, first)
+    for change in (lambda m: m.mul_(0.5),  # in place: same tensor, new version
+                   lambda m: m[:3, :3].mul_(0.8),  # through a view: the version is shared
+                   lambda m: scene.vs_uniform.update(model=m.clone().mul_(1.25))):  # another tensor
+        change(scene.vs_uniform["model"])
+        frames.append(scene.render()[0])
+        want = render_frame(list(scene.draws), scene.vertex_shader, scene.vs_uniform, scene.pixel_shader,
+                            scene.ps_uniform, scene.config)[0]
+        assert torch.equal(frames[-1], want) and not torch.equal(frames[-1], frames[-2])
+    assert all(torch.equal(b, t) for b, t in zip(compiled.CACHE.last.inputs, scene_leaves(scene)))
 
 
 def small_phong_scene():

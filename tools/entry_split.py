@@ -31,8 +31,8 @@ the spans of the cell's entry point (``render``: ``graph.run``;
 (``prepared.inputs``, ``prepared.launch``, ``prepared.finish``),
 ``entry.self_ms`` (the entry point's span less its children),
 ``entry.copy_mb`` and ``entry.clone_mb`` (``graph.copy_bytes``,
-``graph.clone_bytes``), ``entry.copy_unchanged_pct``
-(``graph.copy_unchanged_bytes`` over ``graph.copy_bytes``),
+``graph.clone_bytes``), ``entry.copy_skipped_pct`` (the bytes not
+copied, ``graph.copy_skipped_bytes``, over ``graph.copy_bytes``),
 ``graph.captures`` (spans and CUPTI windows), ``graph.evictions``, and
 ``entry.held_kb``: the allocator's growth between the full collections
 before and after the spans window, over its frames.
@@ -91,7 +91,7 @@ def split(rec, root: str, captures: int | None = None) -> dict:
         out["entry.copy_mb"] = copied / calls / 1e6
         out["entry.clone_mb"] = rec.total("graph.clone_bytes") / calls / 1e6
         if copied:
-            out["entry.copy_unchanged_pct"] = 100.0 * rec.total("graph.copy_unchanged_bytes") / copied
+            out["entry.copy_skipped_pct"] = 100.0 * rec.total("graph.copy_skipped_bytes") / copied
         out["graph.captures"] = rec.total("graph.captures") if captures is None else captures
         out["graph.evictions"] = rec.total("graph.evictions")
     return out
