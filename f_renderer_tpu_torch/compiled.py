@@ -35,7 +35,11 @@ the few ops it saves).
   records the geometry's ``lax.cond`` as a conditional node that runs the
   clip path only on a replay where a face clipped (``device.if_node``);
   the warm-up frame runs the clip path and chooses on the device. A capture
-  that fails raises: there is no eager fallback on the card.
+  that fails raises: there is no eager fallback on the card. A tensor
+  the frame's code makes from host data on the card (a user's shader's
+  ``torch.tensor(LIGHT_POS, device=...)``) is a constant the frame keeps,
+  made by the warm-up (:class:`HostConstants`), as ``jax.jit`` takes it
+  into its program.
 - **Replay.** A later call copies into the graph's buffers each caller
   tensor whose values a buffer does not hold yet, replays, and returns
   clones of the graph's outputs: fresh tensors, as JAX returns fresh
@@ -64,7 +68,11 @@ the few ops it saves).
   miss, and the counters ``graph.calls``, ``graph.captures``,
   ``graph.evictions``, ``graph.copy_bytes`` (the buffers' bytes),
   ``graph.copy_skipped_bytes`` (those of the leaves not copied) and
-  ``graph.clone_bytes``. Off, a call tests ``metrics.recorder`` where it
+  ``graph.clone_bytes``, and the counters the frame's own code made while
+  it was captured (``metrics.count``: ``render_frame``'s path, fused or
+  planes, C, the planes' bytes, whether the pixel shader is user code), kept
+  by the frame and counted again on every call, since a replay runs no
+  Python. Off, a call tests ``metrics.recorder`` where it
   would record and records nothing.
 
 Tools that time stages call the pipeline functions (``render_frame``,
@@ -82,9 +90,10 @@ import weakref
 from time import perf_counter_ns
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 from f_renderer_tpu_torch import kernels
-from f_renderer_tpu_torch.device import graph_frame, node_memory
+from f_renderer_tpu_torch.device import capturing, graph_frame, node_memory
 from f_renderer_tpu_torch.pipeline.fused import prep_packed
 from f_renderer_tpu_torch.pipeline.render import build_packed, render_frame
 from f_renderer_tpu_torch.utils import metrics
@@ -192,16 +201,107 @@ class CudaGraph:
             self.graph.replay()
 
 
-class GraphFrame:
-    """One captured frame: the input buffers it owns, its graph and its
-    static outputs."""
+_FACTORIES = (torch.tensor, torch.as_tensor, torch.asarray, torch.Tensor.new_tensor, torch.from_numpy)
+_MOVES = (torch.Tensor.to, torch.Tensor.cuda)
 
-    def __init__(self, fn, leaves, spec, graph):
-        self.graph = graph
+
+class HostConstants(TorchFunctionMode):
+    """Where a captured frame's code makes a tensor on the frame's device
+    from host data, a copy of a device tensor of those values that the
+    frame keeps (``constants``), made the first time the frame meets them:
+    in its warm-up, which runs the same code before the capture. Host data
+    is what ``torch.tensor``, ``torch.as_tensor``, ``torch.asarray``,
+    ``torch.from_numpy`` or ``Tensor.new_tensor`` make of Python numbers,
+    lists or numpy arrays, on the frame's device or on the CPU and then
+    moved there (``Tensor.to``, ``Tensor.cuda``) in the same pass.
+
+    A copy from the host's pageable memory cannot be recorded into a CUDA
+    graph (PyTorch raises: "Cannot copy between CPU and CUDA tensors during
+    CUDA graph capture unless the CPU tensor is pinned"): without this, a
+    user's shader that builds its light from Python numbers
+    (``torch.tensor(LIGHT_POS, device=...)``) cannot be captured.
+    ``jax.jit`` takes such values (Python numbers, numpy arrays the frame's
+    code closes over) into its program as constants; so does the graph,
+    reading the kept tensor by its address. The graph copies it
+    on the card, so a frame that writes the tensor in place changes no
+    later frame. Values that only the capture meets (host data that changed
+    since the warm-up) raise: a replay could not see them change. Any other
+    CPU tensor moved to the card (an input, a tensor the caller holds) is
+    not taken: the caller may change it between calls."""
+
+    def __init__(self, device: torch.device, constants: dict):
+        super().__init__()
+        self.device, self.constants = device, constants
+        self.made = {}  # id → weak reference: the CPU tensors this pass made from host data
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in _FACTORIES:
+            return self._factory(func, args, kwargs)
+        if func in _MOVES and self._made(args[0]):
+            if func is torch.Tensor.cuda:  # cuda(device=None, non_blocking=False)
+                dev = kwargs.get("device", args[1] if len(args) > 1 else None)
+                device, dtype = torch.device("cuda", dev) if isinstance(dev, int) else torch.device(dev or "cuda"), None
+            else:
+                device, dtype, _, _ = torch._C._nn._parse_to(*args[1:], **{k: v for k, v in kwargs.items()
+                                                                           if k != "copy"})
+            if device is not None and device.type == self.device.type:
+                return self._kept(args[0] if dtype is None else args[0].to(dtype), device)
+        return func(*args, **kwargs)
+
+    def _factory(self, func, args, kwargs):
+        like = args[0] if func is torch.Tensor.new_tensor else None
+        data, rest = (args[1], args[2:]) if like is not None else (args[0], args[1:])
+        kw = dict(kwargs)
+        if func is torch.as_tensor and len(rest) > 1:  # as_tensor(data, dtype, device)
+            kw["device"], rest = rest[1], rest[:1]
+        device = kw.get("device")
+        device = torch.device(device) if device is not None else (
+            like.device if like is not None else torch.get_default_device())
+        if isinstance(data, torch.Tensor) or kw.get("requires_grad"):
+            return func(*args, **kwargs)
+        if device.type != self.device.type:
+            out = func(*args, **kwargs)
+            if out.device.type == "cpu":
+                self.made[id(out)] = weakref.ref(out)
+            return out
+        host_like = () if like is None else (torch.empty(0, dtype=like.dtype),)
+        kw = {} if func is torch.from_numpy else dict(kw, device="cpu")
+        return self._kept(torch.as_tensor(func(*host_like, data, *rest, **kw)), device)
+
+    def _made(self, t) -> bool:
+        ref = self.made.get(id(t))
+        return ref is not None and ref() is t
+
+    def _kept(self, host, device):
+        """A copy of the kept device tensor of ``host``'s values."""
+        key = (str(device), host.dtype, tuple(host.shape),
+               host.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+        kept = self.constants.get(key)
+        if kept is None:
+            if capturing(device):
+                raise RuntimeError("the captured frame made a tensor from host data that its warm-up did not "
+                                   "meet: a replay could not see it change; pass it among the frame's inputs")
+            kept = self.constants[key] = host.to(device)
+        out = kept.clone()
+        if out.device.type == "cpu":
+            self.made[id(out)] = weakref.ref(out)
+        return out
+
+
+class GraphFrame:
+    """One captured frame: the input buffers it owns, its graph, its static
+    outputs and the constants its code made from host data
+    (:class:`HostConstants`)."""
+
+    def __init__(self, fn, leaves, spec, graph, device: torch.device):
+        self.graph, self.device = graph, device
         self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in leaves]
         self._fn, self._spec = fn, spec
         self.outputs, self._out_spec = [], None
         self.capture_ms = 0.0
+        self.counts = {}
+        self.constants = {}
         self._leaf_bytes = [t.nbytes for t in self.inputs]
         self.input_bytes = sum(self._leaf_bytes)
         self.output_bytes = 0
@@ -209,7 +309,7 @@ class GraphFrame:
         self._versions = [None] * len(self.inputs)  # their ``_version`` then
 
     def _run(self):
-        with graph_frame():
+        with graph_frame(), HostConstants(self.device, self.constants):
             return self._fn(*unflatten(self._spec, self.inputs))
 
     @property
@@ -220,11 +320,15 @@ class GraphFrame:
     def first(self, leaves):
         """Load ``leaves``, run the eager warm-up frame (returned), capture;
         ``capture_ms`` is the warm-up and the capture, the ``graph.capture``
-        span."""
+        span; ``counts`` the counters the captured frame made
+        (``metrics.count``: its path, C, the planes' bytes), which each call
+        counts again."""
         self.load(leaves)
         with metrics.Span("graph.capture", metrics.recorder) as span:
-            out = self.graph.warm_up(self._run)
-            static = self.graph.capture(self._run)
+            with metrics.frame_counts():  # the warm-up's: a frame is counted once, from its capture
+                out = self.graph.warm_up(self._run)
+            with metrics.frame_counts() as self.counts:
+                static = self.graph.capture(self._run)
         self.capture_ms = span.ns / 1e6
         self.outputs, self._out_spec = flatten(static)
         self.output_bytes = sum(t.nbytes for t in self.outputs)
@@ -281,12 +385,20 @@ class GraphFrame:
             rec.count("graph.copy_bytes", self.input_bytes)
             rec.count("graph.copy_skipped_bytes", skipped)
             rec.count("graph.clone_bytes", self.output_bytes)
+            self.count(rec)
         return out
 
+    def count(self, rec):
+        """Add the captured frame's counters to ``rec``."""
+        for name, n in self.counts.items():
+            rec.count(name, n)
+
     def release(self):
-        """Drop the graph, then the frame function and what it holds."""
+        """Drop the graph, then the frame function and what it holds, and
+        the constants the graph read."""
         self.graph = None
         self._fn = None
+        self.constants = None
 
 
 class FrameCache:
@@ -323,7 +435,7 @@ class FrameCache:
                 rec.count("graph.calls", 1)
             if frame is not None:
                 return frame(leaves, rec)
-            frame = GraphFrame(fn, leaves, spec, self.graph_type(device, self.debug))
+            frame = GraphFrame(fn, leaves, spec, self.graph_type(device, self.debug), torch.device(device))
             out = frame.first(leaves)
             self.captures += 1
             self.frames[full] = self.last = frame
@@ -331,6 +443,7 @@ class FrameCache:
             if rec is not None:
                 rec.count("graph.captures", 1)
                 rec.count("graph.evictions", evicted)
+                frame.count(rec)
             return out
         finally:
             if rec is not None:

@@ -15,6 +15,7 @@ reference's PLACE enum selecting a texture, phong.rs:34-38).
 from __future__ import annotations
 
 import dataclasses
+from time import perf_counter_ns
 from typing import Callable, Sequence
 
 import torch
@@ -28,6 +29,7 @@ from f_renderer_tpu_torch.pipeline.shade import shade_deferred, shade_from_plane
 from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
 from f_renderer_tpu_torch.shaders.api import ContextCodec
 from f_renderer_tpu_torch.shaders.builtin import LIGHT_COLOR, LIGHT_POS, shade_plain, vertex_layout
+from f_renderer_tpu_torch.utils import metrics
 
 I32_MAX = 2147483647
 
@@ -228,6 +230,17 @@ def render_frame(
     shades with ``shade_deferred`` (render.py:269-279 there), launching no
     kernel (:func:`portable_shader`). The kernels backend bins the slot
     records of :func:`build_packed`.
+
+    The kernels backend counts its path (``utils.metrics.count``): a fused
+    frame ``render.fused_frames``; a planes frame ``render.planes_frames``,
+    its C varyings ``render.planes_varyings``, the planes' bytes
+    ``render.planes_bytes`` ((C + 3) · 4 a pixel: the varyings, texture id,
+    winner and depth) and, where the pixel shader is
+    user code (no ``fused_kind``), ``render.user_shader_frames``. While
+    tracing is on, a planes frame records the spans ``render.planes`` (K4
+    and its planes) and ``render.shade`` (``shade_from_planes``: the pixel
+    shader and the pack). A captured frame keeps the counts of its capture
+    and counts them again on each replay (``compiled.FrameCache``).
     """
     if config.backend != "kernels":
         tri, stats = build_triangles(draws, vertex_shader, vs_uniform, config)
@@ -246,13 +259,28 @@ def render_frame(
     ):
         prep = prep_packed(recs, bbox, n_slots, n_ctx, config)
         frame, depth, _ = render_fused_prepared(prep, pixel_shader, ps_uniform, config)
+        metrics.count("render.fused_frames", 1)
         return frame, depth, stats
     codec = context_codec(vertex_shader, vs_uniform, draws[0])
     # the bin settings of raster.rasterize_interp: the tile alone
     prep = raster.bin_packed(recs, bbox, n_slots, n_ctx, config.width, config.height, config.tile)
-    ctx, ps_idx, winner, depth = interp_planes(prep)
+    rec = metrics.recorder
+    if rec is not None:
+        t0 = perf_counter_ns()
+    planes = interp_planes(prep)
+    if rec is not None:
+        t1 = perf_counter_ns()
+    ctx, ps_idx, winner, depth = planes
     frame = shade_from_planes(
         ctx, ps_idx, winner, pixel_shader, ps_uniform, codec, background=config.background,
         vectorized=config.shade_vectorized,
     )
+    if rec is not None:
+        rec.add("render.planes", t0, t1)
+        rec.add("render.shade", t1, perf_counter_ns())
+    metrics.count("render.planes_frames", 1)
+    metrics.count("render.planes_varyings", ctx.shape[0])
+    metrics.count("render.planes_bytes", sum(t.nbytes for t in planes))
+    if not hasattr(pixel_shader, "fused_kind"):
+        metrics.count("render.user_shader_frames", 1)
     return frame, depth, stats

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from time import perf_counter_ns
 from typing import Optional
 
@@ -152,6 +153,34 @@ class Recorder:
     def total(self, name: str) -> int:
         """Counter ``name`` summed over the frames."""
         return sum(c.get(name, 0) for c in self.counters.values())
+
+
+_kept = threading.local()
+
+
+def count(name: str, n: int):
+    """Add ``n`` to counter ``name`` of the frame that runs: to the counts of
+    the innermost :func:`frame_counts` block of this thread where one is
+    open, else to the recorder where tracing is on; else nothing."""
+    counts = getattr(_kept, "counts", None)
+    if counts is not None:
+        counts[name] = counts.get(name, 0) + n
+    elif recorder is not None:
+        recorder.count(name, n)
+
+
+@contextlib.contextmanager
+def frame_counts():
+    """``with frame_counts() as counts:`` the frame run in the block counts
+    (:func:`count`) into the dict ``counts``, not into the recorder. A
+    captured frame keeps the counts of its capture and adds them to the
+    recorder on each replay, which runs no Python."""
+    before = getattr(_kept, "counts", None)
+    _kept.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _kept.counts = before
 
 
 @contextlib.contextmanager

@@ -41,6 +41,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -411,7 +412,11 @@ class StubGraph:
         return self.out
 
     def replay(self):
-        new = self.fn()
+        rec, metrics.recorder = metrics.recorder, None  # a replay runs no Python: its frame records nothing
+        try:
+            new = self.fn()
+        finally:
+            metrics.recorder = rec
         for dst, src in zip(compiled.flatten(self.out)[0], compiled.flatten(new)[0]):
             dst.copy_(src)
 
@@ -701,6 +706,7 @@ def test_a_traced_replay_records_its_split(stub_cache):
         "graph.copy_bytes": total,
         "graph.copy_skipped_bytes": total,  # each buffer holds its tensor since the untraced capture
         "graph.clone_bytes": sum(t.nbytes for t in compiled.flatten(out)[0]),
+        "render.fused_frames": 1,  # the captured frame's path, counted again on each call
     }}  # no device.allocated_bytes: the frame's device is the CPU
     assert rec.dropped == 0
 
@@ -733,7 +739,8 @@ def test_a_traced_first_call_records_the_capture(stub_cache):
         compiled.scene_render(scene)
     assert [s[:3] for s in rec.spans] == [
         ("graph.run", None, 1), ("graph.key", "graph.run", 1), ("graph.capture", "graph.run", 1)]
-    assert rec.counters == {1: {"graph.calls": 1, "graph.captures": 1, "graph.evictions": 0}}
+    assert rec.counters == {1: {"graph.calls": 1, "graph.captures": 1, "graph.evictions": 0,
+                                "render.fused_frames": 1}}  # once, though the warm-up and the capture each ran it
     assert stub_cache.last.capture_ms == rec.mean_ms("graph.capture") > 0
 
 
@@ -780,6 +787,128 @@ def test_nothing_is_recorded_with_tracing_off(stub_cache, monkeypatch):
     compiled.scene_render(scene)
     compiled.scene_render(scene)
     assert len(rec.spans) == 3 and rec.frame == 1 and list(rec.counters) == [1] and made == []
+
+
+PATHS = {  # a scene's shaders and config → the counts of its captured frame's path
+    "user shader": ("custom", {}, {"render.planes_frames": 1, "render.user_shader_frames": 1,
+                                   "render.planes_varyings": 5,  # normal 3, uv 2
+                                   "render.planes_bytes": (5 + 3) * 4 * W * H}),
+    "builtin on the planes": ("textured", {"fused_shade": False},
+                              {"render.planes_frames": 1, "render.planes_varyings": 2,
+                               "render.planes_bytes": (2 + 3) * 4 * W * H}),
+    "fused builtin": ("phong", {}, {"render.fused_frames": 1}),
+}
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_a_captured_frame_counts_its_path_on_each_call(stub_cache, path):
+    """The capture keeps the frame's path (``render_frame``'s counts: fused
+    or planes, C, the planes' bytes, (C + 3) · 4 a pixel, and whether the pixel
+    shader is user code) and each traced call counts it once, though a
+    replay runs no Python; a replay records none of the frame's spans."""
+    shader, config, want = PATHS[path]
+    scene = cpu_scene(shader, **config)
+    compiled.scene_render(scene)
+    assert stub_cache.last.counts == want
+    with metrics.tracing() as rec:
+        compiled.scene_render(scene)
+        compiled.scene_render(scene)
+    assert rec.total("graph.calls") == 2 and rec.total("graph.captures") == 0
+    for frame in (1, 2):
+        assert {k: v for k, v in rec.counters[frame].items() if k.startswith("render.")} == want
+    assert not [s for s in rec.spans if s[0].startswith("render.")]
+
+
+def test_an_eager_planes_frame_records_its_spans_and_counts():
+    """Eagerly (the CPU; a capture's warm-up and capture), a traced planes
+    frame records ``render.planes`` (K4 and its planes) and then
+    ``render.shade`` (``shade_from_planes``: the user's shader runs inside
+    it), and counts its path on the recorder."""
+    scene = cpu_scene("custom")
+    user, called = scene.pixel_shader, []
+
+    def pixel(u, ctx, ps_index):
+        called.append(time.perf_counter_ns())
+        return user(u, ctx, ps_index)
+
+    scene.pixel_shader = pixel
+    with metrics.tracing() as rec:
+        scene.render()
+    assert [s[:2] for s in rec.spans] == [("render.planes", None), ("render.shade", None)]
+    (_, _, _, p0, p1), (_, _, _, s0, s1) = rec.spans
+    assert p0 <= p1 == s0 < called[0] < s1
+    assert {k: rec.total(k) for k in PATHS["user shader"][2]} == PATHS["user shader"][2]
+    assert rec.total("render.fused_frames") == 0
+
+
+def test_a_frame_records_nothing_with_tracing_off(stub_cache, monkeypatch):
+    """Off, a frame's path counts and spans go nowhere: eagerly, in the
+    capture (where the frame keeps its counts) and on a replay, a recorder
+    that was on before receives nothing."""
+    scene = cpu_scene("custom")
+    with metrics.tracing() as rec:
+        pass
+    made = []
+    for name in ("_open", "add", "count"):
+        monkeypatch.setattr(metrics.Recorder, name, lambda self, *a, _n=name: made.append(_n))
+    scene.render()
+    compiled.scene_render(scene)
+    compiled.scene_render(scene)
+    metrics.count("render.planes_frames", 1)
+    assert made == [] and rec.spans == [] and rec.counters == {}
+    assert stub_cache.last.counts["render.user_shader_frames"] == 1
+
+
+def host_data_shader(u, ctx, ps_index):
+    """A user's pixel shader in the form users write: tensors made from
+    Python numbers on the frame's device (``torch.tensor``,
+    ``torch.as_tensor``, ``Tensor.new_tensor``), one of them written in
+    place, one made on the CPU and moved, and ``torch.linalg.vector_norm``."""
+    n, dev = ctx["normal"], ctx["normal"].device
+    light = torch.tensor([0.3, 0.5, 0.8], device=dev).view(3, 1, 1)
+    scale = torch.as_tensor(0.25, device=dev)
+    scale.mul_(2.0)  # in place: 0.5 in every frame
+    tint = n.new_tensor([[0.9], [0.7], [1.0]]).view(3, 1, 1)
+    bias = torch.tensor([0.05]).to(dev)
+    diffuse = (n / torch.linalg.vector_norm(n, dim=0, keepdim=True) * light).sum(0, keepdim=True).clamp(min=0.0)
+    return torch.cat([tint * (scale + diffuse) + bias, torch.ones_like(diffuse)])
+
+
+def test_a_shader_that_makes_tensors_from_host_data_is_captured(stub_cache, monkeypatch):
+    """Such a shader is captured (``compiled.HostConstants``): the warm-up
+    makes each constant once, the capture (as on the card, where it cannot
+    copy from the host) reads the kept ones and makes none, and the calls'
+    frames equal the eager frames, the tensor written in place too. Host
+    values that only the capture meets raise."""
+    scene = cpu_scene("custom")
+    scene.pixel_shader = host_data_shader
+    want = render_frame(list(scene.draws), scene.vertex_shader, scene.vs_uniform, host_data_shader,
+                        scene.ps_uniform, scene.config)
+    capturing = []
+    real_capture = StubGraph.capture
+
+    def capture(self, fn):
+        capturing.append(True)
+        try:
+            return real_capture(self, fn)
+        finally:
+            capturing.pop()
+
+    monkeypatch.setattr(StubGraph, "capture", capture)
+    monkeypatch.setattr(compiled, "capturing", lambda device: bool(capturing))
+    for _ in range(3):  # the capture, then replays
+        got = compiled.scene_render(scene)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert len(stub_cache.last.constants) == 4  # light, scale, tint, bias: made once, in the warm-up
+
+    values = iter(range(100))
+
+    def changing(u, ctx, ps_index):
+        return host_data_shader(u, ctx, ps_index) * torch.tensor(float(next(values)), device=ctx["normal"].device)
+
+    scene.pixel_shader = changing
+    with pytest.raises(RuntimeError, match="warm-up did not meet"):
+        compiled.scene_render(scene)
 
 
 def test_captured_frames_run_as_graph_frames(stub_cache):
@@ -983,6 +1112,27 @@ def test_graph_frames_equal_eager_frames_on_card():
         want = render_frame(list(scene.draws), scene.vertex_shader, scene.vs_uniform, scene.pixel_shader,
                             scene.ps_uniform, scene.config)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_a_shader_that_makes_tensors_from_host_data_on_card():
+    """:func:`host_data_shader` captured on the card, where a copy from
+    the host's pageable memory cannot be recorded: its replays equal the
+    eager frames, and a traced replay counts a user shader's planes frame."""
+    from f_renderer_tpu_torch.bench_scenes import set_angle
+
+    scene = card_scene()
+    scene.pixel_shader = host_data_shader
+    for angle in (0.1, 0.15, 0.1):
+        set_angle(scene, angle)
+        got = scene.render()
+        want = render_frame(list(scene.draws), scene.vertex_shader, scene.vs_uniform, scene.pixel_shader,
+                            scene.ps_uniform, scene.config)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with metrics.tracing() as rec:
+        scene.render()
+    assert {k: rec.counters[1][k] for k in ("render.planes_frames", "render.user_shader_frames")} == {
+        "render.planes_frames": 1, "render.user_shader_frames": 1}
 
 
 @pytest.mark.cuda

@@ -35,7 +35,15 @@ the spans of the cell's entry point (``render``: ``graph.run``;
 copied, ``graph.copy_skipped_bytes``, over ``graph.copy_bytes``),
 ``graph.captures`` (spans and CUPTI windows), ``graph.evictions``, and
 ``entry.held_kb``: the allocator's growth between the full collections
-before and after the spans window, over its frames.
+before and after the spans window, over its frames. The path of the
+captured frame, counted on each call: ``graph.calls``,
+``render.fused_frames``, ``render.planes_frames``,
+``render.user_shader_frames`` (totals over the window),
+``render.planes_c`` and ``render.planes_mb`` (``render.planes_varyings``
+and ``render.planes_bytes`` a planes frame); and where a frame
+ran eagerly under tracing (none does in a cell's windows, which replay),
+``render.planes_ms`` and ``render.shade_ms`` (the spans ``render.planes``,
+K4 and its planes, and ``render.shade``, the pixel shader and the pack).
 
     python3 tools/entry_split.py [--cells C ...] [--seed N] [--seconds S]
 
@@ -71,6 +79,10 @@ SPLIT = {
 }
 
 
+PATH_COUNTERS = ("render.fused_frames", "render.planes_frames", "render.user_shader_frames")
+RENDER_SPANS = (("render.planes_ms", "render.planes"), ("render.shade_ms", "render.shade"))  # eager frames only
+
+
 def split(rec, root: str, captures: int | None = None) -> dict:
     """The ``entry.*`` numbers of a recorder's spans and counters under the
     entry point's span ``root``, each left out where the recorder holds
@@ -94,6 +106,17 @@ def split(rec, root: str, captures: int | None = None) -> dict:
             out["entry.copy_skipped_pct"] = 100.0 * rec.total("graph.copy_skipped_bytes") / copied
         out["graph.captures"] = rec.total("graph.captures") if captures is None else captures
         out["graph.evictions"] = rec.total("graph.evictions")
+        out["graph.calls"] = calls
+        for name in PATH_COUNTERS:
+            out[name] = rec.total(name)
+        planes = rec.total("render.planes_frames")
+        if planes:
+            out["render.planes_c"] = rec.total("render.planes_varyings") / planes
+            out["render.planes_mb"] = rec.total("render.planes_bytes") / planes / 1e6
+    for metric, span in RENDER_SPANS:
+        v = rec.mean_ms(span)
+        if v is not None:
+            out[metric] = v
     return out
 
 
