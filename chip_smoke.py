@@ -61,6 +61,14 @@ Phases, each reported on its own lines:
      with no stack frame or spills,
      its occupancy, its time and bound at phong1080_tex2048, beside the same
      shader run untagged (PyTorch's ops and K3);
+   - the RGBA8 pack of a user shader's colour (csrc/pack_rgba8.cu, XLA's
+     fusion of the pack after the shader): against ``shade._pack`` byte for
+     byte on the 1920x1080 colour of custom_tex1080's shader
+     (``benchmark/shaders/phong_rs.py``) at the bench angles, with crafted
+     rows (NaN, +-inf, +-0.0, each side of every k/255, values past [0, 1]),
+     as a strided view and with every pixel background; its ``ptxas`` line
+     with no stack frame or spills, its occupancy, its time beside its
+     bound (every pixel's colour, and the least bytes) and ``_pack``'s time;
    - the voxel ray set-up kernel (csrc/voxel_setup.cu, XLA's fusion of the
      JAX package's set-up): voxel540's 10 orbit views, the tests' crafted
      view (a zero direction, rays on a grid plane and along ±x), eyes
@@ -252,6 +260,7 @@ SAMPLE_ATOL = 1e-6
 # float32 operations/s outside the tensor cores. Integer and float work are
 # both counted at the float32 rate, so a bound is never too high.
 HBM_BYTES_PER_S = 3.35e12
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 OPS_PER_S = 67e12
 VOXEL_LEVEL, VOXEL_LENGTH, VOXEL_W, VOXEL_H = 3, 2.0, 960, 540
 # Frame sizes of the scenes, and the side of phong1080_tex2048's textures.
@@ -265,6 +274,7 @@ EAGER_FRAMES = 3  # the eager frames run beside a graph path's, its first ones
 # Each wrapper's kernel function (csrc/), as the device's trace names it.
 KERNEL_FUNCTIONS = {"fused_raster": "fused_raster_kernel", "raster_planes": "raster_planes_kernel",
                     "sample_bilinear": "sample_bilinear_kernel", "shade_planes": "shade_planes_kernel",
+                    "pack_rgba8": "pack_rgba8_kernel",
                     "voxel_march": "voxel_march_kernel",
                     "voxel_setup": "voxel_setup_kernel", "tri_setup": "tri_setup_kernel",
                     "bin_pairs": "bin_pairs_kernel", "slot_records": "bin_records_kernel",
@@ -543,6 +553,37 @@ def device_ms(fn, reps):
     torch.cuda.synchronize()
     check(enqueue_ms < spin_ms, f"device_ms: enqueueing took {enqueue_ms:.2f} ms, the spin {spin_ms:.2f} ms")
     return start.elapsed_time(end) / reps
+
+
+def cold_device_ms(fn, reps, flush_bytes=L2_FLUSH_BYTES):
+    """Device time per call of ``fn`` (one kernel launch) with the L2 cold:
+    before each call a read of ``flush_bytes`` of another buffer evicts
+    what the last call left in the L2 (clean lines, so the call writes
+    none back), and CUDA events bracket the call alone. The calls queue
+    behind a spin kernel, as in :func:`device_ms`."""
+    import torch
+
+    flush = torch.ones(flush_bytes // 4, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    flush.max()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    spin_ms = 3.0 * host_ms * reps + 1.0
+    torch.cuda._sleep(int(sleep_cycles_per_ms() * spin_ms))
+    t0 = time.perf_counter()
+    for start, end in events:
+        flush.max()
+        start.record()
+        fn()
+        end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    check(enqueue_ms < spin_ms, f"cold_device_ms: enqueueing took {enqueue_ms:.2f} ms, the spin {spin_ms:.2f} ms")
+    return sum(start.elapsed_time(end) for start, end in events) / reps
 
 
 def kernel_call(name, entry):
@@ -2592,6 +2633,136 @@ def shade_phase(dev, smi, rows):
         f"{each[3]:.2f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} B) (CUDA events; {smi})")
 
 
+def pack_phase(dev, smi, rows):
+    """3c'. the RGBA8 pack of a user pixel shader's colour
+    (csrc/pack_rgba8.cu: XLA's fusion of the pack after the shader in the
+    JAX package's non-fused shading) against its plain version
+    ``shade._pack`` on the card, byte for byte, each one launch of the
+    entry point ``shade.pack_frame``: the 1920 x 1080 colour that
+    custom_tex1080's shader (``benchmark/shaders/phong_rs.py``, phong.rs's
+    pixel shader as user code) gives on phong1080's K4 planes at the bench
+    angles; that colour with crafted rows (NaN, +-inf, +-0.0, each side of
+    every k/255, values past [0, 1]); as a strided view of wider planes; and
+    with every pixel background; in the layouts other shaders give it (a
+    column stride of 3; interleaved, the per-pixel ``vmap`` branch's
+    (1, 4W, 4)); and as float64, which it packs as float32. Its ``ptxas``
+    line (no stack frame or spills), occupancy, device time (with the L2
+    flushed before each launch; and 50 launches back to back on one
+    colour, the L2 warm), entry point and plain times, and its bound: the
+    least bytes, the winner and the output once a pixel and the colour once
+    a covered pixel (a background pixel reads no colour); beside it the
+    bytes of every pixel's colour, winner and output."""
+    import re
+
+    import torch
+
+    from benchmark.shaders import phong_rs
+    from f_renderer_tpu_torch import kernels
+    from f_renderer_tpu_torch.pipeline import raster, shade
+    from f_renderer_tpu_torch.pipeline.render import build_triangles, context_codec
+
+    log("[kernel-vs-plain] pack_rgba8 (the RGBA8 pack of a user shader's colour, XLA's fusion)")
+    lines = [line for line in kernels.ptxas_report() if line.startswith("pack_rgba8_kernel:")]
+    for line in lines:
+        log(f"  ptxas {line}")
+    check(any("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in line for line in lines),
+          f"pack_rgba8_kernel: a stack frame or spills ({lines})")
+    used = [line for line in lines if "registers" in line]
+    occ = None
+    if check(len(used) == 1, f"pack_rgba8_kernel: no ptxas register line ({lines})"):
+        regs = int(re.search(r"Used (\d+) registers", used[0]).group(1))
+        occ = occupancy(regs, 0, SHADE_THREADS)
+        log(f"  occupancy pack_rgba8_kernel: {regs} registers, {SHADE_THREADS} threads: {occ[0]} blocks an SM, "
+            f"{occ[1]:.2f} of its warps ({smi})")
+
+    scene = build_scene("phong1080", dev)
+    codec = context_codec(scene.vertex_shader, scene.vs_uniform, scene.draws[0])
+    bg = scene.config.background
+
+    def colour(angle):
+        """custom_tex1080's shader on K4's planes at ``angle`` → (colour, winner)."""
+        set_angle(scene, angle)
+        tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+        prep = plain_prep(tri, scene.config, bin_k=scene.config.bin_k)
+        _, winner, ps, ctx = raster.raster_planes(prep, True)
+        h, w = prep.height, prep.width
+        winner = winner[:h, :w]
+        ps = torch.where(winner >= 0, ps[:h, :w], -1)
+        return phong_rs.pixel(scene.ps_uniform, codec.unflatten(ctx[:, :h, :w]), ps), winner
+
+    worst = 0
+
+    def compare(tag, color, winner):
+        nonlocal worst
+        before = kernels.pack_rgba8.launches
+        got = shade.pack_frame(color, winner, bg)
+        launched = kernels.pack_rgba8.launches - before
+        want = plain(shade._pack, color.to(torch.float32), winner, bg)
+        err = int((got.int() - want.int()).abs().max())
+        worst = max(worst, err)
+        equal = torch.equal(got, want)
+        check(launched == 1 and equal, f"pack_rgba8 {tag}: {launched} launches, frame equal to _pack's {equal} "
+                                       f"(max diff {err} u8)")
+        log(f"  {tag}: colour {tuple(color.shape)} strides {color.stride()}: {launched} launch, frame byte-equal to "
+            f"_pack's={equal} (max diff {err} u8), covered px {int((winner >= 0).sum())}")
+
+    for angle in ANGLES:
+        color, winner = colour(angle)
+        compare(f"custom_tex1080@{angle}", color, winner)
+    color, winner = colour(ANGLES[0])
+    h, w = winner.shape
+    odd = color.clone()
+    k = torch.arange(256, device=dev, dtype=torch.float32) / 255
+    special = torch.cat([torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0, -0.0, -2.0, 1.5, 3e4],
+                                      device=dev), k, torch.nextafter(k, torch.full_like(k, -1.0)),
+                         torch.nextafter(k, torch.full_like(k, 2.0))])
+    rows_odd = torch.arange(0, h, 3, device=dev)
+    odd[:, rows_odd] = special[torch.arange(w, device=dev) % special.numel()][None, None, :]
+    compare(f"custom_tex1080@{ANGLES[0]} crafted rows (NaN, +-inf, +-0.0, each side of k/255, past [0, 1])", odd,
+            winner)
+    wide = torch.full((6, h + 5, w + 64), float("nan"), device=dev)
+    wide[1:5, 3:h + 3, 32:w + 32] = color
+    compare(f"custom_tex1080@{ANGLES[0]} a strided view", wide[1:5, 3:h + 3, 32:w + 32], winner)
+    compare(f"custom_tex1080@{ANGLES[0]} every pixel background", color, torch.full_like(winner, -1))
+    compare(f"custom_tex1080@{ANGLES[0]} column stride 3", torch.repeat_interleave(color, 3, dim=2)[:, :, 1::3],
+            winner)
+    interleaved = color.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+    compare(f"custom_tex1080@{ANGLES[0]} interleaved (the per-pixel shader's layout)", interleaved, winner)
+    compare(f"custom_tex1080@{ANGLES[0]} float64", color.double(), winner)
+    del odd, wide
+
+    def entry():
+        return shade.pack_frame(color, winner, bg)
+
+    launch = kernel_call("pack_rgba8", entry)
+    k_ms, p_ms, w_ms, each = timed(entry, launch, lambda: shade._pack(color, winner, bg), 50, 5)
+    cold = [cold_device_ms(launch, 20) for _ in range(2)]
+    cold_ms = sum(cold) / 2
+    cold_interleaved = cold_device_ms(kernel_call("pack_rgba8", lambda: shade.pack_frame(interleaved, winner, bg)), 20)
+    n, n_cov = winner.numel(), int((winner >= 0).sum())
+    all_bytes = 16 * n + 4 * n + 4 * n  # the colour, the winner and the output, once each
+    least_bytes = 8 * n + 16 * n_cov  # a background pixel reads no colour
+    ops = 12 * n  # x 255, two clamps, the cast, three shifts and ors a channel
+    b_ms, b_by = bound_ms(least_bytes, ops)
+    a_ms, _ = bound_ms(all_bytes, ops)
+    rows["pack_rgba8"] = {
+        "name": "pack_rgba8 (the RGBA8 pack of a user shader's colour, XLA's fusion)", "route": "cuda",
+        "source": "f_renderer_tpu_torch/csrc/pack_rgba8.cu",
+        "replaces": "f_renderer_tpu/pipeline/shade.py:112 (no pallas_call: XLA's fusion of the pack with the user's "
+                    "pixel shader in shade_from_planes)",
+        "ms": cold_ms, "ms_each": cold, "warm_ms": k_ms, "warm_ms_each": each[:2], "interleaved_ms": cold_interleaved,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "all_pixels_bound_ms": a_ms, "library_ms": None,
+        "wrapper_ms": w_ms, "max_abs_err": worst, "bytes": least_bytes, "all_pixels_bytes": all_bytes, "ops": ops,
+        "covered": n_cov, "pixels": n, "ptxas": lines,
+        "occupancy": None if occ is None else {"blocks": occ[0], "warps": occ[1]},
+    }
+    log(f"  custom_tex1080@{ANGLES[0]} pack_rgba8 time ({n} pixels, {n_cov} covered): kernel {cold[0]:.4f} / "
+        f"{cold[1]:.4f} ms (device, L2 flushed), {each[0]:.4f} / {each[1]:.4f} ms (back to back, warm L2), "
+        f"interleaved colour {cold_interleaved:.4f} ms (L2 flushed); entry point {each[4]:.4f} / {each[5]:.4f} ms, "
+        f"plain (_pack) {each[2]:.4f} / {each[3]:.4f} ms; bound {b_ms:.4f} ms by {b_by} (least bytes, {least_bytes} "
+        f"B), share {b_ms / cold_ms:.3f}; every pixel's colour {all_bytes} B, {a_ms:.4f} ms (CUDA events; {smi})")
+
+
 def demos_phase(dev, smi):
     """4c. the three demos (``f_renderer_tpu_torch/demos``) at their default
     sizes on the card, as a user starts them. Each runs ``DEMO_FRAMES``
@@ -2978,7 +3149,7 @@ def main() -> int:
                 frame_k = shade.shade_from_planes(ctx_k, ps_k, winner_k, scene.pixel_shader,
                                                   scene.ps_uniform, codec, background=bg)
                 frame_p = plain(shade.shade_from_planes, ctx_p, ps_p, winner_p, scene.pixel_shader,
-                                scene.ps_uniform, codec, background=bg)
+                                scene.ps_uniform, codec, background=bg, launch=False)
                 worst_frame4 = max(worst_frame4, frame_bar(f"{tag} frame", frame_k, frame_p)[0])
                 # K4 at custom12_360 (C = 12): its plan and device time
                 launch = kernel_call("raster_planes", lambda: raster.raster_planes(prep, True))
@@ -3007,7 +3178,7 @@ def main() -> int:
                                               scene.ps_uniform, codec, background=bg)
             frame_p = plain(shade.shade_from_planes, ctx_p, ps_p, winner_p,
                             lambda uu, ctx, ps: shade_plain("phong", uu, ctx, ps),
-                            scene.ps_uniform, codec, background=bg)
+                            scene.ps_uniform, codec, background=bg, launch=False)
             f_err = frame_bar(f"{tag} frame", frame_k, frame_p)[0]
             worst_frame4 = max(worst_frame4, f_err)
             log(f"  {tag}: K3 max abs err {s_err:.3g}, frame (K4 + shade_planes) max diff {f_err} u8")
@@ -3071,6 +3242,8 @@ def main() -> int:
     # 3c. the builtin shading of K4's planes against plain; K3 at custom_tex1080
     log(f"[time] {time.time() - t_start:.1f} s")
     shade_phase(dev, smi, rows)
+    log(f"[time] {time.time() - t_start:.1f} s")
+    pack_phase(dev, smi, rows)
 
     # 3d. the voxel ray set-up kernel against plain: the eight planes, then
     # the frames K5 marches from them
@@ -3639,9 +3812,11 @@ def main() -> int:
         return render_eager(s)[0]
 
     outs = graph_path("custom_tex1080 Scene.render()", custom_tex_frame, custom_tex_eager, FRAMES,
-                      dict(zero, raster_planes=FRAMES, sample_bilinear=FRAMES, tri_setup=FRAMES, bin_pairs=FRAMES),
+                      dict(zero, raster_planes=FRAMES, sample_bilinear=FRAMES, tri_setup=FRAMES, bin_pairs=FRAMES,
+                           pack_rgba8=FRAMES),
                       (h, w, 4), {"K3": "sample_bilinear", "K4 custom_tex1080": "raster_planes",
-                                  "tri_setup custom_tex1080": "tri_setup", "bin_pairs custom_tex1080": "bin_pairs"},
+                                  "tri_setup custom_tex1080": "tri_setup", "bin_pairs custom_tex1080": "bin_pairs",
+                                  "pack_rgba8": "pack_rgba8"},
                       geometries=1)
     builtin_tex = dataclasses.replace(scene, pixel_shader=make_textured_shaders()[1],
                                       config=dataclasses.replace(scene.config, fused_shade=False))
@@ -3670,9 +3845,9 @@ def main() -> int:
 
     w, h = SIZES["custom12_360"]
     graph_path("custom12_360 Scene.render()", custom_frame, custom_eager, 3,
-               dict(zero, raster_planes=3, tri_setup=3, bin_pairs=3), (h, w, 4),
+               dict(zero, raster_planes=3, tri_setup=3, bin_pairs=3, pack_rgba8=3), (h, w, 4),
                {"K4 custom12_360": "raster_planes", "tri_setup custom12_360": "tri_setup",
-                "bin_pairs custom12_360": "bin_pairs"}, geometries=1)
+                "bin_pairs custom12_360": "bin_pairs", "pack_rgba8 custom12_360": "pack_rgba8"}, geometries=1)
     set_angle(scene, 0.3)
     clip_flip("custom12_360 Scene.render()", scene, scene.render, lambda: render_eager(scene))
 
@@ -3967,6 +4142,7 @@ def main() -> int:
     rows["K4"]["launches_grid_2x4_stream_graph"] = launches["K4 grid 2x4 stream graph"]
     rows["shade_planes"]["launches_grid_2x4_stream_graph"] = launches["shade_planes grid 2x4 stream graph"]
     rows["K4"]["launches_custom_tex1080"] = launches["K4 custom_tex1080"]
+    rows["pack_rgba8"]["launches_custom12_360"] = launches["pack_rgba8 custom12_360"]
     rows["stream_merge"]["launches_per_frame"] = rows["stream_merge"]["launches"] // EAGER_FRAMES
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed:")

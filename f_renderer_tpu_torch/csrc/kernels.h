@@ -83,6 +83,21 @@ int fr_shade_planes(FrShadeParams p, const float* ctx, const int32_t* ps, const 
                     const float* view_pos, const int32_t* dims, const int32_t* texels,
                     int32_t* out, void* stream);
 
+// Mirrors kernels.PackParams: int64 strides, then int32 fields (no padding).
+typedef struct FrPackParams {
+  int64_t color_channel, color_row, color_col;  // the colour's strides, in elements
+  int64_t winner_row, winner_col;               // the winner plane's strides, in elements
+  int32_t h, w;                                 // the frame's rows and columns
+  int32_t bg_packed;                            // background RGBA8
+  int32_t pad;
+} FrPackParams;
+
+// The RGBA8 pack of a user pixel shader's colour (csrc/pack_rgba8.cu):
+// color (4, h, w) f32 and winner (h, w) int32, each through any strides →
+// out (h, w) int32 RGBA8, contiguous: clip(c * 255, 0, 255) truncated a
+// channel, NaN to 0, bg_packed where winner < 0.
+int fr_pack_rgba8(FrPackParams p, const float* color, const int32_t* winner, int32_t* out, void* stream);
+
 // Mirrors kernels.VoxelParams: int32 and float fields only (no padding).
 typedef struct FrVoxelParams {
   int32_t n;          // rays

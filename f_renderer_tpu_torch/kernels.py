@@ -18,6 +18,8 @@ The kernels (the TPU kernel each replaces in brackets):
 - ``shade_planes`` — no Pallas kernel: XLA's fusion of the non-fused
   path's builtin shading (pipeline/shade.py:80 shade_from_planes over
   shaders/builtin.py:67-163, the sampler shaders/texture.py:155);
+- ``pack_rgba8`` — no Pallas kernel: XLA's fusion of the RGBA8 pack after a
+  user's pixel shader on the non-fused path (pipeline/shade.py:112-…);
 - ``voxel_march`` — K5 (voxel/raycast_pallas.py:393);
 - ``voxel_setup`` — no Pallas kernel: XLA's fusion of the voxel ray set-up
   (voxel/raycast.py:34-264, fenced at raycast_pallas.py:310);
@@ -108,6 +110,14 @@ class ShadeParams(ctypes.Structure):
         "h", "w", "ctx_channel", "ctx_row", "ps_row", "winner_row", "kind", "color", "normal", "pos", "uv",
         "t_count", "hmax", "wmax", "opaque", "bg_packed")] + [
         ("light_pos", ctypes.c_float * 3), ("light_color", ctypes.c_float * 3), ("ambient", ctypes.c_float * 3)]
+
+
+class PackParams(ctypes.Structure):
+    """Mirror of ``FrPackParams`` in csrc/kernels.h."""
+
+    _fields_ = ([(name, ctypes.c_int64) for name in ("color_channel", "color_row", "color_col", "winner_row",
+                                                     "winner_col")]
+                + [(name, ctypes.c_int32) for name in ("h", "w", "bg_packed", "pad")])
 
 
 class VoxelParams(ctypes.Structure):
@@ -253,6 +263,7 @@ def load_library() -> ctypes.CDLL:
     lib.fr_raster_planes.argtypes = [i32] * 7 + [ptr] * 8 + [i32, ptr]
     lib.fr_sample_bilinear.argtypes = [ptr, ptr] + [i32] * 5 + [ptr] * 4 + [ctypes.c_int64, ptr]
     lib.fr_shade_planes.argtypes = [ShadeParams] + [ptr] * 8
+    lib.fr_pack_rgba8.argtypes = [PackParams] + [ptr] * 4
     lib.fr_voxel_march.argtypes = [VoxelParams] + [ptr] * 13
     lib.fr_voxel_setup.argtypes = [i32, i32, ctypes.c_float] + [ptr] * 5
     u64 = ctypes.c_uint64
@@ -270,7 +281,7 @@ def load_library() -> ctypes.CDLL:
     lib.fr_if_node_end.argtypes = [ptr]
     lib.fr_stream_create.argtypes = [ctypes.POINTER(ptr)]
     for fn in (lib.fr_fused_raster, lib.fr_raster_planes, lib.fr_sample_bilinear, lib.fr_shade_planes,
-               lib.fr_voxel_march,
+               lib.fr_pack_rgba8, lib.fr_voxel_march,
                lib.fr_voxel_setup, lib.fr_tri_setup, lib.fr_tri_setup_vertex, lib.fr_tri_setup_slots,
                lib.fr_tri_quirk, lib.fr_interp_records, lib.fr_stream_merge,
                lib.fr_bin_pairs, lib.fr_bin_records,
@@ -282,6 +293,20 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def kernel_name(mangled: str) -> str | None:
+    """A kernel's name from its mangled entry (``..._kernelI...E...``), with
+    its template arguments (Li2 → 2, Lb0 / Lb1 → false / true): the
+    identifier ending in ``_kernel`` whose length prefix is its own length
+    (a file hash or a namespace's number before it is not); None where
+    there is none."""
+    for m in re.finditer(r"(?=(\d+)([a-z_][a-z0-9_]*_kernel)(?:I((?:L[a-z]+\d+E)+)E)?)", mangled):
+        if int(m.group(1)) == len(m.group(2)):
+            args = [v if t != "b" else ("true" if v == "1" else "false")
+                    for t, v in re.findall(r"L([a-z]+)(\d+)E", m.group(3) or "")]
+            return m.group(2) + (f"<{', '.join(args)}>" if args else "")
+    return None
+
+
 def ptxas_report() -> list[str]:
     """Each kernel's registers, spills and shared memory as ``ptxas -v``
     printed them when the library was built (one line per kernel)."""
@@ -289,11 +314,7 @@ def ptxas_report() -> list[str]:
     lines, name = [], None
     for line in lib_path.with_suffix(".ptxas.txt").read_text().splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"\d([a-z_]+_kernel)(?:I((?:L[a-z]+\d+E)+)E)?", line.split("'")[1])
-            # template arguments: Li2 → 2, Lb0 / Lb1 → false / true
-            args = [v if t != "b" else ("true" if v == "1" else "false")
-                    for t, v in re.findall(r"L([a-z]+)(\d+)E", (m.group(2) or "") if m else "")]
-            name = m.group(1) + (f"<{', '.join(args)}>" if args else "") if m else line
+            name = kernel_name(line.split("'")[1]) or line
         elif name and ("spill" in line or "Used" in line):
             lines.append(f"{name}: {line.split(':', 1)[-1] if line.startswith('ptxas') else line}".strip())
     return lines
@@ -617,6 +638,34 @@ def shade_planes(ctx, ps, winner, view_pos, dims, texels, *, kind, varyings, opa
 
 
 shade_planes.launches = 0
+
+
+def pack_rgba8(color, winner, bg_packed):
+    """Launch the RGBA8 pack of a user pixel shader's colour
+    (csrc/pack_rgba8.cu) on PyTorch's current stream: ``color`` (4, H, W)
+    f32 and ``winner`` (H, W) int32 on one device, each read through its
+    strides, whatever they are → (H, W) int32 RGBA8, r in the low byte:
+    ``clip(c · 255, 0, 255)`` truncated a channel, NaN to 0, and
+    ``bg_packed`` where winner < 0. ValueError on another dtype or shape."""
+    dev = _on_cuda(winner, "pack_rgba8")
+    if winner.dtype != torch.int32 or winner.dim() != 2:
+        raise ValueError(f"pack_rgba8: need an (H, W) int32 winner, got {winner.dtype} {tuple(winner.shape)}")
+    h, w = winner.shape
+    if color.device != dev or color.dtype != torch.float32 or tuple(color.shape) != (4, h, w):
+        raise ValueError(f"pack_rgba8: need a float32 colour of shape {(4, h, w)} on {dev}, got {color.dtype} "
+                         f"{tuple(color.shape)} on {color.device}")
+    out = torch.empty((h, w), dtype=torch.int32, device=dev)
+    if out.numel():
+        lib = load_library()
+        params = PackParams(color_channel=color.stride(0), color_row=color.stride(1), color_col=color.stride(2),
+                            winner_row=winner.stride(0), winner_col=winner.stride(1), h=h, w=w, bg_packed=bg_packed)
+        err = lib.fr_pack_rgba8(params, color.data_ptr(), winner.data_ptr(), out.data_ptr(), _stream(dev))
+        _check(lib, err, "fr_pack_rgba8")
+        _count(pack_rgba8)
+    return out
+
+
+pack_rgba8.launches = 0
 
 
 def voxel_march(start, dirs, t_max, alive, table, times, k):

@@ -81,7 +81,6 @@ from f_renderer_tpu_torch.pipeline.render import (
     RenderConfig,
     apply_ps_quirk_totals,
     context_codec,
-    portable_shader,
     ps_quirk_partials,
 )
 from f_renderer_tpu_torch.pipeline.shade import interp_records, interpolate_context, shade_deferred, shade_from_planes
@@ -358,8 +357,9 @@ def gather_slab_portable(tri: TriangleBuffer, codec, pixel_shader, ps_uniform, c
     w, h, slab = config.width, config.height, plan.slab
     origin = (lin * slab, 0)
     winner, depth = rasterize_portable(tri, w, slab, origin=origin, full_size=(h, w))
-    frame = shade_deferred(tri, winner, portable_shader(pixel_shader), ps_uniform, codec,
-                           background=config.background, origin=origin, vectorized=config.shade_vectorized)
+    frame = shade_deferred(tri, winner, pixel_shader, ps_uniform, codec,
+                           background=config.background, origin=origin, vectorized=config.shade_vectorized,
+                           launch=False)
     return frame, depth
 
 
@@ -454,10 +454,9 @@ def stream_round_portable(acc: StreamPlanes, tri: TriangleBuffer, owner: int, co
 
 def stream_shade(acc: StreamPlanes, codec, pixel_shader, ps_uniform, config: RenderConfig):
     """The pixel shader once on the merged planes → (frame, depth)."""
-    if config.backend != "kernels":
-        pixel_shader = portable_shader(pixel_shader)
     frame = shade_from_planes(acc.ctx, acc.ps, acc.winner, pixel_shader, ps_uniform, codec,
-                              background=config.background, vectorized=config.shade_vectorized)
+                              background=config.background, vectorized=config.shade_vectorized,
+                              launch=config.backend == "kernels")
     return frame, acc.depth
 
 

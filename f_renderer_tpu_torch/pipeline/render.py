@@ -28,7 +28,7 @@ from f_renderer_tpu_torch.pipeline.raster_portable import rasterize_portable
 from f_renderer_tpu_torch.pipeline.shade import shade_deferred, shade_from_planes
 from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
 from f_renderer_tpu_torch.shaders.api import ContextCodec
-from f_renderer_tpu_torch.shaders.builtin import LIGHT_COLOR, LIGHT_POS, shade_plain, vertex_layout
+from f_renderer_tpu_torch.shaders.builtin import vertex_layout
 from f_renderer_tpu_torch.utils import metrics
 
 I32_MAX = 2147483647
@@ -199,18 +199,6 @@ def rasterize(tri: TriangleBuffer, config: RenderConfig):
     raise ValueError(f"unknown backend {config.backend!r}: 'kernels' or 'portable'")
 
 
-def portable_shader(pixel_shader: Callable) -> Callable:
-    """The pixel shader as the portable backend runs it: a builtin
-    (``fused_kind``) samples its textures with the plain sampler, so the
-    path launches no kernel; a custom shader runs as it is."""
-    kind = getattr(pixel_shader, "fused_kind", None)
-    if kind is None:
-        return pixel_shader
-    light_pos = getattr(pixel_shader, "light_pos", LIGHT_POS)
-    light_color = getattr(pixel_shader, "light_color", LIGHT_COLOR)
-    return lambda u, ctx, ps: shade_plain(kind, u, ctx, ps, light_pos=light_pos, light_color=light_color)
-
-
 def render_frame(
     draws: Sequence,
     vertex_shader: Callable,
@@ -228,15 +216,18 @@ def render_frame(
     raster kernel interpolates (render.py:248-267 of the JAX package).
     ``config.backend="portable"`` rasterizes with ``rasterize_portable`` and
     shades with ``shade_deferred`` (render.py:269-279 there), launching no
-    kernel (:func:`portable_shader`). The kernels backend bins the slot
-    records of :func:`build_packed`.
+    kernel (``launch=False``: a builtin shader through the plain sampler,
+    the plain pack). The kernels backend bins the slot records of
+    :func:`build_packed`.
 
     The kernels backend counts its path (``utils.metrics.count``): a fused
     frame ``render.fused_frames``; a planes frame ``render.planes_frames``,
     its C varyings ``render.planes_varyings``, the planes' bytes
     ``render.planes_bytes`` ((C + 3) · 4 a pixel: the varyings, texture id,
     winner and depth) and, where the pixel shader is
-    user code (no ``fused_kind``), ``render.user_shader_frames``. While
+    user code (no ``fused_kind``), ``render.user_shader_frames``, and where
+    the pack kernel packs its colour (``shade.pack_frame``: on the card),
+    ``render.pack_kernel_frames``. While
     tracing is on, a planes frame records the spans ``render.planes`` (K4
     and its planes) and ``render.shade`` (``shade_from_planes``: the pixel
     shader and the pack). A captured frame keeps the counts of its capture
@@ -247,8 +238,8 @@ def render_frame(
         winner, depth = rasterize(tri, config)
         codec = context_codec(vertex_shader, vs_uniform, draws[0])
         frame = shade_deferred(
-            tri, winner, portable_shader(pixel_shader), ps_uniform, codec, background=config.background,
-            vectorized=config.shade_vectorized,
+            tri, winner, pixel_shader, ps_uniform, codec, background=config.background,
+            vectorized=config.shade_vectorized, launch=False,
         )
         return frame, depth, stats
     recs, bbox, n_slots, n_ctx, stats = build_packed(draws, vertex_shader, vs_uniform, config)

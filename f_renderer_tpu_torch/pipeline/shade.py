@@ -25,6 +25,7 @@ fused them in the JAX package); on the CPU its plain version
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -36,6 +37,7 @@ from f_renderer_tpu_torch.pipeline.raster import NF_I, PS, PS_MASK
 from f_renderer_tpu_torch.pipeline.types import TriangleBuffer
 from f_renderer_tpu_torch.shaders.api import ContextCodec
 from f_renderer_tpu_torch.shaders.builtin import LIGHT_COLOR, LIGHT_POS, shade_plain, shading_inputs, varying_offsets
+from f_renderer_tpu_torch.utils import metrics
 
 
 def interpolate_context(tri: TriangleBuffer, winner, width: int, height: int, *, origin=(0, 0)):
@@ -118,23 +120,28 @@ def shade_from_planes(
     *,
     background=(0, 0, 0, 255),
     vectorized: bool = True,
+    launch: bool = True,
 ):
     """Shade from interpolated context planes (``raster.rasterize_interp``).
 
     ``ctx`` (C, H, W) f32, ``ps_idx``/``winner`` (H, W) int32. The pixel
     shader runs once on the whole frame (``vectorized``) or once per pixel
     (``torch.func.vmap`` over the flattened pixels); the background fills
-    pixels where winner < 0. Returns (H, W, 4) uint8. A builtin pixel
-    shader (``fused_kind``) runs as :func:`shade_planes` on CUDA tensors
-    and as :func:`shade_planes_plain` on CPU tensors, whatever
-    ``vectorized`` says.
+    pixels where winner < 0 (:func:`pack_frame`). Returns (H, W, 4) uint8.
+    A builtin pixel shader (``fused_kind``) runs as :func:`shade_planes` on
+    CUDA tensors and as :func:`shade_planes_plain` on CPU tensors, whatever
+    ``vectorized`` says. ``launch=False`` (the portable backend) launches
+    no kernel on any device: a builtin runs as ``builtin.shade_plain`` (the
+    plain sampler) in the user shader's place, and :func:`_pack` packs.
     """
     kind = getattr(pixel_shader, "fused_kind", None)
     if kind is not None:
         light = dict(light_pos=getattr(pixel_shader, "light_pos", LIGHT_POS),
                      light_color=getattr(pixel_shader, "light_color", LIGHT_COLOR))
-        entry = shade_planes_plain if winner.device.type == "cpu" else shade_planes
-        return entry(ctx, ps_idx, winner, kind, ps_uniform, codec, background=background, **light)
+        if launch:
+            entry = shade_planes_plain if winner.device.type == "cpu" else shade_planes
+            return entry(ctx, ps_idx, winner, kind, ps_uniform, codec, background=background, **light)
+        pixel_shader = functools.partial(shade_plain, kind, **light)
     # Background pixels carry garbage ctx; ps_index = -1 marks them so
     # samplers can exclude them (their color is replaced below anyway).
     ps_idx = torch.where(winner >= 0, ps_idx, -1)
@@ -150,14 +157,38 @@ def shade_from_planes(
             ctx.reshape(ctx.shape[0], h * w), ps_idx.reshape(h * w)
         )
         color = flat.reshape(4, h, w)
-    return _pack(color, winner, background)
+    return pack_frame(color, winner, background) if launch else _pack(color, winner, background)
+
+
+def _on_card(t) -> bool:
+    """Whether ``t`` lies on the card, where :func:`pack_frame` launches
+    (the CPU tests replace it to walk the card's route)."""
+    return t.device.type == "cuda"
+
+
+def pack_frame(color, winner, background):
+    """A user pixel shader's (4, H, W) colour → (H, W, 4) uint8: on the card
+    one launch of ``kernels.pack_rgba8`` (csrc/pack_rgba8.cu, whatever the
+    colour's strides), counted as ``render.pack_kernel_frames``, on the
+    colour in float32, as the JAX package computes it (a float64 or float16
+    colour is converted first); :func:`_pack`, its plain version, on the
+    CPU."""
+    if not _on_card(color):
+        return _pack(color, winner, background)
+    from f_renderer_tpu_torch import kernels
+
+    metrics.count("render.pack_kernel_frames", 1)
+    h, w = winner.shape
+    rgba = kernels.pack_rgba8(color.to(torch.float32), winner, background_packed(background))
+    return rgba.view(torch.uint8).reshape(h, w, 4)
 
 
 def _pack(color, winner, background):
     """(4, H, W) colour → (H, W, 4) uint8: ``clip(color · 255, 0, 255)``
     truncated, with NaN to 0 (what XLA's saturating float-to-u8 conversion
     gives the JAX package; a NaN to u8 cast has no fixed value in PyTorch),
-    the background where winner < 0."""
+    the background where winner < 0. The plain version of
+    ``kernels.pack_rgba8``."""
     q = torch.clamp(color * 255.0, 0.0, 255.0)
     u8 = torch.where(torch.isnan(q), 0.0, q).to(torch.uint8).permute(1, 2, 0)
     bg = constant(tuple(background), u8.device, torch.uint8)
@@ -211,16 +242,17 @@ def shade_deferred(
     background=(0, 0, 0, 255),
     origin=(0, 0),
     vectorized: bool = True,
+    launch: bool = True,
 ):
     """Run the pixel shader over the frame; returns (H, W, 4) uint8.
 
     ``pixel_shader(ps_uniform, context planes, ps_index) -> rgba (4, H, W)``
-    (see :func:`shade_from_planes` for ``vectorized``); ``origin`` as in
-    :func:`interpolate_context`.
+    (see :func:`shade_from_planes` for ``vectorized`` and ``launch``);
+    ``origin`` as in :func:`interpolate_context`.
     """
     h, w = winner.shape
     ctx, ps_idx = interpolate_context(tri, winner, w, h, origin=origin)
     return shade_from_planes(
         ctx, ps_idx, winner, pixel_shader, ps_uniform, codec, background=background,
-        vectorized=vectorized,
+        vectorized=vectorized, launch=launch,
     )

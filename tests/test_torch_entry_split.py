@@ -49,7 +49,8 @@ def test_the_graph_split_from_hand_counts():
     want = {"entry.key_ms": 0.010, "entry.copy_ms": 0.020, "entry.replay_ms": 0.030, "entry.clone_ms": 0.015,
             "entry.self_ms": 0.025, "entry.copy_mb": 4.0, "entry.clone_mb": 0.0005, "entry.copy_skipped_pct": 75.0,
             "graph.captures": 1, "graph.evictions": 1, "graph.calls": 3,
-            "render.fused_frames": 0, "render.planes_frames": 0, "render.user_shader_frames": 0}
+            "render.fused_frames": 0, "render.planes_frames": 0, "render.user_shader_frames": 0,
+            "render.pack_kernel_frames": 0}
     assert got.keys() == want.keys()
     assert all(got[k] == pytest.approx(v) for k, v in want.items())
     assert entry_split.split(graph_frames(3), "graph.run", captures=2)["graph.captures"] == 2
@@ -59,7 +60,8 @@ def test_the_graph_split_from_hand_counts():
 def test_the_path_counters_and_render_spans(user):
     """The captured frame's path as its calls counted it: a planes frame a
     call, a user shader's frame where the shader is user code, C and the
-    planes' megabytes a planes frame; the fused count 0. The eager frame's ``render.planes``
+    planes' megabytes a planes frame, a pack kernel's frame where the user's
+    colour was packed by the kernel; the fused count 0. The eager frame's ``render.planes``
     and ``render.shade`` spans, where a recorder holds them, as their mean
     ms."""
     rec = graph_frames(4)
@@ -67,10 +69,10 @@ def test_the_path_counters_and_render_spans(user):
         rec.counters[f].update({"render.planes_frames": 1, "render.planes_varyings": 8,
                                 "render.planes_bytes": 91_238_400})
         if user:
-            rec.counters[f]["render.user_shader_frames"] = 1
+            rec.counters[f].update({"render.user_shader_frames": 1, "render.pack_kernel_frames": 1})
     got = entry_split.split(rec, "graph.run")
     assert (got["graph.calls"], got["render.planes_frames"], got["render.fused_frames"]) == (4, 4, 0)
-    assert got["render.user_shader_frames"] == (4 if user else 0)
+    assert got["render.user_shader_frames"] == got["render.pack_kernel_frames"] == (4 if user else 0)
     assert got["render.planes_mb"] == pytest.approx(91.2384) and got["render.planes_c"] == 8
     assert "render.planes_ms" not in got and "render.shade_ms" not in got
     for t, name, a, b in ((0, "render.planes", 10, 40), (0, "render.shade", 40, 140),

@@ -33,7 +33,8 @@
 - On the card (``cuda``): graph frames equal to eager ones, writes to a
   caller's tensor seen by the next replay, one graph across clipped and
   unclipped frames, the captured sharded frame (NCCL at
-  world size 1) and grid, and the spans of traced frames.
+  world size 1) and grid, the spans of traced frames, and a user shader's
+  frames packed by the pack kernel equal to those ``_pack`` packs.
 """
 
 import contextlib
@@ -49,7 +50,7 @@ import torch
 
 from f_renderer_tpu_torch import compiled, kernels
 from f_renderer_tpu_torch.device import graph_frame, in_graph_frame
-from f_renderer_tpu_torch.pipeline import fused, geometry, raster
+from f_renderer_tpu_torch.pipeline import fused, geometry, raster, shade
 from f_renderer_tpu_torch.pipeline.geometry import geometry_process
 from f_renderer_tpu_torch.pipeline.render import build_triangles, render_frame
 from f_renderer_tpu_torch.scene import make_checker_texture, make_cube, make_phong_scene
@@ -859,6 +860,33 @@ def test_a_frame_records_nothing_with_tracing_off(stub_cache, monkeypatch):
     assert stub_cache.last.counts["render.user_shader_frames"] == 1
 
 
+def test_a_captured_frame_counts_the_pack_kernel(stub_cache, monkeypatch):
+    """On the card path (``shade._on_card`` stubbed, ``kernels.pack_rgba8``
+    the torch mirror of its arithmetic), a user shader's captured frame
+    keeps ``render.pack_kernel_frames`` from its capture and counts it once
+    a traced call; with tracing off nothing is recorded; its frames equal
+    the frames ``_pack`` packs."""
+    from test_torch_pack_kernel import kernel_pack
+
+    scene = cpu_scene("custom")
+    want = render_frame(list(scene.draws), scene.vertex_shader, scene.vs_uniform, scene.pixel_shader,
+                        scene.ps_uniform, scene.config)[0]
+    launched = []
+    monkeypatch.setattr(shade, "_on_card", lambda t: True)
+    monkeypatch.setattr(kernels, "pack_rgba8", lambda *a: launched.append(1) or kernel_pack(*a))
+    got = compiled.scene_render(scene)[0]
+    assert stub_cache.last.counts["render.pack_kernel_frames"] == 1 and launched == [1, 1]  # warm-up, capture
+    with metrics.tracing() as rec:
+        compiled.scene_render(scene)
+        compiled.scene_render(scene)
+    assert [rec.counters[f]["render.pack_kernel_frames"] for f in (1, 2)] == [1, 1]
+    made = []
+    for name in ("_open", "add", "count"):
+        monkeypatch.setattr(metrics.Recorder, name, lambda self, *a, _n=name: made.append(_n))
+    again = compiled.scene_render(scene)[0]
+    assert made == [] and torch.equal(got, want) and torch.equal(again, want)
+
+
 def host_data_shader(u, ctx, ps_index):
     """A user's pixel shader in the form users write: tensors made from
     Python numbers on the frame's device (``torch.tensor``,
@@ -972,14 +1000,15 @@ def test_launches_under_replay_are_read_by_kernel_name():
              "bin_gather_kernel", "(anonymous namespace)::bin_records_kernel(FrBinParams, int const*, float const*)",
              "_ZN12_GLOBAL__N_119shade_planes_kernelE13FrShadeParamsPKfPKiS4_S2_S4_S4_Pi",
              "(anonymous namespace)::interp_records_kernel(FrInterpParams, int const*, int const*, float*, int*)",
-             "_ZN12_GLOBAL__N_119stream_merge_kernelE13FrMergeParamsPKfPKiS4_S2_S4_PfPiS6_S6_S5_"]
+             "_ZN12_GLOBAL__N_119stream_merge_kernelE13FrMergeParamsPKfPKiS4_S2_S4_PfPiS6_S6_S5_",
+             "_ZN12_GLOBAL__N_117pack_rgba8_kernelE12FrPackParamsPKfPKiPi"]
     assert chip_smoke.kernel_launches(names) == {"fused_raster": 2, "raster_planes": 0, "sample_bilinear": 1,
-                                                 "shade_planes": 1, "voxel_march": 1, "voxel_setup": 1, "tri_setup": 1,
-                                                 "bin_pairs": 1, "slot_records": 1, "interp_records": 1,
-                                                 "stream_merge": 1}
+                                                 "shade_planes": 1, "pack_rgba8": 1, "voxel_march": 1,
+                                                 "voxel_setup": 1, "tri_setup": 1, "bin_pairs": 1, "slot_records": 1,
+                                                 "interp_records": 1, "stream_merge": 1}
     assert set(chip_smoke.KERNEL_FUNCTIONS) == {"fused_raster", "raster_planes", "sample_bilinear", "shade_planes",
-                                                "voxel_march", "voxel_setup", "tri_setup", "bin_pairs", "slot_records",
-                                                "interp_records", "stream_merge"}
+                                                "pack_rgba8", "voxel_march", "voxel_setup", "tri_setup", "bin_pairs",
+                                                "slot_records", "interp_records", "stream_merge"}
     spin = "at::cuda::(anonymous namespace)::spin_kernel(long)"
     trace = [(5, spin), (9, names[0]), (7, names[1]), (12, spin), (29, names[7]), (30, names[4]), (31, spin),
              (2, names[2]), (40, names[8]), (41, names[11]), (42, names[12]), (43, spin)]
@@ -1133,6 +1162,33 @@ def test_a_shader_that_makes_tensors_from_host_data_on_card():
         scene.render()
     assert {k: rec.counters[1][k] for k in ("render.planes_frames", "render.user_shader_frames")} == {
         "render.planes_frames": 1, "render.user_shader_frames": 1}
+
+
+@pytest.mark.cuda
+def test_a_user_shader_frame_packs_with_the_kernel_on_card(monkeypatch):
+    """A user's pixel shader captured on the card at 320 × 240: its
+    replays, which pack with one ``kernels.pack_rgba8`` launch, equal the
+    eager frames that ``_pack`` packs, and a traced replay counts
+    ``render.pack_kernel_frames``."""
+    from f_renderer_tpu_torch.bench_scenes import set_angle
+
+    scene = card_scene()
+    scene.pixel_shader = host_data_shader
+    for angle in (0.1, 0.15, 0.1):
+        set_angle(scene, angle)
+        got = scene.render()
+        with monkeypatch.context() as mp:
+            mp.setattr(shade, "_on_card", lambda t: False)
+            want = render_frame(list(scene.draws), scene.vertex_shader, scene.vs_uniform, scene.pixel_shader,
+                                scene.ps_uniform, scene.config)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    before = kernels.pack_rgba8.launches
+    render_frame(list(scene.draws), scene.vertex_shader, scene.vs_uniform, scene.pixel_shader, scene.ps_uniform,
+                 scene.config)
+    assert kernels.pack_rgba8.launches == before + 1
+    with metrics.tracing() as rec:
+        scene.render()
+    assert rec.counters[1]["render.pack_kernel_frames"] == 1
 
 
 @pytest.mark.cuda

@@ -38,7 +38,8 @@ copied, ``graph.copy_skipped_bytes``, over ``graph.copy_bytes``),
 before and after the spans window, over its frames. The path of the
 captured frame, counted on each call: ``graph.calls``,
 ``render.fused_frames``, ``render.planes_frames``,
-``render.user_shader_frames`` (totals over the window),
+``render.user_shader_frames``, ``render.pack_kernel_frames`` (totals
+over the window),
 ``render.planes_c`` and ``render.planes_mb`` (``render.planes_varyings``
 and ``render.planes_bytes`` a planes frame); and where a frame
 ran eagerly under tracing (none does in a cell's windows, which replay),
@@ -79,7 +80,8 @@ SPLIT = {
 }
 
 
-PATH_COUNTERS = ("render.fused_frames", "render.planes_frames", "render.user_shader_frames")
+PATH_COUNTERS = ("render.fused_frames", "render.planes_frames", "render.user_shader_frames",
+                 "render.pack_kernel_frames")
 RENDER_SPANS = (("render.planes_ms", "render.planes"), ("render.shade_ms", "render.shade"))  # eager frames only
 
 
