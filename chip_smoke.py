@@ -90,15 +90,14 @@ Phases, each reported on its own lines:
      slot order), on phong1080 at the bench camera and three more angles,
      with 1, cap and cap + 7 faces clipped, its eight row slabs (also from
      packed rows with the last column the dummy, as the sharded frame bins,
-     and from rows with K4's settings, as ``raster.prep_binned``: the record
-     pass ``kernels.slot_records`` held to ``raster.slot_records``), stress4k
+     and from rows with K4's settings, as ``raster.prep_binned``), stress4k
      (and at 32-row tiles), phong1080_tex2048, custom12_360, sliver640,
      gouraud800, textured_wide, phong_bin_k1 and cube1080; their ``ptxas``
      lines must show no stack frame and no spills, and their registers,
      shared memory and occupancy at stress4k's launch shapes are printed;
      their device times at phong1080 and stress4k beside their bounds (the
-     binning also reading the records' own bbox words, and the record
-     pass), and the set-up and binning summed against their summed bound. The
+     binning also reading the records' own bbox words), and the set-up and
+     binning summed against their summed bound. The
      raster kernels above run on the plain chain's preps, so every frame
      of 4 is held to the frame the plain set-up and binning give;
    - the sharded frame's kernels: the set-up kernels' shard mode on each
@@ -179,7 +178,7 @@ Phases, each reported on its own lines:
    memsets and memcpys with their durations (the names with the most
    device time, their sum and
    union against the replay's time, the faces clipped at the bench camera;
-   none runs the record pass; the set-up of
+   the set-up of
    phong1080's ``render()`` and ``prepare()`` is launch 1 and at most a
    fill, no conditional node's or clip path's kernel; the sharded frame's
    is the shard's launch 1 and its tri_quirk_kernel), then one phong1080
@@ -226,7 +225,7 @@ Phases, each reported on its own lines:
    varyings, 8 interp_records, 8 of the shading kernel) and phong1080
    through ``render_frame_sharded`` with NCCL at world size 1 (one launch
    1, one tri_quirk_kernel and one K1 a frame), each equal to the
-   single-device frame, no record pass and no PyTorch geometry on any;
+   single-device frame, no PyTorch geometry on any;
    then the same captured: ``compiled.sharded_frame`` at world size 1 (its
    collectives recorded into the graph) and ``compiled.grid_frame`` at 2 x
    4 (all-gathered, the gather path and streamed), each a graph path as in
@@ -251,6 +250,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from benchmark.cupti import OTHER_KINDS, Trace
 
 FRAMES = 10
 ANGLES = (0.10, 0.15, 0.20)  # bench.py's first three frame angles
@@ -277,7 +278,7 @@ KERNEL_FUNCTIONS = {"fused_raster": "fused_raster_kernel", "raster_planes": "ras
                     "pack_rgba8": "pack_rgba8_kernel",
                     "voxel_march": "voxel_march_kernel",
                     "voxel_setup": "voxel_setup_kernel", "tri_setup": "tri_setup_kernel",
-                    "bin_pairs": "bin_pairs_kernel", "slot_records": "bin_records_kernel",
+                    "bin_pairs": "bin_pairs_kernel",
                     "interp_records": "interp_records_kernel", "stream_merge": "stream_merge_kernel"}
 VOXEL_GRAPH_NODES = 100  # a voxel frame's graph holds fewer nodes than this
 # A voxel frame's graph nodes: 11 before K5 read the set-up's alive bytes,
@@ -695,89 +696,18 @@ def launches_between_markers(events, marker="spin_kernel"):
     return parts
 
 
-class DeviceTrace:
+class DeviceTrace(Trace):
     """The work the device runs while the block is open, as CUPTI's activity
-    API records it (one record a kernel, memset or memcpy executed, graph
-    replays included): ``with DeviceTrace() as trace: ...``, then
-    ``trace.kernels``, (start ns, name) pairs of the kernels, and
-    ``trace.records``, (start ns, end ns, name) of every record, a memset
-    named ``[memset]`` and a memcpy ``[memcpy]``. Uses the libcupti that
-    torch loaded (``torch.profiler`` took seconds to start). Records are
-    read at fixed offsets (cupti_activity.h): start at byte 16 and end at
-    byte 24 in CUpti_ActivityKernel4 and its successors, in
-    CUpti_ActivityMemset4 and in CUpti_ActivityMemcpy5; a kernel's name at
-    byte 104."""
+    API records it (``benchmark.cupti.Trace``: one record a kernel, memset
+    or memcpy executed, graph replays included): ``with DeviceTrace() as
+    trace: ...``, then ``trace.records``, (start ns, end ns, name) of every
+    record in time order, a memset named ``[memset]`` and a memcpy
+    ``[memcpy]``, and ``trace.kernels``."""
 
-    KERNEL_KIND, START, END, NAME, BUFFER = 10, 16, 24, 104, 32 << 20  # CUPTI_ACTIVITY_KIND_CONCURRENT_KERNEL
-    OTHER_KINDS = {1: "[memcpy]", 2: "[memset]"}  # CUPTI_ACTIVITY_KIND_MEMCPY, CUPTI_ACTIVITY_KIND_MEMSET
-    _lib = _callbacks = None
-    _active = None  # the trace the callbacks fill
-
-    @classmethod
-    def _load(cls):
-        import ctypes
-
-        if cls._lib is not None:
-            return
-        paths = sorted({line.split()[-1] for line in open("/proc/self/maps") if "libcupti" in line})
-        if not paths:
-            raise RuntimeError("torch loaded no libcupti")
-        lib = ctypes.CDLL(paths[0])
-        buffers = []  # every buffer handed to CUPTI, kept alive
-
-        @ctypes.CFUNCTYPE(None, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t),
-                          ctypes.POINTER(ctypes.c_size_t))
-        def requested(buf, size, max_records):
-            raw = ctypes.create_string_buffer(cls.BUFFER + 8)
-            buffers.append(raw)
-            buf[0] = (ctypes.addressof(raw) + 7) & ~7
-            size[0], max_records[0] = cls.BUFFER, 0
-
-        @ctypes.CFUNCTYPE(None, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_size_t)
-        def completed(ctx, stream, buf, size, valid):
-            rec = ctypes.c_void_p()
-            while lib.cuptiActivityGetNextRecord(ctypes.c_void_p(buf), ctypes.c_size_t(valid), ctypes.byref(rec)) == 0:
-                kind = ctypes.c_uint32.from_address(rec.value).value
-                if cls._active is None or (kind != cls.KERNEL_KIND and kind not in cls.OTHER_KINDS):
-                    continue
-                start = ctypes.c_uint64.from_address(rec.value + cls.START).value
-                end = ctypes.c_uint64.from_address(rec.value + cls.END).value
-                if kind == cls.KERNEL_KIND:
-                    name = (ctypes.c_char_p.from_address(rec.value + cls.NAME).value or b"").decode(errors="replace")
-                    cls._active.kernels.append((start, name))
-                else:
-                    name = cls.OTHER_KINDS[kind]
-                cls._active.records.append((start, end, name))
-            buffers[:] = [b for b in buffers if (ctypes.addressof(b) + 7) & ~7 != buf]
-
-        cls._lib, cls._callbacks = lib, (requested, completed)
-        cls._check(lib.cuptiActivityRegisterCallbacks(requested, completed), "cuptiActivityRegisterCallbacks")
-
-    @staticmethod
-    def _check(rc, what):
-        if rc != 0:
-            raise RuntimeError(f"{what} returned CUPTI error {rc}")
-
-    def __enter__(self):
-        import torch
-
-        self._load()
-        self.kernels, self.records = [], []
-        torch.cuda.synchronize()
-        DeviceTrace._active = self
-        for kind in (self.KERNEL_KIND, *self.OTHER_KINDS):
-            self._check(self._lib.cuptiActivityEnable(kind), "cuptiActivityEnable")
-        return self
-
-    def __exit__(self, *exc):
-        import torch
-
-        torch.cuda.synchronize()
-        self._check(self._lib.cuptiActivityFlushAll(1), "cuptiActivityFlushAll")
-        for kind in (self.KERNEL_KIND, *self.OTHER_KINDS):
-            self._check(self._lib.cuptiActivityDisable(kind), "cuptiActivityDisable")
-        DeviceTrace._active = None
-        return False
+    @property
+    def kernels(self):
+        """(start ns, name) pairs of the kernels."""
+        return [(start, name) for start, _, name in self.records if name not in OTHER_KINDS.values()]
 
 
 def records_between_markers(records, marker="spin_kernel"):
@@ -1661,10 +1591,8 @@ def sharded_phase(dev, smi, rows, launches, drive, graph_path, clip_flip):
     before = counts()
     tex_slab(3 * slab)
     ran = {k: n - before[k] for k, n in counts().items() if n != before[k]}
-    check(ran == {"raster_planes": 1, "shade_planes": 1, "bin_pairs": 1, "slot_records": 1},
-          f"phong1080_tex2048: a slab launched {ran}, not K4, shade_planes, the binning and the record pass once each")
-    # the record pass runs on no main path (the set-up kernels write records): its launches are this slab's
-    launches["slot_records"] = ran.get("slot_records", 0)
+    check(ran == {"raster_planes": 1, "shade_planes": 1, "bin_pairs": 1},
+          f"phong1080_tex2048: a slab launched {ran}, not K4, shade_planes and the binning once each")
     timing["phong1080_tex2048 K4 + shade_planes"] = slabs_timed("phong1080_tex2048 K4 + shade_planes",
                                                                 lambda: tex_slab(0, h), tex_slab, h)
     check(torch.equal(tex_slab(0, h)[0], tex.render()[0]), "phong1080_tex2048: rasterize_interp + shade differs "
@@ -1867,10 +1795,10 @@ def setup_phase(dev, smi, rows):
         log(f"  ptxas {line}")
     frames = [line for line in lines if "stack frame" in line]
     # tri_setup_kernel<0..4> (the planes mode and four vertex stages), tri_slots, tri_quirk; bin_count, bin_scan,
-    # bin_pairs, bin_records, bin_gather
-    check(len(frames) == 12 and all("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in line
+    # bin_pairs, bin_gather
+    check(len(frames) == 11 and all("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in line
                                    for line in frames), f"tri_setup / bin_pairs kernels: a stack frame or spills ({lines})")
-    worst = {"tri_setup": 0.0, "bin_pairs": 0.0, "slot_records": 0.0}
+    worst = {"tri_setup": 0.0, "bin_pairs": 0.0}
 
     def mode_of(entry):
         """The mode ``entry()`` (a ``build_packed`` call) launched the set-up
@@ -1907,8 +1835,7 @@ def setup_phase(dev, smi, rows):
     def check_bins(tag, packed, cfg, fused_path, rows=None, **kw):
         """The binning from records and bboxes (``packed``) against its
         plain version; with ``rows`` (packed rows, whose records ``packed``
-        holds) from the rows too: ``raster.bin_rows``, the record pass
-        launched once."""
+        holds) from the rows too: ``raster.bin_rows``."""
         recs, bbox, n, c, _ = packed
         bins = (recs, bbox, n, c, cfg.width, cfg.height, cfg.tile)
         kw = dict(bin_settings(cfg, fused_path), **kw)
@@ -1916,11 +1843,9 @@ def setup_phase(dev, smi, rows):
         sort = sum(sort_bits(want, recs.shape[0])) <= 31
         ok = bins_equal(got, want, recs, sort)
         if rows is not None:
-            before = kernels.slot_records.launches
             from_rows = raster.bin_rows(*rows, *bins[2:], **kw)
-            ok_rows = kernels.slot_records.launches == before + 1 and bins_equal(from_rows, want, recs, sort)
-            check(ok_rows, f"bin_pairs {tag}: the binned prep from packed rows (the record pass) differs from the "
-                           f"plain version's")
+            ok_rows = bins_equal(from_rows, want, recs, sort)
+            check(ok_rows, f"bin_pairs {tag}: the binned prep from packed rows differs from the plain version's")
             ok = ok and ok_rows
         if sort:
             worst["bin_pairs"] = max(worst["bin_pairs"], float_err(got.tri_f32, want.tri_f32))
@@ -1934,11 +1859,10 @@ def setup_phase(dev, smi, rows):
             f"ranges {range_sizes(got)}, the plain version's {'packed 31-bit' if sort else 'two-operand'} sort: "
             f"bins {'bit-equal' if sort else 'equal offsets, the same lists in slot order'}={ok_b}")
 
-    def timing(tag, scene, packed, fused_path, rows=None):
+    def timing(tag, scene, packed, fused_path):
         """Device ms of the set-up kernels and the binning kernels, their
         entry points' and plain versions' ms, and their bounds; the binning
-        also reading the records' own bbox words; with ``rows`` (packed
-        rows), the record pass too."""
+        also reading the records' own bbox words."""
         cfg = scene.config
         args = (scene.draws, scene.vertex_shader, scene.vs_uniform, cfg)
         recs, bbox, n, c, _ = packed
@@ -1979,13 +1903,9 @@ def setup_phase(dev, smi, rows):
         pairs = int(prep.off[-1])
         b_bytes = (4 * rec + 8) * m_pad + 4 * (12 + rows_f) * prep.tri_i32.shape[1] + 4 * prep.off.numel()
         b_ops = 30 * m_pad + 10 * pairs
-        timings = [("tri_setup", a, a_bytes, a_ops), ("bin_pairs", b, b_bytes, b_ops)]
-        if rows is not None:  # the record pass of the rows path: the rows read, the records written
-            r_launch = kernel_call("slot_records", lambda: kernels.slot_records(*rows))
-            r = timed(lambda: kernels.slot_records(*rows), r_launch, lambda: raster.slot_records(*rows), 20, 3)
-            timings.append(("slot_records", r, 4 * (12 + rows_f + rec) * m_pad, 2 * rec * m_pad))
         out = {}
-        for name, (k_ms, p_ms, w_ms, each), nbytes, ops in timings:
+        for name, (k_ms, p_ms, w_ms, each), nbytes, ops in (("tri_setup", a, a_bytes, a_ops),
+                                                            ("bin_pairs", b, b_bytes, b_ops)):
             b_ms, b_by = bound_ms(nbytes, ops)
             out[name] = {"ms": k_ms, "ms_each": each[:2], "plain_ms": p_ms, "wrapper_ms": w_ms, "bound_ms": b_ms,
                          "bound_by": b_by, "bytes": nbytes, "ops": ops}
@@ -2000,21 +1920,13 @@ def setup_phase(dev, smi, rows):
             f"{bound_sum / setup_sum:.3f} ({smi})")
         return out
 
-    def packed_rows(tag, scene, packed):
+    def packed_rows(scene):
         """The plain chain's packed rows of the scene (``pack_binned``), the
-        rows path's input; the record pass on them held to
-        ``raster.slot_records`` bit for bit (NaN equal to any NaN) and to the
-        set-up's records."""
+        rows path's input, whose records the plain set-up's are."""
         from f_renderer_tpu_torch.pipeline.render import build_triangles
 
         tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
-        ti, tf = raster.pack_binned(tri, scene.config.width, scene.config.height)
-        got, want = kernels.slot_records(ti, tf), plain(raster.slot_records, ti, tf)
-        c = packed[3]
-        worst["slot_records"] = max(worst["slot_records"], float_err(record_floats(got, c), record_floats(want, c)))
-        check(records_equal(got, want, c) and records_equal(got, packed[0], c),
-              f"slot_records {tag}: the record pass differs from raster.slot_records or from the set-up's records")
-        return ti, tf
+        return raster.pack_binned(tri, scene.config.width, scene.config.height)
 
     cases = [("phong1080", a) for a in (0.10, 0.15, 0.20, 0.35)] + [
         ("stress4k", 0.10), ("phong1080_tex2048", 0.10), ("custom12_360", 0.3), ("sliver640", None),
@@ -2030,7 +1942,7 @@ def setup_phase(dev, smi, rows):
         packed, ok_a = check_setup(f"{name}@{angle}", scene)
         rows_path = None
         if (name, angle) in (("phong1080", ANGLES[0]), ("stress4k", ANGLES[0]), ("custom12_360", 0.3)):
-            rows_path = packed_rows(f"{name}@{angle}", scene, packed)  # the record pass on the plain rows
+            rows_path = packed_rows(scene)
         got, ok_b, sort = check_bins(f"{name}@{angle}", packed, cfg, fused_path, rows=rows_path)
         report(f"{name}@{angle}", packed, got, ok_a, ok_b, sort, mode)
         if name == "phong1080" and angle == ANGLES[0]:
@@ -2052,7 +1964,7 @@ def setup_phase(dev, smi, rows):
                                        rows=rows_path)
             log(f"  phong1080@{angle}: the eight row slabs' bins (origin, size; from records, and from rows with the "
                 f"last column the dummy) bit-equal={oks}; from rows with K4's settings bit-equal={ok_k4}")
-            times = timing(f"phong1080@{angle}", scene, packed, fused_path, rows_path)
+            times = timing(f"phong1080@{angle}", scene, packed, fused_path)
             for key, tag, source, replaces in (
                     ("tri_setup", "the builtin vertex stages and the triangle set-up, XLA's fusions",
                      "tri_setup.cu",
@@ -2065,15 +1977,9 @@ def setup_phase(dev, smi, rows):
                 rows[key] = dict({"name": f"{key} ({tag})", "route": "cuda",
                                   "source": f"f_renderer_tpu_torch/csrc/{source}", "replaces": replaces,
                                   "library_ms": None}, **times[key])
-            rows["slot_records"] = dict({
-                "name": "slot_records (the record pass of the paths whose rows PyTorch packs: raster.prep_binned)",
-                "route": "cuda", "source": "f_renderer_tpu_torch/csrc/bin_pairs.cu",
-                "replaces": "f_renderer_tpu/pipeline/fused.py:160 (no pallas_call: part of XLA's fusion of the pair "
-                            "gather, _pair_gather, whose reads the records make whole sectors)",
-                "library_ms": None}, **times["slot_records"])
         if name == "stress4k":
-            times = timing(f"stress4k@{angle}", scene, packed, fused_path, rows_path)
-            for key in ("tri_setup", "bin_pairs", "slot_records"):
+            times = timing(f"stress4k@{angle}", scene, packed, fused_path)
+            for key in ("tri_setup", "bin_pairs"):
                 rows[key].update({f"stress4k_{k}": v for k, v in times[key].items()})
             occupancy_report(lines, packed, smi)
             cfg32 = dataclasses.replace(cfg, tile=(32, 128), tile_auto=False)
@@ -2135,8 +2041,7 @@ def shard_phase(dev, smi, rows):
     cfg, cap, worst = scene.config, scene.config.clip_cap, 0.0
     for n in (0, 1, cap + 7):
         draws = clipped_draws(scene.draws, scene.vs_uniform, n) if n else scene.draws
-        before = {k: getattr(kernels, k).launches for k in ("tri_setup", "tri_setup_slots", "tri_quirk",
-                                                            "slot_records")}
+        before = {k: getattr(kernels, k).launches for k in ("tri_setup", "tri_setup_slots", "tri_quirk")}
         got, setups = kernel_route(scene, draws, cfg, 2)
         torch.cuda.synchronize()
         ran = {k: getattr(kernels, k).launches - v for k, v in before.items()}
@@ -2149,7 +2054,7 @@ def shard_phase(dev, smi, rows):
             ok = records_equal(recs, wr, s.n_ctx) and bits_equal(bbox, wb.contiguous())
             worst = max(worst, float_err(record_floats(recs, s.n_ctx), record_floats(wr, s.n_ctx)))
             oks.append(ok)
-        expect = {"tri_setup": 2, "tri_setup_slots": sum(c > 0 for c in clipped), "tri_quirk": 2, "slot_records": 0}
+        expect = {"tri_setup": 2, "tri_setup_slots": sum(c > 0 for c in clipped), "tri_quirk": 2}
         check(all(oks) and ran == expect,
               f"phong1080 2 x 4 with {n} faces clipped: the shards' records equal the plain chain's {oks}, the "
               f"set-up launched {ran}, not {expect}")
@@ -4005,14 +3910,13 @@ def main() -> int:
                     log(f"[split] {p}: {len(part)} device operations, none but the port's kernels ({others})")
                 scene = "frame 0's view"
             else:
-                # the set-up kernels write the records (the sharded frame's in their shard mode): no record pass
+                # the set-up kernels write the records (the sharded frame's in their shard mode)
                 shards, bins = grids.get(p, (1, 1))
-                want = (shards, bins, 0)
-                check((ran["tri_setup"], ran["bin_pairs"], ran["slot_records"]) == want,
-                      f"{p}: the traced replay ran the set-up, binning and record pass kernels {ran['tri_setup']}, "
-                      f"{ran['bin_pairs']} and {ran['slot_records']} times, not {want}")
-                log(f"[split] {p}: set-up, binning and record pass (bin_records_kernel) kernels {ran['tri_setup']}, "
-                    f"{ran['bin_pairs']}, {ran['slot_records']}")
+                want = (shards, bins)
+                check((ran["tri_setup"], ran["bin_pairs"]) == want,
+                      f"{p}: the traced replay ran the set-up and binning kernels {ran['tri_setup']} and "
+                      f"{ran['bin_pairs']} times, not {want}")
+                log(f"[split] {p}: set-up and binning kernels {ran['tri_setup']}, {ran['bin_pairs']}")
                 leads = programmatic_leads(part)
                 log(f"[split] {p}: the binning's kernels start before the one ahead of them ends (programmatic "
                     f"edges kept in the graph) by {leads} us")

@@ -104,24 +104,30 @@ MAX_GRAPHS = 64
 def flatten(tree):
     """A tree of dicts, lists, tuples and dataclasses → (its tensors, a
     hashable spec of everything else: each tensor's shape, dtype and device,
-    and every other value). :func:`unflatten` rebuilds the tree."""
+    and every other value). :func:`unflatten` rebuilds the tree.
+
+    The walk is a module-level function, not a closure that calls itself:
+    such a closure is a reference cycle (the function and its own cell),
+    which would keep the leaves, the caller's tensors, alive until a
+    garbage collection."""
     leaves = []
+    return leaves, _spec(tree, leaves)
 
-    def spec(x):
-        if isinstance(x, torch.Tensor):
-            leaves.append(x)
-            return ("tensor", x.shape, x.dtype, x.device)
-        if isinstance(x, dict):
-            return ("dict", tuple(x), tuple(map(spec, x.values())))
-        if isinstance(x, (list, tuple)):
-            return (type(x).__name__, tuple(map(spec, x)))
-        names = _dataclass_fields(type(x))
-        if names:
-            return ("dataclass", type(x), names, tuple(spec(getattr(x, n)) for n in names))
-        hash(x)  # a value in the key must be hashable
-        return ("value", x)
 
-    return leaves, spec(tree)
+def _spec(x, leaves: list):
+    """``x``'s spec (:func:`flatten`), its tensors appended to ``leaves``."""
+    if isinstance(x, torch.Tensor):
+        leaves.append(x)
+        return ("tensor", x.shape, x.dtype, x.device)
+    if isinstance(x, dict):
+        return ("dict", tuple(x), tuple([_spec(v, leaves) for v in x.values()]))
+    if isinstance(x, (list, tuple)):
+        return (type(x).__name__, tuple([_spec(v, leaves) for v in x]))
+    names = _dataclass_fields(type(x))
+    if names:
+        return ("dataclass", type(x), names, tuple([_spec(getattr(x, n), leaves) for n in names]))
+    hash(x)  # a value in the key must be hashable
+    return ("value", x)
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,21 +138,22 @@ def _dataclass_fields(cls) -> tuple:
 
 def unflatten(spec, leaves):
     """The tree :func:`flatten` took apart, with ``leaves`` as its tensors."""
-    it = iter(leaves)
+    return _build(spec, iter(leaves))
 
-    def build(s):
-        kind = s[0]
-        if kind == "tensor":
-            return next(it)
-        if kind == "dict":
-            return dict(zip(s[1], (build(v) for v in s[2])))
-        if kind in ("list", "tuple"):
-            return (list if kind == "list" else tuple)(build(v) for v in s[1])
-        if kind == "dataclass":
-            return s[1](**dict(zip(s[2], (build(v) for v in s[3]))))
-        return s[1]
 
-    return build(spec)
+def _build(s, it):
+    """The tree of spec ``s``, its tensors taken in order from ``it``."""
+    kind = s[0]
+    if kind == "tensor":
+        return next(it)
+    if kind == "dict":
+        return dict(zip(s[1], [_build(v, it) for v in s[2]]))
+    if kind in ("list", "tuple"):
+        items = [_build(v, it) for v in s[1]]
+        return items if kind == "list" else tuple(items)
+    if kind == "dataclass":
+        return s[1](**dict(zip(s[2], [_build(v, it) for v in s[3]])))
+    return s[1]
 
 
 class CudaGraph:

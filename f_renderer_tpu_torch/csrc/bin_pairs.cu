@@ -19,8 +19,8 @@
 // 9 + 3C float32 rows as bits, zeros to a whole number of 32-byte sectors),
 // which the triangle set-up kernels write (csrc/tri_setup.cu), and each
 // slot's bbox words (MINXY, MAXXY) at any strides: the set-up's (2, m_pad)
-// array, or the rows' own two rows where bin_records_kernel made the
-// records from packed rows (the sharded frame, raster.prep_binned).
+// array, or the rows' own two rows where PyTorch made the records from
+// packed rows (raster.bin_rows: raster.prep_binned and the paths on it).
 //
 // The keys are few (ntiles + ntilesc + 1: 548 at phong1080, 1,094 at
 // stress4k), so the sort counts. A stripe of consecutive slots is one
@@ -56,10 +56,6 @@
 // kernel's blocks start while the one before ends, and wait for it
 // (griddepcontrol.wait) before they read its output.
 //
-// bin_records_kernel, its own entry point (fr_bin_records): packed rows →
-// records, 32 slots a block through shared memory, for the paths whose rows
-// PyTorch packs.
-//
 // What bounds it on the card: bytes. It reads the records once (192 B a
 // slot at C = 8) and the bboxes, and writes the pair-order arrays (180 B a
 // pair column, padding columns included): ~566 MB at stress4k. The counting
@@ -79,8 +75,6 @@ constexpr int kLanes = 128;    // bin tile width
 constexpr int kCoarse = 4;     // a coarse tile is kCoarse x kCoarse fine tiles
 constexpr int NF_I = 12;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kChunk = 64;        // record words the record pass stages at a time
-constexpr int kRecSlots = 32;     // slots a block of the record pass transposes
 constexpr int kScanKeys = 32;     // keys a block of the scan
 constexpr int kGatherCols = 64;      // pair columns a block of the gather
 constexpr int kGatherThreads = 128;  // two a column, each writing half its rows
@@ -281,31 +275,6 @@ bin_pairs_kernel(FrBinParams p, const int32_t* __restrict__ bb, const int32_t* _
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-bin_records_kernel(FrBinParams p, const int32_t* __restrict__ ti, const float* __restrict__ tf,
-                   int32_t* __restrict__ recs) {
-  __shared__ int32_t tile[kRecSlots][kChunk + 1];
-  const int rows = NF_I + p.rows_f, rec = rec_words(p.rows_f), lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int s0 = blockIdx.x * kRecSlots, s = s0 + lane, n_slots = min(kRecSlots, p.m - s0);
-  for (int c0 = 0; c0 < rec; c0 += kChunk) {
-    const int width = min(kChunk, rec - c0);
-    for (int w = warp; w < width; w += kThreads / 32) {  // record word c0 + w: a packed row's, or padding
-      const int r = c0 + w;
-      int v = 0;
-      if (s < p.m && r < rows) {
-        v = r < NF_I ? __ldg(ti + (size_t)r * p.m + s) : __float_as_int(__ldg(tf + (size_t)(r - NF_I) * p.m + s));
-      }
-      tile[lane][w] = v;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < n_slots * width; i += kThreads) {
-      const int j = i / width, w = i - j * width;
-      recs[(size_t)(s0 + j) * rec + c0 + w] = tile[j][w];
-    }
-    __syncthreads();
-  }
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
@@ -415,10 +384,4 @@ extern "C" int fr_bin_pairs(FrBinParams p, const int32_t* recs, const int32_t* b
                        gather_smem, st, p, recs, (const int32_t*)off, (const int32_t*)ptri, out_i32, out_f32);
   }
   return (int)err;
-}
-
-extern "C" int fr_bin_records(FrBinParams p, const int32_t* tri_i32, const float* tri_f32, int32_t* recs,
-                              void* stream) {
-  bin_records_kernel<<<cdiv(p.m, kRecSlots), kThreads, 0, (cudaStream_t)stream>>>(p, tri_i32, tri_f32, recs);
-  return (int)cudaGetLastError();
 }

@@ -281,10 +281,6 @@ typedef struct FrBinParams {
 int fr_bin_pairs(FrBinParams p, const int32_t* recs, const int32_t* bbox, int32_t* counts,
                  int32_t* totals, int32_t* off, int32_t* ptri, int32_t* out_i32, float* out_f32,
                  void* stream);
-// Packed rows tri_i32 (12, m) / tri_f32 (rows_f, m) → recs, the binning's
-// records (p.m and p.rows_f read).
-int fr_bin_records(FrBinParams p, const int32_t* tri_i32, const float* tri_f32, int32_t* recs,
-                   void* stream);
 
 // A conditional node (csrc/graph_cond.cu), for the graph `parent` is
 // capturing: a kernel that sets its condition from the device bool *pred,

@@ -39,7 +39,7 @@ The kernels (the TPU kernel each replaces in brackets):
   the slab's accumulator in place by (rhw, order);
 - ``bin_pairs`` — no Pallas kernel: XLA's fusions of the binning and the
   pair-order gather (raster_pallas.py:319 bin_pairs, fused.py:160-183), from
-  slot records; ``slot_records`` turns packed rows into those records;
+  slot records;
 - ``if_node`` — no TPU kernel: a conditional node of a CUDA graph under
   capture, the counterpart of ``lax.cond`` in a compiled program
   (torch 2.11 has no Python API for one), its condition set by a kernel of
@@ -274,7 +274,6 @@ def load_library() -> ctypes.CDLL:
     lib.fr_interp_records.argtypes = [InterpParams] + [ptr] * 5
     lib.fr_stream_merge.argtypes = [MergeParams] + [ptr] * 11
     lib.fr_bin_pairs.argtypes = [BinParams] + [ptr] * 9
-    lib.fr_bin_records.argtypes = [BinParams] + [ptr] * 4
     lib.fr_if_node_begin.argtypes = [ptr] * 3
     lib.fr_condition_create.argtypes = [ptr, ctypes.POINTER(u64)]
     lib.fr_if_node_begin_handle.argtypes = [u64, ptr, ptr]
@@ -284,7 +283,7 @@ def load_library() -> ctypes.CDLL:
                lib.fr_pack_rgba8, lib.fr_voxel_march,
                lib.fr_voxel_setup, lib.fr_tri_setup, lib.fr_tri_setup_vertex, lib.fr_tri_setup_slots,
                lib.fr_tri_quirk, lib.fr_interp_records, lib.fr_stream_merge,
-               lib.fr_bin_pairs, lib.fr_bin_records,
+               lib.fr_bin_pairs,
                lib.fr_if_node_begin, lib.fr_condition_create, lib.fr_if_node_begin_handle, lib.fr_if_node_end,
                lib.fr_stream_create):
         fn.restype = ctypes.c_int
@@ -1073,26 +1072,3 @@ def bin_pairs(recs, bbox, *, n_ctx, th, grid_hw, k, kc, m_dummy, n_pad, origin=(
 
 
 bin_pairs.launches = 0
-
-
-def slot_records(tri_i32, tri_f32):
-    """Launch the record pass (csrc/bin_pairs.cu: bin_records_kernel) on
-    PyTorch's current stream: packed rows ``tri_i32`` (12, m) int32 and
-    ``tri_f32`` (9 + 3C, m) f32 → the slots' records (m, :func:`rec_words`)
-    int32, as :func:`bin_pairs` reads them (the paths whose rows PyTorch
-    packs; the set-up kernels write records themselves)."""
-    dev = _on_cuda(tri_i32, "slot_records")
-    m, rows_f = tri_i32.shape[1], tri_f32.shape[0]
-    _need(tri_i32, "tri_i32", torch.int32, dev, (12, m))
-    _need(tri_f32, "tri_f32", torch.float32, dev, (rows_f, m))
-    recs = torch.empty((m, rec_words(rows_f)), dtype=torch.int32, device=dev)
-    if m:
-        lib = load_library()
-        err = lib.fr_bin_records(BinParams(m=m, rows_f=rows_f), tri_i32.data_ptr(), tri_f32.data_ptr(),
-                                 recs.data_ptr(), _stream(dev))
-        _check(lib, err, "fr_bin_records")
-        _count(slot_records)
-    return recs
-
-
-slot_records.launches = 0

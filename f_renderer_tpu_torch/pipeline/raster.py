@@ -12,8 +12,8 @@ kernel (K4),
 The set-up hands the binning a record a slot (:func:`slot_records`: the
 packed rows slot-major, padded to whole 32-byte sectors) and the slots'
 bbox words; the set-up kernels write both themselves, and the paths whose
-rows PyTorch packs (:func:`prep_binned`, the sharded frame) turn rows into
-records first (:func:`bin_rows`).
+rows PyTorch packs (:func:`prep_binned`) turn rows into records first with
+:func:`slot_records`, on any device (:func:`bin_rows`).
 
 Both kernels that rasterize, the fused one (K1, ``pipeline/fused.py``) and
 K4, read the same prep (:func:`prep_binned`: pack, bin, pair-order gather)
@@ -267,16 +267,11 @@ def slot_records(tri_i32, tri_f32):
 
 
 def bin_rows(tri_i32, tri_f32, n_slots: int, n_ctx: int, width: int, height: int, tile=None, **kw) -> BinnedPrep:
-    """:func:`bin_packed` from packed rows (``pack_binned``): CUDA tensors
-    launch the record pass (``kernels.slot_records``), CPU tensors run
-    :func:`slot_records`; the binning reads the bbox words from the rows."""
-    if tri_i32.device.type == "cuda":
-        from f_renderer_tpu_torch import kernels
-
-        recs = kernels.slot_records(tri_i32, tri_f32)
-    else:
-        recs = slot_records(tri_i32, tri_f32)
-    return bin_packed(recs, tri_i32[MINXY:MAXXY + 1], n_slots, n_ctx, width, height, tile, **kw)
+    """:func:`bin_packed` from packed rows (``pack_binned``): their records
+    (:func:`slot_records`, on any device), binned with the bbox words read
+    from the rows."""
+    return bin_packed(slot_records(tri_i32, tri_f32), tri_i32[MINXY:MAXXY + 1], n_slots, n_ctx, width, height, tile,
+                      **kw)
 
 
 def bin_packed(recs, bbox, n_slots: int, n_ctx: int, width: int, height: int, tile=None, **kw) -> BinnedPrep:

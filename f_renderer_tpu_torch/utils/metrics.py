@@ -247,24 +247,7 @@ class StageTimer:
         self.counts: dict[str, int] = {}
 
     def stage(self, name: str, sync=None):
-        timer = self
-        dev = torch.device(sync) if sync is not None else None
-        cuda = dev is not None and dev.type == "cuda"
-
-        class _Ctx:
-            def __enter__(self):
-                if cuda:
-                    torch.cuda.synchronize(dev)
-                self.span = Span(name, recorder).start()
-
-            def __exit__(self, *exc):
-                if cuda:
-                    torch.cuda.synchronize(dev)
-                self.span.stop()
-                timer.totals[name] = timer.totals.get(name, 0.0) + self.span.ns / 1e9
-                timer.counts[name] = timer.counts.get(name, 0) + 1
-
-        return _Ctx()
+        return _Stage(self, name, sync)
 
     def mean(self, name: str) -> float:
         return self.totals[name] / max(self.counts.get(name, 0), 1)
@@ -278,6 +261,29 @@ class StageTimer:
                 s += f" ({pixels / m / 1e6:.1f} Mpix/s)"
             parts.append(s)
         return "; ".join(parts)
+
+
+class _Stage:
+    """One :meth:`StageTimer.stage` block. A module-level class: a class
+    made per call is a reference cycle left for the garbage collector."""
+
+    def __init__(self, timer: StageTimer, name: str, sync):
+        self.timer, self.name = timer, name
+        self.dev = torch.device(sync) if sync is not None else None
+        self.cuda = self.dev is not None and self.dev.type == "cuda"
+
+    def __enter__(self):
+        if self.cuda:
+            torch.cuda.synchronize(self.dev)
+        self.span = Span(self.name, recorder).start()
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            torch.cuda.synchronize(self.dev)
+        self.span.stop()
+        timer, name = self.timer, self.name
+        timer.totals[name] = timer.totals.get(name, 0.0) + self.span.ns / 1e9
+        timer.counts[name] = timer.counts.get(name, 0) + 1
 
 
 def profiler_trace(log_dir):

@@ -39,10 +39,12 @@
 
 import contextlib
 import dataclasses
+import gc
 import os
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -997,18 +999,18 @@ def test_launches_under_replay_are_read_by_kernel_name():
              "_ZN12_GLOBAL__N_116tri_setup_kernelE16FrTriSetupParamsPKiPKfS4_PiPfPhS5_i",
              "(anonymous namespace)::tri_slots_kernel(FrTriSetupParams, int const*)", "tri_quirk_kernel",
              "(anonymous namespace)::bin_pairs_kernel(FrBinParams, int const*, int*)", "bin_count_kernel",
-             "bin_gather_kernel", "(anonymous namespace)::bin_records_kernel(FrBinParams, int const*, float const*)",
+             "bin_gather_kernel",
              "_ZN12_GLOBAL__N_119shade_planes_kernelE13FrShadeParamsPKfPKiS4_S2_S4_S4_Pi",
              "(anonymous namespace)::interp_records_kernel(FrInterpParams, int const*, int const*, float*, int*)",
              "_ZN12_GLOBAL__N_119stream_merge_kernelE13FrMergeParamsPKfPKiS4_S2_S4_PfPiS6_S6_S5_",
              "_ZN12_GLOBAL__N_117pack_rgba8_kernelE12FrPackParamsPKfPKiPi"]
     assert chip_smoke.kernel_launches(names) == {"fused_raster": 2, "raster_planes": 0, "sample_bilinear": 1,
                                                  "shade_planes": 1, "pack_rgba8": 1, "voxel_march": 1,
-                                                 "voxel_setup": 1, "tri_setup": 1, "bin_pairs": 1, "slot_records": 1,
+                                                 "voxel_setup": 1, "tri_setup": 1, "bin_pairs": 1,
                                                  "interp_records": 1, "stream_merge": 1}
     assert set(chip_smoke.KERNEL_FUNCTIONS) == {"fused_raster", "raster_planes", "sample_bilinear", "shade_planes",
                                                 "pack_rgba8", "voxel_march", "voxel_setup", "tri_setup", "bin_pairs",
-                                                "slot_records", "interp_records", "stream_merge"}
+                                                "interp_records", "stream_merge"}
     spin = "at::cuda::(anonymous namespace)::spin_kernel(long)"
     trace = [(5, spin), (9, names[0]), (7, names[1]), (12, spin), (29, names[7]), (30, names[4]), (31, spin),
              (2, names[2]), (40, names[8]), (41, names[11]), (42, names[12]), (43, spin)]
@@ -1114,6 +1116,47 @@ def test_flatten_round_trip():
     assert back[0]["n"] is None and back[1][1] == 4 and back[2] == ("x", 1.5)
     assert back[0]["m"] is leaves[0]
     assert compiled.flatten(dataclasses.replace(stack, opaque=True))[1] != compiled.flatten(stack)[1]
+
+
+def _leaf_of_flatten():
+    t = torch.ones(3)
+    ref = weakref.ref(t)
+    leaves, spec = compiled.flatten(({"a": [t, 2]}, None))
+    del t, leaves, spec
+    return ref
+
+
+def _output_of_unflatten():
+    spec = compiled.flatten(({"a": [torch.empty(3), 2]}, None))[1]
+    t = torch.ones(3)
+    ref = weakref.ref(t)
+    tree = compiled.unflatten(spec, [t])
+    del t, tree
+    return ref
+
+
+def _output_of_a_cache_hit():
+    cache = compiled.FrameCache(StubGraph, max_bytes=1 << 40)
+    x = torch.ones(4)
+    cache.run("k", torch.neg, (x,), x.device)  # the capture
+    out = cache.run("k", torch.neg, (x,), x.device)  # a replay
+    ref = weakref.ref(out)
+    del out
+    return ref
+
+
+@pytest.mark.parametrize("case", [_leaf_of_flatten, _output_of_unflatten, _output_of_a_cache_hit],
+                         ids=["flatten leaf", "unflatten output", "cache hit output"])
+def test_the_tree_walk_leaves_no_cycle_holding_tensors(case):
+    """With the garbage collector off, a tensor that ``flatten`` took, that
+    ``unflatten`` placed, or that a cache hit returned dies at its last
+    ``del``: no call leaves a reference cycle that holds it."""
+    gc.disable()
+    try:
+        ref = case()
+        assert ref() is None
+    finally:
+        gc.enable()
 
 
 # ---------------------------------------------------------------------------

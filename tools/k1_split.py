@@ -18,7 +18,6 @@ K4 ``rasterize_interp``):
   their tile's list and walk no pair;
 - staging + ballot: every warp tests the staged bboxes and ballots, then
   walks no pair;
-- no spill range: the tiles' lists end after their coarse range;
 - fine range only: the tiles' lists hold their fine range alone;
 - every tile overflows: the plan pass culls, but every tile stages its
   three ranges whole; and with no cull: the plan pass places the tiles and
@@ -46,75 +45,58 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-# Each probe: its forms, each a list of (old, new) replacements in
-# raster_loop.cuh; the first form whose every old line is in the copy, once,
-# is made (the loop before and after the per-tile layout and the culled
-# lists).
+# Each probe: a list of (old, new) replacements in raster_loop.cuh, made
+# where every old line is in the copy, once.
 BALLOT = "uint32_t mask = __ballot_sync(0xFFFFFFFFu, touch);"
 CHUNK_LOOP_END = "before it is refilled\n  }\n"
 LAYOUT = "at.patch = (at.d.flags & TILE_ROWS) == 0;"
 PROBES = {
-    "staging alone": [[
-        ("touch = rows && (mn & 0xFFFF) < wx0 + wcols && (mx & 0xFFFF) > wx0;", "touch = false;"),
-    ], [
+    "staging alone": [
         ("touch = rows && (mn & 0xFFFF) < wr.x0 + wr.cols && (mx & 0xFFFF) > wr.x0;", "touch = false;"),
-    ]],
-    "staging + ballot": [[
+    ],
+    "staging + ballot": [
         ("for (int ci = 0; ci < nchunks; ++ci) {", "uint32_t sink = 0;\n  for (int ci = 0; ci < nchunks; ++ci) {"),
         (BALLOT, BALLOT + " sink += mask; mask = 0u;"),
         (CHUNK_LOOP_END, CHUNK_LOOP_END + "  if (sink == 0x7FFFFFFFu) wpair[0] = 0;\n"),
-    ]],
-    "no spill range": [[
-        ("d.total = d.len01 + off[s + 1] - d.starts[2];", "d.total = d.len01;"),
-    ]],
-    "fine range only": [
-        [("d.total = d.len01 + off[s + 1] - d.starts[2];", "d.len01 = d.len0; d.total = d.len0;")],
-        [("d.total = w + kept;", "d.total = w;"), ("d.total = w + n;", "d.len01 = w; d.total = w;")],
     ],
-    "every tile overflows": [[
+    "fine range only": [("d.total = w + kept;", "d.total = w;"), ("d.total = w + n;", "d.len01 = w; d.total = w;")],
+    "every tile overflows": [
         ("if (kept <= cap) {", "if (false) {"),
-    ]],
-    "every tile overflows, no cull": [[
+    ],
+    "every tile overflows, no cull": [
         ("if (kept <= cap) {", "if (false) {"),
         ("  for (int v0 = 0; v0 < n; v0 += PLAN_ROUND) {", "  for (int v0 = 0; v0 < 0; v0 += PLAN_ROUND) {"),
-    ]],
-    "no row selection": [[
+    ],
+    "no row selection": [
         ("  if (!kPatch || total <= CHUNK) {", "  if (true) {"),
-    ]],
-    "tile read alone": [[
+    ],
+    "tile read alone": [
         ("    at.step = TY * S;\n  }\n  return at;",
          "    at.step = TY * S;\n  }\n  if (at.d.t >= 0) asm volatile(\"exit;\");\n  return at;"),
-    ]],
-    "patches everywhere": [
-        [("constexpr int HEAVY_PAIRS = 256;", "constexpr int HEAVY_PAIRS = 1 << 30;")],
-        [(LAYOUT, "at.patch = true;")],
     ],
-    "rows everywhere": [
-        [("constexpr int HEAVY_PAIRS = 256;", "constexpr int HEAVY_PAIRS = 0;")],
-        [(LAYOUT, "at.patch = false;")],
-    ],
+    "patches everywhere": [(LAYOUT, "at.patch = true;")],
+    "rows everywhere": [(LAYOUT, "at.patch = false;")],
 }
 
 
-def patched(text: str, forms) -> str | None:
-    """``text`` with the first form whose edits all match once made, or None
-    if no form matches."""
-    for edits in forms:
-        if all(text.count(old) == 1 for old, _ in edits):
-            for old, new in edits:
-                text = text.replace(old, new)
-            return text
-    return None
+def patched(text: str, edits) -> str | None:
+    """``text`` with ``edits`` made, or None unless each old text is in it
+    once."""
+    if not all(text.count(old) == 1 for old, _ in edits):
+        return None
+    for old, new in edits:
+        text = text.replace(old, new)
+    return text
 
 
-def variant(csrc: Path, slug: str, forms) -> Path | None:
-    """A copy of ``csrc`` under _build/split/<slug>/ with a form of a probe
-    made in its raster loop → the copy, or None where no form applies."""
+def variant(csrc: Path, slug: str, edits) -> Path | None:
+    """A copy of ``csrc`` under _build/split/<slug>/ with a probe's edits
+    made in its raster loop → the copy, or None where they do not apply."""
     src = ROOT / "f_renderer_tpu_torch" / "_build" / "split" / slug / "csrc"
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(csrc, src)
     loop = src / "raster_loop.cuh"
-    text = patched(loop.read_text(), forms)
+    text = patched(loop.read_text(), edits)
     if text is None:
         return None
     loop.write_text(text)
@@ -156,9 +138,9 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     base = kernels.CSRC.resolve()
-    libraries = {"full": variant(base, "full", [[]])}
-    for label, forms in PROBES.items():
-        src = variant(base, label.replace(" ", "_").replace("+", "and"), forms)
+    libraries = {"full": variant(base, "full", [])}
+    for label, edits in PROBES.items():
+        src = variant(base, label.replace(" ", "_").replace("+", "and"), edits)
         if src is None:
             print(f"[split] {label}: its lines are not in {base}: skipped", flush=True)
             continue

@@ -31,8 +31,8 @@ Run from the repository root on a machine with an NVIDIA H100:
    - ``no_vertex``: no vertex stage, the draw search kept;
    - ``no_draw_of``: the vertex stage kept, every face of draw 0 (its local
      index clamped to that draw's faces);
-   - ``no_tail`` (the kernel after its redesign): no last block, no
-     ticket (so neither the quirk nor the condition);
+   - ``no_tail``: no last block, no ticket (so neither the quirk nor the
+     condition);
    - ``t32``, ``t64``: 32- and 64-thread blocks (the kernel's own: 128).
 
    A probe leaves out work, so its records differ from the kernel's: only
@@ -61,32 +61,28 @@ FAKE_CORNER = ("{ cl[v][0] = 1e-4f * (float)fl - 0.3f; cl[v][1] = 0.1f * (float)
 NO_UNIFORMS = [("if constexpr (Kind != kPlanes) load_uniforms(", "if constexpr (false) load_uniforms(")]
 NO_CORNER = [("vertex_corner<Kind>(in, u, n_ctx, d, fl, v, cl[v], vary[v]);", FAKE_CORNER)]
 NO_DRAW_OF = [("const int d = draw_of(", "const int d = 0 * draw_of("),
-              ("fl = i - __ldg(face_off + d);", "fl = min(i, __ldg(faces) - 1);")]
-# the kernel after its redesign: the draw table in its parameters
-NO_DRAW_OF_NEW = [("const int d = draw_of(", "const int d = 0 * draw_of("),
-                  ("fl = i - draw[kFaceOff];", "fl = min(i, draw[kFaces] - 1);")]
-# Each probe: its forms, each a list of (old, new) replacements; the first
-# form whose every old text is in the copy once is made (the kernel before
-# and after its redesign for phong1080's size).
+              ("fl = i - draw[kFaceOff];", "fl = min(i, draw[kFaces] - 1);")]
+# Each probe: a list of (old, new) replacements, made where every old text
+# is in the copy once.
 PROBES = {
-    "whole": [[]],
-    "stores": [NO_UNIFORMS + NO_CORNER + NO_DRAW_OF, NO_UNIFORMS + NO_CORNER + NO_DRAW_OF_NEW],
-    "no_vertex": [NO_UNIFORMS + NO_CORNER],
-    "no_draw_of": [NO_DRAW_OF, NO_DRAW_OF_NEW],
-    "no_tail": [[("  if (!last_block(acc)) return;\n", "  return;\n")]],
-    "t32": [[("constexpr int kThreads = 128;", "constexpr int kThreads = 32;")]],
-    "t64": [[("constexpr int kThreads = 128;", "constexpr int kThreads = 64;")]],
+    "whole": [],
+    "stores": NO_UNIFORMS + NO_CORNER + NO_DRAW_OF,
+    "no_vertex": NO_UNIFORMS + NO_CORNER,
+    "no_draw_of": NO_DRAW_OF,
+    "no_tail": [("  if (!last_block(acc)) return;\n", "  return;\n")],
+    "t32": [("constexpr int kThreads = 128;", "constexpr int kThreads = 32;")],
+    "t64": [("constexpr int kThreads = 128;", "constexpr int kThreads = 64;")],
 }
 
 
-def patched(text: str, forms) -> str | None:
-    """``text`` with the first form whose edits all match once made, or None."""
-    for edits in forms:
-        if all(text.count(old) == 1 for old, _ in edits):
-            for old, new in edits:
-                text = text.replace(old, new)
-            return text
-    return None
+def patched(text: str, edits) -> str | None:
+    """``text`` with ``edits`` made, or None unless each old text is in it
+    once."""
+    if not all(text.count(old) == 1 for old, _ in edits):
+        return None
+    for old, new in edits:
+        text = text.replace(old, new)
+    return text
 
 
 def build_all(root: Path, probes) -> dict[str, Path]:

@@ -48,38 +48,29 @@ STORES = ("planes[i] = {0}; planes[n + i] = {1}; planes[2 * n + i] = {2}; planes
           "planes[4 * n + i] = {4}; planes[5 * n + i] = {5}; planes[6 * n + i] = {6}; alive[i] = {7}; return;\n")
 UNPROJECT = "  // unprojection (_unproject_dir_planes)\n"
 INTERSECT = "  // VoxelCube::intersect (_cube_intersect_planes)\n"
-# Each probe: its forms, each a list of (old, new) replacements; the first
-# form whose every old text is in the copy once is made (the kernel before
-# and after its redesign for the H100).
+# Each probe: a list of (old, new) replacements, made where every old text
+# is in the copy once.
 PROBES = {
-    "a_stores": [[(UNPROJECT, "  {\n    const float fx = (float)px, fy = (float)py;\n    "
-                   + STORES.format("fx", "fy", "fx", "fy", "fx", "fy", "fx", "(uint8_t)(px & 1)") + "  }\n" + UNPROJECT)]],
-    "b_unproject": [[(INTERSECT, "  " + STORES.format("dx", "dy", "dz", "dx", "dy", "dz", "dx + dy",
-                                                      "(uint8_t)(dz > 0.0f)") + INTERSECT)]],
-    "c_pushes": [
-        [("  // the sort (and dedupe) → start in slot 0, the second point in slot 1\n",
-          "  " + STORES.format(*(f"s.x[{k}] + s.y[{k}] + s.z[{k}]" for k in range(7)),
-                               "(uint8_t)(cnt + (s.x[7] + s.y[7] + s.z[7] > 0.0f))"))],
-        [("  // the two-slot pass's verdict",
-          "  " + STORES.format("s.x0", "s.y0", "s.z0", "s.x1", "s.y1", "s.z1", "(float)s.cnt", "(uint8_t)s.cnt")
-          + "  // the two-slot pass's verdict")],
-    ],
-    "d_whole": [[]],
-    "e_no_sort": [
-        [("  } else {\n    sort_and_dedupe(s, cnt, e0, e1, e2);\n  }\n", "  }\n")],
-        [("  if (eight) {", "  if (false) {")],
-    ],
+    "a_stores": [(UNPROJECT, "  {\n    const float fx = (float)px, fy = (float)py;\n    "
+                  + STORES.format("fx", "fy", "fx", "fy", "fx", "fy", "fx", "(uint8_t)(px & 1)") + "  }\n" + UNPROJECT)],
+    "b_unproject": [(INTERSECT, "  " + STORES.format("dx", "dy", "dz", "dx", "dy", "dz", "dx + dy",
+                                                     "(uint8_t)(dz > 0.0f)") + INTERSECT)],
+    "c_pushes": [("  // the two-slot pass's verdict",
+                  "  " + STORES.format("s.x0", "s.y0", "s.z0", "s.x1", "s.y1", "s.z1", "(float)s.cnt", "(uint8_t)s.cnt")
+                  + "  // the two-slot pass's verdict")],
+    "d_whole": [],
+    "e_no_sort": [("  if (eight) {", "  if (false) {")],
 }
 
 
-def patched(text: str, forms) -> str | None:
-    """``text`` with the first form whose edits all match once made, or None."""
-    for edits in forms:
-        if all(text.count(old) == 1 for old, _ in edits):
-            for old, new in edits:
-                text = text.replace(old, new)
-            return text
-    return None
+def patched(text: str, edits) -> str | None:
+    """``text`` with ``edits`` made, or None unless each old text is in it
+    once."""
+    if not all(text.count(old) == 1 for old, _ in edits):
+        return None
+    for old, new in edits:
+        text = text.replace(old, new)
+    return text
 
 
 def build_all(root: Path, probes) -> dict[str, Path]:
@@ -94,8 +85,7 @@ def build_all(root: Path, probes) -> dict[str, Path]:
     shutil.rmtree(out, ignore_errors=True)
     jobs = {}
     for name in probes:
-        forms = PROBES[name]
-        text = patched(base, forms)
+        text = patched(base, PROBES[name])
         if text is None:
             print(f"[voxel_split] {name}: its lines are not in {csrc / 'voxel_setup.cu'}: skipped", flush=True)
             continue
