@@ -69,6 +69,14 @@ Phases, each reported on its own lines:
      as a strided view and with every pixel background; its ``ptxas`` line
      with no stack frame or spills, its occupancy, its time beside its
      bound (every pixel's colour, and the least bytes) and ``_pack``'s time;
+   - the compaction of K4's planes for a user's shader
+     (csrc/compact_planes.cu): against ``shade.compact_planes_plain`` bit
+     for bit on phong1080's planes at the bench angles and cut or grown to
+     every rung and the whole frame's; the pack's slot form against
+     ``_pack``'s, and the compact path's frame against the shader on the
+     whole frame, byte for byte; its ``ptxas`` line with no stack frame or
+     spills, its occupancy, its time beside its bound, the shader's time
+     on the rung and on the whole frame;
    - the voxel ray set-up kernel (csrc/voxel_setup.cu, XLA's fusion of the
      JAX package's set-up): voxel540's 10 orbit views, the tests' crafted
      view (a zero direction, rays on a grid plane and along ±x), eyes
@@ -275,7 +283,7 @@ EAGER_FRAMES = 3  # the eager frames run beside a graph path's, its first ones
 # Each wrapper's kernel function (csrc/), as the device's trace names it.
 KERNEL_FUNCTIONS = {"fused_raster": "fused_raster_kernel", "raster_planes": "raster_planes_kernel",
                     "sample_bilinear": "sample_bilinear_kernel", "shade_planes": "shade_planes_kernel",
-                    "pack_rgba8": "pack_rgba8_kernel",
+                    "pack_rgba8": "pack_rgba8_kernel", "compact_planes": "compact_planes_kernel",
                     "voxel_march": "voxel_march_kernel",
                     "voxel_setup": "voxel_setup_kernel", "tri_setup": "tri_setup_kernel",
                     "bin_pairs": "bin_pairs_kernel",
@@ -299,6 +307,7 @@ PHONG_GRAPH_NODES = 126  # phong1080's render() graph: half the 252 nodes it hel
 TEX2048_GRAPH_NODES = 137 // 2 + 1
 TEX2048_CHECKSUM = 95260
 SHADE_THREADS = 128  # shade_planes_kernel's block (csrc/shade_planes.cu: kThreads)
+COMPACT_THREADS = 256  # compact_planes_kernel's block (csrc/compact_planes.cu: kThreads)
 
 failures = []
 
@@ -702,7 +711,21 @@ class DeviceTrace(Trace):
     or memcpy executed, graph replays included): ``with DeviceTrace() as
     trace: ...``, then ``trace.records``, (start ns, end ns, name) of every
     record in time order, a memset named ``[memset]`` and a memcpy
-    ``[memcpy]``, and ``trace.kernels``."""
+    ``[memcpy]``, and ``trace.kernels``.
+
+    ``trace.records`` holds every record CUPTI delivered with its device
+    stamps, unclipped: the activity kinds are on only while the block runs,
+    after a synchronise, so each is work the block ran. The base class's
+    clip to the window's host stamps drops a record whose device stamp lies
+    a few microseconds outside them (a spin marker launched after the open,
+    stamped 9 us before it), and so a stretch between two markers; CUPTI's
+    incomplete records (stamps 0) are left out."""
+
+    def __exit__(self, *exc):
+        delivered = self.records  # the list CUPTI's callback appends to
+        super().__exit__(*exc)
+        self.records = sorted(r for r in delivered if r[0] and r[1])
+        return False
 
     @property
     def kernels(self):
@@ -2668,6 +2691,167 @@ def pack_phase(dev, smi, rows):
         f"B), share {b_ms / cold_ms:.3f}; every pixel's colour {all_bytes} B, {a_ms:.4f} ms (CUDA events; {smi})")
 
 
+def compact_phase(dev, smi, rows):
+    """3c''. the compaction of K4's planes for a user's pixel shader
+    (csrc/compact_planes.cu) against its plain version
+    ``shade.compact_planes_plain``, bit for bit (count, rung, slot map, the
+    rung's rows of the compact planes), one launch each: K4's planes of
+    phong1080 at the bench angles (custom_tex1080's frames) and those
+    planes with the winner cut or grown to land in every rung and the whole
+    frame's; the pack's slot form against ``_pack``'s, byte for byte, on
+    custom_tex1080's colour computed on the rung; and the frame of the
+    compact path (``shade.shade_from_planes``: the compaction, the user's
+    shader on the rung, the pack by slot) byte-equal to the user's shader
+    on the whole frame packed by pixel. Its ``ptxas`` line (no stack frame
+    or spills), occupancy, device time (L2 flushed before each launch, and
+    back to back), its bound: the least bytes (the winner and the slot map
+    a pixel, a covered pixel's texture id and C varyings read, the rung's
+    slots written); the pack's slot form and the shading (the user's ops
+    and K3) on the rung against the whole frame, CUDA events."""
+    import re
+
+    import torch
+
+    from benchmark.shaders import phong_rs
+    from f_renderer_tpu_torch import kernels
+    from f_renderer_tpu_torch.pipeline import raster, shade
+    from f_renderer_tpu_torch.pipeline.render import build_triangles, context_codec
+
+    log("[kernel-vs-plain] compact_planes (a user shader's covered pixels compacted, the frame's rung)")
+    lines = [line for line in kernels.ptxas_report() if line.startswith("compact_planes_kernel:")]
+    for line in lines:
+        log(f"  ptxas {line}")
+    check(any("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in line for line in lines),
+          f"compact_planes_kernel: a stack frame or spills ({lines})")
+    used = [line for line in lines if "registers" in line]
+    occ = None
+    if check(len(used) == 1, f"compact_planes_kernel: no ptxas register line ({lines})"):
+        regs = int(re.search(r"Used (\d+) registers", used[0]).group(1))
+        occ = occupancy(regs, 0, COMPACT_THREADS)
+        log(f"  occupancy compact_planes_kernel: {regs} registers, {COMPACT_THREADS} threads: {occ[0]} blocks an "
+            f"SM, {occ[1]:.2f} of its warps ({smi})")
+
+    scene = build_scene("phong1080", dev)
+    codec = context_codec(scene.vertex_shader, scene.vs_uniform, scene.draws[0])
+    bg = scene.config.background
+
+    def planes(angle):
+        """K4's cropped planes of phong1080 at ``angle`` → (ctx, ps, winner)."""
+        set_angle(scene, angle)
+        tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)
+        prep = plain_prep(tri, scene.config, bin_k=scene.config.bin_k)
+        _, winner, ps, ctx = raster.raster_planes(prep, True)
+        h, w = prep.height, prep.width
+        return ctx[:, :h, :w], ps[:h, :w], winner[:h, :w]
+
+    def with_count(winner, count):
+        """``winner`` with ``count`` covered pixels: its first ones in raster
+        order, or all and its first background pixels taken as covered."""
+        cov = (winner >= 0).reshape(-1)
+        extra = count - int(cov.sum())
+        keep = cov & (torch.cumsum(cov, 0) <= count)
+        add = ~cov & (torch.cumsum(~cov, 0) <= extra)
+        return torch.where(keep, winner.reshape(-1), torch.where(add, 0, -1)).reshape(winner.shape).to(torch.int32)
+
+    def compare(tag, ctx, ps, winner):
+        before = kernels.compact_planes.launches
+        got = shade.compact_planes(ctx, ps, winner)
+        launched = kernels.compact_planes.launches - before
+        want = plain(shade.compact_planes_plain, ctx, ps, winner)
+        k = int(want.rung)
+        ok = int(got.count) == int(want.count) and int(got.rung) == k and torch.equal(got.slots, want.slots)
+        if k < shade.WHOLE:
+            r = shade.rung_rows(winner.shape[0])[k]
+            ok = ok and torch.equal(got.ps[:r], want.ps[:r]) and torch.equal(
+                got.ctx[:, :r].view(torch.int32), want.ctx[:, :r].view(torch.int32))
+        check(launched == 1 and ok, f"compact_planes {tag}: {launched} launches, equal to the plain version's {ok}")
+        name = "the whole frame" if k == shade.WHOLE else f"{shade.RUNGS[k]}/8"
+        log(f"  {tag}: {int(want.count)} covered of {winner.numel()}, rung {k} ({name}), {launched} launch, count, "
+            f"rung, slots and the rung's compact rows equal to the plain version's={ok}")
+        return got
+
+    for angle in ANGLES:
+        compare(f"phong1080@{angle}", *planes(angle))
+    ctx, ps, winner = planes(ANGLES[0])
+    h, w = winner.shape
+    caps = [0] + [r * w for r in shade.rung_rows(h)] + [h * w]
+    seen = set()
+    for k in range(shade.WHOLE + 1):
+        for count in (caps[k] + (k > 0), caps[k + 1]):
+            seen.add(int(compare(f"phong1080@{ANGLES[0]} cut or grown to {count} covered", ctx, ps,
+                                 with_count(winner, count)).rung))
+    check(seen == set(range(shade.WHOLE + 1)), f"compact_planes: the crafted frames reached rungs {sorted(seen)}")
+
+    # the pack's slot form and the compact path's frame, custom_tex1080's shader
+    comp = shade.compact_planes(ctx, ps, winner)
+    k = int(comp.rung)
+    r = shade.rung_rows(h)[k]
+    color = phong_rs.pixel(scene.ps_uniform, codec.unflatten(comp.ctx[:, :r]), comp.ps[:r])
+    before = kernels.pack_rgba8.launches
+    got = shade.pack_frame(color, winner, bg, slots=comp.slots)
+    want = plain(shade._pack, color, winner, bg, slots=comp.slots)
+    equal = torch.equal(got, want)
+    check(kernels.pack_rgba8.launches == before + 1 and equal, f"pack_rgba8 by slot: equal to _pack's {equal}")
+    whole_ps = torch.where(winner >= 0, ps, -1)
+    whole = shade.pack_frame(phong_rs.pixel(scene.ps_uniform, codec.unflatten(ctx), whole_ps), winner, bg)
+    frame = shade.shade_from_planes(ctx, ps, winner, phong_rs.pixel, scene.ps_uniform, codec, background=bg)
+    same_frame = torch.equal(frame, whole) and torch.equal(got, whole)
+    check(same_frame, f"custom_tex1080@{ANGLES[0]}: the compact path's frame differs from the whole frame's "
+                      f"({int((frame != whole).any(-1).sum())} pixels)")
+    log(f"  custom_tex1080@{ANGLES[0]}: rung {k} ({r} rows), the pack by slot byte-equal to _pack's={equal}; the "
+        f"compact path's frame byte-equal to the shader on the whole frame packed by pixel={same_frame}")
+
+    entry = kernel_call("compact_planes", lambda: shade.compact_planes(ctx, ps, winner))
+    k_ms, p_ms, w_ms, each = timed(lambda: shade.compact_planes(ctx, ps, winner), entry,
+                                   lambda: shade.compact_planes_plain(ctx, ps, winner), 50, 5)
+    cold = [cold_device_ms(entry, 20) for _ in range(2)]
+    cold_ms = sum(cold) / 2
+    n, n_cov, c = winner.numel(), int(comp.count), ctx.shape[0]
+    nbytes = 8 * n + 4 * (c + 1) * n_cov + 4 * (c + 1) * r * w  # winner, slots; covered read; the rung written
+    ops = 8 * n
+    b_ms, b_by = bound_ms(nbytes, ops)
+    # the kernel split by its inputs: the whole frame's rung (every rung 0
+    # rows: the counts, the barrier and the slot map), no varyings (the
+    # texture ids copied), a 1 x 1 frame (the launch and the grid's barrier)
+    forms = {"slot_map_alone": (ctx, ps, winner, (0,) * shade.WHOLE), "no_varyings": (ctx[:0], ps, winner, None),
+             "one_pixel": (ctx[:, :1, :1], ps[:1, :1], winner[:1, :1], (1,) * shade.WHOLE)}
+    split_ms = {}
+    for name, (c_, p_, w_, rows_) in forms.items():
+        rows_ = shade.rung_rows(h) if rows_ is None else rows_
+        split_ms[name] = cold_device_ms(
+            lambda c_=c_, p_=p_, w_=w_, r_=rows_: kernels.compact_planes(c_, p_, w_, r_), 20)
+    pack = kernel_call("pack_rgba8", lambda: shade.pack_frame(color, winner, bg, slots=comp.slots))
+    pack_cold = cold_device_ms(pack, 20)
+    whole_color = lambda: phong_rs.pixel(scene.ps_uniform, codec.unflatten(ctx), whole_ps)  # noqa: E731
+    rung_color = lambda: phong_rs.pixel(scene.ps_uniform, codec.unflatten(comp.ctx[:, :r]), comp.ps[:r])  # noqa: E731
+    rung_color(), whole_color()
+    shading = {"rung_ms": [cuda_ms(rung_color, 20) for _ in range(2)],
+               "whole_ms": [cuda_ms(whole_color, 20) for _ in range(2)]}
+    path_ms = [cuda_ms(lambda: shade.shade_from_planes(ctx, ps, winner, phong_rs.pixel, scene.ps_uniform, codec,
+                                                       background=bg), 20) for _ in range(2)]
+    rows["compact_planes"] = {
+        "name": "compact_planes (a user shader's covered pixels compacted, the frame's rung)", "route": "cuda",
+        "source": "f_renderer_tpu_torch/csrc/compact_planes.cu",
+        "replaces": "none: the JAX package shades the whole frame (f_renderer_tpu/pipeline/shade.py:80-)",
+        "ms": cold_ms, "ms_each": cold, "warm_ms": k_ms, "warm_ms_each": each[:2], "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "wrapper_ms": w_ms, "bytes": nbytes, "ops": ops,
+        "covered": n_cov, "pixels": n, "rung": k, "rung_rows": r, "ptxas": lines, "split_ms": split_ms,
+        "pack_by_slot_ms": pack_cold, "shader_on_rung_ms": shading["rung_ms"],
+        "shader_on_whole_ms": shading["whole_ms"], "compact_path_ms": path_ms,
+        "occupancy": None if occ is None else {"blocks": occ[0], "warps": occ[1]},
+    }
+    log(f"  custom_tex1080@{ANGLES[0]} compact_planes time ({n} pixels, {n_cov} covered, rung {k}): kernel "
+        f"{cold[0]:.4f} / {cold[1]:.4f} ms (device, L2 flushed), {each[0]:.4f} / {each[1]:.4f} ms (back to back); "
+        f"plain {each[2]:.4f} / {each[3]:.4f} ms; bound {b_ms:.4f} ms by {b_by} ({nbytes} B), share "
+        f"{b_ms / cold_ms:.3f}; the pack by slot {pack_cold:.4f} ms (L2 flushed); the user's shader on the rung "
+        f"{shading['rung_ms'][0]:.4f} / {shading['rung_ms'][1]:.4f} ms, on the whole frame "
+        f"{shading['whole_ms'][0]:.4f} / {shading['whole_ms'][1]:.4f} ms; the compact path (compaction, shader, "
+        f"pack; eager, host included) {path_ms[0]:.4f} / {path_ms[1]:.4f} ms (CUDA events; {smi})")
+    log(f"  compact_planes split (L2 flushed): the slot map alone (the whole frame's rung) "
+        f"{split_ms['slot_map_alone']:.4f} ms, with the texture ids {split_ms['no_varyings']:.4f} ms, a 1 x 1 frame "
+        f"{split_ms['one_pixel']:.4f} ms ({smi})")
+
+
 def demos_phase(dev, smi):
     """4c. the three demos (``f_renderer_tpu_torch/demos``) at their default
     sizes on the card, as a user starts them. Each runs ``DEMO_FRAMES``
@@ -3149,6 +3333,7 @@ def main() -> int:
     shade_phase(dev, smi, rows)
     log(f"[time] {time.time() - t_start:.1f} s")
     pack_phase(dev, smi, rows)
+    compact_phase(dev, smi, rows)
 
     # 3d. the voxel ray set-up kernel against plain: the eight planes, then
     # the frames K5 marches from them
@@ -3401,7 +3586,7 @@ def main() -> int:
     graph_times = {}  # path → its graph's times, input bytes and nodes, as graph_path logged them
 
     def graph_path(path, entry, eager, frames, expect, shape, keys, geometries=0, max_nodes=None, own_nodes=None,
-                   own_names=None):
+                   own_names=None, in_rungs=()):
         """A main path through its entry point, whose frames replay one
         captured graph (``entry(i)``: frame i), beside its first
         ``EAGER_FRAMES`` frames run eagerly (``eager(i)``): the first call
@@ -3414,7 +3599,11 @@ def main() -> int:
         shard's in the sharded frame and the grids), and fewer than
         ``max_nodes`` nodes where that is given, ``own_nodes`` where
         that is given, and the nodes ``own_names`` names (each a port
-        kernel's function) where that is given. The counted run of its first frames as replays (launches from
+        kernel's function) where that is given. A user's pixel shader
+        (``in_rungs``: the wrappers its frame launches inside each rung's
+        body) adds a conditional node a rung of the ladder and the whole
+        frame's (``shade.WHOLE + 1``), those wrappers' nodes once in each
+        body. The counted run of its first frames as replays (launches from
         the device's trace) comes in 4b, after every timing, so that no time
         is taken after tracing: ``keys`` maps the JSON line's launch keys to
         wrapper names."""
@@ -3429,9 +3618,12 @@ def main() -> int:
         frame = compiled.CACHE.last
         nodes, conds, own, in_bodies, names = graph_summary(frame)
         per_frame = {k: n // frames for k, n in expect.items()}
-        check(nodes == per_frame, f"{path}: the graph holds kernel nodes {nodes}, one frame launches {per_frame}")
-        check(conds == geometries, f"{path}: the graph holds {conds} conditional nodes, not one for each of its "
-                                   f"{geometries} geometries")
+        bodies = shade.WHOLE + 1 if in_rungs else 0
+        in_graph = {k: n * bodies if k in in_rungs else n for k, n in per_frame.items()}
+        check(nodes == in_graph, f"{path}: the graph holds kernel nodes {nodes}, not {in_graph} (one frame launches "
+                                 f"{per_frame}, {bodies} rungs' bodies)")
+        check(conds == geometries + bodies, f"{path}: the graph holds {conds} conditional nodes, not one for each "
+                                            f"of its {geometries} geometries and {bodies} rungs")
         if max_nodes is not None:
             check(own < max_nodes, f"{path}: the graph holds {own} nodes, not fewer than {max_nodes}")
             log(f"[graph] {path}: {own} nodes (fewer than {max_nodes}: {own < max_nodes})")
@@ -3718,11 +3910,11 @@ def main() -> int:
 
     outs = graph_path("custom_tex1080 Scene.render()", custom_tex_frame, custom_tex_eager, FRAMES,
                       dict(zero, raster_planes=FRAMES, sample_bilinear=FRAMES, tri_setup=FRAMES, bin_pairs=FRAMES,
-                           pack_rgba8=FRAMES),
+                           pack_rgba8=FRAMES, compact_planes=FRAMES),
                       (h, w, 4), {"K3": "sample_bilinear", "K4 custom_tex1080": "raster_planes",
                                   "tri_setup custom_tex1080": "tri_setup", "bin_pairs custom_tex1080": "bin_pairs",
-                                  "pack_rgba8": "pack_rgba8"},
-                      geometries=1)
+                                  "pack_rgba8": "pack_rgba8", "compact_planes": "compact_planes"},
+                      geometries=1, in_rungs=("sample_bilinear", "pack_rgba8"))
     builtin_tex = dataclasses.replace(scene, pixel_shader=make_textured_shaders()[1],
                                       config=dataclasses.replace(scene.config, fused_shade=False))
     before = kernels.shade_planes.launches
@@ -3750,9 +3942,10 @@ def main() -> int:
 
     w, h = SIZES["custom12_360"]
     graph_path("custom12_360 Scene.render()", custom_frame, custom_eager, 3,
-               dict(zero, raster_planes=3, tri_setup=3, bin_pairs=3, pack_rgba8=3), (h, w, 4),
+               dict(zero, raster_planes=3, tri_setup=3, bin_pairs=3, pack_rgba8=3, compact_planes=3), (h, w, 4),
                {"K4 custom12_360": "raster_planes", "tri_setup custom12_360": "tri_setup",
-                "bin_pairs custom12_360": "bin_pairs", "pack_rgba8 custom12_360": "pack_rgba8"}, geometries=1)
+                "bin_pairs custom12_360": "bin_pairs", "pack_rgba8 custom12_360": "pack_rgba8",
+                "compact_planes custom12_360": "compact_planes"}, geometries=1, in_rungs=("pack_rgba8",))
     set_angle(scene, 0.3)
     clip_flip("custom12_360 Scene.render()", scene, scene.render, lambda: render_eager(scene))
 
@@ -4047,6 +4240,7 @@ def main() -> int:
     rows["shade_planes"]["launches_grid_2x4_stream_graph"] = launches["shade_planes grid 2x4 stream graph"]
     rows["K4"]["launches_custom_tex1080"] = launches["K4 custom_tex1080"]
     rows["pack_rgba8"]["launches_custom12_360"] = launches["pack_rgba8 custom12_360"]
+    rows["compact_planes"]["launches_custom12_360"] = launches["compact_planes custom12_360"]
     rows["stream_merge"]["launches_per_frame"] = rows["stream_merge"]["launches"] // EAGER_FRAMES
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed:")

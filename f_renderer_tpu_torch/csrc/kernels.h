@@ -86,17 +86,58 @@ int fr_shade_planes(FrShadeParams p, const float* ctx, const int32_t* ps, const 
 // Mirrors kernels.PackParams: int64 strides, then int32 fields (no padding).
 typedef struct FrPackParams {
   int64_t color_channel, color_row, color_col;  // the colour's strides, in elements
-  int64_t winner_row, winner_col;               // the winner plane's strides, in elements
+  int64_t winner_row, winner_col;               // the key plane's strides, in elements
   int32_t h, w;                                 // the frame's rows and columns
   int32_t bg_packed;                            // background RGBA8
+  int32_t slot_w;                               // 0: the key is the winner; else a slot map, the colour's columns
+  int32_t slot_rows;                            // with a slot map: the colour's rows
   int32_t pad;
 } FrPackParams;
 
 // The RGBA8 pack of a user pixel shader's colour (csrc/pack_rgba8.cu):
-// color (4, h, w) f32 and winner (h, w) int32, each through any strides →
-// out (h, w) int32 RGBA8, contiguous: clip(c * 255, 0, 255) truncated a
-// channel, NaN to 0, bg_packed where winner < 0.
-int fr_pack_rgba8(FrPackParams p, const float* color, const int32_t* winner, int32_t* out, void* stream);
+// the (h, w) int32 key plane and the f32 colour, each through any strides
+// → out (h, w) int32 RGBA8, contiguous: clip(c * 255, 0, 255) truncated a
+// channel, NaN to 0, bg_packed where the key is < 0. With slot_w 0 the key
+// is the winner and the colour (4, h, w), read at the pixel; else the key
+// is a slot map (compact_planes) and the colour (4, slot_rows, slot_w), a
+// covered pixel's read at its slot s: row s / slot_w, column s % slot_w; a
+// slot past the colour's packs bg_packed (a rung too small for the frame,
+// which a captured frame's warm-up runs and discards).
+int fr_pack_rgba8(FrPackParams p, const float* color, const int32_t* key, int32_t* out, void* stream);
+
+// The compaction of K4's planes to their covered pixels (csrc/compact_planes.cu).
+#define FR_RUNGS 5                  // the ladder's rungs (pipeline/shade.py RUNGS); rung FR_RUNGS: the whole frame
+#define FR_COMPACT_MAX_BLOCKS 4096  // the grid's most blocks: the block-count words after info's first two
+#define FR_TALLY_WORDS (FR_RUNGS + 4)
+
+// Mirrors kernels.CompactParams: int64 strides, the conditions, then int32
+// fields (no padding).
+typedef struct FrCompactParams {
+  int64_t winner_row, winner_col, ps_row, ps_col;  // the planes' strides, in elements
+  int64_t ctx_channel, ctx_row, ctx_col;
+  unsigned long long cond[FR_RUNGS + 1];  // with conds: each rung's conditional node, the whole frame's last
+  int32_t h, w, n_ctx;
+  int32_t rmax;                           // the compact planes' rows: rows[FR_RUNGS - 1]
+  int32_t rows[FR_RUNGS];                 // each rung's rows, ascending
+  int32_t conds;                          // 1 where cond holds a capture's handles
+  int32_t chunk;                          // pixels a block (set by fr_compact_planes)
+  int32_t pad;
+} FrCompactParams;
+
+// winner, ps (h, w) int32 and ctx (n_ctx, h, w) f32, each through its
+// strides → info[0] the covered pixels (winner >= 0), info[1] the rung: the
+// first whose rows[k] * w slots hold them, else FR_RUNGS (info holds
+// 2 + FR_COMPACT_MAX_BLOCKS words, the rest scratch); slots (h, w) int32,
+// contiguous: a covered pixel's slot, in raster order, -1 elsewhere; on a
+// rung k < FR_RUNGS, ps_c (rmax, w) int32 and ctx_c (n_ctx, rmax, w) f32,
+// contiguous: the covered pixels' planes at their slots, then ps -1 and
+// zeros to rows[k] * w; on the whole frame's rung they are not written.
+// With p.conds, each condition set to whether its rung is the frame's;
+// tally (FR_TALLY_WORDS) uint64, where not null: one more frame at the rung,
+// then the covered pixels, the pixels shaded (the rung's slots, or h * w)
+// and the frame's pixels added to words FR_RUNGS + 1 .. FR_RUNGS + 3.
+int fr_compact_planes(FrCompactParams p, const int32_t* winner, const int32_t* ps, const float* ctx, int32_t* info,
+                      int32_t* slots, int32_t* ps_c, float* ctx_c, unsigned long long* tally, void* stream);
 
 // Mirrors kernels.VoxelParams: int32 and float fields only (no padding).
 typedef struct FrVoxelParams {

@@ -22,6 +22,15 @@
 // is not copied); a background pixel reads no colour; each pixel's four
 // bytes go out as one 32-bit store, a warp's 128 contiguous bytes. The
 // grid's rows step over the frame's rows, so any height launches.
+//
+// Its slot form (slot_w > 0) packs a colour that a user's shader computed on
+// the compacted covered pixels (compact_planes.cu): the key plane is the
+// slot map, -1 on a background pixel, and a covered pixel reads its colour
+// at its slot, row s / slot_w and column s % slot_w of the (4, R, slot_w)
+// colour; a slot past its R · slot_w packs the background (a rung too small
+// for the frame: a captured frame's warm-up runs every rung and keeps one).
+// Neighbouring covered pixels hold neighbouring slots, so a warp still
+// reads runs of neighbouring words.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,16 +44,19 @@ constexpr int kMaxGridRows = 65535;  // gridDim.y's limit
 
 __global__ void __launch_bounds__(kThreads)
 pack_rgba8_kernel(const FrPackParams p, const float* __restrict__ color,
-                  const int32_t* __restrict__ winner, int32_t* __restrict__ out) {
+                  const int32_t* __restrict__ key, int32_t* __restrict__ out) {
   const int x = blockIdx.x * kThreads + threadIdx.x;
   if (x >= p.w) return;
   for (int y = blockIdx.y; y < p.h; y += gridDim.y) {
     const size_t o = (size_t)y * p.w + x;
-    if (__ldg(winner + y * p.winner_row + x * p.winner_col) < 0) {
+    const int32_t k = __ldg(key + y * p.winner_row + x * p.winner_col);
+    const int r = p.slot_w > 0 ? k / p.slot_w : y;  // with a slot map, k is the pixel's slot
+    if (k < 0 || (p.slot_w > 0 && r >= p.slot_rows)) {
       out[o] = p.bg_packed;
       continue;
     }
-    const float* px = color + y * p.color_row + x * p.color_col;
+    const float* px = p.slot_w > 0 ? color + r * p.color_row + (k - r * p.slot_w) * p.color_col
+                                    : color + y * p.color_row + x * p.color_col;
     const float col[4] = {__ldg(px), __ldg(px + p.color_channel), __ldg(px + 2 * p.color_channel),
                           __ldg(px + 3 * p.color_channel)};
     out[o] = fr::pack_rgba8(col);
@@ -53,11 +65,11 @@ pack_rgba8_kernel(const FrPackParams p, const float* __restrict__ color,
 
 }  // namespace
 
-extern "C" int fr_pack_rgba8(FrPackParams p, const float* color, const int32_t* winner, int32_t* out,
+extern "C" int fr_pack_rgba8(FrPackParams p, const float* color, const int32_t* key, int32_t* out,
                              void* stream) {
-  if (p.h < 0 || p.w < 0) return (int)cudaErrorInvalidValue;
+  if (p.h < 0 || p.w < 0 || p.slot_w < 0 || p.slot_rows < 0) return (int)cudaErrorInvalidValue;
   if (p.h == 0 || p.w == 0) return (int)cudaSuccess;
   const dim3 grid((unsigned)((p.w + kThreads - 1) / kThreads), (unsigned)(p.h < kMaxGridRows ? p.h : kMaxGridRows));
-  pack_rgba8_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(p, color, winner, out);
+  pack_rgba8_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(p, color, key, out);
   return (int)cudaGetLastError();
 }

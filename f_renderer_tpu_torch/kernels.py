@@ -20,6 +20,10 @@ The kernels (the TPU kernel each replaces in brackets):
   shaders/builtin.py:67-163, the sampler shaders/texture.py:155);
 - ``pack_rgba8`` — no Pallas kernel: XLA's fusion of the RGBA8 pack after a
   user's pixel shader on the non-fused path (pipeline/shade.py:112-…);
+- ``compact_planes`` — no TPU kernel: the covered pixels of K4's planes
+  gathered in raster order and the frame's rung of the ladder chosen, so a
+  user's pixel shader runs on them and not on the whole frame (the JAX
+  package shades the whole frame, pipeline/shade.py:80-…);
 - ``voxel_march`` — K5 (voxel/raycast_pallas.py:393);
 - ``voxel_setup`` — no Pallas kernel: XLA's fusion of the voxel ray set-up
   (voxel/raycast.py:34-264, fenced at raycast_pallas.py:310);
@@ -117,7 +121,23 @@ class PackParams(ctypes.Structure):
 
     _fields_ = ([(name, ctypes.c_int64) for name in ("color_channel", "color_row", "color_col", "winner_row",
                                                      "winner_col")]
-                + [(name, ctypes.c_int32) for name in ("h", "w", "bg_packed", "pad")])
+                + [(name, ctypes.c_int32) for name in ("h", "w", "bg_packed", "slot_w", "slot_rows", "pad")])
+
+
+N_RUNGS = 5  # FR_RUNGS: the ladder's rungs (pipeline/shade.py RUNGS); rung N_RUNGS is the whole frame
+COMPACT_MAX_BLOCKS = 4096  # FR_COMPACT_MAX_BLOCKS
+TALLY_WORDS = N_RUNGS + 4  # FR_TALLY_WORDS: frames a rung (the whole frame's last), covered, shaded, frame pixels
+
+
+class CompactParams(ctypes.Structure):
+    """Mirror of ``FrCompactParams`` in csrc/kernels.h."""
+
+    _fields_ = ([(name, ctypes.c_int64) for name in ("winner_row", "winner_col", "ps_row", "ps_col", "ctx_channel",
+                                                     "ctx_row", "ctx_col")]
+                + [("cond", ctypes.c_uint64 * (N_RUNGS + 1))]
+                + [(name, ctypes.c_int32) for name in ("h", "w", "n_ctx", "rmax")]
+                + [("rows", ctypes.c_int32 * N_RUNGS)]
+                + [(name, ctypes.c_int32) for name in ("conds", "chunk", "pad")])
 
 
 class VoxelParams(ctypes.Structure):
@@ -264,6 +284,7 @@ def load_library() -> ctypes.CDLL:
     lib.fr_sample_bilinear.argtypes = [ptr, ptr] + [i32] * 5 + [ptr] * 4 + [ctypes.c_int64, ptr]
     lib.fr_shade_planes.argtypes = [ShadeParams] + [ptr] * 8
     lib.fr_pack_rgba8.argtypes = [PackParams] + [ptr] * 4
+    lib.fr_compact_planes.argtypes = [CompactParams] + [ptr] * 9
     lib.fr_voxel_march.argtypes = [VoxelParams] + [ptr] * 13
     lib.fr_voxel_setup.argtypes = [i32, i32, ctypes.c_float] + [ptr] * 5
     u64 = ctypes.c_uint64
@@ -280,7 +301,7 @@ def load_library() -> ctypes.CDLL:
     lib.fr_if_node_end.argtypes = [ptr]
     lib.fr_stream_create.argtypes = [ctypes.POINTER(ptr)]
     for fn in (lib.fr_fused_raster, lib.fr_raster_planes, lib.fr_sample_bilinear, lib.fr_shade_planes,
-               lib.fr_pack_rgba8, lib.fr_voxel_march,
+               lib.fr_pack_rgba8, lib.fr_compact_planes, lib.fr_voxel_march,
                lib.fr_voxel_setup, lib.fr_tri_setup, lib.fr_tri_setup_vertex, lib.fr_tri_setup_slots,
                lib.fr_tri_quirk, lib.fr_interp_records, lib.fr_stream_merge,
                lib.fr_bin_pairs,
@@ -639,32 +660,105 @@ def shade_planes(ctx, ps, winner, view_pos, dims, texels, *, kind, varyings, opa
 shade_planes.launches = 0
 
 
-def pack_rgba8(color, winner, bg_packed):
+def pack_rgba8(color, winner, bg_packed, *, slots=None, out=None):
     """Launch the RGBA8 pack of a user pixel shader's colour
     (csrc/pack_rgba8.cu) on PyTorch's current stream: ``color`` (4, H, W)
     f32 and ``winner`` (H, W) int32 on one device, each read through its
     strides, whatever they are → (H, W) int32 RGBA8, r in the low byte:
     ``clip(c · 255, 0, 255)`` truncated a channel, NaN to 0, and
-    ``bg_packed`` where winner < 0. ValueError on another dtype or shape."""
-    dev = _on_cuda(winner, "pack_rgba8")
-    if winner.dtype != torch.int32 or winner.dim() != 2:
-        raise ValueError(f"pack_rgba8: need an (H, W) int32 winner, got {winner.dtype} {tuple(winner.shape)}")
-    h, w = winner.shape
-    if color.device != dev or color.dtype != torch.float32 or tuple(color.shape) != (4, h, w):
-        raise ValueError(f"pack_rgba8: need a float32 colour of shape {(4, h, w)} on {dev}, got {color.dtype} "
+    ``bg_packed`` where winner < 0. Its slot form: ``slots`` (H, W) int32, a
+    slot map (:func:`compact_planes`) read in the winner's place, and
+    ``color`` (4, R, W') the colour of the compact planes, which a covered
+    pixel reads at its slot s (row s // W', column s % W'; the background
+    where s is past R · W'); ``winner`` is then not read. ``out``: an (H, W) contiguous int32 tensor to write,
+    else a new one. ValueError on another dtype or shape."""
+    key = winner if slots is None else slots
+    dev = _on_cuda(key, "pack_rgba8")
+    if key.dtype != torch.int32 or key.dim() != 2:
+        raise ValueError(f"pack_rgba8: need an (H, W) int32 {'winner' if slots is None else 'slot map'}, got "
+                         f"{key.dtype} {tuple(key.shape)}")
+    h, w = key.shape
+    shape_ok = tuple(color.shape) == (4, h, w) if slots is None else color.dim() == 3 and color.shape[0] == 4
+    if color.device != dev or color.dtype != torch.float32 or not shape_ok:
+        want = (4, h, w) if slots is None else "(4, R, W')"
+        raise ValueError(f"pack_rgba8: need a float32 colour of shape {want} on {dev}, got {color.dtype} "
                          f"{tuple(color.shape)} on {color.device}")
-    out = torch.empty((h, w), dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty((h, w), dtype=torch.int32, device=dev)
+    elif out.device != dev or out.dtype != torch.int32 or tuple(out.shape) != (h, w) or not out.is_contiguous():
+        raise ValueError(f"pack_rgba8: need a contiguous {(h, w)} int32 out on {dev}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
     if out.numel():
         lib = load_library()
         params = PackParams(color_channel=color.stride(0), color_row=color.stride(1), color_col=color.stride(2),
-                            winner_row=winner.stride(0), winner_col=winner.stride(1), h=h, w=w, bg_packed=bg_packed)
-        err = lib.fr_pack_rgba8(params, color.data_ptr(), winner.data_ptr(), out.data_ptr(), _stream(dev))
+                            winner_row=key.stride(0), winner_col=key.stride(1), h=h, w=w, bg_packed=bg_packed,
+                            slot_w=0 if slots is None else color.shape[2],
+                            slot_rows=0 if slots is None else color.shape[1])
+        err = lib.fr_pack_rgba8(params, color.data_ptr(), key.data_ptr(), out.data_ptr(), _stream(dev))
         _check(lib, err, "fr_pack_rgba8")
         _count(pack_rgba8)
     return out
 
 
 pack_rgba8.launches = 0
+
+
+def compact_planes(ctx, ps, winner, rows, *, conds=None, tally=None):
+    """Launch the compaction of K4's planes (csrc/compact_planes.cu) on
+    PyTorch's current stream: ``winner``, ``ps`` (H, W) int32 and ``ctx``
+    (C, H, W) f32 on one device, each read through its strides; ``rows``
+    the ladder's rungs in rows (``N_RUNGS`` ascending ints, at most H:
+    ``shade.rung_rows``) → (count, rung: 0-d int32 views on the card, the
+    covered pixels and the first rung whose rows hold them, ``N_RUNGS``
+    where none does; slots (H, W) int32: each covered pixel's slot, in
+    raster order, -1 elsewhere; ctx_c (C, rows[-1], W) f32 and ps_c
+    (rows[-1], W) int32: on a rung, the covered pixels' planes at their
+    slots, ps -1 and zeros after them to the rung's rows, the rest not
+    written; on the whole frame's rung none written). ``conds``: the
+    ``N_RUNGS + 1`` :class:`Condition` s of the rungs' conditional nodes,
+    the whole frame's last, which the launch sets; ``tally``: the
+    (``TALLY_WORDS``,) int64 tally the launch adds the frame to (its rung,
+    its covered, shaded and whole pixels). The plain version is
+    ``shade.compact_planes_plain``."""
+    dev = _on_cuda(winner, "compact_planes")
+    if winner.dtype != torch.int32 or winner.dim() != 2:
+        raise ValueError(f"compact_planes: need an (H, W) int32 winner, got {winner.dtype} {tuple(winner.shape)}")
+    h, w = winner.shape
+    if h * w >= 2**31:
+        raise ValueError(f"compact_planes: {h} x {w} pixels; the slots are int32")
+    if ps.device != dev or ps.dtype != torch.int32 or tuple(ps.shape) != (h, w):
+        raise ValueError(f"compact_planes: need an {(h, w)} int32 ps on {dev}, got {ps.dtype} {tuple(ps.shape)}")
+    if ctx.device != dev or ctx.dtype != torch.float32 or ctx.dim() != 3 or tuple(ctx.shape[1:]) != (h, w):
+        raise ValueError(f"compact_planes: need a (C, {h}, {w}) float32 ctx on {dev}, got {ctx.dtype} "
+                         f"{tuple(ctx.shape)}")
+    rows = tuple(int(r) for r in rows)
+    if len(rows) != N_RUNGS or any(not 0 <= a <= b <= h for a, b in zip(rows, rows[1:] + (h,))):
+        raise ValueError(f"compact_planes: need {N_RUNGS} ascending rungs of at most {h} rows, got {rows}")
+    if conds is not None and (len(conds) != N_RUNGS + 1 or any(c.device != dev for c in conds)):
+        raise ValueError(f"compact_planes: need {N_RUNGS + 1} conditions on {dev}")
+    if tally is not None and (tally.device != dev or tally.dtype != torch.int64 or tuple(tally.shape) != (TALLY_WORDS,)
+                              or not tally.is_contiguous()):
+        raise ValueError(f"compact_planes: need a contiguous ({TALLY_WORDS},) int64 tally on {dev}")
+    n_ctx, rmax = ctx.shape[0], rows[-1]
+    info = torch.empty((2 + COMPACT_MAX_BLOCKS,), dtype=torch.int32, device=dev)
+    slots = torch.empty((h, w), dtype=torch.int32, device=dev)
+    ps_c = torch.empty((rmax, w), dtype=torch.int32, device=dev)
+    ctx_c = torch.empty((n_ctx, rmax, w), dtype=torch.float32, device=dev)
+    params = CompactParams(
+        winner_row=winner.stride(0), winner_col=winner.stride(1), ps_row=ps.stride(0), ps_col=ps.stride(1),
+        ctx_channel=ctx.stride(0), ctx_row=ctx.stride(1), ctx_col=ctx.stride(2),
+        cond=(ctypes.c_uint64 * (N_RUNGS + 1))(*([c.handle for c in conds] if conds else [0] * (N_RUNGS + 1))),
+        h=h, w=w, n_ctx=n_ctx, rmax=rmax, rows=(ctypes.c_int32 * N_RUNGS)(*rows), conds=int(conds is not None))
+    lib = load_library()
+    err = lib.fr_compact_planes(params, winner.data_ptr(), ps.data_ptr(), ctx.data_ptr(), info.data_ptr(),
+                                slots.data_ptr(), ps_c.data_ptr(), ctx_c.data_ptr(),
+                                0 if tally is None else tally.data_ptr(), _stream(dev))
+    _check(lib, err, "fr_compact_planes")
+    _count(compact_planes)
+    return info[0], info[1], slots, ctx_c, ps_c
+
+
+compact_planes.launches = 0
 
 
 def voxel_march(start, dirs, t_max, alive, table, times, k):

@@ -5,8 +5,8 @@ builds one submission-ordered triangle list (phong.rs:314-387). Then, with
 the default ``backend="kernels"`` (the JAX package's pallas backend), either
 one fused kernel rasterizes and shades it (builtin ``fused_kind`` shaders),
 or the raster kernel interpolates the varyings
-(``raster.interp_planes``) and the pixel shader runs once over the frame
-(``shade.shade_from_planes``). ``backend="portable"`` (the JAX package's jnp
+(``raster.interp_planes``) and the pixel shader runs on the covered pixels,
+compacted to a rung of ``shade.RUNGS`` (``shade.shade_from_planes``). ``backend="portable"`` (the JAX package's jnp
 backend) runs ``raster_portable.rasterize_portable`` + ``shade_deferred``
 and launches no kernel. A "draw" is one mesh batch sharing a ps_index (the
 reference's PLACE enum selecting a texture, phong.rs:34-38).
@@ -213,7 +213,13 @@ def render_frame(
     tagged ``fused_kind`` (the builtins) runs in the fused kernel when
     ``config.fused_shade`` is set and its texture stack fits
     (``fused_path_ok``); every other shader runs on the planes that the
-    raster kernel interpolates (render.py:248-267 of the JAX package).
+    raster kernel interpolates (render.py:248-267 of the JAX package): a
+    user's shader on their covered pixels, ``{key: (k, R, W)}`` planes of
+    R rows of slots in raster order, R the smallest rung of
+    ``shade.RUNGS`` (1/8 … 6/8 of the rows) that holds them, the padding
+    slots' texture id -1, or past 6/8 the whole frame's (k, H, W) planes
+    (``shade.shade_from_planes``); its colour at a pixel may depend on that
+    pixel's context and the uniform only.
     ``config.backend="portable"`` rasterizes with ``rasterize_portable`` and
     shades with ``shade_deferred`` (render.py:269-279 there), launching no
     kernel (``launch=False``: a builtin shader through the plain sampler,
@@ -226,8 +232,8 @@ def render_frame(
     ``render.planes_bytes`` ((C + 3) · 4 a pixel: the varyings, texture id,
     winner and depth) and, where the pixel shader is
     user code (no ``fused_kind``), ``render.user_shader_frames``, and where
-    the pack kernel packs its colour (``shade.pack_frame``: on the card),
-    ``render.pack_kernel_frames``. While
+    the pack kernel packs its colour (``shade.shade_from_planes`` on the
+    card, once a frame), ``render.pack_kernel_frames``. While
     tracing is on, a planes frame records the spans ``render.planes`` (K4
     and its planes) and ``render.shade`` (``shade_from_planes``: the pixel
     shader and the pack). A captured frame keeps the counts of its capture

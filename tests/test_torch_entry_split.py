@@ -121,3 +121,37 @@ def test_gaps_are_named_by_the_innermost_span():
     assert dict(entry_split.label_gaps(trace, log, rec.spans)) == pytest.approx(want)
     assert dict(entry_split.label_gaps(trace, log, [])) == pytest.approx(
         {"harness": 100e-6, "motion": 10e-6, "entry": 25e-6})
+
+
+def test_the_compaction_tally_split():
+    """The tally's growth over a window: frames by rung (the whole frame's
+    last), the pixels shaded and covered over the frames' pixels; nothing
+    where no frame was compacted (the K1 cells)."""
+    pixels = 1920 * 1080
+    before = [3, 0, 7, 0, 0, 1, 10, 20, 30]
+    frames = [0, 1, 98, 0, 0, 1]  # 100 frames: 98 on rung 3/8, one on 2/8, one on the whole frame
+    shaded = 1 * 270 * 1920 + 98 * 405 * 1920 + pixels
+    covered = 100 * 557_000
+    after = [b + g for b, g in zip(before, frames + [covered, shaded, 100 * pixels])]
+    got = entry_split.compact_split(before, after)
+    assert got["render.compact_frames"] == {"1/8": 0, "2/8": 1, "3/8": 98, "4/8": 0, "6/8": 0, "whole": 1}
+    assert got["render.shaded_pct"] == pytest.approx(100.0 * shaded / (100 * pixels))
+    assert got["render.covered_pct"] == pytest.approx(100.0 * 557_000 / pixels)
+    assert entry_split.compact_split(before, before) == {}
+
+
+def test_the_compaction_tally_split_reads_the_plain_compaction():
+    """Read around plain compactions on the CPU: the tally the compaction
+    adds to is the one the tool reads."""
+    import torch
+
+    from f_renderer_tpu_torch.pipeline import shade
+
+    tally = shade.compact_tally(torch.device("cpu"))
+    before = tally.tolist()
+    winner = torch.full((16, 8), -1, dtype=torch.int32)
+    winner[:3] = 0  # 24 of 128 covered: rung 2/8 (4 rows)
+    shade.compact_planes_plain(torch.zeros((2, 16, 8)), torch.zeros((16, 8), dtype=torch.int32), winner)
+    got = entry_split.compact_split(before, tally.tolist())
+    assert got["render.compact_frames"]["2/8"] == 1 and sum(got["render.compact_frames"].values()) == 1
+    assert got["render.shaded_pct"] == pytest.approx(25.0) and got["render.covered_pct"] == pytest.approx(18.75)

@@ -864,8 +864,10 @@ def test_a_frame_records_nothing_with_tracing_off(stub_cache, monkeypatch):
 
 def test_a_captured_frame_counts_the_pack_kernel(stub_cache, monkeypatch):
     """On the card path (``shade._on_card`` stubbed, ``kernels.pack_rgba8``
-    the torch mirror of its arithmetic), a user shader's captured frame
-    keeps ``render.pack_kernel_frames`` from its capture and counts it once
+    the torch mirror of its arithmetic, ``kernels.compact_planes`` its
+    plain version), a user shader's captured frame keeps
+    ``render.pack_kernel_frames`` (one a frame, though the warm-up and this
+    stand-in's capture pack every rung) from its capture and counts it once
     a traced call; with tracing off nothing is recorded; its frames equal
     the frames ``_pack`` packs."""
     from test_torch_pack_kernel import kernel_pack
@@ -875,9 +877,12 @@ def test_a_captured_frame_counts_the_pack_kernel(stub_cache, monkeypatch):
                         scene.ps_uniform, scene.config)[0]
     launched = []
     monkeypatch.setattr(shade, "_on_card", lambda t: True)
-    monkeypatch.setattr(kernels, "pack_rgba8", lambda *a: launched.append(1) or kernel_pack(*a))
+    monkeypatch.setattr(kernels, "pack_rgba8", lambda *a, **kw: launched.append(1) or kernel_pack(*a, **kw))
+    monkeypatch.setattr(kernels, "compact_planes",
+                        lambda c, p, w, rows, conds=None, tally=None: tuple(shade.compact_planes_plain(c, p, w)))
     got = compiled.scene_render(scene)[0]
-    assert stub_cache.last.counts["render.pack_kernel_frames"] == 1 and launched == [1, 1]  # warm-up, capture
+    assert stub_cache.last.counts["render.pack_kernel_frames"] == 1
+    assert launched == [1] * 2 * (shade.WHOLE + 1)  # warm-up, capture: every rung's pack
     with metrics.tracing() as rec:
         compiled.scene_render(scene)
         compiled.scene_render(scene)
@@ -1003,14 +1008,15 @@ def test_launches_under_replay_are_read_by_kernel_name():
              "_ZN12_GLOBAL__N_119shade_planes_kernelE13FrShadeParamsPKfPKiS4_S2_S4_S4_Pi",
              "(anonymous namespace)::interp_records_kernel(FrInterpParams, int const*, int const*, float*, int*)",
              "_ZN12_GLOBAL__N_119stream_merge_kernelE13FrMergeParamsPKfPKiS4_S2_S4_PfPiS6_S6_S5_",
-             "_ZN12_GLOBAL__N_117pack_rgba8_kernelE12FrPackParamsPKfPKiPi"]
+             "_ZN12_GLOBAL__N_117pack_rgba8_kernelE12FrPackParamsPKfPKiPi",
+             "(anonymous namespace)::compact_planes_kernel(FrCompactParams, int const*, int const*, float const*)"]
     assert chip_smoke.kernel_launches(names) == {"fused_raster": 2, "raster_planes": 0, "sample_bilinear": 1,
-                                                 "shade_planes": 1, "pack_rgba8": 1, "voxel_march": 1,
-                                                 "voxel_setup": 1, "tri_setup": 1, "bin_pairs": 1,
+                                                 "shade_planes": 1, "pack_rgba8": 1, "compact_planes": 1,
+                                                 "voxel_march": 1, "voxel_setup": 1, "tri_setup": 1, "bin_pairs": 1,
                                                  "interp_records": 1, "stream_merge": 1}
     assert set(chip_smoke.KERNEL_FUNCTIONS) == {"fused_raster", "raster_planes", "sample_bilinear", "shade_planes",
-                                                "pack_rgba8", "voxel_march", "voxel_setup", "tri_setup", "bin_pairs",
-                                                "interp_records", "stream_merge"}
+                                                "pack_rgba8", "compact_planes", "voxel_march", "voxel_setup",
+                                                "tri_setup", "bin_pairs", "interp_records", "stream_merge"}
     spin = "at::cuda::(anonymous namespace)::spin_kernel(long)"
     trace = [(5, spin), (9, names[0]), (7, names[1]), (12, spin), (29, names[7]), (30, names[4]), (31, spin),
              (2, names[2]), (40, names[8]), (41, names[11]), (42, names[12]), (43, spin)]
@@ -1232,6 +1238,40 @@ def test_a_user_shader_frame_packs_with_the_kernel_on_card(monkeypatch):
     with metrics.tracing() as rec:
         scene.render()
     assert rec.counters[1]["render.pack_kernel_frames"] == 1
+
+
+# the cube's scale → the rung of a 320 x 240 frame (coverage 4.8%, 18.6%,
+# 28.0%, 45.3%, 63.3% and 90.4%)
+RUNG_SCALES = ((0.6, 0), (1.3, 1), (1.6, 2), (2.0, 3), (2.4, 4), (3.0, 5))
+
+
+@pytest.mark.cuda
+def test_a_user_shader_crosses_the_rungs_on_card():
+    """A user's pixel shader captured on the card, the cube scaled so that
+    the replays climb from rung 1/8 to the whole frame and back: each
+    replay's rung (the compaction's tally) is the scale's, it runs one
+    compaction, and its frame equals the eager ``render_frame``, so no
+    replay shows an earlier frame's slots."""
+    scene = card_scene()
+    scene.pixel_shader = host_data_shader
+    tally = shade.compact_tally(torch.device("cuda", torch.cuda.current_device()))
+    order = list(RUNG_SCALES) + list(RUNG_SCALES[-2::-1])
+    captures = compiled.CACHE.captures
+    for scale, rung in order:
+        scene.vs_uniform["model"] = torch.diag(torch.tensor([scale, scale, scale, 1.0], device="cuda"))
+        torch.cuda.synchronize()
+        before = tally.clone()
+        launches = kernels.compact_planes.launches
+        got = scene.render()
+        torch.cuda.synchronize()
+        added = tally - before
+        want = render_frame(list(scene.draws), scene.vertex_shader, scene.vs_uniform, scene.pixel_shader,
+                            scene.ps_uniform, scene.config)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), scale
+        if compiled.CACHE.captures == captures:  # a replay: no wrapper ran, one frame at the scale's rung
+            assert kernels.compact_planes.launches == launches and int(added[:shade.WHOLE + 1].sum()) == 1
+            assert int(added[rung]) == 1, (scale, added.tolist())
+    assert compiled.CACHE.captures == captures + 1
 
 
 @pytest.mark.cuda

@@ -11,8 +11,9 @@ its plain version ``shade._pack`` on the CPU.
   below 0 and above 1, and background pixels;
 - the route: CPU tensors keep ``_pack``; on the card path (``_on_card``
   stubbed, ``kernels.pack_rgba8`` stubbed by :func:`kernel_pack`) every
-  colour takes the kernel and counts ``render.pack_kernel_frames``,
-  whatever its strides, and a float64 or float16 colour as float32;
+  colour takes the kernel, whatever its strides, and a float64 or float16
+  colour as float32; ``shade_from_planes`` counts
+  ``render.pack_kernel_frames`` once a frame;
 - the wrapper raises on CPU tensors, on a colour that is not (4, H, W)
   float32 or a winner that is not (H, W) int32; it hands the kernel every
   stride as it is (a column stride other than 1, a stride of 2**31, more
@@ -41,13 +42,22 @@ BACKGROUND = (30, 40, 50, 255)
 H, W = 24, 33
 
 
-def kernel_pack(color, winner, bg_packed):
+def kernel_pack(color, winner, bg_packed, *, slots=None, out=None):
     """csrc/pack_rgba8.cu's arithmetic (shade.cuh's ``u8_of`` and
-    ``pack_rgba8``) in torch → (H, W) int32 words."""
+    ``pack_rgba8``) in torch → (H, W) int32 words, written into ``out``
+    where given. Its slot form: ``slots`` in the winner's place, the colour
+    (4, R, W') read at a pixel's slot s (row s // W', column s % W'), the
+    background where s < 0 or s >= R · W'."""
+    key = winner if slots is None else slots
+    if slots is not None:
+        n = color.shape[1] * color.shape[2]
+        color = color.reshape(4, n)[:, slots.clamp(0, n - 1).long()]
+        key = torch.where(slots < n, slots, -1)
     q = torch.fmin(torch.fmax(color * 255.0, torch.tensor(0.0)), torch.tensor(255.0)).to(torch.int64)
     word = q[0] | (q[1] << 8) | (q[2] << 16) | (q[3] << 24)
     word = torch.where(word >= 2**31, word - 2**32, word).to(torch.int32)
-    return torch.where(winner >= 0, word, torch.tensor(bg_packed, dtype=torch.int32, device=winner.device))
+    words = torch.where(key >= 0, word, torch.tensor(bg_packed, dtype=torch.int32, device=key.device))
+    return words if out is None else out.copy_(words)
 
 
 def as_frame(words):
@@ -112,9 +122,9 @@ def on_card(monkeypatch):
     ``kernels.pack_rgba8`` is :func:`kernel_pack`, its calls counted."""
     calls = []
 
-    def stub(color, winner, bg_packed):
+    def stub(color, winner, bg_packed, **kw):
         calls.append(color)
-        return kernel_pack(color, winner, bg_packed)
+        return kernel_pack(color, winner, bg_packed, **kw)
 
     monkeypatch.setattr(shade, "_on_card", lambda t: True)
     monkeypatch.setattr(kernels, "pack_rgba8", stub)
@@ -138,14 +148,15 @@ def views(color):
 @pytest.mark.parametrize("name", list(views(crafted("background")[0])))
 def test_route_on_the_card_path(on_card, name):
     """Every colour on the card takes the kernel, in float32, with the
-    strides it has."""
+    strides it has; ``pack_frame`` counts nothing (``shade_from_planes``
+    counts a frame's pack once, whatever rungs it packs)."""
     color, winner = crafted("background")
     c = views(color)[name]
     with metrics.tracing() as rec:
         got = shade.pack_frame(c, winner, BACKGROUND)
     assert len(on_card) == 1 and on_card[0].dtype == torch.float32
     assert on_card[0].stride() == (c.stride() if c.dtype == torch.float32 else (H * W, W, 1))
-    assert rec.total("render.pack_kernel_frames") == 1
+    assert rec.total("render.pack_kernel_frames") == 0
     assert torch.equal(got, shade._pack(c.to(torch.float32), winner, BACKGROUND))
 
 
@@ -160,16 +171,17 @@ def test_route_on_the_cpu_keeps_the_plain_pack(monkeypatch):
 
 def test_both_shading_branches_end_in_the_route(on_card, monkeypatch):
     """``shade_from_planes`` with a user's shader, vectorized and per pixel
-    (``vmap``), ends in ``pack_frame`` and the kernel, to ``_pack``'s
-    bytes: the vectorized colour is a (4, H, W) plane, the per-pixel one
-    has a column stride of 4; ``launch=False`` (the portable backend)
-    packs with ``_pack``."""
+    (``vmap``), ends in the pack kernel's slot form, to ``_pack``'s bytes:
+    the shader runs on the frame's rung of the compact planes (the
+    compaction's plain version in the kernel's place), so the vectorized
+    colour is a (4, R, W) plane and the per-pixel one (4, R, W) with a
+    column stride of 4; ``launch=False`` (the portable backend) packs the
+    whole frame's colour with ``_pack``."""
     color, winner = crafted("background")
     ctx = color[:3].contiguous()
     ps = torch.zeros_like(winner)
-    routed = []
-    real = shade.pack_frame
-    monkeypatch.setattr(shade, "pack_frame", lambda c, *a: routed.append(c.stride()) or real(c, *a))
+    monkeypatch.setattr(kernels, "compact_planes",
+                        lambda c, p, w, rows, conds=None, tally=None: tuple(shade.compact_planes_plain(c, p, w)))
 
     def pixel(u, c, ps_index):
         rgb = c["rgb"]
@@ -178,11 +190,17 @@ def test_both_shading_branches_end_in_the_route(on_card, monkeypatch):
     codec = ContextCodec((("rgb", 3),))
     want = shade._pack(torch.cat([ctx, torch.ones_like(ctx[:1])]), winner, BACKGROUND)
     for vectorized in (True, False):
-        got = shade.shade_from_planes(ctx, ps, winner, pixel, {}, codec, background=BACKGROUND, vectorized=vectorized)
-        assert torch.equal(got, want)
-    assert routed == [(H * W, W, 1), (1, 4 * W, 4)] and [c.stride() for c in on_card] == routed
-    got = shade.shade_from_planes(ctx, ps, winner, pixel, {}, codec, background=BACKGROUND, launch=False)
-    assert torch.equal(got, want) and len(routed) == 2 and len(on_card) == 2
+        with metrics.tracing() as rec:
+            got = shade.shade_from_planes(ctx, ps, winner, pixel, {}, codec, background=BACKGROUND,
+                                          vectorized=vectorized)
+        assert torch.equal(got, want) and rec.total("render.pack_kernel_frames") == 1
+    rung = int(shade.compact_planes_plain(ctx, ps, winner).rung)
+    r = shade.rung_rows(H)[rung]
+    assert rung < shade.WHOLE and r < H
+    assert [(tuple(c.shape), c.stride()) for c in on_card] == [((4, r, W), (r * W, W, 1)), ((4, r, W), (1, 4 * W, 4))]
+    with metrics.tracing() as rec:
+        got = shade.shade_from_planes(ctx, ps, winner, pixel, {}, codec, background=BACKGROUND, launch=False)
+    assert torch.equal(got, want) and len(on_card) == 2 and rec.total("render.pack_kernel_frames") == 0
 
 
 def test_wrapper_takes_cuda_tensors_only():

@@ -45,6 +45,12 @@ and ``render.planes_bytes`` a planes frame); and where a frame
 ran eagerly under tracing (none does in a cell's windows, which replay),
 ``render.planes_ms`` and ``render.shade_ms`` (the spans ``render.planes``,
 K4 and its planes, and ``render.shade``, the pixel shader and the pack).
+Where a user's pixel shader ran, the compaction's tally
+(``shade.compact_tally``, read with a synchronise at each end of the spans
+window; :func:`compact_split`): ``render.compact_frames``, the frames on
+each rung of the ladder and on the whole frame, ``render.shaded_pct``, the
+pixels the shader ran on over the frames' pixels, and
+``render.covered_pct``, the covered pixels over the frames' pixels.
 
     python3 tools/entry_split.py [--cells C ...] [--seed N] [--seconds S]
 
@@ -122,6 +128,22 @@ def split(rec, root: str, captures: int | None = None) -> dict:
     return out
 
 
+def compact_split(before, after) -> dict:
+    """The compaction tally's growth between two readings
+    (``shade.compact_tally``'s words) → ``render.compact_frames`` (frames by
+    rung, "1/8" ... "6/8" and "whole"), ``render.shaded_pct`` and
+    ``render.covered_pct``; empty where no frame was compacted."""
+    from f_renderer_tpu_torch.pipeline.shade import RUNGS, WHOLE
+
+    grown = [int(a) - int(b) for a, b in zip(after, before)]
+    frames = grown[:WHOLE + 1]
+    if not sum(frames):
+        return {}
+    covered, shaded, pixels = grown[WHOLE + 1:WHOLE + 4]
+    return {"render.compact_frames": dict(zip([f"{k}/8" for k in RUNGS] + ["whole"], frames)),
+            "render.shaded_pct": 100.0 * shaded / pixels, "render.covered_pct": 100.0 * covered / pixels}
+
+
 def innermost(intervals):
     """Properly nested ``(t0, t1, name)`` intervals → the non-overlapping
     ``(t0, t1, name)`` segments that name, at each instant, the innermost
@@ -183,6 +205,7 @@ def split_cell(manifest, name: str, seed: int, seconds: float, trace_seconds: fl
     import torch
 
     from benchmark import harness
+    from f_renderer_tpu_torch.pipeline import shade
     from f_renderer_tpu_torch.utils import metrics
 
     session = harness.start(manifest, Path(REPO), name, seed, device)
@@ -196,8 +219,17 @@ def split_cell(manifest, name: str, seed: int, seconds: float, trace_seconds: fl
     gc.collect()
     held0, gc0 = allocated(), [g["collections"] for g in gc.get_stats()]
     spans_log = harness.Log()
+    tally = shade.compact_tally(session.device)  # made here where no frame compacts: it stays 0
+
+    def read_tally():
+        if cuda:
+            torch.cuda.synchronize(session.device)
+        return tally.tolist()
+
+    tally_before = read_tally()
     with metrics.tracing() as rec:
         drive(trace_seconds, spans_log)
+    tally_after = read_tally()
     collections = [g["collections"] - c for g, c in zip(gc.get_stats(), gc0)]
     gc.collect()
     held_kb = (allocated() - held0) / spans_log.frames / 1e3
@@ -229,6 +261,7 @@ def split_cell(manifest, name: str, seed: int, seconds: float, trace_seconds: fl
         torch.cuda.empty_cache()
 
     got = split(rec, root, captures)
+    got.update(compact_split(tally_before, tally_after))
     if cuda:
         got["entry.held_kb"] = held_kb
     entry = spans_log.span_ms("entry")
