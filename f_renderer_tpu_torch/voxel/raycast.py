@@ -39,6 +39,7 @@ import torch
 
 from f_renderer_tpu_torch.device import constant, resolve_device
 from f_renderer_tpu_torch.math.transforms import true_div, true_sqrt
+from f_renderer_tpu_torch.utils import metrics
 
 MAX_POINTS = 8  # ≤ 2 per axis + 2 from the axis-parallel special case
 FAR = 3.0e38  # the JAX package's stand-in for +inf in sorts and steps
@@ -498,7 +499,10 @@ def march_frame(table, k: MarchConstants, eye, inv_mvp, config: VoxelRenderConfi
     constants ``k`` (:func:`march_constants`), eagerly → (H, W, 4) uint8
     BGRA: the ray set-up and the march (the set-up kernel and K5 on CUDA
     tensors). The body that :func:`voxel_frame` and :class:`VoxelRenderer`
-    share; what a captured frame records."""
+    share; what a captured frame records. It counts the frame's rays
+    (``metrics.count``: ``voxel.rays``), which a captured frame keeps from
+    its capture and counts on every traced call."""
+    metrics.count("voxel.rays", config.width * config.height)
     start, dirs, t_max, alive = prepare_rays(eye, inv_mvp, config)
     packed = march(start, dirs, t_max, alive, table, k)
     return packed.contiguous().view(torch.uint8).reshape(config.height, config.width, 4)
@@ -553,7 +557,9 @@ class VoxelRenderer:
     needs a new renderer. ``renderer(eye, inv_mvp)`` → (H, W, 4) uint8
     BGRA; on the card one captured CUDA graph a frame whose only inputs are
     ``eye`` and ``inv_mvp`` (``compiled.voxel_bound_frame``), on the CPU
-    :func:`march_frame` eagerly.
+    :func:`march_frame` eagerly. With tracing on, a call is the span
+    ``voxel.entry``: the inputs made tensors on the device, then the frame
+    (``graph.run`` inside it on the card).
     """
 
     def __init__(self, grid_color, grid_hit, config: VoxelRenderConfig, device="cuda"):
@@ -564,6 +570,13 @@ class VoxelRenderer:
         self.table = voxel_table(torch.as_tensor(grid_color, device=self.device), hit)
 
     def __call__(self, eye, inv_mvp):
+        rec = metrics.recorder
+        if rec is None:
+            return self._frame(eye, inv_mvp)
+        with metrics.Span("voxel.entry", rec):
+            return self._frame(eye, inv_mvp)
+
+    def _frame(self, eye, inv_mvp):
         eye = torch.as_tensor(eye, dtype=torch.float32, device=self.device)
         inv_mvp = torch.as_tensor(inv_mvp, dtype=torch.float32, device=self.device)
         if self.device.type != "cuda":

@@ -155,3 +155,62 @@ def test_the_compaction_tally_split_reads_the_plain_compaction():
     got = entry_split.compact_split(before, tally.tolist())
     assert got["render.compact_frames"]["2/8"] == 1 and sum(got["render.compact_frames"].values()) == 1
     assert got["render.shaded_pct"] == pytest.approx(25.0) and got["render.covered_pct"] == pytest.approx(18.75)
+
+
+def test_the_voxel_split_from_hand_counts():
+    """``VoxelRenderer``: ``voxel.entry`` around ``graph.run`` and its
+    children, each read as the orbit cells' numbers are; the entry's self
+    time is the conversions outside the graph's call; the frames' rays as a
+    total."""
+    rec = graph_frames(2)
+    spans = []
+    for name, parent, f, t0, t1 in rec.spans:
+        if name == "graph.run":
+            spans.append(("voxel.entry", None, f, t0 - 6_000, t1 + 4_000))
+        spans.append((name, "voxel.entry" if name == "graph.run" else parent, f, t0, t1))
+    rec.spans = spans
+    for f in (1, 2):
+        rec.counters[f]["voxel.rays"] = 518_400
+    got = entry_split.split(rec, "voxel.entry")
+    assert got["entry.graph_ms"] == pytest.approx(0.100) and got["entry.self_ms"] == pytest.approx(0.010)
+    assert got["entry.key_ms"] == pytest.approx(0.010) and got["entry.clone_ms"] == pytest.approx(0.015)
+    assert (got["graph.calls"], got["voxel.rays"]) == (2, 1_036_800)
+    assert "voxel.rays" not in entry_split.split(graph_frames(2), "graph.run")
+    assert entry_split.ROOT["voxel"] == "voxel.entry"
+
+
+def test_the_march_split_reads_the_plain_march():
+    """The march's work over two views of a level-2 octree at 48 × 36 on
+    the CPU: the rays alive the set-up's, the point queries the plain
+    march's, the hits the frame's pixels that a background of alpha 0
+    tells apart; nothing where no ray meets the cube."""
+    import numpy as np
+    import torch
+
+    from f_renderer_tpu_torch.voxel import VoxelRenderConfig, VoxelRenderer, octree, raycast
+
+    color, hit = octree.densify(octree.gen_randomly(2, np.random.default_rng(5)), 2)
+    inv = np.zeros((4, 4), np.float32)  # rays in the plane y = 1.1 (tests/test_torch_voxel.py: crafted_view)
+    inv[0, 1] = 0.5
+    inv[2, 0], inv[2, 2], inv[2, 3] = 1.0, 0.5, 0.5
+    inv[3, 3] = 1.0
+    cases = [{"eye": np.array([1.0, 1.1, -1.5], np.float32), "inv_mvp": inv},
+             {"eye": np.array([0.9, 1.3, -1.2], np.float32), "inv_mvp": inv}]
+    cfg = VoxelRenderConfig(width=48, height=36, level=2, length=2.0)
+    port = VoxelRenderer(color, hit, cfg, device="cpu")
+    clear = VoxelRenderer(color, hit, VoxelRenderConfig(width=48, height=36, level=2, length=2.0,
+                                                        background=(0, 0, 0, 0)), device="cpu")
+    alive = queries = hits = 0
+    for c in cases:
+        eye, inv_mvp = torch.as_tensor(c["eye"]), torch.as_tensor(c["inv_mvp"])
+        rays = raycast.prepare_rays(eye, inv_mvp, cfg)
+        _, q = raycast.march_plain(*rays, port.table, port.constants, count_queries=True)
+        alive, queries = alive + int(rays[3].sum()), queries + int(q.sum())
+        hits += int((clear(eye, inv_mvp)[..., 3] == 255).sum())
+    assert 0 < hits < alive
+    got = entry_split.voxel_split(port, cases)
+    assert got == pytest.approx({"voxel.alive_pct": 100.0 * alive / (2 * 48 * 36),
+                                 "voxel.queries_per_ray": queries / alive,
+                                 "voxel.hit_pct": 100.0 * hits / (2 * 48 * 36)})
+    away = {"eye": np.array([1.0, 50.0, -1.5], np.float32), "inv_mvp": inv}
+    assert entry_split.voxel_split(port, [away]) == {}

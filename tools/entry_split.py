@@ -24,7 +24,9 @@ and a second of warm-up) run these windows in turn:
 
 The numbers, from the spans window (:func:`split`), a frame, read from
 the spans of the cell's entry point (``render``: ``graph.run``;
-``render_prepared``: ``prepared.run``): ``entry.key_ms``,
+``render_prepared``: ``prepared.run``; ``voxel``: ``voxel.entry``, the
+``VoxelRenderer`` call, whose child ``graph.run`` gives ``entry.graph_ms``
+and the ``graph.*`` spans under it the numbers below): ``entry.key_ms``,
 ``entry.copy_ms``, ``entry.replay_ms``, ``entry.clone_ms``
 (``graph.key``, ``graph.copy``, ``graph.replay``, ``graph.clone``),
 ``entry.inputs_ms``, ``entry.launch_ms``, ``entry.finish_ms``
@@ -51,6 +53,13 @@ window; :func:`compact_split`): ``render.compact_frames``, the frames on
 each rung of the ladder and on the whole frame, ``render.shaded_pct``, the
 pixels the shader ran on over the frames' pixels, and
 ``render.covered_pct``, the covered pixels over the frames' pixels.
+Where the voxel raycaster ran: the total of ``voxel.rays``
+(``raycast.march_frame``'s counter), and the march's work over the
+traffic's turn of views (:func:`voxel_split`, by the port's plain march,
+``raycast.march_plain(..., count_queries=True)``): ``voxel.alive_pct``,
+the rays that meet the cube over the rays, ``voxel.queries_per_ray``, the
+point queries over those rays, and ``voxel.hit_pct``, the rays that hit a
+leaf over the rays.
 
     python3 tools/entry_split.py [--cells C ...] [--seed N] [--seconds S]
 
@@ -77,12 +86,15 @@ from pathlib import Path
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-ROOT = {"render": "graph.run", "render_prepared": "prepared.run"}  # a traffic's ``entry`` → its span
-SPLIT = {
+# a traffic's ``entry`` → its span
+ROOT = {"render": "graph.run", "render_prepared": "prepared.run", "voxel": "voxel.entry"}
+SPLIT = {  # an entry point's span → its children's numbers
     "graph.run": (("entry.key_ms", "graph.key"), ("entry.copy_ms", "graph.copy"),
                   ("entry.replay_ms", "graph.replay"), ("entry.clone_ms", "graph.clone")),
     "prepared.run": (("entry.inputs_ms", "prepared.inputs"), ("entry.launch_ms", "prepared.launch"),
                      ("entry.finish_ms", "prepared.finish")),
+    "voxel.entry": (("entry.graph_ms", "graph.run"), ("entry.key_ms", "graph.key"), ("entry.copy_ms", "graph.copy"),
+                    ("entry.replay_ms", "graph.replay"), ("entry.clone_ms", "graph.clone")),
 }
 
 
@@ -106,7 +118,7 @@ def split(rec, root: str, captures: int | None = None) -> dict:
     if v is not None:
         out["entry.self_ms"] = v
     calls = rec.total("graph.calls")
-    if root == "graph.run" and calls:
+    if calls:
         copied = rec.total("graph.copy_bytes")
         out["entry.copy_mb"] = copied / calls / 1e6
         out["entry.clone_mb"] = rec.total("graph.clone_bytes") / calls / 1e6
@@ -125,6 +137,8 @@ def split(rec, root: str, captures: int | None = None) -> dict:
         v = rec.mean_ms(span)
         if v is not None:
             out[metric] = v
+    if rec.total("voxel.rays"):
+        out["voxel.rays"] = rec.total("voxel.rays")
     return out
 
 
@@ -142,6 +156,36 @@ def compact_split(before, after) -> dict:
     covered, shaded, pixels = grown[WHOLE + 1:WHOLE + 4]
     return {"render.compact_frames": dict(zip([f"{k}/8" for k in RUNGS] + ["whole"], frames)),
             "render.shaded_pct": 100.0 * shaded / pixels, "render.covered_pct": 100.0 * covered / pixels}
+
+
+def voxel_split(renderer, cases) -> dict:
+    """The march's work over ``cases`` (dicts of ``eye`` and ``inv_mvp``)
+    in ``renderer`` (a ``voxel.VoxelRenderer``), by the port's ray set-up
+    and plain march (``count_queries``) on its device → ``voxel.alive_pct``,
+    ``voxel.queries_per_ray`` (a ray that meets the cube) and
+    ``voxel.hit_pct``; empty where no ray meets the cube."""
+    import dataclasses
+
+    import torch
+
+    from f_renderer_tpu_torch.voxel import raycast
+
+    # a hit's colour has alpha 255, so a background of 0 tells every hit apart
+    k = dataclasses.replace(renderer.constants, bg_packed=0)
+    rays = alive = queries = hits = 0
+    for case in cases:
+        eye, inv_mvp = (torch.as_tensor(case[n], dtype=torch.float32, device=renderer.device)
+                        for n in ("eye", "inv_mvp"))
+        start, dirs, t_max, live = raycast.prepare_rays(eye, inv_mvp, renderer.config)
+        packed, q = raycast.march_plain(start, dirs, t_max, live, renderer.table, k, count_queries=True)
+        rays += live.numel()
+        alive += int(live.sum())
+        queries += int(q.sum(dtype=torch.int64))
+        hits += int((packed != 0).sum())
+    if not alive:
+        return {}
+    return {"voxel.alive_pct": 100.0 * alive / rays, "voxel.queries_per_ray": queries / alive,
+            "voxel.hit_pct": 100.0 * hits / rays}
 
 
 def innermost(intervals):
@@ -254,6 +298,10 @@ def split_cell(manifest, name: str, seed: int, seconds: float, trace_seconds: fl
         dtrace.label_gaps(traced)
         old_gaps = dtrace.gaps
     gc.unfreeze()
+    march = {}
+    if root == "voxel.entry":
+        turn = range(session.cell.traffic["turn_steps"])
+        march = voxel_split(session.driver.renderer, session.driver.reference_cases(turn).values())
     session.driver.release()
     session.driver = None
     gc.collect()
@@ -262,10 +310,12 @@ def split_cell(manifest, name: str, seed: int, seconds: float, trace_seconds: fl
 
     got = split(rec, root, captures)
     got.update(compact_split(tally_before, tally_after))
+    got.update(march)
     if cuda:
         got["entry.held_kb"] = held_kb
     entry = spans_log.span_ms("entry")
-    children = [m for m, _ in SPLIT[root] if m in got]
+    parent = {n: p for n, p, _, _, _ in rec.spans}
+    children = [m for m, span in SPLIT[root] if m in got and parent.get(span) == root]
     total = sum(got[m] for m in children) + got["entry.self_ms"] if "entry.self_ms" in got else None
     cost = {"off_ms": statistics.median(off), "on_ms": statistics.median(on)} if pairs else {}
     if cost:
