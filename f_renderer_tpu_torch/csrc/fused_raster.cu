@@ -51,7 +51,7 @@ fused_raster_kernel(const FrFusedParams p, const int32_t* __restrict__ tri_i32,
   const size_t np = (size_t)p.n_pairs;
   float dep[R];
   int wpair[R];
-  raster_tile<R>(tri_i32, tri_f32, np, at, dep, wpair);
+  raster_tile<R, true>(tri_i32, tri_f32, np, at, dep, wpair);  // with the early depth test
 
   // Interpolate the winner's varyings once, shade, pack. (Unrolled, so the
   // per-pixel carries stay in registers: a dynamic index would put them in

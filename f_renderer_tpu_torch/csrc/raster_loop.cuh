@@ -60,7 +60,15 @@
 //    five 16-byte broadcasts) by 4-byte cp.async copies into two buffers,
 //    so chunk i + 1 loads while chunk i runs (three buffers read no faster);
 //  - each pixel carries only (depth, pair): the winner's order, needed on
-//    an exact rhw tie alone, is read back from device memory then.
+//    an exact rhw tie alone, is read back from device memory then;
+//  - in K1 an early depth test (kDepthTest): a pair's rhw at any pixel is at
+//    most its reach, a bound from its three vertices' rhw, so a pixel whose
+//    depth already passes the reach skips the pair's cover test and depth,
+//    and a warp leaves the pair out of its ballot (no visit) where, in each
+//    row step the pair's bbox rows meet, every pixel's depth passes it. At
+//    stress4k, where a pixel is covered by ~20 pairs in list order, most of
+//    the visits and depths fall away (K1 1.43 -> 0.89 ms on an H100,
+//    PERF.md §6).
 // Measured slower and dropped (PERF.md): a persistent grid taking slots
 // from an atomic ticket, or statically; heaviest and lightest tiles in
 // turn; the heaviest tiles' lists cut into parts over more blocks, folded
@@ -84,6 +92,16 @@ constexpr int TY = 4;       // threads in y
 constexpr int CHUNK = 128;  // pair records staged in shared memory at a time
 constexpr int COARSE = 4;
 constexpr int ORDER_NONE = INT32_MIN;
+// A pair's reach: its rhw at any pixel is a sum of its three vertices' rhw
+// times weights that sum to 1 within 7 roundings, so at most RHW_SLACK
+// times the largest of them (or 0), plus RHW_FLOOR for roundings among
+// subnormals. (A pixel centre is k + 0.5, k >= 0: a nonzero difference from
+// it is at least 2^-25 and a nonzero |cross| at least 2^-73, so 1 / s is
+// finite and no weight is +inf.) A pixel already deeper than the reach (a
+// larger rhw) cannot take the pair, which merge() takes only at an rhw at
+// least the pixel's (tests/test_torch_k1_layout.py pins the bound).
+constexpr float RHW_SLACK = 1.000001f;        // 1 + 2^-20 > (1 + 2^-24)^8
+constexpr float RHW_FLOOR = 1.17549435e-38f;  // the least normal float
 // A staged pair record, 20 words: the 8 int32 rows A01..ORDER, MAXXY, the 9
 // float rows S0X..RHW2, the pair's column, MINXY.
 constexpr int REC = 20, REC_MAXXY = 8, REC_F = 9, REC_PAIR = 18, REC_MINXY = 19;
@@ -379,12 +397,19 @@ __device__ __forceinline__ void stage_chunk(int32_t (*rec)[REC], int v0, int n, 
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// The reach (RHW_SLACK) of a pair whose vertices' rhw are r0, r1, r2: never
+// NaN, +inf where one of them is.
+__device__ __forceinline__ float reach_of(float r0, float r1, float r2) {
+  return fmaxf(fmaxf(fmaxf(r0, r1), r2), 0.0f) * RHW_SLACK + RHW_FLOOR;
+}
+
 // A staged pair record, unpacked for the pixel column cx.
 struct Pair {
   uint32_t b01, b20, area2, ex01, ex20;  // ex = A * cx + C of the two edges
   int32_t xbits;                         // max_x - 1 - cx: negative past the bbox
   int order, miny, maxy, pair;
   float f0x, f0y, f1x, f1y, f2x, f2y, r0, r1, r2;
+  float reach;  // reach_of(r0, r1, r2)
 };
 
 __device__ __forceinline__ Pair load_pair(const int32_t* rec, int cx) {
@@ -404,6 +429,7 @@ __device__ __forceinline__ Pair load_pair(const int32_t* rec, int cx) {
   p.f0x = __int_as_float(q2.y), p.f0y = __int_as_float(q2.z), p.f1x = __int_as_float(q2.w);
   p.f1y = __int_as_float(q3.x), p.f2x = __int_as_float(q3.y), p.f2y = __int_as_float(q3.z);
   p.r0 = __int_as_float(q3.w), p.r1 = __int_as_float(q4.x), p.r2 = __int_as_float(q4.y);
+  p.reach = reach_of(p.r0, p.r1, p.r2);
   return p;
 }
 
@@ -502,7 +528,11 @@ struct WarpRect {
 // or i where sel is null) for the thread's R pixels (column cx, rows row0 +
 // step r): the bbox ballot against the warp's rect, then each pair of the
 // ballot, merged into dep / wpair. Double-buffered chunks of CHUNK records.
-template <int R>
+// kDepthTest: the early depth test, in the ballot against the least depth
+// of the warp's pixels in each row step that the pair's bbox rows meet (a
+// pair whose reach it passes covers nothing there that the warp would take)
+// and at each pixel before its cover test.
+template <int R, bool kDepthTest>
 __device__ __forceinline__ void walk_items(int32_t (*s_rec)[CHUNK][REC], int count, const int* sel,
                                            const int32_t* __restrict__ tri_i32,
                                            const float* __restrict__ tri_f32, size_t np,
@@ -532,15 +562,26 @@ __device__ __forceinline__ void walk_items(int32_t (*s_rec)[CHUNK][REC], int cou
     const int32_t (*rec)[REC] = s_rec[ci & 1];
     const int n = min(CHUNK, count - ci * CHUNK);
     for (int j0 = 0; j0 < n; j0 += 32) {
+      // the least depth of the warp's pixels in each row step (depth >= +-0,
+      // whose bits order as the values once the sign is cleared)
+      float least[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const uint32_t bits = __float_as_uint(dep[r]) & 0x7FFFFFFFu;
+        least[r] = kDepthTest ? __uint_as_float(__reduce_min_sync(0xFFFFFFFFu, bits)) : 0.0f;
+      }
       // lane l tests pair j0 + l's bbox against the warp's columns and rows
       bool touch = false;
       if (j0 + lane < n) {
         const int mn = rec[j0 + lane][REC_MINXY], mx = rec[j0 + lane][REC_MAXXY];
         const int miny = mn >> 16, maxy = mx >> 16;
+        const float* f = reinterpret_cast<const float*>(rec[j0 + lane]) + REC_F;
+        const float reach = kDepthTest ? reach_of(f[RHW0], f[RHW1], f[RHW2]) : 0.0f;
         bool rows = false;
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          rows |= wr.row0 + wr.step * r < maxy && wr.row0 + wr.step * r + wr.span > miny;
+          rows |= wr.row0 + wr.step * r < maxy && wr.row0 + wr.step * r + wr.span > miny &&
+                  !(kDepthTest && least[r] > reach);
         }
         touch = rows && (mn & 0xFFFF) < wr.x0 + wr.cols && (mx & 0xFFFF) > wr.x0;
       }
@@ -553,6 +594,7 @@ __device__ __forceinline__ void walk_items(int32_t (*s_rec)[CHUNK][REC], int cou
         for (int r = 0; r < R; ++r) {
           const int cy = row0 + step * r;
           if (cy < pr.miny || cy >= pr.maxy) continue;  // the row is outside the bbox
+          if (kDepthTest && dep[r] > pr.reach) continue;  // the pixel is deeper than the pair can reach
           if (!covers(pr, cy)) continue;
           float rhw;
           if (depth_of(pr, pcx, (float)cy + 0.5f, rhw)) merge(rhw, pr, tri_i32, np, dep[r], wpair[r]);
@@ -624,7 +666,7 @@ __device__ __forceinline__ int select_rows(int* sel, int seg0, int n, const Tile
 // few of them (at stress4k 28% of the fine pairs' (pair, block) couples
 // meet, tools/raster_model.py), so each block stages and ballots about a
 // third of the list.
-template <int R, bool kPatch>
+template <int R, bool kPatch, bool kDepthTest>
 __device__ __forceinline__ void walk_tile(int32_t (*s_rec)[CHUNK][REC], int* s_sel,
                                           const int32_t* __restrict__ tri_i32,
                                           const float* __restrict__ tri_f32, size_t np,
@@ -644,7 +686,7 @@ __device__ __forceinline__ void walk_tile(int32_t (*s_rec)[CHUNK][REC], int* s_s
   wr.span = kPatch ? PATCH_ROWS : 1;
   const int total = at.d.total;
   if (!kPatch || total <= CHUNK) {
-    walk_items<R>(s_rec, total, nullptr, tri_i32, tri_f32, np, at, step, wr, dep, wpair);
+    walk_items<R, kDepthTest>(s_rec, total, nullptr, tri_i32, tri_f32, np, at, step, wr, dep, wpair);
     return;
   }
   // every warp of a block of patches holds the same rows: the block's
@@ -652,24 +694,25 @@ __device__ __forceinline__ void walk_tile(int32_t (*s_rec)[CHUNK][REC], int* s_s
   for (int seg0 = 0; seg0 < total; seg0 += SELECT) {
     const int count = select_rows(s_sel, seg0, min(SELECT, total - seg0), at, wr.row0,
                                   PATCH_ROWS * R, tri_i32, np);
-    walk_items<R>(s_rec, count, s_sel, tri_i32, tri_f32, np, at, step, wr, dep, wpair);
+    walk_items<R, kDepthTest>(s_rec, count, s_sel, tri_i32, tri_f32, np, at, step, wr, dep, wpair);
   }
 }
 
 // Walk the tile of slot ``at`` and leave, for each of the thread's R pixels
 // (column at.cx, rows at.row0 + at.step * r), the winning depth (0 if none)
 // and pair column (-1 if none). Every thread of the block must call it (it
-// synchronises the block).
-template <int R>
+// synchronises the block). kDepthTest: the early depth test (walk_items), in
+// K1 only: K4 keeps the loop as it was.
+template <int R, bool kDepthTest>
 __device__ __forceinline__ void raster_tile(const int32_t* __restrict__ tri_i32,
                                             const float* __restrict__ tri_f32, size_t np,
                                             const TileSlot& at, float (&dep)[R], int (&wpair)[R]) {
   __shared__ __align__(16) int32_t s_rec[2][CHUNK][REC];
   __shared__ int s_sel[SELECT];
   if (at.patch) {
-    walk_tile<R, true>(s_rec, s_sel, tri_i32, tri_f32, np, at, dep, wpair);
+    walk_tile<R, true, kDepthTest>(s_rec, s_sel, tri_i32, tri_f32, np, at, dep, wpair);
   } else {
-    walk_tile<R, false>(s_rec, s_sel, tri_i32, tri_f32, np, at, dep, wpair);
+    walk_tile<R, false, kDepthTest>(s_rec, s_sel, tri_i32, tri_f32, np, at, dep, wpair);
   }
 }
 

@@ -62,7 +62,7 @@ raster_planes_kernel(const int ntx, const int nty, const int th, const int w_pad
   const size_t plane = (size_t)nty * th * w_pad;
   float dep[R];
   int wpair[R];
-  raster_tile<R>(tri_i32, tri_f32, np, at, dep, wpair);
+  raster_tile<R, false>(tri_i32, tri_f32, np, at, dep, wpair);
 
   // The epilogue: no load behind a branch (the header above). pc is the
   // pair column each lane loads from, 0 where it has no winner.

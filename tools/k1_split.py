@@ -26,7 +26,9 @@ K4 ``rasterize_interp``):
   whole list;
 - tile read alone: the raster blocks exit once they have read their tile's
   descriptor, so the kernel is the pass before them and the launch;
-- each layout forced in every tile.
+- each layout forced in every tile;
+- K1's early depth test: off, in the ballot alone, at the pixels alone, and
+  in the ballot against one least depth a warp (not one a row step).
 
 A probe leaves out work, so its pixels differ from the kernel's (where a
 spill or coarse pair wins, or everywhere when nothing is walked): only its
@@ -50,6 +52,10 @@ sys.path.insert(0, str(ROOT))
 BALLOT = "uint32_t mask = __ballot_sync(0xFFFFFFFFu, touch);"
 CHUNK_LOOP_END = "before it is refilled\n  }\n"
 LAYOUT = "at.patch = (at.d.flags & TILE_ROWS) == 0;"
+PATCH_WALK = "walk_tile<R, true, kDepthTest>"
+ROWS_WALK = "walk_tile<R, false, kDepthTest>"
+PIXEL_TEST = "          if (kDepthTest && dep[r] > pr.reach) continue;  // the pixel is deeper than the pair can reach\n"
+BALLOT_TEST = " &&\n                  !(kDepthTest && least[r] > reach)"
 PROBES = {
     "staging alone": [
         ("touch = rows && (mn & 0xFFFF) < wr.x0 + wr.cols && (mx & 0xFFFF) > wr.x0;", "touch = false;"),
@@ -76,6 +82,11 @@ PROBES = {
     ],
     "patches everywhere": [(LAYOUT, "at.patch = true;")],
     "rows everywhere": [(LAYOUT, "at.patch = false;")],
+    "no early depth test": [(PATCH_WALK, PATCH_WALK.replace("kDepthTest>", "false>")),
+                            (ROWS_WALK, ROWS_WALK.replace("kDepthTest>", "false>"))],
+    "early depth test in the ballot alone": [(PIXEL_TEST, "")],
+    "early depth test at the pixels alone": [(BALLOT_TEST, "")],
+    "early depth test, one least a warp": [(BALLOT_TEST, BALLOT_TEST.replace("least[r]", "fminf(least[0], least[R - 1])"))],
 }
 
 
@@ -125,6 +136,9 @@ def use(kernels, csrc: Path) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--reps", type=int, default=10)
+    parser.add_argument("--probes", nargs="*", default=None, help="the probes to run, by label (default: all)")
+    parser.add_argument("--scenes", nargs="*", default=None,
+                        help="of stress4k, phong1080, phong1080_tex2048, custom12_360 (default: all)")
     opts = parser.parse_args()
     import torch
 
@@ -140,6 +154,8 @@ def main() -> int:
     base = kernels.CSRC.resolve()
     libraries = {"full": variant(base, "full", [])}
     for label, edits in PROBES.items():
+        if opts.probes is not None and label not in opts.probes:
+            continue
         src = variant(base, label.replace(" ", "_").replace("+", "and"), edits)
         if src is None:
             print(f"[split] {label}: its lines are not in {base}: skipped", flush=True)
@@ -149,6 +165,8 @@ def main() -> int:
     cases = {}  # (kernel, scene) → (wrapper, entry point, its arguments)
     for kernel, name, angle in (("K1", "stress4k", 0.10), ("K1", "phong1080", 0.10),
                                 ("K4", "phong1080_tex2048", 0.10), ("K4", "custom12_360", 0.3)):
+        if opts.scenes is not None and name not in opts.scenes:
+            continue
         scene = chip_smoke.build_scene(name, dev)
         chip_smoke.set_angle(scene, angle)
         tri, _ = build_triangles(scene.draws, scene.vertex_shader, scene.vs_uniform, scene.config)

@@ -27,7 +27,14 @@ block's chain is the cost of its busiest warp. Printed per scene:
   (the plan), and the culled lists cut to the pairs whose bbox rows meet
   the block's own in a tile of patches longer than a chunk (the row
   selection);
-- the tiles no pair reaches, which the plan empties.
+- the tiles no pair reaches, which the plan empties;
+- a pair walk's work (a thread a (pair, row) couple, the covered pixels
+  shared out 32 to a warp; measured slower than the warp walks, PERF.md
+  §6) in the tiles of patches, beside their warp visits: the couples (a
+  staged pair's bbox rows in its block's band), the bbox pixels those rows
+  hold inside the tile, the pixels the pairs cover there
+  (``raster.cover_plain``), the warp rounds of 32 covered pixels, and the
+  tiles' mean bbox area clipped to the tile.
 """
 
 from __future__ import annotations
@@ -85,7 +92,39 @@ def warp_work(box, rects):
     return int(visits.sum()), int(steps.sum()), VISIT * visits.sum(0) + ROW_STEP * steps.sum(0)
 
 
+def pair_work(prep, idx, x0, y0, th):
+    """A pair walk's work in one tile over its list ``idx``: (couples, bbox
+    pixels, covered pixels, pairs whose bbox meets the tile), each pair's
+    bbox cut to the tile (a bbox row lies in one block's band)."""
+    import torch
+
+    from f_renderer_tpu_torch.pipeline import raster
+
+    if idx.numel() == 0:
+        return 0, 0, 0, 0
+    minx, miny = raster.unpack_xy(prep.tri_i32[raster.MINXY, idx].long())
+    maxx, maxy = raster.unpack_xy(prep.tri_i32[raster.MAXXY, idx].long())
+    xs, xe = minx.clamp(min=x0), maxx.clamp(max=x0 + raster.LANES)
+    ys, ye = miny.clamp(min=y0), maxy.clamp(max=y0 + th)
+    w, h = (xe - xs).clamp(min=0), (ye - ys).clamp(min=0)
+    couples = int(h[w > 0].sum())
+    bbox_px = int((w * h).sum())
+    meets = int(((w > 0) & (h > 0)).sum())
+    covered = 0
+    gw, gh = int(w.max()), int(h.max())
+    step = max(1, (1 << 22) // max(1, gw * gh))
+    for i in range(0, idx.numel(), step):
+        sl = slice(i, i + step)
+        cx = xs[sl, None, None] + torch.arange(gw)[None, None, :]
+        cy = ys[sl, None, None] + torch.arange(gh)[None, :, None]
+        inside = (cx < xe[sl, None, None]) & (cy < ye[sl, None, None])
+        covered += int((inside & raster.cover_plain(prep.tri_i32, idx[sl], cx, cy)).sum())
+    return couples, bbox_px, covered, meets
+
+
 def model(name):
+    import torch
+
     from f_renderer_tpu_torch.pipeline import raster
 
     prep = scene_prep(name)
@@ -139,6 +178,21 @@ def model(name):
                 n = int(((miny[mine] < y0 + 8 * s + 8) & (maxy[mine] > y0 + 8 * s)).sum())
             staged["culled + row selection"][0] += n
             staged["culled + row selection"][1] += -(-n // CHUNK)
+    tiles = [t for t, lst in enumerate(plan.lists) if lst.numel() and not plan.flags[t] & raster.TILE_ROWS]
+    pw = {"couples": 0, "bbox_px": 0, "covered": 0, "rounds": 0, "visits": 0}
+    mean_area = []
+    for t in tiles:
+        ty, tx = divmod(t, ntx)
+        lst = plan.lists[t]
+        c, b, v, m = pair_work(prep, lst, tx * raster.LANES, ty * th, th)
+        mean_area.append(b / max(m, 1))
+        pw["couples"] += c
+        pw["bbox_px"] += b
+        pw["covered"] += v
+        pw["rounds"] += -(-v // 32)
+        x0, y0 = tx * raster.LANES, ty * th
+        box = (minx[lst.numpy()] - x0, maxx[lst.numpy()] - x0, miny[lst.numpy()] - y0, maxy[lst.numpy()] - y0)
+        pw["visits"] += warp_work(box, rects["patches"])[0]
     rows_tiles = sum(bool(f & raster.TILE_ROWS) for f in plan.flags)
     print(f"{name}: {ntiles} tiles of ({th}, 128), {s_blocks} blocks a tile; the tiles' lists hold "
           f"{entries['fine']} fine, {entries['coarse']} coarse and {entries['spill']} spill entries")
@@ -152,6 +206,16 @@ def model(name):
     for key, (records, chunks) in staged.items():
         print(f"  staged, {key}: records {records} ({records / (ntiles * s_blocks):.1f} a block), "
               f"block-chunks {chunks}")
+
+    def spread(v):
+        return f"{min(v):.0f}-{max(v):.0f} px (median {sorted(v)[len(v) // 2]:.0f})" if v else "none"
+
+    if tiles:
+        print(f"  a pair walk in the {len(tiles)} non-empty tiles of patches (mean clipped bbox area "
+              f"{spread(mean_area)}): patch visits {pw['visits']}; couples {pw['couples']}, bbox pixels "
+              f"{pw['bbox_px']}, covered pixels {pw['covered']} ({pw['covered'] / pw['bbox_px']:.3f} of the bbox "
+              f"pixels), warp rounds of 32 covered pixels >= {pw['rounds']} "
+              f"({pw['visits'] / max(1, pw['couples'] / 32):.2f} visits a warp of 32 couples)")
 
 
 def main() -> int:
